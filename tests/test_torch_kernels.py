@@ -1,0 +1,220 @@
+"""The port's trust-aggregation kernels against the JAX package's Pallas
+kernels (run with interpret=True), on the same numpy inputs.
+
+On the CPU the port's wrappers compute their plain versions
+(`repro_torch.kernels.ref`); the `cuda`-marked test holds the CUDA kernels
+against those plain versions on the card.  Tolerances are
+`tests/test_kernels.py`'s: 1e-6 (f32) and 2e-2 (bf16) for Eqn 6, 1e-5
+for the fused Eqn 6 + Eqn 19 kernel.
+"""
+import importlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import (flatten_rows, launches, layout_of,  # noqa: E402
+                                 leaf_views, trust_aggregate,
+                                 trust_aggregate_global,
+                                 trust_aggregate_global_tree,
+                                 trust_aggregate_tree)
+from repro_torch.kernels import ref  # noqa: E402
+
+try:            # the card's machine has no JAX: only the cuda test runs there
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels import trust_aggregate as jax_trust_aggregate
+    from repro.kernels import ops as jax_ops
+    from repro.kernels.trust_aggregate import (
+        trust_aggregate_global as jax_trust_aggregate_global)
+except ImportError:
+    jax = None
+
+
+@pytest.fixture
+def needs_jax():
+    if jax is None:
+        pytest.skip("the JAX package is not installed")
+
+
+def _inputs(C, N, valid, seed, pad_value=1e30):
+    g = np.random.default_rng(seed)
+    x = g.standard_normal((C, N)).astype(np.float32)
+    x[valid:] = pad_value
+    mask = (np.arange(C) < valid).astype(np.float32)
+    w = g.random(C).astype(np.float32)
+    w = (w / w[:valid].sum()).astype(np.float32) * mask
+    return x, w, mask
+
+
+def _tol(dtype):
+    return 1e-6 if dtype == "float32" else 2e-2
+
+
+@pytest.mark.parametrize("C,N,dtype", [
+    (4, 1000, "float32"), (16, 3000, "float32"), (8, 2000, "bfloat16"),
+    (2, 100, "float32"), (1, 129, "float32"),
+])
+def test_dense_matches_pallas(needs_jax, C, N, dtype):
+    x, w, _ = _inputs(C, N, C, seed=C * N)
+    want = jax_trust_aggregate(jnp.asarray(x).astype(dtype), jnp.asarray(w),
+                               interpret=True)
+    got = trust_aggregate(torch.from_numpy(x).to(getattr(torch, dtype)),
+                          torch.from_numpy(w))
+    assert got.dtype == getattr(torch, dtype) and got.shape == (N,)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=_tol(dtype), rtol=_tol(dtype))
+
+
+@pytest.mark.parametrize("C,valid,N,dtype", [
+    (6, 3, 777, "float32"), (12, 11, 3000, "float32"), (5, 1, 64, "float32"),
+    (9, 4, 1500, "bfloat16"),
+])
+def test_masked_matches_pallas_with_padded_rows(needs_jax, C, valid, N,
+                                                dtype):
+    """Padded rows hold 1e30 and contribute exactly zero in both."""
+    x, w, mask = _inputs(C, N, valid, seed=C * 7919 + N)
+    want = jax_trust_aggregate(jnp.asarray(x).astype(dtype), jnp.asarray(w),
+                               jnp.asarray(mask > 0), interpret=True)
+    got = trust_aggregate(torch.from_numpy(x).to(getattr(torch, dtype)),
+                          torch.from_numpy(w), torch.from_numpy(mask))
+    assert np.isfinite(got.float().numpy()).all()
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=_tol(dtype), rtol=_tol(dtype))
+
+
+def test_mask_wins_over_nonzero_padded_weights():
+    got = trust_aggregate(torch.ones(4, 256), torch.full((4,), 0.25),
+                          torch.tensor([1.0, 1.0, 0.0, 0.0]))
+    np.testing.assert_allclose(got.numpy(), 0.5, atol=1e-7)
+
+
+@pytest.mark.parametrize("C,valid,B,N,pad_weight", [
+    (10, 9, 6, 3000, False), (4, 2, 2, 64, False), (1, 1, 3, 513, False),
+    (8, 5, 4, 700, True),
+])
+def test_global_matches_pallas(needs_jax, C, valid, B, N, pad_weight):
+    """With ``pad_weight`` the padded 1e30 rows also carry non-zero
+    weights: the mask wins in both."""
+    x, w, mask = _inputs(C, N, valid, seed=C * 31 + B * 7 + N)
+    if pad_weight:
+        w = (w + 0.5 * (1 - mask)).astype(np.float32)
+    g = np.random.default_rng(N)
+    stack = g.standard_normal((B, N)).astype(np.float32)
+    gw = g.random(B).astype(np.float32)
+    gw /= gw.sum()
+    for c in (0, B - 1):
+        want = jax_trust_aggregate_global(
+            jnp.asarray(x), jnp.asarray(w), jnp.asarray(mask > 0),
+            jnp.asarray(stack), jnp.asarray(gw), c, interpret=True)
+        got = trust_aggregate_global(
+            torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(mask),
+            torch.from_numpy(stack), torch.from_numpy(gw),
+            torch.tensor(c, dtype=torch.int32))
+        assert np.isfinite(got.numpy()).all()
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=1e-5, rtol=1e-5)
+
+
+def _mlp_tree(rows, seed, dim=12, hidden=5, classes=3):
+    g = np.random.default_rng(seed)
+    shapes = {"w1": (dim, hidden), "b1": (hidden,), "w2": (hidden, classes),
+              "b2": (classes,)}
+    return {k: g.standard_normal((rows,) + s).astype(np.float32)
+            for k, s in shapes.items()}
+
+
+def test_tree_wrappers_match_pallas(needs_jax):
+    members = _mlp_tree(5, 0)
+    stack = _mlp_tree(3, 1)
+    mask = np.array([1, 1, 1, 0, 0], np.float32)
+    w = np.array([0.5, 0.3, 0.2, 0.0, 0.0], np.float32)
+    gw = np.array([0.2, 0.5, 0.3], np.float32)
+    t = lambda tree: {k: torch.from_numpy(v) for k, v in tree.items()}
+    j = lambda tree: {k: jnp.asarray(v) for k, v in tree.items()}
+    got = trust_aggregate_tree(t(members), torch.from_numpy(w),
+                               torch.from_numpy(mask))
+    want = jax_ops.trust_aggregate_tree(j(members), jnp.asarray(w),
+                                        jnp.asarray(mask > 0),
+                                        interpret=True)
+    for k in members:
+        assert got[k].shape == members[k].shape[1:]
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   atol=1e-6, rtol=1e-6)
+    got = trust_aggregate_global_tree(t(members), torch.from_numpy(w),
+                                      torch.from_numpy(mask), t(stack),
+                                      torch.from_numpy(gw), 2)
+    want = jax_ops.trust_aggregate_global_tree(
+        j(members), jnp.asarray(w), jnp.asarray(mask > 0), j(stack),
+        jnp.asarray(gw), 2, interpret=True)
+    for k in stack:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   atol=1e-5, rtol=1e-5)
+
+
+def test_flat_leaf_order_matches_jax(needs_jax):
+    """Sorted keys (b1, b2, w1, w2) = jax.tree.leaves order, element for
+    element, and the views read the leaves back."""
+    from repro.api.engine import _flatten_params
+    tree = _mlp_tree(4, 2)
+    got = flatten_rows({k: torch.from_numpy(v) for k, v in tree.items()})
+    want = _flatten_params({k: jnp.asarray(v) for k, v in tree.items()})
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert [k for k, _, _ in layout_of(tree, lead=1)] == ["b1", "b2", "w1",
+                                                          "w2"]
+    views = leaf_views(got, layout_of(tree, lead=1))
+    for k, v in tree.items():
+        np.testing.assert_array_equal(views[k].numpy(), v)
+
+
+def test_cpu_tensors_take_the_plain_version_without_counting():
+    before = dict(launches)
+    trust_aggregate(torch.ones(2, 8), torch.full((2,), 0.5))
+    trust_aggregate_global(torch.ones(2, 8), torch.full((2,), 0.5),
+                           torch.ones(2), torch.ones(3, 8),
+                           torch.full((3,), 1 / 3),
+                           torch.tensor(0, dtype=torch.int32))
+    assert launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain_versions():
+    """The CUDA kernels against their plain versions on the card, at the
+    main path's shape and at ragged ones (padded 1e30 rows, C = 1,
+    N not a multiple of 4 or 128, c at both ends of the stack), with zero
+    and with non-zero weights left on the padded rows (the mask wins)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (runs on the card, see README.md)")
+    ta = importlib.import_module("repro_torch.kernels.trust_aggregate")
+    dev = torch.device("cuda")
+    for C, valid, B, N in [(94, 80, 16, 159010), (1, 1, 3, 1001),
+                           (7, 4, 5, 130), (300, 299, 2, 257)]:
+        x, w0, mask = (torch.from_numpy(a).to(dev)
+                       for a in _inputs(C, N, valid, seed=N))
+        stack = torch.randn(B, N, device=dev)
+        gw = torch.softmax(torch.randn(B, device=dev), 0)
+        for w in (w0, w0 + 0.5 * (1 - mask)):
+            for dtype, tol in ((torch.float32, 1e-6),
+                               (torch.bfloat16, 2e-2)):
+                got = ta.trust_aggregate(x.to(dtype), w, mask)
+                want = ref.trust_aggregate_ref(x.to(dtype), w, mask)
+                assert torch.isfinite(got.float()).all()
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=tol, rtol=tol)
+            for c in (0, B - 1):
+                ct = torch.tensor(c, dtype=torch.int32, device=dev)
+                got = ta.trust_aggregate_global(x, w, mask, stack, gw, ct)
+                assert torch.isfinite(got).all()
+                torch.testing.assert_close(
+                    got,
+                    ref.trust_aggregate_global_ref(x, w, mask, stack, gw,
+                                                   ct),
+                    atol=1e-5, rtol=1e-5)
+        xs = x[:valid].contiguous()
+        torch.testing.assert_close(ta.trust_aggregate(xs, w0[:valid]),
+                                   ref.trust_aggregate_ref(xs, w0[:valid]),
+                                   atol=1e-6, rtol=1e-6)
+    torch.cuda.synchronize()
