@@ -20,7 +20,19 @@ Needs one NVIDIA GPU and nvcc.  In order:
    losses and the final accuracy; between the last two, three more scanned
    rounds hold the fused kernel against its plain version on the round's
    own inputs;
-5. prints the kernels line, then the result line.
+5. serving: recurrentgemma-2b at full width (26 layers, d_model 2560,
+   f32 weights from seed 0) through ``repro_torch.launch.serve.generate``:
+   first each language-model kernel against its plain version at the
+   serving path's shapes, at the JAX tests' parametrisations and at ragged
+   ones, timed beside the plain version and a library call; then batch 4,
+   4096-token Zipf prompts (longer than the 2048 window, so the window
+   mask and the ring-buffer wrap both run), 32 greedy tokens (31 decode
+   steps), with the launch counts set to 0 before the prefill and read
+   after it (8 flash_attention, 18 rglru_scan) and after the decode loop
+   (none); the kernels' outputs on the first LOCAL and first RG-LRU
+   layer's own inputs held against their plain versions; and the decode
+   step at position 4096 held against a prefill of all 4097 tokens;
+6. prints the kernels line, then the result line.
 
 Any failure exits non-zero before the result line.  Without a card, or
 without the repository's ``src/`` beside it, it exits non-zero at once.
@@ -44,6 +56,17 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
 FP32_FLOPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
 SOURCE = "src/repro_torch/kernels/csrc/trust_aggregate.cu"
 PALLAS = "src/repro/kernels/trust_aggregate.py"
+FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+SCAN_SOURCE = "src/repro_torch/kernels/csrc/rglru_scan.cu"
+
+# the serving path: recurrentgemma-2b at full width
+ARCH = "recurrentgemma-2b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 4096, 32
+CONSISTENCY_TOL = 2e-2          # tests/test_models.py's prefill/decode bound
+# tests/test_kernels.py's tolerances: attention atol = rtol; the scan atol
+# with rtol 0.05
+FA_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+SCAN_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 
 # the JAX package's final accuracy on this spec after 30 scanned rounds
 # (on a CPU); the port draws its own random numbers, so it is held to that
@@ -110,6 +133,16 @@ def close_enough(got, want, tol):
     d = (got.float() - want.float()).abs()
     rel = (d / (1 + want.float().abs())).max().item()
     return d.max().item(), rel, rel <= tol
+
+
+def within(got, want, atol, rtol):
+    """(max |got - want|, whether |got - want| <= atol + rtol * |want|
+    everywhere and got is finite): numpy's allclose."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    ok = bool(torch.isfinite(g).all()) and bool(
+        (d <= atol + rtol * w.abs()).all())
+    return d.max().item(), ok
 
 
 def kernel_phase(M: int, B: int, N: int, dev) -> dict:
@@ -221,6 +254,212 @@ def live_check(fed, rounds: int):
     return seen
 
 
+# --------------------------------------------------------------------- #
+# the serving path: recurrentgemma-2b
+# --------------------------------------------------------------------- #
+def attn_inputs(B, S, H, Kv, d, dtype, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, S, H, d), generator=g, device=dev) * 0.3
+    k = torch.randn((B, S, Kv, d), generator=g, device=dev) * 0.3
+    v = torch.randn((B, S, Kv, d), generator=g, device=dev)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def scan_inputs(B, S, W, dtype, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.sigmoid(torch.randn((B, S, W), generator=g, device=dev))
+    bx = torch.randn((B, S, W), generator=g, device=dev) * 0.3
+    return a.to(dtype), bx.to(dtype)
+
+
+def reachable_pairs(B, S, H, window):
+    """(query, key) pairs the causal (windowed) mask keeps."""
+    w = window if window > 0 else S
+    per_head = sum(min(i + 1, w) for i in range(S))
+    return B * H * per_head
+
+
+def lm_kernel_phase(cfg, dev) -> dict:
+    """Both language-model kernels against their plain versions at the
+    serving path's shapes, at tests/test_kernels.py's parametrisations and
+    at ragged ones; times at the serving path's shapes."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ref, rglru_scan
+    B, S, H, Kv, d = (SERVE_BATCH, SERVE_PROMPT, cfg.num_heads,
+                      cfg.num_kv_heads, cfg.head_dim)
+    W, window = cfg.lru_width, cfg.window
+    f32, bf16 = torch.float32, torch.bfloat16
+    err = {"fa": {"float32": 0.0, "bfloat16": 0.0},
+           "scan": {"float32": 0.0, "bfloat16": 0.0}}
+    # (B, S, H, Kv, d, window, softcap, dtype): the serving path's layer,
+    # tests/test_kernels.py's sweep, then ragged S, grouped heads and bf16
+    # at head_dim 256
+    fa_cases = [(B, S, H, Kv, d, window, 0.0, f32),
+                (1, 256, 2, 2, 64, 0, 0.0, f32), (2, 512, 4, 4, 64, 0, 0.0, f32),
+                (1, 512, 2, 2, 128, 128, 0.0, f32),
+                (1, 256, 2, 2, 64, 0, 30.0, f32),
+                (1, 256, 2, 2, 64, 0, 0.0, bf16),
+                (1, S + 1, H, Kv, d, window, 0.0, f32),
+                (2, 100, 6, 2, 32, 16, 0.0, f32),
+                (1, 100, H, Kv, d, 0, 0.0, bf16),
+                (1, 1000, H, Kv, d, 300, 0.0, bf16)]
+    for i, (b, s, h, kv, dd, win, cap, dt) in enumerate(fa_cases):
+        q, k, v = attn_inputs(b, s, h, kv, dd, dt, dev, 100 + i)
+        name = str(dt).split(".")[1]
+        e, ok = within(flash_attention(q, k, v, window=win, softcap=cap),
+                       ref.flash_attention_ref(q, k, v, window=win,
+                                               softcap=cap),
+                       FA_TOL[name], FA_TOL[name])
+        check(ok, f"flash_attention {(b, s, h, kv, dd, win, cap, name)}: "
+                  f"max abs error {e} beyond tolerance {FA_TOL[name]}")
+        err["fa"][name] = max(err["fa"][name], e)
+    # (B, S, W, dtype): the serving path's layer, the JAX sweep, ragged
+    scan_cases = [(B, S, W, f32), (1, 32, 64, f32), (2, 64, 256, f32),
+                  (1, 64, 128, bf16), (3, 37, 100, f32),
+                  (2, S + 1, W + 1, f32), (1, 100, 2561, bf16)]
+    for i, (b, s, w, dt) in enumerate(scan_cases):
+        a, bx = scan_inputs(b, s, w, dt, dev, 200 + i)
+        name = str(dt).split(".")[1]
+        y, h = rglru_scan(a, bx)
+        yr, hr = ref.rglru_scan_ref(a, bx)
+        ey, oky = within(y, yr, SCAN_TOL[name], 0.05)
+        eh, okh = within(h, hr, SCAN_TOL[name], 0.05)
+        check(oky and okh, f"rglru_scan {(b, s, w, name)}: max abs error "
+                           f"{max(ey, eh)} beyond {SCAN_TOL[name]}")
+        err["scan"][name] = max(err["scan"][name], ey, eh)
+    torch.cuda.synchronize()
+    for k_, tol in (("fa", FA_TOL), ("scan", SCAN_TOL)):
+        print(f"kernel check {k_}: max abs error {err[k_]} (tolerance "
+              f"{tol}), {len(fa_cases if k_ == 'fa' else scan_cases)} "
+              f"shapes", flush=True)
+
+    # times at the serving path's shapes
+    q, k, v = attn_inputs(B, S, H, Kv, d, f32, dev, 99)
+    qh = q.transpose(1, 2).contiguous()
+    kh = k.transpose(1, 2).repeat_interleave(H // Kv, dim=1).contiguous()
+    vh = v.transpose(1, 2).repeat_interleave(H // Kv, dim=1).contiguous()
+    pos = torch.arange(S, device=dev)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                             - window)
+    lib = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+    lib_err = (lib().transpose(1, 2) - ref.flash_attention_ref(
+        q, k, v, window=window)).abs().max().item()
+    a, bx = scan_inputs(B, S, W, f32, dev, 98)
+    t = {"fa": time_ms(lambda: flash_attention(q, k, v, window=window),
+                       reps=3, windows=5, warmup=2),
+         "fa_plain": time_ms(lambda: ref.flash_attention_ref(
+             q, k, v, window=window), reps=1, windows=3, warmup=1),
+         "fa_lib": time_ms(lib, reps=3, windows=5, warmup=2),
+         "scan": time_ms(lambda: rglru_scan(a, bx)),
+         "scan_plain": time_ms(lambda: ref.rglru_scan_ref(a, bx), reps=1,
+                               windows=3, warmup=1)}
+    pairs = reachable_pairs(B, S, H, window)
+    b_fa = (B * S * H * d * 2 + B * S * Kv * d * 2) * 4
+    b_scan = (3 * B * S * W + B * W) * 4
+    print(f"library attention (SDPA, boolean window mask, heads repeated) "
+          f"max abs difference from the plain version: {lib_err}",
+          flush=True)
+    return {"err": err, "t": t, "pairs": pairs, "lib_err": lib_err,
+            "bound": {"fa": bound_ms(b_fa, pairs * (2 * d + 2 * d)),
+                      "scan": bound_ms(b_scan, 2 * B * S * W)},
+            "bytes": {"fa": b_fa, "scan": b_scan}}
+
+
+def serving_phase(cfg, dev) -> dict:
+    """generate() at full width, with the launch counts set to 0 before the
+    prefill and read after it and after the decode loop, and the first
+    LOCAL and first RG-LRU layer's kernel inputs and outputs kept."""
+    from repro_torch.kernels import launches, ops, reset_launches
+    from repro_torch.launch.serve import generate
+    seen = {}
+    counts, current = {}, [None]
+
+    def on_phase(name):
+        torch.cuda.synchronize()
+        if current[0] is not None:
+            counts[current[0]] = dict(launches)
+        reset_launches()
+        current[0] = name
+
+    def keep(name, fn):
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            seen.setdefault(name, (args, kw, out))
+            return out
+        return wrapped
+
+    attention, lru_scan = ops.attention, ops.lru_scan
+    ops.attention = keep("flash_attention", attention)
+    ops.lru_scan = keep("rglru_scan", lru_scan)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        res = generate(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN,
+                       temperature=0.0, seed=0, device=dev,
+                       on_phase=on_phase)
+    finally:
+        ops.attention, ops.lru_scan = attention, lru_scan
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    pre, dec = counts["prefill"], counts["decode"]
+    print(f"serving {ARCH} at full width ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {sum(p.numel() for p in res.model.parameters())}"
+          f" parameters, f32): batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
+          f"{SERVE_GEN} tokens: prefill {res.prefill_s:.4f} s, decode "
+          f"{len(res.decode_logits)} steps in {res.decode_s:.4f} s = "
+          f"{res.decode_tokens_per_s:.2f} tokens/s, {wall:.2f} s with "
+          f"parameter init, peak device memory {peak:.3f} GiB", flush=True)
+    print(f"launches: prefill {json.dumps(pre)}, decode {json.dumps(dec)}",
+          flush=True)
+    check(pre["flash_attention"] == 8 and pre["rglru_scan"] == 18,
+          f"the prefill launched {pre}, expected 8 flash_attention and 18 "
+          f"rglru_scan")
+    check(not any(dec.values()), f"the decode loop launched kernels: {dec}")
+    check(res.tokens.shape == (SERVE_BATCH, SERVE_GEN)
+          and int(res.tokens.min()) >= 0
+          and int(res.tokens.max()) < cfg.vocab_size, "bad token ids")
+    for lg in [res.prefill_logits] + res.decode_logits:
+        check(lg.shape == (SERVE_BATCH, cfg.vocab_size)
+              and bool(torch.isfinite(lg).all()), "bad logits")
+    return {"res": res, "counts": counts, "seen": seen, "peak": peak}
+
+
+def live_lm_check(seen) -> dict:
+    """The kernels' outputs on the first LOCAL and first RG-LRU layer of
+    the prefill against their plain versions on the same inputs."""
+    from repro_torch.kernels import ref
+    (q, k, v), kw, out = seen["flash_attention"]
+    e_fa, ok = within(out, ref.flash_attention_ref(q, k, v, **kw),
+                      FA_TOL["float32"], FA_TOL["float32"])
+    check(ok, f"flash_attention on the prefill's inputs: {e_fa}")
+    (a, bx), _, (y, h) = seen["rglru_scan"]
+    yr, hr = ref.rglru_scan_ref(a, bx)
+    ey, oky = within(y, yr, SCAN_TOL["float32"], 0.05)
+    eh, okh = within(h, hr, SCAN_TOL["float32"], 0.05)
+    check(oky and okh, f"rglru_scan on the prefill's inputs: {ey}, {eh}")
+    print(f"kernels on the prefill's own inputs (first LOCAL layer, q "
+          f"{tuple(q.shape)} window {kw.get('window')}; first RG-LRU layer, "
+          f"a {tuple(a.shape)}): max abs error flash_attention {e_fa}, "
+          f"rglru_scan {max(ey, eh)}", flush=True)
+    return {"fa": e_fa, "scan": max(ey, eh)}
+
+
+def consistency_check(res) -> float:
+    """Decode of token 4096 after a 4096-token prefill against a prefill of
+    all 4097 tokens (last position)."""
+    full = torch.cat([res.prompts, res.tokens[:, :1]], dim=1)
+    with torch.inference_mode():
+        logits, _ = res.model.prefill(full, cache_len=full.shape[1])
+    want = res.decode_logits[0]
+    e = (logits - want).abs().max().item()
+    print(f"consistency: decode at position {SERVE_PROMPT} against a "
+          f"{full.shape[1]}-token prefill: max abs error {e} (tolerance "
+          f"{CONSISTENCY_TOL}), max |logit| {want.abs().max().item()}",
+          flush=True)
+    check(e < CONSISTENCY_TOL, f"prefill/decode disagree by {e}")
+    return e
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -229,7 +468,7 @@ def main() -> None:
     from repro_torch.api import ControllerSpec, Federation, FederationSpec
     from repro_torch.api.scenarios import PAPER_MLP_FLEET1K
     from repro_torch.kernels import build, launches, reset_launches
-    from repro_torch.kernels.trust_aggregate import SOURCE as SOURCE_NAME
+    from repro_torch.configs import get_config
     dev = torch.device("cuda")
 
     # 1. the card
@@ -244,7 +483,8 @@ def main() -> None:
 
     # 2. the kernels, from this checkout's sources
     t0 = time.perf_counter()
-    build.build_all([SOURCE_NAME])
+    build.build_all([os.path.basename(p) for p in
+                     (SOURCE, FA_SOURCE, SCAN_SOURCE)])
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"({build.build_seconds})", flush=True)
 
@@ -332,10 +572,25 @@ def main() -> None:
           f"final accuracy {acc} < {JAX_ACC} - {ACC_MARGIN}")
     check(len(actions) > 1, f"the controller never varied a: {actions}")
     print(f"launch counts by path: {json.dumps(counts)}", flush=True)
-
-    # 5. the kernels line, then the result line
     total = {k: sum(c[k] for c in counts.values()) for k in launches}
+    del fed, fixed, eng, scanned, event, mean_model
+    torch.cuda.empty_cache()
+
+    # 5. serving: recurrentgemma-2b at full width
+    cfg = get_config(ARCH)
+    lk = lm_kernel_phase(cfg, dev)
+    torch.cuda.empty_cache()
+    sv = serving_phase(cfg, dev)
+    live_lm = live_lm_check(sv["seen"])
+    sv["seen"].clear()
+    torch.cuda.empty_cache()
+    cons = consistency_check(sv["res"])
+    serve_launches = {k: sv["counts"]["prefill"][k] + sv["counts"]["decode"][k]
+                      for k in launches}
+
+    # 6. the kernels line, then the result line
     t, bd, err = kp["t"], kp["bound"], kp["err"]
+    lt, lbd = lk["t"], lk["bound"]
     kernels = [
         {"name": "trust_aggregate_global", "route": "cuda",
          "source": SOURCE, "replaces": f"{PALLAS}:51",
@@ -360,11 +615,52 @@ def main() -> None:
          "bf16": {"max_abs_err": err["bf16"],
                   "tolerance": kp["tol"]["bf16"], "ms": t["bf16"],
                   "plain_ms": t["bf16_plain"], "bound_ms": bd["bf16"][0],
-                  "library_ms": t["bf16_lib"]},
-         "dense": {"ms": t["dense"], "plain_ms": t["dense_plain"],
-                   "bound_ms": bd["f32"][0], "library_ms": t["dense_lib"]},
-         "also_replaces": f"{PALLAS}:37 (mask=None)"},
+                  "library_ms": t["bf16_lib"]}},
+        {"name": "trust_aggregate_dense", "route": "cuda", "source": SOURCE,
+         "replaces": f"{PALLAS}:37",
+         "launches": total["trust_aggregate_dense"],
+         "max_abs_err": err["f32"], "tolerance": kp["tol"]["f32"],
+         "ms": t["dense"], "plain_ms": t["dense_plain"],
+         "bound_ms": bd["f32"][0], "bound_by": bd["f32"][1],
+         "library_ms": t["dense_lib"],
+         "shape": {"C": M, "N": N, "dtype": "float32", "mask": False},
+         "bytes": kp["bytes"]["f32"]},
+        {"name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
+         "replaces": "src/repro/kernels/flash_attention.py:26",
+         "launches": serve_launches["flash_attention"],
+         "max_abs_err": lk["err"]["fa"]["float32"],
+         "tolerance": FA_TOL["float32"],
+         "bf16_max_abs_err": lk["err"]["fa"]["bfloat16"],
+         "live_max_abs_err": live_lm["fa"],
+         "ms": lt["fa"], "plain_ms": lt["fa_plain"],
+         "bound_ms": lbd["fa"][0], "bound_by": lbd["fa"][1],
+         "library_ms": lt["fa_lib"],
+         "shape": {"B": SERVE_BATCH, "S": SERVE_PROMPT, "H": cfg.num_heads,
+                   "Kv": cfg.num_kv_heads, "d": cfg.head_dim,
+                   "window": cfg.window, "dtype": "float32"},
+         "reachable_pairs": lk["pairs"], "bytes": lk["bytes"]["fa"]},
+        {"name": "rglru_scan", "route": "cuda", "source": SCAN_SOURCE,
+         "replaces": "src/repro/kernels/rglru_scan.py:22",
+         "launches": serve_launches["rglru_scan"],
+         "max_abs_err": lk["err"]["scan"]["float32"],
+         "tolerance": SCAN_TOL["float32"],
+         "bf16_max_abs_err": lk["err"]["scan"]["bfloat16"],
+         "live_max_abs_err": live_lm["scan"],
+         "ms": lt["scan"], "plain_ms": lt["scan_plain"],
+         "bound_ms": lbd["scan"][0], "bound_by": lbd["scan"][1],
+         "library_ms": None,
+         "shape": {"B": SERVE_BATCH, "S": SERVE_PROMPT, "W": cfg.lru_width,
+                   "dtype": "float32"},
+         "bytes": lk["bytes"]["scan"]},
     ]
+    res = sv["res"]
+    print(json.dumps({"serving": {
+        "arch": ARCH, "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+        "gen": SERVE_GEN, "prefill_s": res.prefill_s,
+        "decode_s": res.decode_s, "decode_steps": len(res.decode_logits),
+        "decode_tokens_per_s": res.decode_tokens_per_s,
+        "peak_gib": sv["peak"], "consistency_max_abs_err": cons,
+        "launches": sv["counts"]}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

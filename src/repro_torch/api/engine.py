@@ -63,27 +63,13 @@ from repro_torch.data.federated import (dirichlet_partition,
                                         sample_member_batch)
 from repro_torch.data.synthetic import (SyntheticClassification,
                                         make_classification)
+from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import flatten_rows
 
 from .components import ControllerCtx
 from .records import FLTrace, RoundRecord
 from .registry import register_engine
 from .spec import DEVICE_SCALE, FederationSpec
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: the card unless the caller asks
-    for another.  Without a card, only an explicit ``device="cpu"`` runs."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available: the port runs on the card by "
-            "default; pass device='cpu' to run its plain versions on the CPU")
-    if dev.type == "cuda":
-        # float32 products in full precision (Eqn 4's Gram matrix, the MLP)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    return dev
 
 
 @dataclasses.dataclass

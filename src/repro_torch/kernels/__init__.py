@@ -1,16 +1,23 @@
 """Hand-written CUDA kernels of the port, their plain versions and wrappers.
 
   csrc/trust_aggregate.cu   Eqn-6 and fused Eqn-6 + Eqn-19 aggregation
+  csrc/flash_attention.cu   causal (sliding-window, soft-capped) attention
+  csrc/rglru_scan.cu        the RG-LRU gated linear recurrence
   build                     nvcc -> shared library -> ctypes, at first use
-  trust_aggregate           checked wrappers with launch counters
+  launch                    launch counters and the C-call helpers
+  trust_aggregate, flash_attention, rglru_scan
+                            checked wrappers, one per kernel source
   ref                       the plain PyTorch versions (CPU path, oracle)
-  ops                       parameter-tree entry points, flat layout
+  ops                       entry points for the models and the federation
 """
-from .ops import (flatten_rows, layout_of, leaf_views,
+from .flash_attention import flash_attention
+from .launch import launches, reset_launches
+from .ops import (attention, flatten_rows, layout_of, leaf_views, lru_scan,
                   trust_aggregate_global_tree, trust_aggregate_tree)
-from .trust_aggregate import (launches, reset_launches, trust_aggregate,
-                              trust_aggregate_global)
+from .rglru_scan import rglru_scan
+from .trust_aggregate import trust_aggregate, trust_aggregate_global
 
 __all__ = ["trust_aggregate", "trust_aggregate_global", "trust_aggregate_tree",
            "trust_aggregate_global_tree", "flatten_rows", "layout_of",
-           "leaf_views", "launches", "reset_launches"]
+           "leaf_views", "launches", "reset_launches", "flash_attention",
+           "rglru_scan", "attention", "lru_scan"]

@@ -1,4 +1,8 @@
-"""Parameter-tree entry points of the aggregation kernels, and the flat layout.
+"""Entry points of the kernels for the modules that call them.
+
+The attention and RG-LRU layers of the language models call `attention`
+and `lru_scan`.  The federation calls the parameter-tree entry points of
+the aggregation kernels, over a flat layout:
 
 A parameter tree is a dict of tensors.  Its flat form concatenates the
 leaves in sorted-key order, which is ``jax.tree.leaves``' order for a dict,
@@ -14,6 +18,8 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from .flash_attention import flash_attention
+from .rglru_scan import rglru_scan
 from .trust_aggregate import trust_aggregate, trust_aggregate_global
 
 Layout = List[Tuple[str, Tuple[int, ...], int]]   # (key, leaf shape, offset)
@@ -67,3 +73,17 @@ def trust_aggregate_global_tree(client_params, weights, mask, cluster_stack,
         mask.to(torch.float32), stack, global_weights.to(torch.float32), c)
     return {k: v.to(cluster_stack[k].dtype) for k, v in
             leaf_views(glob, layout_of(cluster_stack, lead=1)).items()}
+
+
+def attention(q, k, v, *, window: int = 0, softcap: float = 0.0):
+    """Causal attention of a layer, (B,S,H,d) queries against (B,S,Kv,d)
+    keys and (B,S,Kv,dv) values, through the flash-attention kernel; the
+    scores never reach device memory."""
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           window=window, softcap=softcap)
+
+
+def lru_scan(a, bx):
+    """The RG-LRU recurrence h_t = a_t h_{t-1} + bx_t over (B,S,W), through
+    the scan kernel -> (hs, h_last)."""
+    return rglru_scan(a.contiguous(), bx.contiguous())

@@ -1,9 +1,10 @@
-"""Plain PyTorch versions of the trust-aggregation kernels.
+"""Plain PyTorch versions of the kernels.
 
 Each function is the mathematical definition with no tiling: the CPU path
-of the wrappers in `trust_aggregate`, and what `chip_smoke.py` holds the
-CUDA kernels against on the card.  Accumulation is in float32 and the
-result is cast to the input (or stack) dtype, as the kernels do.
+of the wrappers (`trust_aggregate`, `flash_attention`, `rglru_scan`), and
+what `chip_smoke.py` holds the CUDA kernels against on the card.
+Accumulation is in float32 and the result is cast to the input (or stack)
+dtype, as the kernels do.  They match ``src/repro/kernels/ref.py``.
 """
 from __future__ import annotations
 
@@ -39,3 +40,39 @@ def trust_aggregate_global_ref(updates_flat, weights, mask, stack_flat,
                     stack_flat.to(torch.float32))
     gw = global_weights.to(torch.float32)
     return (s * gw[:, None]).sum(0).to(stack_flat.dtype)
+
+
+NEG_INF = -2.0e38               # the masked score of the JAX package
+
+
+def flash_attention_ref(q, k, v, *, window=0, softcap=0.0):
+    """(B,S,H,d) x (B,S,Kv,d) x (B,S,Kv,dv) -> (B,S,H,dv): causal softmax
+    attention with optional sliding window and tanh logit cap, query head
+    h reading K/V head h // (H / Kv) (Kv = H is the JAX reference's case)."""
+    B, S, H, d = q.shape
+    Kv = k.shape[2]
+    qg = q.to(torch.float32).reshape(B, S, Kv, H // Kv, d)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg,
+                          k.to(torch.float32)) * (d ** -0.5)
+    if softcap > 0:
+        scores = torch.tanh(scores / softcap) * softcap
+    pos = torch.arange(S, device=q.device)
+    mask = pos[None, :] <= pos[:, None]
+    if window > 0:
+        mask &= pos[None, :] > pos[:, None] - window
+    scores = torch.where(mask, scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", w, v.to(torch.float32))
+    return out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
+
+
+def rglru_scan_ref(a, bx):
+    """Gated linear recurrence h_t = a_t * h_{t-1} + bx_t, state in f32.
+    a, bx: (B,S,W) -> hs (B,S,W) in a's dtype, h_last (B,W) f32."""
+    B, S, W = a.shape
+    h = torch.zeros((B, W), dtype=torch.float32, device=a.device)
+    hs = torch.empty_like(a)
+    for t in range(S):
+        h = a[:, t].to(torch.float32) * h + bx[:, t].to(torch.float32)
+        hs[:, t] = h
+    return hs, h

@@ -8,48 +8,33 @@ what bounds them on an H100 and how their design answers it.
 
 A wrapper given CPU tensors computes the plain version from `ref`.  Given
 CUDA tensors it launches its kernel on the current stream or raises: there
-is no fallback.  Each launch adds one to ``launches[<wrapper name>]``, so a
-run can show that its rounds went through the kernels.
+is no fallback.  Each launch adds one to its count in `launch.launches`
+(``trust_aggregate`` with a mask, ``trust_aggregate_dense`` without one,
+``trust_aggregate_global``), so a run can show that its rounds went through
+the kernels.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
-from . import build
+from .launch import P, current_stream, launches, raise_on, typed_library
 from .ref import trust_aggregate_global_ref, trust_aggregate_ref
 
 SOURCE = "trust_aggregate.cu"
 
-launches: Dict[str, int] = {"trust_aggregate": 0,
-                            "trust_aggregate_global": 0}
-
-_P = ctypes.c_void_p
 _signatures = {
-    "ta_aggregate_f32": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P],
-    "ta_aggregate_bf16": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong,
-                          _P],
-    "ta_aggregate_global_f32": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
-                                ctypes.c_int, ctypes.c_longlong, _P],
+    "ta_aggregate_f32": [P, P, P, P, ctypes.c_int, ctypes.c_longlong, P],
+    "ta_aggregate_bf16": [P, P, P, P, ctypes.c_int, ctypes.c_longlong, P],
+    "ta_aggregate_global_f32": [P, P, P, P, P, P, P, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_longlong, P],
 }
 
 
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
-
-
 def _lib() -> ctypes.CDLL:
-    lib = build.load(SOURCE)
-    if not getattr(lib, "_typed", False):
-        for name, argtypes in _signatures.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib._typed = True
-    return lib
+    return typed_library(SOURCE, _signatures)
 
 
 def _check_vector(name, t, length, device):
@@ -74,15 +59,6 @@ def _check_matrix(name, t, device, dtypes):
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-
-
-def _raise_on(status: int, name: str) -> None:
-    if status != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {status}")
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
 
 
 def trust_aggregate(params_flat: torch.Tensor, weights: torch.Tensor,
@@ -110,9 +86,10 @@ def trust_aggregate(params_flat: torch.Tensor, weights: torch.Tensor,
     with torch.cuda.device(dev):
         status = fn(params_flat.data_ptr(), weights.data_ptr(),
                     None if mask is None else mask.data_ptr(),
-                    out.data_ptr(), C, N, _stream())
-    _raise_on(status, "trust_aggregate")
-    launches["trust_aggregate"] += 1
+                    out.data_ptr(), C, N, current_stream())
+    raise_on(status, "trust_aggregate")
+    launches["trust_aggregate" if mask is not None
+             else "trust_aggregate_dense"] += 1
     return out
 
 
@@ -152,7 +129,7 @@ def trust_aggregate_global(updates_flat: torch.Tensor, weights: torch.Tensor,
         status = _lib().ta_aggregate_global_f32(
             updates_flat.data_ptr(), weights.data_ptr(), mask.data_ptr(),
             stack_flat.data_ptr(), global_weights.data_ptr(), c.data_ptr(),
-            out.data_ptr(), C, B, N, _stream())
-    _raise_on(status, "trust_aggregate_global")
+            out.data_ptr(), C, B, N, current_stream())
+    raise_on(status, "trust_aggregate_global")
     launches["trust_aggregate_global"] += 1
     return out

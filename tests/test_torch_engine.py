@@ -225,7 +225,9 @@ def test_default_device_is_the_card():
 
 
 def test_import_pulls_in_no_jax():
-    code = ("import sys, repro_torch, repro_torch.api, repro_torch.kernels;"
+    code = ("import sys, repro_torch, repro_torch.api, repro_torch.kernels, "
+            "repro_torch.models, repro_torch.configs, "
+            "repro_torch.launch.serve;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro'];"
             "print(bad); sys.exit(1 if bad else 0)")

@@ -1,0 +1,197 @@
+"""The port's flash-attention and RG-LRU scan kernels against the JAX
+package's Pallas kernels (run with interpret=True) and its jnp oracles
+(`repro.kernels.ref`), on the same numpy inputs.
+
+On the CPU the port's wrappers compute their plain versions
+(`repro_torch.kernels.ref`); the `cuda`-marked test holds the CUDA kernels
+against those plain versions on the card.  Tolerances are
+`tests/test_kernels.py`'s: attention 2e-5 (f32) and 3e-2 (bf16), absolute
+and relative; the scan 1e-5 (f32) and 5e-2 (bf16) absolute with 5e-2
+relative.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import (flash_attention, launches,  # noqa: E402
+                                 reset_launches, rglru_scan)
+from repro_torch.kernels import ref  # noqa: E402
+
+try:            # the card's machine has no JAX: only the cuda test runs there
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels import ref as jax_ref
+    from repro.kernels.flash_attention import (
+        flash_attention as jax_flash_attention)
+    from repro.kernels.rglru_scan import rglru_scan as jax_rglru_scan
+except ImportError:
+    jax = None
+
+
+@pytest.fixture
+def needs_jax():
+    if jax is None:
+        pytest.skip("the JAX package is not installed")
+
+
+def _attn_inputs(B, S, H, d, seed, Kv=None):
+    g = np.random.default_rng(seed)
+    Kv = H if Kv is None else Kv
+    q = (g.standard_normal((B, S, H, d)) * 0.3).astype(np.float32)
+    k = (g.standard_normal((B, S, Kv, d)) * 0.3).astype(np.float32)
+    v = g.standard_normal((B, S, Kv, d)).astype(np.float32)
+    return q, k, v
+
+
+def _scan_inputs(B, S, W, seed):
+    g = np.random.default_rng(seed)
+    a = (1.0 / (1.0 + np.exp(-g.standard_normal((B, S, W))))).astype(
+        np.float32)
+    bx = (g.standard_normal((B, S, W)) * 0.3).astype(np.float32)
+    return a, bx
+
+
+def _to_jax(x, dtype):
+    return jnp.asarray(x).astype(dtype)
+
+
+def _to_torch(x, dtype):
+    return torch.from_numpy(x).to(getattr(torch, dtype))
+
+
+def _f32(x):
+    return np.asarray(x.float() if hasattr(x, "float") else x, np.float32)
+
+
+# the parametrisations of tests/test_kernels.py::test_flash_attention_sweep
+ATTN_CASES = [
+    (1, 256, 2, 64, 0, 0.0, "float32"),
+    (2, 512, 4, 64, 0, 0.0, "float32"),
+    (1, 512, 2, 128, 128, 0.0, "float32"),      # sliding window
+    (1, 256, 2, 64, 0, 30.0, "float32"),        # softcap
+    (1, 256, 2, 64, 0, 0.0, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("B,S,H,d,window,softcap,dtype", ATTN_CASES)
+def test_flash_attention_matches_pallas(needs_jax, B, S, H, d, window,
+                                        softcap, dtype):
+    q, k, v = _attn_inputs(B, S, H, d, seed=S + H + window)
+    want = jax_flash_attention(
+        _to_jax(q, dtype), _to_jax(k, dtype), _to_jax(v, dtype), bq=128,
+        bk=128, window=window, softcap=softcap, interpret=True)
+    want_ref = jax_ref.flash_attention_ref(
+        _to_jax(q, dtype), _to_jax(k, dtype), _to_jax(v, dtype),
+        window=window, softcap=softcap)
+    got = flash_attention(_to_torch(q, dtype), _to_torch(k, dtype),
+                          _to_torch(v, dtype), window=window,
+                          softcap=softcap)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (B, S, H, d)
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    for w in (want, want_ref):
+        np.testing.assert_allclose(_f32(got), _f32(w), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("S,window", [(100, 0), (100, 16), (77, 200)])
+def test_flash_attention_ragged_grouped_matches_jax_ref(needs_jax, S,
+                                                        window):
+    """Any S (the Pallas kernel needs S % bq == 0), and grouped K/V heads
+    read in place: query head h against K/V head h // (H / Kv), held
+    against the JAX oracle on heads repeated by hand."""
+    H, Kv, d = 6, 2, 32
+    q, k, v = _attn_inputs(2, S, H, d, seed=S, Kv=Kv)
+    rep = lambda x: np.repeat(x, H // Kv, axis=2)
+    want = jax_ref.flash_attention_ref(jnp.asarray(q), jnp.asarray(rep(k)),
+                                       jnp.asarray(rep(v)), window=window)
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), window=window)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-5, rtol=2e-5)
+
+
+# the parametrisations of tests/test_kernels.py::test_rglru_scan_sweep
+SCAN_CASES = [
+    (1, 32, 64, 64, "float32"),
+    (2, 64, 256, 128, "float32"),
+    (1, 64, 128, 128, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("B,S,W,bw,dtype", SCAN_CASES)
+def test_rglru_scan_matches_pallas(needs_jax, B, S, W, bw, dtype):
+    a, bx = _scan_inputs(B, S, W, seed=W)
+    ja, jbx = _to_jax(a, dtype), _to_jax(bx, dtype)
+    y, h = jax_rglru_scan(ja, jbx, bw=bw, interpret=True)
+    yr, hr = jax_ref.rglru_scan_ref(ja, jbx)
+    got_y, got_h = rglru_scan(_to_torch(a, dtype), _to_torch(bx, dtype))
+    assert got_y.dtype == getattr(torch, dtype) and got_h.dtype == \
+        torch.float32 and got_h.shape == (B, W)
+    tol = 1e-5 if dtype == "float32" else 5e-2
+    for wy, wh in ((y, h), (yr, hr)):
+        np.testing.assert_allclose(_f32(got_y), _f32(wy), atol=tol,
+                                   rtol=0.05)
+        np.testing.assert_allclose(_f32(got_h), _f32(wh), atol=tol,
+                                   rtol=0.05)
+
+
+def test_rglru_scan_ragged_width_matches_jax_ref(needs_jax):
+    """Any W (the Pallas kernel needs W % bw == 0) and S."""
+    a, bx = _scan_inputs(3, 37, 100, seed=3)
+    yr, hr = jax_ref.rglru_scan_ref(jnp.asarray(a), jnp.asarray(bx))
+    y, h = rglru_scan(torch.from_numpy(a), torch.from_numpy(bx))
+    np.testing.assert_allclose(_f32(y), _f32(yr), atol=1e-5, rtol=0.05)
+    np.testing.assert_allclose(_f32(h), _f32(hr), atol=1e-5, rtol=0.05)
+
+
+def test_cpu_tensors_take_the_plain_versions_without_launching():
+    q, k, v = (torch.from_numpy(x) for x in _attn_inputs(1, 20, 2, 8, 0))
+    a, bx = (torch.from_numpy(x) for x in _scan_inputs(1, 20, 8, 0))
+    before = dict(launches)
+    assert torch.equal(flash_attention(q, k, v, window=4),
+                       ref.flash_attention_ref(q, k, v, window=4))
+    for got, want in zip(rglru_scan(a, bx), ref.rglru_scan_ref(a, bx)):
+        assert torch.equal(got, want)
+    assert launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain_versions():
+    """The CUDA kernels against their plain versions on the card: the JAX
+    tests' parametrisations, ragged S and W, grouped heads at head_dim 256
+    (the serving path's MQA layout, at a short S), and each launch
+    counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (runs on the card, see README.md)")
+    dev = torch.device("cuda")
+    reset_launches()
+    cases = [(B, S, H, H, d, w, c, dt) for B, S, H, d, w, c, dt in
+             ATTN_CASES]
+    cases += [(2, 100, 6, 2, 32, 16, 0.0, "float32"),
+              (1, 4097 // 8, 10, 1, 256, 128, 0.0, "float32"),
+              (1, 333, 10, 1, 256, 64, 0.0, "bfloat16"),
+              (2, 70, 4, 4, 48, 0, 50.0, "float32")]
+    for i, (B, S, H, Kv, d, window, softcap, dtype) in enumerate(cases):
+        q, k, v = (_to_torch(x, dtype).to(dev)
+                   for x in _attn_inputs(B, S, H, d, seed=i, Kv=Kv))
+        got = flash_attention(q, k, v, window=window, softcap=softcap)
+        want = ref.flash_attention_ref(q, k, v, window=window,
+                                       softcap=softcap)
+        assert torch.isfinite(got.float()).all()
+        tol = 2e-5 if dtype == "float32" else 3e-2
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+    scans = [(B, S, W, dt) for B, S, W, _, dt in SCAN_CASES]
+    scans += [(3, 37, 100, "float32"), (2, 1000, 2560, "float32"),
+              (1, 5, 3, "bfloat16")]
+    for i, (B, S, W, dtype) in enumerate(scans):
+        a, bx = (_to_torch(x, dtype).to(dev)
+                 for x in _scan_inputs(B, S, W, seed=i))
+        y, h = rglru_scan(a, bx)
+        yr, hr = ref.rglru_scan_ref(a, bx)
+        tol = 1e-5 if dtype == "float32" else 5e-2
+        torch.testing.assert_close(y.float(), yr.float(), atol=tol,
+                                   rtol=0.05)
+        torch.testing.assert_close(h, hr, atol=tol, rtol=0.05)
+    torch.cuda.synchronize()
+    assert launches["flash_attention"] == len(cases)
+    assert launches["rglru_scan"] == len(scans)
