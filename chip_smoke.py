@@ -32,7 +32,17 @@ Needs one NVIDIA GPU and nvcc.  In order:
    (none); the kernels' outputs on the first LOCAL and first RG-LRU
    layer's own inputs held against their plain versions; and the decode
    step at position 4096 held against a prefill of all 4097 tokens;
-6. prints the kernels line, then the result line.
+6. serving: falcon-mamba-7b at full width (64 MAMBA layers, d_model 4096,
+   d_inner 8192, N 16, 7.0e9 f32 parameters from seed 0), after
+   recurrentgemma-2b is freed: first the selective-scan kernel against its
+   plain version at the serving path's shape, at the JAX tests'
+   parametrisations and at ragged ones, timed beside the plain version,
+   with its bound from bytes, flops and exponentials; then the same
+   traffic (batch 4, 4096-token prompts, 32 greedy tokens) with the counts
+   read after the prefill (64 selective_scan) and the decode loop (none),
+   the kernel on the first MAMBA layer's own inputs held against its plain
+   version, and the 4096 + 1 consistency check;
+7. prints the serving line, the kernels line, then the result line.
 
 Any failure exits non-zero before the result line.  Without a card, or
 without the repository's ``src/`` beside it, it exits non-zero at once.
@@ -58,9 +68,12 @@ SOURCE = "src/repro_torch/kernels/csrc/trust_aggregate.cu"
 PALLAS = "src/repro/kernels/trust_aggregate.py"
 FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 SCAN_SOURCE = "src/repro_torch/kernels/csrc/rglru_scan.cu"
+SSM_SOURCE = "src/repro_torch/kernels/csrc/selective_scan.cu"
+SFU_EXP_PER_CLOCK_PER_SM = 16    # special-function units, compute cap. 9.0
 
-# the serving path: recurrentgemma-2b at full width
+# the serving paths: recurrentgemma-2b and falcon-mamba-7b at full width
 ARCH = "recurrentgemma-2b"
+MAMBA_ARCH = "falcon-mamba-7b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 4096, 32
 CONSISTENCY_TOL = 2e-2          # tests/test_models.py's prefill/decode bound
 # tests/test_kernels.py's tolerances: attention atol = rtol; the scan atol
@@ -109,6 +122,18 @@ def bound_ms(n_bytes: float, n_flops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_flops / FP32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sfu_exp_per_s() -> float:
+    """Exponentials per second of the card's special-function units at its
+    highest SM clock (``nvidia-smi`` clocks.max.sm)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    mhz = float(smi.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return SFU_EXP_PER_CLOCK_PER_SM * sms * mhz * 1e6
 
 
 def kernel_inputs(C, valid, B, N, dev, seed, pad_weight=False):
@@ -365,10 +390,13 @@ def lm_kernel_phase(cfg, dev) -> dict:
             "bytes": {"fa": b_fa, "scan": b_scan}}
 
 
-def serving_phase(cfg, dev) -> dict:
+def serving_phase(cfg, dev, expect: dict, entries: dict) -> dict:
     """generate() at full width, with the launch counts set to 0 before the
-    prefill and read after it and after the decode loop, and the first
-    LOCAL and first RG-LRU layer's kernel inputs and outputs kept."""
+    prefill and read after it and after the decode loop.  The prefill must
+    launch ``expect[kernel]`` times each kernel (0 for the others) and the
+    decode loop none.  ``entries`` maps a kernel to the `kernels.ops`
+    function that launches it; the first call's inputs and outputs are
+    kept (the first layer of that kind)."""
     from repro_torch.kernels import launches, ops, reset_launches
     from repro_torch.launch.serve import generate
     seen = {}
@@ -388,9 +416,9 @@ def serving_phase(cfg, dev) -> dict:
             return out
         return wrapped
 
-    attention, lru_scan = ops.attention, ops.lru_scan
-    ops.attention = keep("flash_attention", attention)
-    ops.lru_scan = keep("rglru_scan", lru_scan)
+    originals = {k: getattr(ops, fn) for k, fn in entries.items()}
+    for k, fn in entries.items():
+        setattr(ops, fn, keep(k, originals[k]))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
@@ -398,22 +426,22 @@ def serving_phase(cfg, dev) -> dict:
                        temperature=0.0, seed=0, device=dev,
                        on_phase=on_phase)
     finally:
-        ops.attention, ops.lru_scan = attention, lru_scan
+        for k, fn in entries.items():
+            setattr(ops, fn, originals[k])
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     pre, dec = counts["prefill"], counts["decode"]
-    print(f"serving {ARCH} at full width ({cfg.num_layers} layers, d_model "
-          f"{cfg.d_model}, {sum(p.numel() for p in res.model.parameters())}"
-          f" parameters, f32): batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
+    n_params = sum(p.numel() for p in res.model.parameters())
+    print(f"serving {cfg.name} at full width ({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {n_params} parameters, f32): batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
           f"{SERVE_GEN} tokens: prefill {res.prefill_s:.4f} s, decode "
           f"{len(res.decode_logits)} steps in {res.decode_s:.4f} s = "
           f"{res.decode_tokens_per_s:.2f} tokens/s, {wall:.2f} s with "
           f"parameter init, peak device memory {peak:.3f} GiB", flush=True)
     print(f"launches: prefill {json.dumps(pre)}, decode {json.dumps(dec)}",
           flush=True)
-    check(pre["flash_attention"] == 8 and pre["rglru_scan"] == 18,
-          f"the prefill launched {pre}, expected 8 flash_attention and 18 "
-          f"rglru_scan")
+    check(all(pre[k] == expect.get(k, 0) for k in pre),
+          f"the prefill launched {pre}, expected {expect}")
     check(not any(dec.values()), f"the decode loop launched kernels: {dec}")
     check(res.tokens.shape == (SERVE_BATCH, SERVE_GEN)
           and int(res.tokens.min()) >= 0
@@ -452,12 +480,110 @@ def consistency_check(res) -> float:
         logits, _ = res.model.prefill(full, cache_len=full.shape[1])
     want = res.decode_logits[0]
     e = (logits - want).abs().max().item()
-    print(f"consistency: decode at position {SERVE_PROMPT} against a "
+    print(f"consistency ({res.model.cfg.name}): decode at position "
+          f"{SERVE_PROMPT} against a "
           f"{full.shape[1]}-token prefill: max abs error {e} (tolerance "
           f"{CONSISTENCY_TOL}), max |logit| {want.abs().max().item()}",
           flush=True)
     check(e < CONSISTENCY_TOL, f"prefill/decode disagree by {e}")
     return e
+
+
+# --------------------------------------------------------------------- #
+# the serving path: falcon-mamba-7b
+# --------------------------------------------------------------------- #
+def ssm_inputs(B, S, Di, N, dtype, dev, seed):
+    """tests/test_kernels.py's draws: xc, softplus(normal) dt, B and C at
+    scale 0.5, a random A = -exp(normal) (a learned A, not the seeded
+    init's rows); A stays f32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xc = torch.randn((B, S, Di), generator=g, device=dev) * 0.5
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, Di), generator=g, device=dev))
+    Bc = torch.randn((B, S, N), generator=g, device=dev) * 0.5
+    Cc = torch.randn((B, S, N), generator=g, device=dev) * 0.5
+    A = -torch.exp(torch.randn((Di, N), generator=g, device=dev))
+    return [t.to(dtype) for t in (xc, dt, Bc, Cc)] + [A]
+
+
+def check_ssm(name, got, want, dtype_name) -> float:
+    (y, h), (yr, hr) = got, want
+    tol = SCAN_TOL[dtype_name]
+    ey, oky = within(y, yr, tol, 0.05)
+    eh, okh = within(h, hr, tol, 0.05)
+    check(oky and okh, f"selective_scan {name}: max abs error y {ey}, "
+                       f"h_last {eh}, beyond atol {tol} / rtol 0.05")
+    return max(ey, eh)
+
+
+def mamba_kernel_phase(cfg, dev) -> dict:
+    """The selective-scan kernel against its plain version at the serving
+    path's shape, at tests/test_kernels.py's parametrisations and at
+    ragged ones; times and the bound at the serving path's shape."""
+    from repro_torch.kernels import ref, selective_scan
+    B, S, Di, N = SERVE_BATCH, SERVE_PROMPT, cfg.d_inner, cfg.ssm_state
+    f32, bf16 = torch.float32, torch.bfloat16
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    # (B, S, Di, N, dtype): the serving path's layer, the JAX sweep, then
+    # ragged Di, S and N, and bf16 at the serving width
+    cases = [(B, S, Di, N, f32), (1, 32, 64, 8, f32), (2, 64, 128, 16, f32),
+             (1, 48, 64, 8, bf16), (3, 37, 100, 16, f32),
+             (2, S + 1, Di + 1, N, f32), (1, 5, 3, 5, f32),
+             (2, 70, 100, 16, bf16), (1, 1000, Di, N, bf16)]
+    for i, (b, s_, d, n, dt_) in enumerate(cases):
+        args = ssm_inputs(b, s_, d, n, dt_, dev, 300 + i)
+        name = str(dt_).split(".")[1]
+        e = check_ssm((b, s_, d, n, name), selective_scan(*args),
+                      ref.selective_scan_ref(*args), name)
+        err[name] = max(err[name], e)
+        del args
+    torch.cuda.synchronize()
+    print(f"kernel check selective_scan: max abs error {err} (tolerance "
+          f"{SCAN_TOL} with rtol 0.05), {len(cases)} shapes", flush=True)
+
+    args = ssm_inputs(B, S, Di, N, f32, dev, 97)
+    t = {"ssm": time_ms(lambda: selective_scan(*args)),
+         "ssm_plain": time_ms(lambda: ref.selective_scan_ref(*args), reps=1,
+                              windows=3, warmup=1)}
+    # xc, dt read and y written; Bc, Cc and A read; h_last written
+    n_bytes = (3 * B * S * Di + 2 * B * S * N + Di * N + B * Di * N) * 4
+    # per (b, t, d, n): dt A, dA h, (dt x) B, the add, h C and its sum;
+    # per (b, t, d): dt x
+    n_flops = B * S * Di * (6 * N + 1)
+    n_exp = B * S * Di * N
+    terms = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "flops": n_flops / FP32_FLOPS_PER_S * 1e3,
+             "exponentials": n_exp / sfu_exp_per_s() * 1e3}
+    term = max(terms, key=terms.get)
+    print(f"selective_scan at {(B, S, Di, N)} f32: kernel {t['ssm']} ms, "
+          f"plain {t['ssm_plain']} ms; bound terms {terms} ms: bounded by "
+          f"{term}", flush=True)
+    return {"err": err, "t": t, "terms": terms, "term": term,
+            "bound": (terms[term], "bytes" if term == "bytes"
+                      else "operations"),
+            "bytes": n_bytes, "flops": n_flops, "exponentials": n_exp}
+
+
+def live_mamba_check(seen) -> float:
+    """The kernel's output on the first MAMBA layer of the prefill against
+    its plain version on the same inputs."""
+    from repro_torch.kernels import ref
+    args, _, out = seen["selective_scan"]
+    e = check_ssm("on the prefill's inputs", out,
+                  ref.selective_scan_ref(*args), "float32")
+    print(f"selective_scan on the prefill's own inputs (first MAMBA layer, "
+          f"xc {tuple(args[0].shape)}): max abs error {e}", flush=True)
+    return e
+
+
+def serving_record(cfg, sv, cons) -> dict:
+    res = sv["res"]
+    return {"arch": cfg.name, "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+            "gen": SERVE_GEN, "prefill_s": res.prefill_s,
+            "decode_s": res.decode_s, "decode_steps": len(res.decode_logits),
+            "decode_tokens_per_s": res.decode_tokens_per_s,
+            "peak_gib": sv["peak"], "consistency_max_abs_err": cons,
+            "launches": sv["counts"]}
 
 
 def main() -> None:
@@ -484,7 +610,7 @@ def main() -> None:
     # 2. the kernels, from this checkout's sources
     t0 = time.perf_counter()
     build.build_all([os.path.basename(p) for p in
-                     (SOURCE, FA_SOURCE, SCAN_SOURCE)])
+                     (SOURCE, FA_SOURCE, SCAN_SOURCE, SSM_SOURCE)])
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"({build.build_seconds})", flush=True)
 
@@ -580,15 +706,35 @@ def main() -> None:
     cfg = get_config(ARCH)
     lk = lm_kernel_phase(cfg, dev)
     torch.cuda.empty_cache()
-    sv = serving_phase(cfg, dev)
+    sv = serving_phase(cfg, dev, {"flash_attention": 8, "rglru_scan": 18},
+                       {"flash_attention": "attention",
+                        "rglru_scan": "lru_scan"})
     live_lm = live_lm_check(sv["seen"])
     sv["seen"].clear()
     torch.cuda.empty_cache()
     cons = consistency_check(sv["res"])
+    serving = [serving_record(cfg, sv, cons)]
     serve_launches = {k: sv["counts"]["prefill"][k] + sv["counts"]["decode"][k]
                       for k in launches}
+    del sv
+    torch.cuda.empty_cache()
 
-    # 6. the kernels line, then the result line
+    # 6. serving: falcon-mamba-7b at full width
+    mcfg = get_config(MAMBA_ARCH)
+    mk = mamba_kernel_phase(mcfg, dev)
+    torch.cuda.empty_cache()
+    msv = serving_phase(mcfg, dev, {"selective_scan": mcfg.num_layers},
+                        {"selective_scan": "mamba_scan"})
+    live_ssm = live_mamba_check(msv["seen"])
+    msv["seen"].clear()
+    torch.cuda.empty_cache()
+    mcons = consistency_check(msv["res"])
+    serving.append(serving_record(mcfg, msv, mcons))
+    for k in launches:
+        serve_launches[k] += (msv["counts"]["prefill"][k]
+                              + msv["counts"]["decode"][k])
+
+    # 7. the serving line, the kernels line, then the result line
     t, bd, err = kp["t"], kp["bound"], kp["err"]
     lt, lbd = lk["t"], lk["bound"]
     kernels = [
@@ -652,15 +798,23 @@ def main() -> None:
          "shape": {"B": SERVE_BATCH, "S": SERVE_PROMPT, "W": cfg.lru_width,
                    "dtype": "float32"},
          "bytes": lk["bytes"]["scan"]},
+        {"name": "selective_scan", "route": "cuda", "source": SSM_SOURCE,
+         "replaces": "src/repro/kernels/selective_scan.py:25",
+         "launches": serve_launches["selective_scan"],
+         "max_abs_err": mk["err"]["float32"],
+         "tolerance": SCAN_TOL["float32"],
+         "bf16_max_abs_err": mk["err"]["bfloat16"],
+         "live_max_abs_err": live_ssm,
+         "ms": mk["t"]["ssm"], "plain_ms": mk["t"]["ssm_plain"],
+         "bound_ms": mk["bound"][0], "bound_by": mk["bound"][1],
+         "bound_term": mk["term"], "bound_terms_ms": mk["terms"],
+         "library_ms": None,
+         "shape": {"B": SERVE_BATCH, "S": SERVE_PROMPT, "Di": mcfg.d_inner,
+                   "N": mcfg.ssm_state, "dtype": "float32"},
+         "bytes": mk["bytes"], "flops": mk["flops"],
+         "exponentials": mk["exponentials"]},
     ]
-    res = sv["res"]
-    print(json.dumps({"serving": {
-        "arch": ARCH, "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
-        "gen": SERVE_GEN, "prefill_s": res.prefill_s,
-        "decode_s": res.decode_s, "decode_steps": len(res.decode_logits),
-        "decode_tokens_per_s": res.decode_tokens_per_s,
-        "peak_gib": sv["peak"], "consistency_max_abs_err": cons,
-        "launches": sv["counts"]}}), flush=True)
+    print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

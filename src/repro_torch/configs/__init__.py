@@ -3,20 +3,18 @@
 ``get_config(arch_id)`` returns the full config, ``get_smoke_config`` the
 reduced same-family variant the CPU tests use; both equal the JAX
 package's field for field.  The port serves the architectures whose layers
-it has (global and local attention, RG-LRU): recurrentgemma-2b and
-gemma-2b.  The JAX package's other ids raise `NotImplementedError` naming
-the ROADMAP item that ports them.
+it has (global and local attention, RG-LRU, Mamba-1): recurrentgemma-2b,
+gemma-2b and falcon-mamba-7b.  The JAX package's other ids raise
+`NotImplementedError` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["recurrentgemma_2b", "gemma_2b"]
+ARCH_IDS = ["recurrentgemma_2b", "gemma_2b", "falcon_mamba_7b"]
 
 # the JAX package's other architectures, and why the port lacks them
 _NOT_PORTED = {
-    "falcon_mamba_7b": "MAMBA layers and the selective_scan kernel "
-                       "(ROADMAP queue 1, item 10: falcon-mamba-7b serving)",
     "grok_1_314b": "MoE layers (ROADMAP queue 1, item 10)",
     "deepseek_v2_236b": "MLA and MoE layers (ROADMAP queue 1, item 10)",
     "musicgen_large": "multi-codebook audio heads (ROADMAP queue 1, item 10)",

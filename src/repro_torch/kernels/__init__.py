@@ -3,9 +3,10 @@
   csrc/trust_aggregate.cu   Eqn-6 and fused Eqn-6 + Eqn-19 aggregation
   csrc/flash_attention.cu   causal (sliding-window, soft-capped) attention
   csrc/rglru_scan.cu        the RG-LRU gated linear recurrence
+  csrc/selective_scan.cu    the Mamba-1 selective scan
   build                     nvcc -> shared library -> ctypes, at first use
   launch                    launch counters and the C-call helpers
-  trust_aggregate, flash_attention, rglru_scan
+  trust_aggregate, flash_attention, rglru_scan, selective_scan
                             checked wrappers, one per kernel source
   ref                       the plain PyTorch versions (CPU path, oracle)
   ops                       entry points for the models and the federation
@@ -13,11 +14,14 @@
 from .flash_attention import flash_attention
 from .launch import launches, reset_launches
 from .ops import (attention, flatten_rows, layout_of, leaf_views, lru_scan,
-                  trust_aggregate_global_tree, trust_aggregate_tree)
+                  mamba_scan, trust_aggregate_global_tree,
+                  trust_aggregate_tree)
 from .rglru_scan import rglru_scan
+from .selective_scan import selective_scan
 from .trust_aggregate import trust_aggregate, trust_aggregate_global
 
 __all__ = ["trust_aggregate", "trust_aggregate_global", "trust_aggregate_tree",
            "trust_aggregate_global_tree", "flatten_rows", "layout_of",
            "leaf_views", "launches", "reset_launches", "flash_attention",
-           "rglru_scan", "attention", "lru_scan"]
+           "rglru_scan", "selective_scan", "attention", "lru_scan",
+           "mamba_scan"]

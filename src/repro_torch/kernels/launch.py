@@ -20,7 +20,8 @@ launches: Dict[str, int] = {"trust_aggregate": 0,
                             "trust_aggregate_dense": 0,
                             "trust_aggregate_global": 0,
                             "flash_attention": 0,
-                            "rglru_scan": 0}
+                            "rglru_scan": 0,
+                            "selective_scan": 0}
 
 
 def reset_launches() -> None:

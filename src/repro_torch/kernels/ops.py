@@ -1,8 +1,9 @@
 """Entry points of the kernels for the modules that call them.
 
-The attention and RG-LRU layers of the language models call `attention`
-and `lru_scan`.  The federation calls the parameter-tree entry points of
-the aggregation kernels, over a flat layout:
+The attention, RG-LRU and Mamba layers of the language models call
+`attention`, `lru_scan` and `mamba_scan`.  The federation calls the
+parameter-tree entry points of the aggregation kernels, over a flat
+layout:
 
 A parameter tree is a dict of tensors.  Its flat form concatenates the
 leaves in sorted-key order, which is ``jax.tree.leaves``' order for a dict,
@@ -20,6 +21,7 @@ import torch
 
 from .flash_attention import flash_attention
 from .rglru_scan import rglru_scan
+from .selective_scan import selective_scan
 from .trust_aggregate import trust_aggregate, trust_aggregate_global
 
 Layout = List[Tuple[str, Tuple[int, ...], int]]   # (key, leaf shape, offset)
@@ -87,3 +89,10 @@ def lru_scan(a, bx):
     """The RG-LRU recurrence h_t = a_t h_{t-1} + bx_t over (B,S,W), through
     the scan kernel -> (hs, h_last)."""
     return rglru_scan(a.contiguous(), bx.contiguous())
+
+
+def mamba_scan(xc, dt, Bc, Cc, A):
+    """The Mamba-1 selective scan over (B,S,Di) with (B,S,N) B and C and a
+    (Di,N) A, through the scan kernel -> (y, h_last)."""
+    return selective_scan(xc.contiguous(), dt.contiguous(), Bc.contiguous(),
+                          Cc.contiguous(), A.contiguous())

@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the kernels.
 
 Each function is the mathematical definition with no tiling: the CPU path
-of the wrappers (`trust_aggregate`, `flash_attention`, `rglru_scan`), and
-what `chip_smoke.py` holds the CUDA kernels against on the card.
+of the wrappers (`trust_aggregate`, `flash_attention`, `rglru_scan`,
+`selective_scan`), and what `chip_smoke.py` holds the CUDA kernels
+against on the card.
 Accumulation is in float32 and the result is cast to the input (or stack)
 dtype, as the kernels do.  They match ``src/repro/kernels/ref.py``.
 """
@@ -76,3 +77,22 @@ def rglru_scan_ref(a, bx):
         h = a[:, t].to(torch.float32) * h + bx[:, t].to(torch.float32)
         hs[:, t] = h
     return hs, h
+
+
+def selective_scan_ref(xc, dt, Bc, Cc, A):
+    """Mamba-1 recurrence h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t,
+    y_t = h_t C_t, state in f32.  xc, dt: (B,S,Di); Bc, Cc: (B,S,N);
+    A: (Di,N) -> y (B,S,Di) in xc's dtype, h_last (B,Di,N) f32.  dt x is
+    taken in the input dtype, then in f32, as the JAX oracle does."""
+    B, S, Di = xc.shape
+    h = torch.zeros((B, Di, A.shape[1]), dtype=torch.float32,
+                    device=xc.device)
+    y = torch.empty_like(xc)
+    for t in range(S):
+        dA = torch.exp(dt[:, t, :, None].to(torch.float32) * A)
+        dBx = (dt[:, t] * xc[:, t])[..., None].to(torch.float32) * \
+            Bc[:, t, None, :].to(torch.float32)
+        h = dA * h + dBx
+        y[:, t] = torch.einsum("bdn,bn->bd", h,
+                               Cc[:, t].to(torch.float32)).to(xc.dtype)
+    return y, h

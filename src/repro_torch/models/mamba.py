@@ -1,0 +1,98 @@
+"""Mamba-1 selective state-space block (falcon-mamba-7b).
+
+Block: x -> in_proj -> (xin, z); xin -> causal conv -> silu -> xc;
+(dt, B, C) from xc; y = selective_scan(xc, dt, B, C, A) + D xc;
+out = (y * silu(z)) @ out_proj, with A = -exp(A_log).  The projections are
+dense products left to PyTorch; the recurrence over the sequence is one
+launch of the selective-scan kernel (`kernels.ops.mamba_scan`), where the
+JAX package's ``models/mamba.py`` runs a ``lax.scan``.  Decode is one
+recurrence step in plain PyTorch, as in the JAX package, with an O(1)
+state: the (B, Di, N) SSM state and the (B, K-1, Di) conv history, both
+float32.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from .config import ArchConfig
+from .modules import causal_conv, dense_init
+
+
+def init_mamba(cfg: ArchConfig, generator: Optional[torch.Generator], *,
+               device=None) -> Dict[str, torch.Tensor]:
+    D, Di, N, R, K = (cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank,
+                      cfg.ssm_conv)
+    kw = dict(device=device)
+    A = torch.arange(1, N + 1, dtype=torch.float32, **kw).expand(Di, N)
+    return {
+        "in_proj": dense_init((D, 2 * Di), generator, **kw),
+        "conv_w": dense_init((K, Di), generator, scale=0.5, **kw),
+        "conv_b": torch.zeros((Di,), **kw),
+        "x_proj": dense_init((Di, R + 2 * N), generator, **kw),
+        "dt_proj": dense_init((R, Di), generator, **kw),
+        "dt_bias": torch.zeros((Di,), **kw),
+        "A_log": torch.log(A),
+        "D": torch.ones((Di,), **kw),
+        "out_proj": dense_init((Di, D), generator, **kw),
+    }
+
+
+def _ssm_params(p, cfg: ArchConfig, xc):
+    """xc: (..., Di) conv output -> (dt, B, C) selective parameters; dt in
+    the activation dtype."""
+    dbc = xc @ p["x_proj"]
+    dt_r, Bc, Cc = torch.split(dbc, [cfg.dt_rank, cfg.ssm_state,
+                                     cfg.ssm_state], dim=-1)
+    dt = F.softplus(dt_r @ p["dt_proj"] + p["dt_bias"]).to(xc.dtype)
+    return dt, Bc, Cc
+
+
+def mamba_forward(p, cfg: ArchConfig, x, return_state: bool = False):
+    """x: (B,S,D) -> (B,S,D) [, decode cache {"h", "conv"}]."""
+    S = x.shape[1]
+    xin, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    xc = F.silu(causal_conv(xin, p["conv_w"], p["conv_b"]))
+    dt, Bc, Cc = _ssm_params(p, cfg, xc)               # (B,S,Di) (B,S,N) x2
+    A = -torch.exp(p["A_log"])                          # (Di,N)
+    ys, h_last = ops.mamba_scan(xc, dt, Bc, Cc, A)
+    y = ys + xc * p["D"].to(x.dtype)
+    y = (y * F.silu(z)).to(x.dtype)
+    out = y @ p["out_proj"]
+    if not return_state:
+        return out
+    K = cfg.ssm_conv
+    conv_tail = xin[:, max(0, S - (K - 1)):, :]
+    if S < K - 1:
+        conv_tail = F.pad(conv_tail, (0, 0, K - 1 - S, 0))
+    return out, {"h": h_last, "conv": conv_tail.contiguous()}
+
+
+def init_mamba_cache(cfg: ArchConfig, batch: int, device=None):
+    return {
+        "h": torch.zeros((batch, cfg.d_inner, cfg.ssm_state), device=device),
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner),
+                            device=device),
+    }
+
+
+def mamba_decode(p, cfg: ArchConfig, x, cache, step: int):
+    """x: (B,1,D) one-token step -> (y, cache); the cache dict is updated
+    in place with the new state and conv history."""
+    xin, z = (x[:, 0] @ p["in_proj"]).chunk(2, dim=-1)  # (B,Di)
+    hist = torch.cat([cache["conv"], xin[:, None].to(cache["conv"].dtype)],
+                     dim=1)
+    xc = F.silu(torch.einsum("bkd,kd->bd", hist.to(x.dtype), p["conv_w"])
+                + p["conv_b"])
+    dt, Bc, Cc = _ssm_params(p, cfg, xc)
+    A = -torch.exp(p["A_log"])
+    dA = torch.exp(dt[..., None] * A)
+    dBx = (dt * xc)[..., None] * Bc[:, None, :]
+    h = dA * cache["h"] + dBx.to(torch.float32)
+    y = torch.einsum("bdn,bn->bd", h, Cc.to(torch.float32)).to(x.dtype)
+    y = ((y + xc * p["D"].to(x.dtype)) * F.silu(z)).to(x.dtype)
+    cache["h"], cache["conv"] = h, hist[:, 1:]
+    return (y @ p["out_proj"])[:, None], cache

@@ -1,17 +1,17 @@
-"""Decoder-only language model: dense (global attention) and hybrid
-(RG-LRU + local attention) architectures, for serving.
+"""Decoder-only language model: dense (global attention), hybrid
+(RG-LRU + local attention) and SSM (Mamba-1) architectures, for serving.
 
 The JAX package's ``models/transformer.py`` keeps its layers as an
 unrolled prefix, a ``lax.scan`` over stacked groups of ``block_pattern``
 and an unrolled suffix.  The port holds every layer in one ``ModuleList``
-(26 for recurrentgemma-2b); `params_from_numpy` unstacks the JAX package's
-parameter tree into it, and `unstack_layers` does the same for caches.
-MoE, MLA, Mamba, qkv-bias or qk-norm and multi-codebook audio models
-raise `NotImplementedError`.
+(26 for recurrentgemma-2b, 64 for falcon-mamba-7b); `params_from_numpy`
+unstacks the JAX package's parameter tree into it, and `unstack_layers`
+does the same for caches.  MoE, MLA, qkv-bias or qk-norm and
+multi-codebook audio models raise `NotImplementedError`.
 
 A decode cache is a list with one dict per layer: ``{"k", "v", "pos"}``
 for attention (a ring buffer for LOCAL layers), ``{"h", "conv"}`` for
-RG-LRU.  `LM.decode_step` updates it in place.
+RG-LRU and Mamba.  `LM.decode_step` updates it in place.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from torch import nn
 
 from .attention import attn_decode, attn_forward, init_attn, init_attn_cache
 from .config import ATTN, LOCAL, MAMBA, RGLRU, ArchConfig
+from .mamba import init_mamba, init_mamba_cache, mamba_decode, mamba_forward
 from .modules import init_mlp, mlp, rmsnorm
 from .rglru import init_rglru, init_rglru_cache, rglru_decode, rglru_forward
 
@@ -43,12 +44,8 @@ def _check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: multi-codebook audio heads "
                                   "are not ported yet (ROADMAP queue 1, "
                                   "item 10)")
-    if MAMBA in cfg.layer_kinds():
-        raise NotImplementedError(
-            f"{cfg.name}: MAMBA layers and the selective_scan kernel are not "
-            "ported yet (ROADMAP queue 1, item 10: falcon-mamba-7b serving)")
     for kind in cfg.layer_kinds():
-        if kind not in (ATTN, LOCAL, RGLRU):
+        if kind not in (ATTN, LOCAL, RGLRU, MAMBA):
             raise ValueError(f"unknown layer kind {kind!r}")
 
 
@@ -59,14 +56,19 @@ def _params(tree: Mapping[str, torch.Tensor]) -> nn.ParameterDict:
 
 class Layer(nn.Module):
     """One residual layer: RMSNorm -> attention or RG-LRU -> residual ->
-    RMSNorm -> gated MLP -> residual."""
+    RMSNorm -> gated MLP -> residual; a MAMBA layer is RMSNorm -> Mamba
+    block -> residual, with no second norm and no MLP."""
 
     def __init__(self, cfg: ArchConfig, kind: str, generator, device):
         super().__init__()
         self.cfg, self.kind = cfg, kind
         ones = lambda: nn.Parameter(torch.ones((cfg.d_model,), device=device),
                                     requires_grad=False)
-        self.ln1, self.ln2 = ones(), ones()
+        self.ln1 = ones()
+        if kind == MAMBA:
+            self.mamba = _params(init_mamba(cfg, generator, device=device))
+            return
+        self.ln2 = ones()
         if kind == RGLRU:
             self.rglru = _params(init_rglru(cfg, generator, device=device))
         else:
@@ -78,7 +80,9 @@ class Layer(nn.Module):
         """cache_len > 0 (prefill) also returns this layer's decode cache."""
         cfg, lcache = self.cfg, None
         h = rmsnorm(self.ln1, x)
-        if self.kind == RGLRU:
+        if self.kind == MAMBA:
+            y = mamba_forward(self.mamba, cfg, h, return_state=bool(cache_len))
+        elif self.kind == RGLRU:
             y = rglru_forward(self.rglru, cfg, h, return_state=bool(cache_len))
         else:
             y = attn_forward(self.attn, cfg, h, self.kind,
@@ -87,23 +91,29 @@ class Layer(nn.Module):
         if cache_len:
             y, lcache = y
         x = x + y
-        x = x + mlp(self.mlp, rmsnorm(self.ln2, x), cfg.activation)
+        if self.kind != MAMBA:
+            x = x + mlp(self.mlp, rmsnorm(self.ln2, x), cfg.activation)
         return (x, lcache) if cache_len else x
 
     def decode(self, x, lcache, step: int):
         cfg = self.cfg
         h = rmsnorm(self.ln1, x)
-        if self.kind == RGLRU:
+        if self.kind == MAMBA:
+            y, lcache = mamba_decode(self.mamba, cfg, h, lcache, step)
+        elif self.kind == RGLRU:
             y, lcache = rglru_decode(self.rglru, cfg, h, lcache, step)
         else:
             y, lcache = attn_decode(self.attn, cfg, h, lcache, step,
                                     self.kind)
         x = x + y
-        x = x + mlp(self.mlp, rmsnorm(self.ln2, x), cfg.activation)
+        if self.kind != MAMBA:
+            x = x + mlp(self.mlp, rmsnorm(self.ln2, x), cfg.activation)
         return x, lcache
 
     def init_cache(self, batch: int, max_len: int):
         dev = self.ln1.device
+        if self.kind == MAMBA:
+            return init_mamba_cache(self.cfg, batch, device=dev)
         if self.kind == RGLRU:
             return init_rglru_cache(self.cfg, batch, device=dev)
         return init_attn_cache(self.cfg, batch, max_len, self.kind,
@@ -185,7 +195,7 @@ class LM(nn.Module):
     # -- decode ---------------------------------------------------------- #
     def init_cache(self, batch: int, max_len: int) -> Cache:
         """An empty decode cache: K/V in bfloat16 (ring buffers of the
-        window for LOCAL layers), RG-LRU states in float32."""
+        window for LOCAL layers), RG-LRU and Mamba states in float32."""
         return [layer.init_cache(batch, max_len) for layer in self.layers]
 
     def decode_step(self, cache: Cache, tokens: torch.Tensor, step: int):
@@ -254,9 +264,12 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig, *,
             put(model.lm_head, tree["lm_head"])
         for layer, lp in zip(model.layers, unstack_layers(tree, cfg)):
             put(layer.ln1, lp["ln1"])
-            put(layer.ln2, lp["ln2"])
-            block = "rglru" if layer.kind == RGLRU else "attn"
-            for sub in (block, "mlp"):
+            if layer.kind == MAMBA:
+                blocks = ("mamba",)
+            else:
+                put(layer.ln2, lp["ln2"])
+                blocks = ("rglru" if layer.kind == RGLRU else "attn", "mlp")
+            for sub in blocks:
                 mine = getattr(layer, sub)
                 if set(mine.keys()) != set(lp[sub].keys()):
                     raise ValueError(f"{sub}: keys {sorted(lp[sub])} != "

@@ -158,7 +158,7 @@ def test_configs_match_the_jax_package(needs_jax):
         (26, 8, 18)
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "grok-1-314b",
+@pytest.mark.parametrize("arch", ["qwen1.5-32b", "grok-1-314b",
                                   "deepseek-v2-236b", "musicgen-large"])
 def test_unported_architectures_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
