@@ -5,7 +5,9 @@ a plain C interface, loaded with `ctypes` (no PyTorch headers: a build takes
 seconds).  Libraries go to ``build/kernels/`` at the repository root, named
 by a hash of the source and the flags, so an edited source rebuilds and an
 unchanged one loads at once.  A build writes to a temporary file and renames
-it, so concurrent processes never load a half-written library.
+it, so concurrent processes never load a half-written library.  ``ptxas``
+reports each kernel's registers and spills (``-Xptxas -v``);
+`ptxas_report` reads that report.
 
 Nothing here runs at import: the CPU tests import every module of the port.
 """
@@ -14,21 +16,23 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_seconds: Dict[str, float] = {}   # source name -> seconds nvcc took
+ptxas_log: Dict[Path, str] = {}        # source path -> what ptxas printed
 
 
 def nvcc_path() -> str:
@@ -42,17 +46,19 @@ def nvcc_path() -> str:
                        "/usr/local/cuda): the CUDA kernels cannot be built")
 
 
-def library_path(source: str) -> Path:
-    src = CSRC / source
+def library_path(source: str, csrc: Path = CSRC) -> Path:
+    src = Path(csrc) / source
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
                             ).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 
-def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` unless a library of the same content
-    exists; return the library's path."""
-    out = library_path(source)
+def build(source: str, csrc: Path = CSRC) -> Path:
+    """Compile ``<csrc>/<source>`` (``csrc/`` of this package by default)
+    unless a library of the same content exists; return the library's
+    path."""
+    src = Path(csrc) / source
+    out = library_path(source, csrc)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -61,16 +67,45 @@ def build(source: str) -> Path:
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / source)],
+            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)],
             capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
         os.replace(tmp, out)
+        ptxas_log[src] = proc.stderr
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     build_seconds[source] = time.perf_counter() - t0
     return out
+
+
+def ptxas_report(source: str, csrc: Path = CSRC) -> List[dict]:
+    """Registers, stack and spill bytes of each kernel of ``source``, from
+    ptxas's report of its build in this process ([] if it was not built
+    here)."""
+    rows: List[dict] = []
+    for line in ptxas_log.get(Path(csrc) / source, "").splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = entry[1]
+            tmpl = re.search(
+                r"\d([a-z][a-z_]*_kernel)I(f|13__nv_bfloat16)Li(\d+)E", name)
+            if tmpl:
+                kind = "f32" if tmpl[2] == "f" else "bf16"
+                name = f"{tmpl[1]}<{kind}, {tmpl[3]}>"
+            rows.append({"kernel": name})
+        elif rows:
+            spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                              r"stores, (\d+) bytes spill loads", line)
+            regs = re.search(r"Used (\d+) registers", line)
+            if spill:
+                rows[-1].update(stack=int(spill[1]),
+                                spill_stores=int(spill[2]),
+                                spill_loads=int(spill[3]))
+            if regs:
+                rows[-1]["registers"] = int(regs[1])
+    return rows
 
 
 def build_all(sources: Iterable[str]) -> None:

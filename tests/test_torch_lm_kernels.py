@@ -143,6 +143,87 @@ def test_rglru_scan_ragged_width_matches_jax_ref(needs_jax):
     np.testing.assert_allclose(_f32(h), _f32(hr), atol=1e-5, rtol=0.05)
 
 
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32``: on the int32 view, add half of the 13
+    dropped bits and clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the f32 attention kernel takes each product on the tensor
+    cores: hi = tf32(x), lo = tf32(x - hi), hi.hi + (hi.lo + lo.hi) with
+    f32 sums (every partial product is exact in f32)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return ah @ bh + (ah @ bl + al @ bh)
+
+
+def _mm_tf32(a, b):
+    """a @ b as one TF32 tensor-core product."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _attention_with(mm, q, k, v, window):
+    """Causal windowed attention with both products (scores and P V) taken
+    by ``mm``, the softmax in f32: the numerics of the f32 kernel."""
+    B, S, H, d = q.shape
+    Kv = k.shape[2]
+    qg = q.reshape(B, S, Kv, H // Kv, d).permute(0, 2, 3, 1, 4)
+    kt = k.permute(0, 2, 3, 1)[:, :, None]                # (B, Kv, 1, d, S)
+    scores = mm(qg, kt) * d ** -0.5
+    pos = torch.arange(S)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                             - window)
+    p = torch.softmax(torch.where(mask, scores, ref.NEG_INF), dim=-1)
+    out = mm(p, v.permute(0, 2, 1, 3)[:, :, None])       # (B, Kv, G, S, dv)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, v.shape[-1])
+
+
+# (B, S, H, Kv, d, window): the serving layer's heads (10 query heads over
+# one K/V head of width 256) at a short S with the window inside it, and
+# grouped heads at d = 48
+SPLIT_CASES = [(1, 160, 10, 1, 256, 64), (2, 96, 6, 2, 48, 20)]
+
+
+@pytest.mark.parametrize("B,S,H,Kv,d,window", SPLIT_CASES)
+def test_3xtf32_split_meets_the_f32_tolerance(B, S, H, Kv, d, window):
+    """The f32 kernel's products on the TF32 tensor cores, emulated: with
+    the 3xTF32 split the result stays within 2e-5 of the plain version,
+    with one TF32 product it does not (why the split is needed)."""
+    q, k, v = (torch.from_numpy(x) for x in
+               _attn_inputs(B, S, H, d, seed=d + S, Kv=Kv))
+    want = ref.flash_attention_ref(q, k, v, window=window)
+    split = _attention_with(_mm_3xtf32, q, k, v, window)
+    torch.testing.assert_close(split, want, atol=2e-5, rtol=2e-5)
+    one = _attention_with(_mm_tf32, q, k, v, window)
+    assert not torch.allclose(one, want, atol=2e-5, rtol=2e-5)
+
+
+def test_ptxas_report_reads_registers_and_spills(monkeypatch):
+    """`build.ptxas_report` turns ptxas's ``-v`` output of a build into one
+    row per kernel, template arguments spelled out."""
+    from repro_torch.kernels import build
+    log = (
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122flash_"
+        "attention_kernelI13__nv_bfloat16Li32EEEvPKT_' for 'sm_90a'\n"
+        "ptxas info    : Function properties for x\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 248 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122flash_"
+        "attention_kernelIfLi8EEEvPKT_' for 'sm_90a'\n"
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 128 registers, used 1 barriers\n")
+    monkeypatch.setitem(build.ptxas_log, build.CSRC / "x.cu", log)
+    assert build.ptxas_report("x.cu") == [
+        {"kernel": "flash_attention_kernel<bf16, 32>", "stack": 0,
+         "spill_stores": 0, "spill_loads": 0, "registers": 248},
+        {"kernel": "flash_attention_kernel<f32, 8>", "stack": 8,
+         "spill_stores": 4, "spill_loads": 4, "registers": 128}]
+    assert build.ptxas_report("not_built.cu") == []
+
+
 def test_cpu_tensors_take_the_plain_versions_without_launching():
     q, k, v = (torch.from_numpy(x) for x in _attn_inputs(1, 20, 2, 8, 0))
     a, bx = (torch.from_numpy(x) for x in _scan_inputs(1, 20, 8, 0))
@@ -157,9 +238,12 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions():
     """The CUDA kernels against their plain versions on the card: the JAX
-    tests' parametrisations, ragged S and W, grouped heads at head_dim 256
-    (the serving path's MQA layout, at a short S), and each launch
-    counted."""
+    tests' parametrisations, ragged S (not a multiple of 16, 32 or 64)
+    and W, grouped heads (Kv 1 and 2 under H 10 and 6) at head_dim 256
+    (the serving path's MQA layout, at a short S), every output-width
+    template (<= 32, 64, 128, 256), d = 48 and d not a multiple of 16
+    bytes, windows shorter than a key tile, softcap, bf16 at head_dim 256,
+    and each launch counted."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (runs on the card, see README.md)")
     dev = torch.device("cuda")
@@ -169,7 +253,15 @@ def test_cuda_kernels_match_plain_versions():
     cases += [(2, 100, 6, 2, 32, 16, 0.0, "float32"),
               (1, 4097 // 8, 10, 1, 256, 128, 0.0, "float32"),
               (1, 333, 10, 1, 256, 64, 0.0, "bfloat16"),
-              (2, 70, 4, 4, 48, 0, 50.0, "float32")]
+              (2, 70, 4, 4, 48, 0, 50.0, "float32"),
+              (1, 77, 6, 2, 48, 8, 0.0, "float32"),
+              (2, 200, 10, 2, 128, 0, 0.0, "float32"),
+              (1, 130, 10, 1, 16, 0, 0.0, "float32"),
+              (1, 300, 10, 1, 256, 5, 50.0, "float32"),
+              (1, 50, 2, 1, 33, 0, 0.0, "float32"),
+              (1, 333, 6, 2, 48, 20, 0.0, "bfloat16"),
+              (1, 45, 3, 1, 20, 0, 0.0, "bfloat16"),
+              (2, 99, 6, 1, 256, 17, 0.0, "bfloat16")]
     for i, (B, S, H, Kv, d, window, softcap, dtype) in enumerate(cases):
         q, k, v = (_to_torch(x, dtype).to(dev)
                    for x in _attn_inputs(B, S, H, d, seed=i, Kv=Kv))

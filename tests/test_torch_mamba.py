@@ -129,6 +129,43 @@ def test_selective_scan_ragged_matches_jax_ref(needs_jax, B, S, Di, N):
     _close(h, hr, 1e-5, 0.05)
 
 
+LOG2E = np.float32(1.4426950408889634)
+
+
+def _scan_exp2(xc, dt, Bc, Cc, A):
+    """The CUDA kernel's numerics, emulated: dA = exp2(dt (A log2 e)) with
+    A log2 e rounded to f32, the update h = fma(dA, h, (dt x) B) rounded
+    once (taken in f64, rounded to f32), dt x in the input type, and
+    y = sum_n h C in f32."""
+    B, S, Di = xc.shape
+    a2 = A.float() * float(LOG2E)
+    h = torch.zeros((B, Di, A.shape[1]), dtype=torch.float32)
+    y = torch.empty_like(xc)
+    for t in range(S):
+        dA = torch.exp2(dt[:, t, :, None].float() * a2)
+        dbx = (dt[:, t] * xc[:, t]).float()[..., None] * \
+            Bc[:, t, None, :].float()
+        h = (dA.double() * h.double() + dbx.double()).float()
+        y[:, t] = torch.einsum("bdn,bn->bd", h,
+                               Cc[:, t].float()).to(xc.dtype)
+    return y, h
+
+
+@pytest.mark.parametrize(
+    "B,S,Di,N,dtype", [c[:4] + c[5:] for c in SCAN_CASES] +
+    [(3, 37, 100, 16, "float32"), (1, 5, 3, 5, "float32")])
+def test_exp2_scan_numerics_meet_the_tolerance(B, S, Di, N, dtype):
+    """exp2 on a pre-scaled A and the fused update stay within atol 1e-5
+    (5e-2 in bf16) and rtol 0.05 of the plain version: the JAX sweep's
+    shapes and ragged ones."""
+    args = _torch(scan_inputs(B, S, Di, N, seed=Di + N), dtype)
+    y, h = _scan_exp2(*args)
+    yr, hr = ref.selective_scan_ref(*args)
+    tol = 1e-5 if dtype == "float32" else 5e-2
+    _close(y, yr, tol, 0.05)
+    _close(h, hr, tol, 0.05)
+
+
 def test_cpu_tensors_take_the_plain_version_without_launching():
     xc, dt, Bc, Cc, A = _torch(scan_inputs(2, 9, 12, 16, seed=0), "float32")
     before = dict(launches)
@@ -316,16 +353,20 @@ def test_serve_cli_runs_on_the_cpu():
 @pytest.mark.cuda
 def test_cuda_selective_scan_matches_plain_version():
     """The CUDA kernel against its plain version on the card: the JAX
-    tests' parametrisations, ragged Di, S and N, bf16, and a wide channel
-    count at N = 16; each launch counted, and non-contiguous inputs
-    refused."""
+    tests' parametrisations, ragged Di (not a multiple of 64 or of 16
+    bytes), S (1, not a multiple of the 32-step chunk) and N (1, 5, 8,
+    16, 17, 64), bf16, and a wide channel count at N = 16; each launch
+    counted, and non-contiguous inputs refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (runs on the card, see README.md)")
     dev = torch.device("cuda")
     cases = [(B, S_, Di, N, dt) for B, S_, Di, N, _, dt in SCAN_CASES]
     cases += [(3, 37, 100, 16, "float32"), (1, 5, 3, 5, "float32"),
               (2, 70, 100, 16, "bfloat16"), (1, 300, 8192, 16, "float32"),
-              (2, 33, 130, 64, "float32")]
+              (2, 33, 130, 64, "float32"), (1, 1, 64, 16, "float32"),
+              (2, 45, 130, 1, "float32"), (1, 33, 96, 17, "float32"),
+              (1, 65, 64, 64, "bfloat16"), (1, 50, 128, 17, "bfloat16"),
+              (2, 31, 72, 8, "float32")]
     before = launches["selective_scan"]
     for i, (B, S_, Di, N, dtype) in enumerate(cases):
         xc, dt, Bc, Cc, A = (t.to(dev) for t in _torch(
