@@ -48,11 +48,16 @@ Needs one NVIDIA GPU and nvcc.  In order:
    version, and the 4096 + 1 consistency check;
 7. prints the serving line, the kernels line, then the result line.
 
-``--compare-with DIR ...`` also times the ``flash_attention.cu`` and
-``selective_scan.cu`` found in each DIR (other versions of the kernels,
-with the same C interface) against this checkout's, in turns (old, new,
-new, old) at the serving paths' shapes, and adds those times to the
-kernels line.
+The trust kernels are timed back to back through their wrappers (the
+kernels line's ``ms`` and ``library_ms``) and by device time, warm (ten
+calls from one CUDA graph) and cold (the L2 flushed before each call;
+``warm_ms`` and ``cold_ms``), each in turns with its library call, with
+every window's time and the SM clock printed.
+``--compare-with DIR ...`` also times the ``trust_aggregate.cu``,
+``flash_attention.cu``, ``rglru_scan.cu`` and ``selective_scan.cu`` found
+in each DIR (other versions of the kernels, with the same C interface)
+against this checkout's, in turns (old, new, new, old) at the main path's
+and the serving paths' shapes, and adds those times to the kernels line.
 
 Any failure exits non-zero before the result line.  Without a card, or
 without the repository's ``src/`` beside it, it exits non-zero at once.
@@ -61,6 +66,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import gc
 import importlib
 import json
 import math
@@ -84,7 +90,9 @@ PALLAS = "src/repro/kernels/trust_aggregate.py"
 FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 SCAN_SOURCE = "src/repro_torch/kernels/csrc/rglru_scan.cu"
 SSM_SOURCE = "src/repro_torch/kernels/csrc/selective_scan.cu"
+HERE_CSRC = os.path.join(HERE, os.path.dirname(SOURCE))
 SFU_EXP_PER_CLOCK_PER_SM = 16    # special-function units, compute cap. 9.0
+L2_FLUSH_BYTES = 256 * 2 ** 20   # > 5 x the H100's 50 MB L2
 
 # the serving paths: recurrentgemma-2b and falcon-mamba-7b at full width
 ARCH = "recurrentgemma-2b"
@@ -114,23 +122,135 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def time_ms(fn, reps: int = 20, windows: int = 7, warmup: int = 5) -> float:
-    """Milliseconds per call: the median over ``windows`` CUDA-event
-    windows of ``reps`` back-to-back calls, after ``warmup`` calls."""
-    for _ in range(warmup):
+_side_stream = None
+
+
+def graphed(fn, reps: int):
+    """One CUDA graph of ``reps`` calls of ``fn``, warmed up on a side
+    stream that every capture shares: cuBLAS keeps a 32 MiB workspace for
+    each stream a library call has run on until `free_library_memory`."""
+    global _side_stream
+    if _side_stream is None:
+        _side_stream = torch.cuda.Stream()
+    side = _side_stream
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
         fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    per_call = []
-    for _ in range(windows):
-        start.record()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
         for _ in range(reps):
             fn()
-        end.record()
+    return g
+
+
+def free_library_memory() -> None:
+    """Frees the cuBLAS workspaces that the timed library calls left (one
+    a stream) and the allocator's cache, so that the peak memory of the
+    path driven next counts only what that path holds."""
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+
+
+def window_times(fn, reps: int = 20, windows: int = 7, warmup: int = 5,
+                 flush=None, graph: bool = False) -> list:
+    """Milliseconds per call in each of ``windows`` CUDA-event windows of
+    ``reps`` calls, after ``warmup`` calls.  Without ``flush`` the calls of
+    a window run back to back (warm: a call may find its inputs in the L2
+    where the one before left them); with ``graph`` they are replayed from
+    one CUDA graph, so that the host's dispatch of a call (~10-20 us through
+    ctypes) cannot hold back a kernel that takes less.  With ``flush``,
+    ``flush()`` runs before every call outside the timed span (cold), and a
+    window is the mean of its calls, each between its own events."""
+    g = graphed(fn, reps) if graph and flush is None else None
+    for _ in range(warmup):
+        if flush is not None:
+            flush()
+        fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(windows):
+        evs = [(torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+               for _ in range(reps if flush is not None else 1)]
+        if flush is None:
+            evs[0][0].record()
+            if g is not None:
+                g.replay()
+            else:
+                for _ in range(reps):
+                    fn()
+            evs[0][1].record()
+        else:
+            for start, end in evs:
+                flush()
+                start.record()
+                fn()
+                end.record()
         torch.cuda.synchronize()
-        per_call.append(start.elapsed_time(end) / reps)
-    return statistics.median(per_call)
+        per_call.append(sum(s.elapsed_time(e) for s, e in evs) / reps)
+    if g is not None:
+        g.reset()                # frees the graph's private memory pool
+    return per_call
+
+
+def time_ms(fn, reps: int = 20, windows: int = 7, warmup: int = 5) -> float:
+    """Milliseconds per call: the median of `window_times`' warm windows."""
+    return statistics.median(window_times(fn, reps, windows, warmup))
+
+
+class L2Flush:
+    """Evicts the card's 50 MB L2 before a cold call: writes a 256 MB
+    buffer, then reads it, so the L2 is left holding clean lines of the
+    buffer (a write alone would leave dirty lines that the timed call then
+    writes back)."""
+
+    def __init__(self, dev):
+        self.buf = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                               device=dev)
+
+    def __call__(self):
+        self.buf.fill_(1.0)
+        self.buf.sum()
+
+
+class ClockSampler:
+    """The SM clock and power draw sampled by ``nvidia-smi`` every 50 ms
+    while the block runs; ``summary()`` gives min, median and max."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "50"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            out, _ = self.proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, _ = self.proc.communicate()
+        self.samples = []
+        for line in out.splitlines():
+            try:
+                mhz, watts = (float(v) for v in line.split(","))
+            except ValueError:
+                continue
+            self.samples.append((mhz, watts))
+
+    def summary(self) -> dict:
+        if not self.samples:
+            return {"sm_mhz": "not measured", "power_w": "not measured"}
+        out = {}
+        for i, key in enumerate(("sm_mhz", "power_w")):
+            v = sorted(s[i] for s in self.samples)
+            out[key] = {"min": v[0], "median": statistics.median(v),
+                        "max": v[-1], "samples": len(v)}
+        return out
 
 
 def bound_ms(n_bytes: float, n_flops: float,
@@ -140,13 +260,19 @@ def bound_ms(n_bytes: float, n_flops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def in_turns(old, new) -> dict:
-    """ms per call of two versions of one kernel, timed in turns: old,
-    new, new, old."""
-    t = {"old": [], "new": []}
-    for which in ("old", "new", "new", "old"):
-        t[which].append(time_ms(old if which == "old" else new, reps=5,
-                                windows=5, warmup=2))
+def in_turns(fns: dict, flush=None, label=None, reps: int = 5,
+             windows: int = 5, warmup: int = 2, graph: bool = False) -> dict:
+    """ms per call of versions of one function, timed in turns: each in
+    order, then each in reverse order (old, new, new, old for two).
+    {name: [the median window of each turn]}; with ``label`` every
+    window's time is printed.  ``flush``, ``graph``: see
+    `window_times`."""
+    t = {k: [] for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        w = window_times(fns[k], reps, windows, warmup, flush, graph)
+        t[k].append(statistics.median(w))
+        if label:
+            print(f"{label} {k}: windows {w} ms", flush=True)
     return t
 
 
@@ -221,10 +347,11 @@ def tolerance_used(got, want, atol, rtol) -> float:
     return ((got.float() - w).abs() / (atol + rtol * w.abs())).max().item()
 
 
-def kernel_phase(M: int, B: int, N: int, dev) -> dict:
+def kernel_phase(M: int, B: int, N: int, dev, compare_dirs=()) -> dict:
     """Every kernel against its plain version at the main path's shape
     (C = M members, the widest cluster, B clusters, N parameters) and at
-    ragged shapes; times at the main path's shape."""
+    ragged shapes; times at the main path's shape, warm and cold, in turns
+    with the library calls and the other sources' kernels."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.trust_aggregate import (trust_aggregate,
                                                      trust_aggregate_global)
@@ -293,16 +420,107 @@ def kernel_phase(M: int, B: int, N: int, dev) -> dict:
         "bf16_plain": time_ms(lambda: ref.trust_aggregate_ref(xb, w, mask)),
         "bf16_lib": time_ms(lambda: wmb @ xb),
     }
+    # yardsticks of the card's read rate on the same bytes (not the same
+    # function): PyTorch's sum of every element of x, cold
+    flush = L2Flush(dev)
+    t["read_f32"] = statistics.median(window_times(
+        lambda: x.sum(), 10, 7, 3, flush))
+    t["read_bf16"] = statistics.median(window_times(
+        lambda: xb.sum(), 10, 7, 3, flush))
+    print(f"yardstick: x.sum() over the same bytes, cold: f32 "
+          f"{t['read_f32']} ms, bf16 {t['read_bf16']} ms", flush=True)
+
+    # device times, warm (back to back from a CUDA graph) and cold (the L2
+    # flushed before each call), each kernel in turns with its library call
+    # and with the kernels built from the other sources, every window
+    # printed, the SM clock sampled throughout.  The times above, back to
+    # back through the wrapper, can be the host's: its checks and ctypes
+    # call take about as long as these kernels.
+    # Every timed call writes into these outputs (the kernels through their
+    # C functions, this checkout's like the others'), so that the CUDA
+    # graphs of the warm timing allocate nothing that outlives them.
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    out32 = torch.empty((N,), device=dev)
+    outb = torch.empty((N,), dtype=torch.bfloat16, device=dev)
+    tmp = torch.empty((N,), device=dev)
+
+    def c_call(where, fn, *ptrs):
+        def call():
+            status = fn(*(p if isinstance(p, int) or p is None
+                          else p.data_ptr() for p in ptrs), stream())
+            check(status == 0, f"trust kernel of {where} failed: {status}")
+        return call
+
+    def kernels_of(where, lib):
+        return {"f32": c_call(where, lib.ta_aggregate_f32, x, w, mask, out32,
+                              M, N),
+                "bf16": c_call(where, lib.ta_aggregate_bf16, xb, w, mask,
+                               outb, M, N),
+                "dense": c_call(where, lib.ta_aggregate_f32, x, w, None,
+                                out32, M, N),
+                "global": c_call(where, lib.ta_aggregate_global_f32, x, w,
+                                 mask, stack, gw, c, out32, M, B, N)}
+
+    src = os.path.basename(SOURCE)
+    mine = kernels_of("this checkout", other_libraries(
+        src, [HERE_CSRC], "trust_aggregate")[HERE_CSRC])
+    groups = {
+        "f32": {"kernel": mine["f32"],
+                "library": lambda: torch.matmul(wm, x, out=out32)},
+        "bf16": {"kernel": mine["bf16"],
+                 "library": lambda: torch.matmul(wmb, xb, out=outb)},
+        "dense": {"kernel": mine["dense"],
+                  "library": lambda: torch.matmul(w, x, out=out32)},
+        "global": {"kernel": mine["global"],
+                   "library_two_calls": lambda: torch.addmv(
+                       torch.mv(stack.T, gz, out=tmp), x.T, wmc,
+                       out=out32)}}
+    for where, old in other_libraries(src, compare_dirs,
+                                      "trust_aggregate").items():
+        for key, call in kernels_of(where, old).items():
+            groups[key][where] = call
+    turns = {}
+    with ClockSampler() as clock:
+        for key, fns in groups.items():
+            for mode, fl in (("warm", None), ("cold", flush)):
+                turns[f"{key}_{mode}"] = in_turns(
+                    fns, fl, label=f"trust {key} {mode}", reps=10,
+                    windows=7, warmup=3, graph=True)
+    del flush
+    # per kernel and mode: the median over its turns
+    dev_ms = {k: {name: statistics.median(v) for name, v in tt.items()}
+              for k, tt in turns.items()}
+    print(f"trust kernels in turns (medians of each turn's windows, ms): "
+          f"{json.dumps(turns)}", flush=True)
+    print(f"SM clock and power while they ran: "
+          f"{json.dumps(clock.summary())}", flush=True)
     # least time for this data: member rows with mask 1, the B - 1 stack
     # rows other than c, the small vectors, the output
     b_glob = (M * N + (B - 1) * N + N) * 4 + (2 * M + B + 1) * 4
     b_f32 = (M * N + N) * 4 + 2 * M * 4
     b_bf16 = (M * N + N) * 2 + 2 * M * 4
-    return {"err": err, "tol": tol, "t": t,
+    return {"err": err, "tol": tol, "t": t, "turns": turns, "dev": dev_ms,
+            "clock": clock.summary(),
             "bound": {"global": bound_ms(b_glob, 2 * (M + B - 1) * N),
                       "f32": bound_ms(b_f32, 2 * M * N),
                       "bf16": bound_ms(b_bf16, 2 * M * N)},
             "bytes": {"global": b_glob, "f32": b_f32, "bf16": b_bf16}}
+
+
+def trust_times(kp: dict, key: str, lib: str) -> dict:
+    """The kernels line's times of one trust kernel: ``ms`` and
+    ``library_ms`` (or ``library_two_calls_ms``) back to back through the
+    wrapper (host dispatch included); ``cold_ms``
+    and ``warm_ms`` and the library's, device times with the L2 flushed
+    before each call and from one CUDA graph; the turns against the other
+    sources."""
+    cold, warm, t = kp["dev"][f"{key}_cold"], kp["dev"][f"{key}_warm"], kp["t"]
+    lib_key = {"library": f"{key}_lib", "library_two_calls": "global_lib2"}
+    return {"ms": t[key], f"{lib}_ms": t[lib_key[lib]],
+            "cold_ms": cold["kernel"], "warm_ms": warm["kernel"],
+            f"{lib}_cold_ms": cold[lib], f"{lib}_warm_ms": warm[lib],
+            "in_turns_ms": {m: kp["turns"][f"{key}_{m}"]
+                            for m in ("warm", "cold")}}
 
 
 def live_check(fed, rounds: int):
@@ -341,9 +559,14 @@ def attn_inputs(B, S, H, Kv, d, dtype, dev, seed):
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
-def scan_inputs(B, S, W, dtype, dev, seed):
+def scan_inputs(B, S, W, dtype, dev, seed, a_range=None):
+    """a = sigmoid(normal), or uniform on ``a_range`` (recurrentgemma's
+    regime, a close to 1: long-range carries); bx normal at scale 0.3."""
     g = torch.Generator(device=dev).manual_seed(seed)
     a = torch.sigmoid(torch.randn((B, S, W), generator=g, device=dev))
+    if a_range is not None:
+        lo, hi = a_range
+        a = lo + (hi - lo) * torch.rand((B, S, W), generator=g, device=dev)
     bx = torch.randn((B, S, W), generator=g, device=dev) * 0.3
     return a.to(dtype), bx.to(dtype)
 
@@ -401,12 +624,16 @@ def lm_kernel_phase(cfg, dev, compare_dirs=()) -> dict:
         err["fa"][name] = max(err["fa"][name], e)
         used[name] = max(used[name], tolerance_used(got, want, FA_TOL[name],
                                                     FA_TOL[name]))
-    # (B, S, W, dtype): the serving path's layer, the JAX sweep, ragged
-    scan_cases = [(B, S, W, f32), (1, 32, 64, f32), (2, 64, 256, f32),
-                  (1, 64, 128, bf16), (3, 37, 100, f32),
-                  (2, S + 1, W + 1, f32), (1, 100, 2561, bf16)]
-    for i, (b, s, w, dt) in enumerate(scan_cases):
-        a, bx = scan_inputs(b, s, w, dt, dev, 200 + i)
+    # (B, S, W, dtype, range of a): the serving path's layer, the JAX
+    # sweep, ragged, and a in [0.9, 0.9999] over S = 4097 (recurrentgemma's
+    # regime: a sub-chunk's product of a stays near 1)
+    scan_cases = [(B, S, W, f32, None), (1, 32, 64, f32, None),
+                  (2, 64, 256, f32, None), (1, 64, 128, bf16, None),
+                  (3, 37, 100, f32, None), (2, S + 1, W + 1, f32, None),
+                  (1, 100, 2561, bf16, None),
+                  (2, S + 1, W, f32, (0.9, 0.9999))]
+    for i, (b, s, w, dt, a_range) in enumerate(scan_cases):
+        a, bx = scan_inputs(b, s, w, dt, dev, 200 + i, a_range)
         name = str(dt).split(".")[1]
         y, h = rglru_scan(a, bx)
         yr, hr = ref.rglru_scan_ref(a, bx)
@@ -434,6 +661,7 @@ def lm_kernel_phase(cfg, dev, compare_dirs=()) -> dict:
     lib_err = (lib().transpose(1, 2) - ref.flash_attention_ref(
         q, k, v, window=window)).abs().max().item()
     a, bx = scan_inputs(B, S, W, f32, dev, 98)
+    ab, bxb = a.to(bf16), bx.to(bf16)
     qb, kb, vb = (x.to(bf16) for x in (q, k, v))
     qhb, khb, vhb = (x.to(bf16) for x in (qh, kh, vh))
     t = {"fa": time_ms(lambda: flash_attention(q, k, v, window=window),
@@ -447,6 +675,11 @@ def lm_kernel_phase(cfg, dev, compare_dirs=()) -> dict:
          "fa_bf16_lib": time_ms(lambda: F.scaled_dot_product_attention(
              qhb, khb, vhb, attn_mask=mask), reps=3, windows=5, warmup=2),
          "scan": time_ms(lambda: rglru_scan(a, bx)),
+         "scan_bf16": time_ms(lambda: rglru_scan(ab, bxb)),
+         # yardstick of the card's rate on the scan's bytes (two read, one
+         # written; not the same function)
+         "scan_same_bytes": time_ms(lambda: torch.add(a, bx)),
+         "scan_same_bytes_bf16": time_ms(lambda: torch.add(ab, bxb)),
          "scan_plain": time_ms(lambda: ref.rglru_scan_ref(a, bx), reps=1,
                                windows=3, warmup=1)}
     out = torch.empty_like(q)
@@ -460,13 +693,43 @@ def lm_kernel_phase(cfg, dev, compare_dirs=()) -> dict:
                 torch.cuda.current_stream().cuda_stream)
             check(status == 0, f"flash_attention of {where} failed: {status}")
         t["fa_turns"][where] = in_turns(
-            old_fa, lambda: flash_attention(q, k, v, window=window))
+            {"old": old_fa,
+             "new": lambda: flash_attention(q, k, v, window=window)})
         print(f"flash_attention in turns against {where} (old, new, new, "
               f"old), ms: {t['fa_turns'][where]}", flush=True)
+    # both sides call their C function on preallocated outputs, so that the
+    # CUDA graphs of the warm timing allocate nothing
+    hs_f, hs_b = torch.empty_like(a), torch.empty_like(ab)
+    h_out = torch.empty((B, W), device=dev)
+
+    def scan_call(where, fn, a_, bx_, hs_):
+        def call():
+            status = fn(a_.data_ptr(), bx_.data_ptr(), hs_.data_ptr(),
+                        h_out.data_ptr(), B, S, W,
+                        torch.cuda.current_stream().cuda_stream)
+            check(status == 0, f"rglru_scan of {where} failed: {status}")
+        return call
+
+    scan_src = os.path.basename(SCAN_SOURCE)
+    t["scan_turns"] = {}
+    mine = other_libraries(scan_src, [HERE_CSRC], "rglru_scan")[HERE_CSRC]
+    for where, old in other_libraries(scan_src, compare_dirs,
+                                      "rglru_scan").items():
+        t["scan_turns"][where] = {
+            dt: in_turns(
+                {"old": scan_call(where, getattr(old, fn), a_, bx_, hs_),
+                 "new": scan_call("this checkout", getattr(mine, fn), a_,
+                                  bx_, hs_)}, reps=10, graph=True)
+            for dt, fn, a_, bx_, hs_ in (
+                ("float32", "rglru_scan_f32", a, bx, hs_f),
+                ("bfloat16", "rglru_scan_bf16", ab, bxb, hs_b))}
+        print(f"rglru_scan in turns against {where} (old, new, new, old), "
+              f"ms: {t['scan_turns'][where]}", flush=True)
     pairs = reachable_pairs(B, S, H, window)
     flops = pairs * (2 * d + 2 * d)
     b_fa = (B * S * H * d * 2 + B * S * Kv * d * 2) * 4
     b_scan = (3 * B * S * W + B * W) * 4
+    b_scan_bf16 = 3 * B * S * W * 2 + B * W * 4
     # f32 products run on the CUDA cores, or as three TF32 products on the
     # tensor cores (the kernel's route); the bound is the faster route's
     fa_routes = {"cuda cores": bound_ms(b_fa, flops),
@@ -483,9 +746,10 @@ def lm_kernel_phase(cfg, dev, compare_dirs=()) -> dict:
     return {"err": err, "t": t, "pairs": pairs, "lib_err": lib_err,
             "bound": {"fa": fa_routes[fa_route],
                       "fa_bf16": bound_ms(b_fa / 2, flops, BF16_FLOPS_PER_S),
-                      "scan": bound_ms(b_scan, 2 * B * S * W)},
+                      "scan": bound_ms(b_scan, 2 * B * S * W),
+                      "scan_bf16": bound_ms(b_scan_bf16, 2 * B * S * W)},
             "fa_routes": fa_routes, "fa_route": fa_route,
-            "bytes": {"fa": b_fa, "scan": b_scan}}
+            "bytes": {"fa": b_fa, "scan": b_scan, "scan_bf16": b_scan_bf16}}
 
 
 def serving_phase(cfg, dev, expect: dict, entries: dict) -> dict:
@@ -517,6 +781,10 @@ def serving_phase(cfg, dev, expect: dict, entries: dict) -> dict:
     originals = {k: getattr(ops, fn) for k, fn in entries.items()}
     for k, fn in entries.items():
         setattr(ops, fn, keep(k, originals[k]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"device memory allocated before {cfg.name} is built: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB", flush=True)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
@@ -661,8 +929,8 @@ def mamba_kernel_phase(cfg, dev, compare_dirs=()) -> dict:
                 *(x.data_ptr() for x in args), y.data_ptr(), h.data_ptr(),
                 B, S, Di, N, torch.cuda.current_stream().cuda_stream)
             check(status == 0, f"selective_scan of {where} failed: {status}")
-        t["ssm_turns"][where] = in_turns(old_ssm,
-                                         lambda: selective_scan(*args))
+        t["ssm_turns"][where] = in_turns(
+            {"old": old_ssm, "new": lambda: selective_scan(*args)})
         print(f"selective_scan in turns against {where} (old, new, new, "
               f"old), ms: {t['ssm_turns'][where]}", flush=True)
     # xc, dt read and y written; Bc, Cc and A read; h_last written
@@ -712,7 +980,8 @@ def serving_record(cfg, sv, cons) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare-with", metavar="DIR", nargs="+", default=[],
-                    help="time each DIR's flash_attention.cu and "
+                    help="time each DIR's trust_aggregate.cu, "
+                         "flash_attention.cu, rglru_scan.cu and "
                          "selective_scan.cu against this checkout's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -761,7 +1030,8 @@ def main() -> None:
     print(f"federation built in {time.perf_counter() - t0:.2f} s: "
           f"M={M} members (cluster sizes {min(sizes)}-{max(sizes)}), "
           f"B={B} clusters, N={N} parameters", flush=True)
-    kp = kernel_phase(M, B, N, dev)
+    kp = kernel_phase(M, B, N, dev, args.compare_with)
+    free_library_memory()
 
     # 4. the main path, each entry point with the counts reset before it
     counts = {}
@@ -837,7 +1107,7 @@ def main() -> None:
     # 5. serving: recurrentgemma-2b at full width
     cfg = get_config(ARCH)
     lk = lm_kernel_phase(cfg, dev, args.compare_with)
-    torch.cuda.empty_cache()
+    free_library_memory()
     sv = serving_phase(cfg, dev, {"flash_attention": 8, "rglru_scan": 18},
                        {"flash_attention": "attention",
                         "rglru_scan": "lru_scan"})
@@ -854,7 +1124,7 @@ def main() -> None:
     # 6. serving: falcon-mamba-7b at full width
     mcfg = get_config(MAMBA_ARCH)
     mk = mamba_kernel_phase(mcfg, dev, args.compare_with)
-    torch.cuda.empty_cache()
+    free_library_memory()
     msv = serving_phase(mcfg, dev, {"selective_scan": mcfg.num_layers},
                         {"selective_scan": "mamba_scan"})
     live_ssm = live_mamba_check(msv["seen"])
@@ -875,32 +1145,37 @@ def main() -> None:
          "launches": total["trust_aggregate_global"],
          "max_abs_err": err["global"], "tolerance": kp["tol"]["global"],
          "live_max_abs_err": live_err,
-         "ms": t["global"],
+         **trust_times(kp, "global", "library_two_calls"),
          "plain_ms": t["global_plain"], "bound_ms": bd["global"][0],
          "bound_by": bd["global"][1], "library_ms": None,
-         "library_two_calls_ms": t["global_lib2"],
          "shape": {"C": M, "B": B, "N": N, "dtype": "float32"},
          "bytes": kp["bytes"]["global"]},
         {"name": "trust_aggregate", "route": "cuda", "source": SOURCE,
          "replaces": f"{PALLAS}:44",
          "launches": total["trust_aggregate"],
          "max_abs_err": err["f32"], "tolerance": kp["tol"]["f32"],
-         "ms": t["f32"],
+         **trust_times(kp, "f32", "library"),
          "plain_ms": t["f32_plain"], "bound_ms": bd["f32"][0],
-         "bound_by": bd["f32"][1], "library_ms": t["f32_lib"],
+         "bound_by": bd["f32"][1],
          "shape": {"C": M, "N": N, "dtype": "float32", "mask": True},
          "bytes": kp["bytes"]["f32"],
+         # PyTorch's sum of all of x, cold: the same bytes read, not the
+         # same function
+         "same_bytes_sum_ms": t["read_f32"],
          "bf16": {"max_abs_err": err["bf16"],
-                  "tolerance": kp["tol"]["bf16"], "ms": t["bf16"],
+                  "same_bytes_sum_ms": t["read_bf16"],
+                  "tolerance": kp["tol"]["bf16"],
+                  **trust_times(kp, "bf16", "library"),
                   "plain_ms": t["bf16_plain"], "bound_ms": bd["bf16"][0],
-                  "library_ms": t["bf16_lib"]}},
+                  "bound_by": bd["bf16"][1], "bytes": kp["bytes"]["bf16"]},
+         "sm_clock_while_timed": kp["clock"]},
         {"name": "trust_aggregate_dense", "route": "cuda", "source": SOURCE,
          "replaces": f"{PALLAS}:37",
          "launches": total["trust_aggregate_dense"],
          "max_abs_err": err["f32"], "tolerance": kp["tol"]["f32"],
-         "ms": t["dense"], "plain_ms": t["dense_plain"],
+         **trust_times(kp, "dense", "library"),
+         "plain_ms": t["dense_plain"],
          "bound_ms": bd["f32"][0], "bound_by": bd["f32"][1],
-         "library_ms": t["dense_lib"],
          "shape": {"C": M, "N": N, "dtype": "float32", "mask": False},
          "bytes": kp["bytes"]["f32"]},
         {"name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
@@ -934,6 +1209,13 @@ def main() -> None:
          "ms": lt["scan"], "plain_ms": lt["scan_plain"],
          "bound_ms": lbd["scan"][0], "bound_by": lbd["scan"][1],
          "library_ms": None,
+         "bf16": {"ms": lt["scan_bf16"], "bound_ms": lbd["scan_bf16"][0],
+                  "bound_by": lbd["scan_bf16"][1],
+                  "bytes": lk["bytes"]["scan_bf16"],
+                  "same_bytes_add_ms": lt["scan_same_bytes_bf16"]},
+         # a + bx into a new tensor: the same bytes, not the same function
+         "same_bytes_add_ms": lt["scan_same_bytes"],
+         "in_turns_ms": lt["scan_turns"],
          "shape": {"B": SERVE_BATCH, "S": SERVE_PROMPT, "W": cfg.lru_width,
                    "dtype": "float32"},
          "bytes": lk["bytes"]["scan"]},

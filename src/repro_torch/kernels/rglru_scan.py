@@ -53,9 +53,9 @@ def rglru_scan(a: torch.Tensor, bx: torch.Tensor
     if B > 65535:
         raise ValueError(f"batch {B} exceeds the grid (65535)")
     hs = torch.empty_like(a)
-    h_last = torch.zeros((B, W), dtype=torch.float32, device=dev)
     if hs.numel() == 0:
-        return hs, h_last
+        return hs, torch.zeros((B, W), dtype=torch.float32, device=dev)
+    h_last = torch.empty((B, W), dtype=torch.float32, device=dev)
     lib = typed_library(SOURCE, _signatures)
     fn = (lib.rglru_scan_f32 if a.dtype == torch.float32
           else lib.rglru_scan_bf16)

@@ -218,3 +218,43 @@ def test_cuda_kernels_match_plain_versions():
                                    ref.trust_aggregate_ref(xs, w0[:valid]),
                                    atol=1e-6, rtol=1e-6)
     torch.cuda.synchronize()
+
+
+# (C, valid rows, N, storage offset in elements): rows at every alignment
+# (N = 0, 1, 2, 3 mod 8, and the main path's N), C = 1, C = 300 (the row
+# compaction in chunks), tiny N, inputs that do not start on a 16-byte
+# boundary
+ALIGN_CASES = [(6, 4, 1024, 0), (6, 4, 1025, 0), (6, 4, 1026, 0),
+               (6, 4, 1027, 0), (99, 60, 159010, 0), (1, 1, 1001, 0),
+               (300, 299, 257, 0), (300, 170, 4099, 0), (4, 2, 1, 0),
+               (4, 3, 3, 0), (7, 5, 130, 1), (7, 5, 131, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,valid,N,shift", ALIGN_CASES)
+def test_cuda_masked_kernel_at_every_row_alignment(C, valid, N, shift):
+    """The masked and dense CUDA kernel against its plain version in f32
+    and bf16, padded rows of 1e30 with zero and with non-zero weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (runs on the card, see README.md)")
+    ta = importlib.import_module("repro_torch.kernels.trust_aggregate")
+    dev = torch.device("cuda")
+    x, w0, mask = _inputs(C, N, valid, seed=C + N + shift)
+    mask_t = torch.from_numpy(mask).to(dev)
+    for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2e-2)):
+        flat = torch.empty(shift + C * N, dtype=dtype, device=dev)
+        flat[shift:] = torch.from_numpy(x).reshape(-1).to(dev, dtype)
+        xd = flat[shift:].view(C, N)
+        for w in (w0, w0 + 0.5 * (1 - mask)):
+            wt = torch.from_numpy(w.astype(np.float32)).to(dev)
+            got = ta.trust_aggregate(xd, wt, mask_t)
+            assert torch.isfinite(got.float()).all()
+            torch.testing.assert_close(
+                got.float(), ref.trust_aggregate_ref(xd, wt, mask_t).float(),
+                atol=tol, rtol=tol)
+        rows = xd[:valid]
+        wt = torch.from_numpy(w0[:valid]).to(dev)
+        torch.testing.assert_close(
+            ta.trust_aggregate(rows, wt).float(),
+            ref.trust_aggregate_ref(rows, wt).float(), atol=tol, rtol=tol)
+    torch.cuda.synchronize()

@@ -143,6 +143,93 @@ def test_rglru_scan_ragged_width_matches_jax_ref(needs_jax):
     np.testing.assert_allclose(_f32(h), _f32(hr), atol=1e-5, rtol=0.05)
 
 
+def _fma(x, y, z):
+    """x * y + z rounded once to f32, as the kernel's fmaf: the product
+    is exact in f64, the sum rounded to f64 then to f32."""
+    return (x.double() * y.double() + z.double()).float()
+
+
+def _chunked_rglru_scan(a, bx, steps=4, lanes=32):
+    """The RG-LRU scan in the CUDA kernel's order: tiles of lanes * steps
+    steps; each lane scans its sub-chunk of `steps` steps from zero into
+    (prod a, h), the lanes' pairs are combined by a Kogge-Stone scan over
+    the lanes, the exclusive prefix applied to the carry gives the state
+    entering each sub-chunk, and each lane runs its sub-chunk again from
+    it.  Steps past S scan as a = 1, bx = 0.  -> (hs in a's type, h_last
+    f32)."""
+    B, S, W = a.shape
+    tile = steps * lanes
+    pad = (-S) % tile
+    af = torch.cat([a.float(), torch.ones(B, pad, W)], 1)
+    bf = torch.cat([bx.float(), torch.zeros(B, pad, W)], 1)
+    hs = torch.empty_like(af)
+    carry = torch.zeros(B, W)
+    for t0 in range(0, S + pad, tile):
+        at = af[:, t0:t0 + tile].reshape(B, lanes, steps, W)
+        bt = bf[:, t0:t0 + tile].reshape(B, lanes, steps, W)
+        A, H = at[:, :, 0].clone(), bt[:, :, 0].clone()
+        for i in range(1, steps):
+            H = _fma(at[:, :, i], H, bt[:, :, i])
+            A = A * at[:, :, i]
+        d = 1
+        while d < lanes:                  # every lane reads before any writes
+            A_new, H_new = A.clone(), H.clone()
+            H_new[:, d:] = _fma(A[:, d:], H[:, :-d], H[:, d:])
+            A_new[:, d:] = A[:, d:] * A[:, :-d]
+            A, H = A_new, H_new
+            d *= 2
+        h = torch.cat([carry[:, None],
+                       _fma(A[:, :-1], carry[:, None], H[:, :-1])], 1)
+        out = torch.empty_like(at)
+        for i in range(steps):
+            h = _fma(at[:, :, i], h, bt[:, :, i])
+            out[:, :, i] = h
+        hs[:, t0:t0 + tile] = out.reshape(B, tile, W)
+        carry = h[:, -1]
+    return hs[:, :S].to(a.dtype), carry
+
+
+def _scan_inputs_near_one(B, S, W, seed):
+    """recurrentgemma's regime: a uniform in [0.9, 0.9999], so products of
+    a over a sub-chunk stay near 1 and carries reach far."""
+    g = np.random.default_rng(seed)
+    a = g.uniform(0.9, 0.9999, (B, S, W)).astype(np.float32)
+    bx = (g.standard_normal((B, S, W)) * 0.3).astype(np.float32)
+    return a, bx
+
+
+# (B, S, W, a close to 1, dtype): S = 4097 with a in [0.9, 0.9999], S not
+# a multiple of the 128-step tile, S below a sub-chunk, bf16
+CHUNKED_CASES = [(1, 4097, 64, True, "float32"),
+                 (2, 300, 96, False, "float32"),
+                 (3, 37, 32, True, "float32"),
+                 (1, 3, 64, False, "float32"),
+                 (2, 515, 64, True, "bfloat16")]
+
+
+@pytest.mark.parametrize("B,S,W,near_one,dtype", CHUNKED_CASES)
+def test_chunked_scan_order_meets_the_tolerance(needs_jax, B, S, W,
+                                                near_one, dtype):
+    """The CUDA kernel's combine order (tiles of 128 steps, 32 sub-chunks
+    of 4, a Kogge-Stone combine) emulated on the CPU: within the scan's
+    tolerance of the plain version and of the Pallas kernel (interpret
+    mode)."""
+    a, bx = (_scan_inputs_near_one if near_one else _scan_inputs)(
+        B, S, W, seed=S + W)
+    ta, tbx = _to_torch(a, dtype), _to_torch(bx, dtype)
+    got_y, got_h = _chunked_rglru_scan(ta, tbx)
+    assert got_y.dtype == ta.dtype and got_h.shape == (B, W)
+    ja, jbx = _to_jax(a, dtype), _to_jax(bx, dtype)
+    wants = [jax_rglru_scan(ja, jbx, bw=W, interpret=True),
+             ref.rglru_scan_ref(ta, tbx)]
+    tol = 1e-5 if dtype == "float32" else 5e-2
+    for wy, wh in wants:
+        np.testing.assert_allclose(_f32(got_y), _f32(wy), atol=tol,
+                                   rtol=0.05)
+        np.testing.assert_allclose(_f32(got_h), _f32(wh), atol=tol,
+                                   rtol=0.05)
+
+
 def _tf32(x):
     """x rounded to TF32 (10 mantissa bits) to nearest, ties away from
     zero, as ``cvt.rna.tf32.f32``: on the int32 view, add half of the 13
@@ -287,3 +374,52 @@ def test_cuda_kernels_match_plain_versions():
     torch.cuda.synchronize()
     assert launches["flash_attention"] == len(cases)
     assert launches["rglru_scan"] == len(scans)
+
+
+# (B, S, W, a close to 1, dtype, storage offset in elements): S = 1, S
+# below a sub-chunk (4 steps) and below a tile (128), ragged W (not a
+# multiple of 4 or 8, or of a block's 32 channels: the plain-load path), a
+# in [0.9, 0.9999] at S = 4097, bf16, few channels and the serving width,
+# and inputs that do not start on a 16-byte boundary (the plain-load path
+# at any W)
+CHUNKED_CUDA_CASES = [(1, 1, 64, False, "float32", 0),
+                      (2, 3, 64, False, "float32", 0),
+                      (2, 3, 40, False, "bfloat16", 0),
+                      (1, 77, 37, False, "float32", 0),
+                      (3, 130, 2561, False, "bfloat16", 0),
+                      (2, 4097, 256, True, "float32", 0),
+                      (1, 4097, 2560, True, "bfloat16", 0),
+                      (4, 300, 2560, True, "float32", 0),
+                      (2, 129, 2560, False, "bfloat16", 0),
+                      (2, 200, 96, False, "float32", 1),
+                      (1, 150, 64, True, "bfloat16", 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,W,near_one,dtype,shift", CHUNKED_CUDA_CASES)
+def test_cuda_chunked_rglru_scan_matches_plain_version(B, S, W, near_one,
+                                                       dtype, shift):
+    """The chunked CUDA scan against its plain version on the card, at the
+    scan's tolerance, each launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (runs on the card, see README.md)")
+    dev = torch.device("cuda")
+    a, bx = (_scan_inputs_near_one if near_one else _scan_inputs)(
+        B, S, W, seed=S * W + shift)
+
+    def on_card(x):
+        flat = torch.empty(shift + x.size, dtype=getattr(torch, dtype),
+                           device=dev)
+        flat[shift:] = _to_torch(x, dtype).reshape(-1).to(dev)
+        return flat[shift:].view(B, S, W)
+
+    ta, tbx = on_card(a), on_card(bx)
+    reset_launches()
+    y, h = rglru_scan(ta, tbx)
+    torch.cuda.synchronize()
+    assert launches["rglru_scan"] == 1
+    yr, hr = ref.rglru_scan_ref(ta, tbx)
+    tol = 1e-5 if dtype == "float32" else 5e-2
+    assert torch.isfinite(y.float()).all()
+    torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=0.05)
+    torch.testing.assert_close(h, hr, atol=tol, rtol=0.05)
