@@ -21,6 +21,21 @@ Needs one NVIDIA GPU and nvcc.  In order:
    losses and the final accuracy; between the last two, three more scanned
    rounds hold the fused kernel against its plain version on the round's
    own inputs;
+4b. the paper's full scheme (``paper-adaptive-fleet1k``: the same
+   federation under the DQN controller): pretrains the DQN on the card (3
+   episodes of 20 steps, timed), holds its Q-values against the same
+   parameters on the CPU (atol = rtol = 1e-5, greedy actions equal), then
+   ``run_scanned(30)`` (30 fused launches) and an event-heap
+   ``run(max_rounds=20)`` whose host ``select`` reads ``ctx.obs()`` (20
+   launches, 20 observations read); checks the state's device, finite
+   losses and the final accuracy against the JAX package's;
+4c. the autoencoder-anomaly task (``anomaly-fleet1k``: 1,024 devices in
+   16 clusters, the 32-64-8-64-32 autoencoder, N = 5,288, the same DQN
+   controller, pretrained on the card through the registry):
+   ``run_scanned(30)`` (30 launches), three more scanned rounds with the
+   fused kernel held against its plain version on each round's own
+   inputs (3 launches), the final AUC against the JAX package's, and the
+   fused kernel timed cold and warm at this shape beside its bound;
 5. serving: recurrentgemma-2b at full width (26 layers, d_model 2560,
    f32 weights from seed 0) through ``repro_torch.launch.serve.generate``:
    first each language-model kernel against its plain version at the
@@ -46,7 +61,8 @@ Needs one NVIDIA GPU and nvcc.  In order:
    read after the prefill (64 selective_scan) and the decode loop (none),
    the kernel on the first MAMBA layer's own inputs held against its plain
    version, and the 4096 + 1 consistency check;
-7. prints the serving line, the kernels line, then the result line.
+7. prints the federations line (4b and 4c), the serving line, the
+   kernels line, then the result line.
 
 The trust kernels are timed back to back through their wrappers (the
 kernels line's ``ms`` and ``library_ms``) and by device time, warm (ten
@@ -110,6 +126,14 @@ SCAN_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 # card (0.99988)
 JAX_ACC = 0.99997
 ACC_MARGIN = 0.002
+# the JAX package's final accuracy (paper-adaptive-fleet1k) and detection
+# AUC (anomaly-fleet1k) after run_scanned(30), the least over seeds 0-2 on
+# a CPU (scripts/jax_reference.py: 0.999969, 0.999985, 0.999969 and
+# 0.90184, 0.92831, 0.91717); the AUC's margin is about twice the spread
+# of the JAX package's own seeds (0.026)
+JAX_ADAPTIVE_ACC = 0.999969
+JAX_ANOMALY_AUC = 0.90184
+AUC_MARGIN = 0.05
 
 
 def fail(msg: str) -> None:
@@ -546,6 +570,237 @@ def live_check(fed, rounds: int):
     finally:
         components.trust_aggregate_global = kernel
     return seen
+
+
+# --------------------------------------------------------------------- #
+# the paper's full scheme and the anomaly task: a DQN picks a_i
+# --------------------------------------------------------------------- #
+def timed(fn):
+    """(fn(), seconds) on the host clock, the card synchronised after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def fed_checks(fed, records, what: str) -> None:
+    bad = [k for k, v in fed.engine.state.tensors().items()
+           if v.device.type != "cuda"]
+    check(not bad, f"{what}: state tensors off the card: {bad}")
+    check(all(math.isfinite(r.loss) for r in records),
+          f"{what}: non-finite loss")
+
+
+def adaptive_phase(dev) -> dict:
+    """4b. ``paper-adaptive-fleet1k``: the DQN pretrained on the card,
+    its Q-values held against the same parameters on the CPU, then
+    ``run_scanned(30)`` (30 fused launches) and an event-heap
+    ``run(max_rounds=20)`` whose host ``select`` reads ``ctx.obs()`` (20
+    launches, 20 observations)."""
+    from repro_torch.api import DQNController, Federation, FederationSpec
+    from repro_torch.api.scenarios import PAPER_ADAPTIVE_FLEET1K
+    from repro_torch.core.dqn import q_values
+    from repro_torch.kernels import launches, reset_launches
+    spec = FederationSpec.from_dict(PAPER_ADAPTIVE_FLEET1K)
+    torch.cuda.reset_peak_memory_stats()
+    ctl, t_pre = timed(lambda: DQNController.pretrain(
+        seed=spec.seed, device=dev, **spec.controller.params))
+    aux = {k: v.tolist() for k, v in ctl.pretrain_aux.items()}
+    print(f"adaptive: DQN pretrain on the card, "
+          f"{spec.controller.params['episodes']} episodes x "
+          f"{spec.controller.params['horizon']} steps: {t_pre:.3f} s, "
+          f"{json.dumps(aux)}", flush=True)
+    fed, t_build = timed(lambda: Federation.from_spec(spec, controller=ctl))
+    eng = fed.engine
+    # the agent on the card against the same parameters on the CPU, over
+    # random observations and every cluster's live one
+    g = torch.Generator().manual_seed(7)
+    live_obs = [eng._ctx(c).obs().cpu()
+                for c in range(spec.clustering.n_clusters)]
+    obs = torch.cat([torch.randn((256, 48), generator=g),
+                     torch.stack(live_obs)])
+    q_dev = q_values(ctl.agent.eval_params, obs.to(dev)).cpu()
+    q_cpu = q_values({k: v.cpu() for k, v in ctl.agent.eval_params.items()},
+                     obs)
+    q_err = (q_dev - q_cpu).abs().max().item()
+    check(torch.allclose(q_dev, q_cpu, atol=1e-5, rtol=1e-5),
+          f"q_values on the card differ from the CPU's by {q_err}")
+    check(torch.equal(q_dev.argmax(-1), q_cpu.argmax(-1)),
+          "the greedy actions on the card differ from the CPU's")
+    print(f"adaptive: q_values on the card against the CPU over "
+          f"{obs.shape[0]} observations: max abs error {q_err} (tolerance "
+          f"atol = rtol = 1e-5), greedy actions equal", flush=True)
+
+    counts = {}
+    reset_launches()
+    scanned, t_scan = timed(lambda: fed.run_scanned(30))
+    counts["adaptive_run_scanned"] = dict(launches)
+    check(launches["trust_aggregate_global"] == 30,
+          f"adaptive run_scanned(30) launched the fused kernel "
+          f"{launches['trust_aggregate_global']} times")
+    acc = scanned.records[-1].acc
+    actions = sorted({r.a for r in scanned.records[:-1]})
+    print(f"adaptive run_scanned(30): {30 / t_scan:.3f} rounds/s "
+          f"({t_scan:.2f} s incl. final eval), actions {actions}, final acc "
+          f"{acc}", flush=True)
+
+    seen = []
+    scan_obs = eng._scan_obs
+
+    def counted(*a):
+        seen.append(1)
+        return scan_obs(*a)
+
+    eng._scan_obs = counted
+    reset_launches()
+    try:
+        event, t_event = timed(lambda: fed.run(max_rounds=20))
+    finally:
+        del eng._scan_obs
+    counts["adaptive_run"] = dict(launches)
+    check(launches["trust_aggregate_global"] == 20,
+          f"adaptive run(max_rounds=20) launched the fused kernel "
+          f"{launches['trust_aggregate_global']} times")
+    check(len(seen) == 20, f"the host select read {len(seen)} observations "
+                           f"in 20 rounds")
+    ev_actions = sorted({r.a for r in event.records})
+    print(f"adaptive run(max_rounds=20), host select on ctx.obs(): "
+          f"{20 / t_event:.3f} rounds/s ({t_event:.2f} s incl. "
+          f"{len(event.records)} evals), actions {ev_actions}, final acc "
+          f"{event.records[-1].acc}", flush=True)
+    fed_checks(fed, scanned.records + event.records, "adaptive")
+    check(acc is not None and acc >= JAX_ADAPTIVE_ACC - ACC_MARGIN,
+          f"adaptive final accuracy {acc} < {JAX_ADAPTIVE_ACC} - "
+          f"{ACC_MARGIN}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"adaptive: peak device memory {peak:.3f} GiB", flush=True)
+    return {"spec": "paper-adaptive-fleet1k", "pretrain_s": t_pre,
+            "pretrain": aux, "build_s": t_build,
+            "q_values_max_abs_err": q_err,
+            "run_scanned_rounds_per_s": 30 / t_scan,
+            "run_rounds_per_s": 20 / t_event, "actions": actions,
+            "event_actions": ev_actions, "final_acc": acc,
+            "reference_acc": JAX_ADAPTIVE_ACC, "margin": ACC_MARGIN,
+            "peak_gib": peak, "counts": counts}
+
+
+def fused_times(M: int, B: int, N: int, dev) -> dict:
+    """The fused kernel at (C = M, B, N) on random inputs: its error
+    against the plain version, its time back to back through the wrapper,
+    warm (from a CUDA graph) and cold (L2 flushed) beside the two library
+    calls in turns, the plain version's, and its bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.trust_aggregate import trust_aggregate_global
+    x, w, mask, stack, gw = kernel_inputs(M, M, B, N, dev, 123)
+    c = torch.tensor(B // 3, dtype=torch.int32, device=dev)
+    e, r, ok = close_enough(trust_aggregate_global(x, w, mask, stack, gw, c),
+                            ref.trust_aggregate_global_ref(
+                                x, w, mask, stack, gw, c), 1e-5)
+    check(ok, f"fused kernel at N = {N}: error {r} > 1e-5")
+    gz = gw.clone()
+    gz[B // 3] = 0.0
+    wmc = w * mask * gw[B // 3]
+    out32, tmp = torch.empty((N,), device=dev), torch.empty((N,), device=dev)
+    lib = other_libraries(os.path.basename(SOURCE), [HERE_CSRC],
+                          "trust_aggregate")[HERE_CSRC]
+
+    def kernel():
+        status = lib.ta_aggregate_global_f32(
+            x.data_ptr(), w.data_ptr(), mask.data_ptr(), stack.data_ptr(),
+            gw.data_ptr(), c.data_ptr(), out32.data_ptr(), M, B, N,
+            torch.cuda.current_stream().cuda_stream)
+        check(status == 0, f"fused kernel failed: {status}")
+
+    fns = {"kernel": kernel, "library_two_calls": lambda: torch.addmv(
+        torch.mv(stack.T, gz, out=tmp), x.T, wmc, out=out32)}
+    flush = L2Flush(dev)
+    turns = {m: in_turns(fns, fl, label=f"fused N={N} {m}", reps=10,
+                         windows=7, warmup=3, graph=True)
+             for m, fl in (("warm", None), ("cold", flush))}
+    del flush
+    med = {m: {k: statistics.median(v) for k, v in tt.items()}
+           for m, tt in turns.items()}
+    n_bytes = (M * N + (B - 1) * N + N) * 4 + (2 * M + B + 1) * 4
+    bound = bound_ms(n_bytes, 2 * (M + B - 1) * N)
+    out = {"shape": {"C": M, "B": B, "N": N, "dtype": "float32"},
+           "max_abs_err": e,
+           "ms": time_ms(lambda: trust_aggregate_global(x, w, mask, stack,
+                                                        gw, c)),
+           "plain_ms": time_ms(lambda: ref.trust_aggregate_global_ref(
+               x, w, mask, stack, gw, c)),
+           "cold_ms": med["cold"]["kernel"], "warm_ms": med["warm"]["kernel"],
+           "library_two_calls_cold_ms": med["cold"]["library_two_calls"],
+           "library_two_calls_warm_ms": med["warm"]["library_two_calls"],
+           "in_turns_ms": turns, "bound_ms": bound[0], "bound_by": bound[1],
+           "bytes": n_bytes}
+    print(f"fused kernel at (C {M}, B {B}, N {N}): cold {out['cold_ms']} ms, "
+          f"warm {out['warm_ms']} ms, back to back {out['ms']} ms, plain "
+          f"{out['plain_ms']} ms, bound {bound[0]} ms ({bound[1]}, "
+          f"{n_bytes} bytes)", flush=True)
+    return out
+
+
+def anomaly_phase(dev) -> dict:
+    """4c. ``anomaly-fleet1k``: built through the registry (the DQN
+    pretrains on the card), ``run_scanned(30)`` (30 fused launches), three
+    more scanned rounds with the fused kernel held against its plain
+    version on each round's own inputs at N = 5,288, the final AUC against
+    the JAX package's, and the fused kernel timed at this shape."""
+    from repro_torch.api import Federation, FederationSpec
+    from repro_torch.api.scenarios import ANOMALY_FLEET1K
+    from repro_torch.kernels import launches, reset_launches
+    spec = FederationSpec.from_dict(ANOMALY_FLEET1K)
+    torch.cuda.reset_peak_memory_stats()
+    fed, t_build = timed(lambda: Federation.from_spec(spec))
+    eng = fed.engine
+    M = eng._member_table.shape[1]
+    B, N = eng.state.cluster_flat.shape
+    check(N == 5288, f"anomaly model has N = {N}, not 5,288")
+    aux = {k: v.tolist() for k, v in fed.controller.pretrain_aux.items()}
+    print(f"anomaly federation built in {t_build:.2f} s (DQN pretrained on "
+          f"the card: {json.dumps(aux)}): M={M}, B={B}, N={N}", flush=True)
+    counts = {}
+    reset_launches()
+    scanned, t_scan = timed(lambda: fed.run_scanned(30))
+    counts["anomaly_run_scanned"] = dict(launches)
+    check(launches["trust_aggregate_global"] == 30,
+          f"anomaly run_scanned(30) launched the fused kernel "
+          f"{launches['trust_aggregate_global']} times")
+    auc = scanned.records[-1].acc
+    actions = sorted({r.a for r in scanned.records[:-1]})
+    print(f"anomaly run_scanned(30): {30 / t_scan:.3f} rounds/s "
+          f"({t_scan:.2f} s incl. final eval), actions {actions}, final AUC "
+          f"{auc}, loss {scanned.records[-1].loss}", flush=True)
+    reset_launches()
+    live = live_check(fed, 3)
+    counts["anomaly_live_check"] = dict(launches)
+    check(launches["trust_aggregate_global"] == 3,
+          f"live check launched the fused kernel "
+          f"{launches['trust_aggregate_global']} times")
+    check(len(live) == 3 and all(ok for _, _, ok in live),
+          f"fused kernel on the anomaly path's live inputs: {live} "
+          f"(tolerance 1e-5)")
+    live_err = max(e for e, _, _ in live)
+    print(f"fused kernel on the anomaly path's live inputs (N = {N}), 3 "
+          f"rounds: max abs error {live_err:.3g}, max error relative to 1 + "
+          f"|plain| {max(r for _, r, _ in live):.3g} (tolerance 1e-5)",
+          flush=True)
+    fed_checks(fed, scanned.records, "anomaly")
+    check(auc is not None and auc >= JAX_ANOMALY_AUC - AUC_MARGIN,
+          f"anomaly final AUC {auc} < {JAX_ANOMALY_AUC} - {AUC_MARGIN}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"anomaly: peak device memory {peak:.3f} GiB", flush=True)
+    record = {"spec": "anomaly-fleet1k", "build_s": t_build, "pretrain": aux,
+              "run_scanned_rounds_per_s": 30 / t_scan, "actions": actions,
+              "final_auc": auc, "reference_auc": JAX_ANOMALY_AUC,
+              "margin": AUC_MARGIN, "live_max_abs_err": live_err,
+              "peak_gib": peak, "counts": counts}
+    del fed, eng, scanned
+    torch.cuda.empty_cache()
+    record["fused"] = fused_times(M, B, N, dev)
+    free_library_memory()
+    return record
 
 
 # --------------------------------------------------------------------- #
@@ -1099,10 +1354,19 @@ def main() -> None:
     check(acc is not None and acc >= JAX_ACC - ACC_MARGIN,
           f"final accuracy {acc} < {JAX_ACC} - {ACC_MARGIN}")
     check(len(actions) > 1, f"the controller never varied a: {actions}")
-    print(f"launch counts by path: {json.dumps(counts)}", flush=True)
-    total = {k: sum(c[k] for c in counts.values()) for k in launches}
     del fed, fixed, eng, scanned, event, mean_model
     torch.cuda.empty_cache()
+
+    # 4b. the paper's full scheme: a DQN pretrained on the card picks a_i
+    adaptive = adaptive_phase(dev)
+    counts.update(adaptive.pop("counts"))
+    torch.cuda.empty_cache()
+    # 4c. the autoencoder-anomaly task under the same controller
+    anomaly = anomaly_phase(dev)
+    counts.update(anomaly.pop("counts"))
+    feds = [adaptive, {k: v for k, v in anomaly.items() if k != "fused"}]
+    print(f"launch counts by path: {json.dumps(counts)}", flush=True)
+    total = {k: sum(c[k] for c in counts.values()) for k in launches}
 
     # 5. serving: recurrentgemma-2b at full width
     cfg = get_config(ARCH)
@@ -1143,6 +1407,11 @@ def main() -> None:
         {"name": "trust_aggregate_global", "route": "cuda",
          "source": SOURCE, "replaces": f"{PALLAS}:51",
          "launches": total["trust_aggregate_global"],
+         "launches_by_path": {p: c["trust_aggregate_global"]
+                              for p, c in counts.items()},
+         "at_anomaly_shape": {**anomaly["fused"],
+                              "live_max_abs_err": anomaly[
+                                  "live_max_abs_err"]},
          "max_abs_err": err["global"], "tolerance": kp["tol"]["global"],
          "live_max_abs_err": live_err,
          **trust_times(kp, "global", "library_two_calls"),
@@ -1235,6 +1504,7 @@ def main() -> None:
          "bytes": mk["bytes"], "flops": mk["flops"],
          "exponentials": mk["exponentials"]},
     ]
+    print(json.dumps({"federations": feds}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

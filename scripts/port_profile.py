@@ -1,10 +1,11 @@
 """Where a round of the port's main path spends its time, on the card.
 
-    python3 scripts/port_profile.py [--rounds 20]
+    python3 scripts/port_profile.py [--rounds 20] [--spec NAME]
 
-Builds the federation `chip_smoke.py` drives (``paper-mlp-fleet1k``,
-`repro_torch.api.scenarios.PAPER_MLP_FLEET1K`),
-warms it up with 5 scanned rounds, then:
+Builds one of the federations `chip_smoke.py` drives (``--spec``:
+``paper-mlp-fleet1k``, the default, ``paper-adaptive-fleet1k`` or
+``anomaly-fleet1k``, from `repro_torch.api.scenarios`), warms it up with
+5 scanned rounds, then:
 
 * times ``run_scanned(rounds)`` (no final evaluation) and an event-heap
   ``run(max_rounds=rounds)`` with a fixed a=5, host clock around work that
@@ -28,15 +29,20 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+SPECS = {"paper-mlp-fleet1k": "PAPER_MLP_FLEET1K",
+         "paper-adaptive-fleet1k": "PAPER_ADAPTIVE_FLEET1K",
+         "anomaly-fleet1k": "ANOMALY_FLEET1K"}
+
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=20)
+    ap.add_argument("--spec", default="paper-mlp-fleet1k", choices=SPECS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("port_profile: needs an NVIDIA GPU")
     from repro_torch.api import ControllerSpec, Federation, FederationSpec
-    from repro_torch.api.scenarios import PAPER_MLP_FLEET1K
+    from repro_torch.api import scenarios
     from torch.profiler import ProfilerActivity, profile
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -44,7 +50,8 @@ def main() -> None:
                          text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
     K = args.rounds
-    spec = FederationSpec.from_dict(PAPER_MLP_FLEET1K)
+    spec = FederationSpec.from_dict(getattr(scenarios, SPECS[args.spec]))
+    print(f"spec {args.spec}", flush=True)
     fed = Federation.from_spec(spec)
     fed.run_scanned(5, eval_final=False)            # warm-up
     torch.cuda.synchronize()
@@ -62,7 +69,8 @@ def main() -> None:
     fixed.run(max_rounds=K, eval_every=1e9)
     torch.cuda.synchronize()
     t_event = time.perf_counter() - t0
-    print(f"steady run_scanned({K}), lyapunov: {K / t_scan:.3f} rounds/s "
+    print(f"steady run_scanned({K}), {spec.controller.kind}: "
+          f"{K / t_scan:.3f} rounds/s "
           f"({1e3 * t_scan / K:.3f} ms/round)", flush=True)
     print(f"steady run(max_rounds={K}), fixed a=5, no evals: "
           f"{K / t_event:.3f} rounds/s ({1e3 * t_event / K:.3f} ms/round)",

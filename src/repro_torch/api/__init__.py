@@ -3,11 +3,13 @@ is ported.
 
   spec        `FederationSpec` tree (+ dict round-trip, same dicts)
   registry    named component registries
-  components  trust / fedavg aggregator, fixed / Lyapunov controllers, MLP
+  components  trust / fedavg aggregator, fixed / Lyapunov / DQN
+              controllers, MLP and autoencoder-anomaly tasks
   engine      `DeviceScaleEngine`, `FleetState`
   records     `RoundRecord` / `FLTrace` (same JSONL format)
 """
-from .components import (ControllerCtx, FixedController,
+from .components import (AutoencoderAnomalyTask, ControllerCtx,
+                         DQNController, FixedController,
                          LyapunovGreedyController, MLPTask,
                          WeightedAggregator)
 from .engine import (DeviceScaleEngine, FleetState, RoundDraws,
@@ -33,5 +35,5 @@ __all__ = [
     "AGGREGATORS", "CONTROLLERS", "ENGINES", "TASKS", "register_aggregator",
     "register_controller", "register_engine", "register_task",
     "WeightedAggregator", "FixedController", "LyapunovGreedyController",
-    "MLPTask", "ControllerCtx",
+    "MLPTask", "ControllerCtx", "DQNController", "AutoencoderAnomalyTask",
 ]

@@ -13,24 +13,36 @@ FrequencyController
                   ``n_actions`` caps a_i; ``needs_ctx`` False lets the
                   engine skip reading the context back from the card;
                   ``scan_policy()`` the device-side twin for `run_scanned`.
+                  The registered factories take ``(params, device)``: the
+                  DQN pretrains on the federation's device.
 TaskAdapter       model plug over flat parameter vectors: init, batched
-                  local training, per-member losses, evaluation.
+                  local training, per-member losses, evaluation, the
+                  hidden-activation mean tau of the DQN observation.
 
-Ported: the trust / fedavg aggregator, the fixed and Lyapunov controllers
-and the MLP task.  The DQN controller, the robust rules and the
-autoencoder task are queued in ROADMAP.md; `FederationSpec.validate`
-raises on them.
+Ported: the trust / fedavg aggregator, the fixed, Lyapunov and DQN
+controllers, and the MLP and autoencoder-anomaly tasks.  The robust rules
+are queued in ROADMAP.md; `FederationSpec.validate` raises on them.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+import math
+from typing import Any, Callable, Dict, NamedTuple
 
 import torch
 
+from repro_torch import rng
 from repro_torch.control import policy as ctl_policy
+from repro_torch.control.scanned_dqn import train_on_env
+from repro_torch.core import dqn as dqn_lib
+from repro_torch.core import envs
+from repro_torch.core.autoencoder import (anomaly_auc, code_mean,
+                                          init_mlp_autoencoder,
+                                          reconstruction_errors,
+                                          reconstruction_loss)
 from repro_torch.core.lyapunov import init_queue, step_queue
 from repro_torch.core.mlp import (accuracy, classifier_losses,
-                                  init_mlp_classifier)
+                                  init_mlp_classifier, mlp_hidden_mean)
+from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import flatten_rows, layout_of, leaf_views
 from repro_torch.kernels.trust_aggregate import (trust_aggregate,
                                                  trust_aggregate_global)
@@ -43,6 +55,7 @@ class ControllerCtx(NamedTuple):
     """What a host-side frequency controller may look at when choosing a_i."""
     round: int                       # global round counter
     cluster: int                     # cluster index being scheduled
+    obs: Callable[[], torch.Tensor]  # lazy DQN observation (OBS_DIM,)
     cluster_loss: float              # mean twin loss over the cluster
     cluster_freq: float              # straggler (min) calibrated frequency
     mean_freq: float                 # mean calibrated frequency in cluster
@@ -125,6 +138,64 @@ class FixedController:
         return ctl_policy.fixed_policy(self.a)
 
 
+class DQNController:
+    """Greedy policy of a trained Alg.-1 DQN agent.
+
+    Build from a live agent (``DQNController(agent, cfg)``) or let the
+    registry factory pretrain one on the DT-simulated environment, on the
+    federation's device: the paper's headline mechanism, an agent that
+    interacts with the twins, not the devices.
+    """
+
+    needs_ctx = True                    # select() reads the DQN observation
+
+    def __init__(self, agent: dqn_lib.DQNState, cfg: dqn_lib.DQNConfig):
+        self.agent = agent
+        self.cfg = cfg
+        self.n_actions = cfg.n_actions
+
+    def select(self, ctx: ControllerCtx) -> int:
+        q = dqn_lib.q_values(self.agent.eval_params, ctx.obs())
+        return int(torch.argmax(q)) + 1     # the one host read of a select
+
+    def observe(self, ctx, consumed, loss):
+        pass
+
+    def scan_policy(self) -> ctl_policy.ScanPolicy:
+        return ctl_policy.dqn_policy(self.agent.eval_params)
+
+    def distill(self, **kw) -> ctl_policy.PolicyTable:
+        """Freeze the greedy head into a lookup table
+        (`repro_torch.control.distill_table`)."""
+        return ctl_policy.distill_table(self.agent.eval_params, **kw)
+
+    def restore_policy_state(self, eval_params) -> None:
+        """Adopt a checkpointed scan-policy carry (the deployed net)."""
+        self.agent = self.agent._replace(eval_params=eval_params)
+
+    @classmethod
+    def pretrain(cls, seed: int = 0, episodes: int = 4, horizon: int = 25,
+                 p_good: float = 0.5, calibrate_dt: bool = True,
+                 buffer_size: int = 512, batch_size: int = 32,
+                 lr: float = 2e-3, device=None) -> "DQNController":
+        """Train a fresh agent on the DT environment (§IV-C, Alg. 1) on
+        ``device`` (the card unless the caller asks for another), with the
+        whole run on the device (`repro_torch.control.train_on_env`).
+        ``pretrain_aux`` keeps the episodes' returns and lengths."""
+        dev = resolve_device(device)
+        p = envs.EnvParams(horizon=horizon, p_good=p_good,
+                           calibrate_dt=calibrate_dt)
+        cfg = dqn_lib.DQNConfig(buffer_size=buffer_size,
+                                batch_size=batch_size, lr=lr)
+        agent = dqn_lib.init_dqn(rng.generator(seed, rng.DQN_INIT), cfg,
+                                 dev)
+        agent, aux = train_on_env(agent, cfg, p, episodes=episodes,
+                                  seed=seed)
+        ctl = cls(agent, cfg)
+        ctl.pretrain_aux = aux
+        return ctl
+
+
 class LyapunovGreedyController:
     """One-step drift-plus-penalty greedy controller (Eqns 12-15).
 
@@ -171,43 +242,49 @@ class LyapunovGreedyController:
 
 
 @register_controller("fixed")
-def _fixed(params: Dict[str, Any]):
+def _fixed(params: Dict[str, Any], device=None):
     return FixedController(a=params.get("a", 5),
                            n_actions=params.get("n_actions", 10))
 
 
+@register_controller("dqn")
+def _dqn(params: Dict[str, Any], device=None):
+    agent = params.get("agent")
+    if agent is not None:
+        return DQNController(agent, params.get("dqn_cfg",
+                                               dqn_lib.DQNConfig()))
+    kw = {k: v for k, v in params.items() if k not in ("agent", "dqn_cfg")}
+    return DQNController.pretrain(device=device, **kw)
+
+
 @register_controller("lyapunov")
-def _lyapunov(params: Dict[str, Any]):
+def _lyapunov(params: Dict[str, Any], device=None):
     return LyapunovGreedyController(**params)
 
 
 # --------------------------------------------------------------------- #
 # task adapters
 # --------------------------------------------------------------------- #
-class MLPTask:
-    """The paper's device-scale MNIST-shaped classifier on flat parameters.
+class _FlatTask:
+    """A task over flat parameter vectors: `init` fixes the sorted-key
+    flat layout, every other method takes (N,) or (M, N) flat tensors and
+    reads the leaves through views.  `local_train` runs ``steps`` SGD steps
+    of all M members at once: one batched forward, and one autograd
+    gradient of the *sum* of the per-member mean losses, whose (M, N) rows
+    are each member's own gradient because the members share no
+    parameters."""
 
-    `init` fixes the flat layout (sorted keys: b1, b2, w1, w2); every other
-    method takes (N,) or (M, N) flat tensors and reads the leaves through
-    views.  `local_train` runs ``steps`` SGD steps of all M members at once:
-    one batched forward, and one autograd gradient of the *sum* of the
-    per-member mean losses, whose (M, N) rows are each member's own
-    gradient because the members share no parameters.
-    """
+    layout = None
 
-    def __init__(self, hidden: int = 200, n_classes: int = 10):
-        self.hidden = hidden
-        self.n_classes = n_classes
-        self.layout = None
-
-    def init(self, generator: torch.Generator, dim: int) -> torch.Tensor:
-        params = init_mlp_classifier(generator, dim=dim, hidden=self.hidden,
-                                     n_classes=self.n_classes)
+    def _flat(self, params: Dict[str, torch.Tensor]) -> torch.Tensor:
         self.layout = layout_of(params)
         return flatten_rows({k: v[None] for k, v in params.items()})[0]
 
     def params(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
         return leaf_views(flat, self.layout)
+
+    def _losses(self, params, x, y):
+        raise NotImplementedError
 
     def local_train(self, flat, x, y, lr: float, steps: int):
         """(M, N) member parameters, (M, B, dim) / (M, B) batches -> the
@@ -215,14 +292,31 @@ class MLPTask:
         p = flat.contiguous()
         for _ in range(steps):
             p = p.detach().requires_grad_(True)
-            loss = classifier_losses(self.params(p), x, y).sum()
+            loss = self._losses(self.params(p), x, y).sum()
             (g,) = torch.autograd.grad(loss, p)
             p = p - lr * g
         return p.detach()
 
     @torch.no_grad()
     def losses(self, flat, x, y):
-        return classifier_losses(self.params(flat), x, y)
+        return self._losses(self.params(flat), x, y)
+
+
+class MLPTask(_FlatTask):
+    """The paper's device-scale MNIST-shaped classifier (flat layout b1,
+    b2, w1, w2)."""
+
+    def __init__(self, hidden: int = 200, n_classes: int = 10):
+        self.hidden = hidden
+        self.n_classes = n_classes
+
+    def init(self, generator: torch.Generator, dim: int) -> torch.Tensor:
+        return self._flat(init_mlp_classifier(
+            generator, dim=dim, hidden=self.hidden,
+            n_classes=self.n_classes))
+
+    def _losses(self, params, x, y):
+        return classifier_losses(params, x, y)
 
     @torch.no_grad()
     def evaluate(self, flat, data) -> Dict[str, float]:
@@ -233,12 +327,64 @@ class MLPTask:
                                             data.y[:1024])),
         }
 
+    @torch.no_grad()
+    def hidden_mean(self, flat, x):
+        return mlp_hidden_mean(self.params(flat), x)
+
     def corrupt_labels(self, y):
         """Byzantine label flip used by malicious members."""
         return (y + 1) % self.n_classes
+
+
+class AutoencoderAnomalyTask(_FlatTask):
+    """Federated autoencoder anomaly detection over IoT telemetry (flat
+    layout b1..b4, w1..w4).
+
+    The loss is the mean squared reconstruction error and training is
+    unsupervised: the batch labels carry the anomaly ground truth for
+    evaluation only, so the Eqn-4/5 trust pipeline runs on reconstruction
+    gradients as it does on classification gradients.  ``evaluate``
+    reports the reconstruction loss and the threshold-free detection AUC
+    of per-sample errors against the labels (the trace's ``acc``).
+    Label flipping has no lever here, so ``corrupt_labels`` is the
+    identity.
+    """
+
+    def __init__(self, hidden: int = 64, code: int = 8):
+        self.hidden = hidden
+        self.code = code
+
+    def init(self, generator: torch.Generator, dim: int) -> torch.Tensor:
+        return self._flat(init_mlp_autoencoder(
+            generator, dim=dim, hidden=self.hidden, code=self.code))
+
+    def _losses(self, params, x, y):
+        return reconstruction_loss(params, x)
+
+    @torch.no_grad()
+    def evaluate(self, flat, data) -> Dict[str, float]:
+        scores = reconstruction_errors(self.params(flat), data.x)
+        auc = float(anomaly_auc(scores, data.y))
+        return {"acc": None if math.isnan(auc) else auc,   # detection AUC
+                "loss": float(scores[:1024].mean())}
+
+    @torch.no_grad()
+    def hidden_mean(self, flat, x):
+        return code_mean(self.params(flat), x)
+
+    def corrupt_labels(self, y):
+        return y          # unsupervised: labels never enter the loss
 
 
 @register_task("mlp")
 def _mlp(params: Dict[str, Any]):
     return MLPTask(**{k: v for k, v in params.items()
                       if k in ("hidden", "n_classes")})
+
+
+@register_task("autoencoder-anomaly")
+def _autoencoder(params: Dict[str, Any]):
+    # the data-generation params (n_samples, dim, n_types, ...) are read by
+    # `engine.default_device_data`; only the model dims reach the task
+    return AutoencoderAnomalyTask(**{k: v for k, v in params.items()
+                                     if k in ("hidden", "code")})

@@ -27,7 +27,9 @@ Two entry points drive the round:
 
 In both, the local-step count ``a`` is read to the host once per round: it
 sets the number of SGD steps.  (A sync-free round, a masked loop of
-``n_actions`` steps under a CUDA graph, is queued in ROADMAP.md.)
+``n_actions`` steps under a CUDA graph, is queued in ROADMAP.md.)  The
+round is pure: it returns a new `FleetState` and leaves the one it was
+handed as it was.
 
 Randomness: every per-round draw (batch rows, channel noise, next channel
 states) is a counter-based function of (seed, round, stream, device id,
@@ -39,10 +41,11 @@ from __future__ import annotations
 
 import dataclasses
 import heapq
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch import rng
 from repro_torch.control import policy as ctl_policy
@@ -51,6 +54,7 @@ from repro_torch.core.clustering import (cluster_devices, ensure_nonempty,
                                          padded_membership, tolerance_bound)
 from repro_torch.core.energy import (channel_cdf, draw_noise,
                                      round_energy, step_channel)
+from repro_torch.core.envs import OBS_DIM
 from repro_torch.core.trust import (belief, gradient_diversity,
                                     learning_quality, staleness_weights,
                                     trust_weights, update_reputation)
@@ -62,7 +66,9 @@ from repro_torch.data.federated import (dirichlet_partition,
                                         padded_partition,
                                         sample_member_batch)
 from repro_torch.data.synthetic import (SyntheticClassification,
-                                        make_classification)
+                                        SyntheticTelemetry,
+                                        make_classification,
+                                        make_iot_telemetry)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import flatten_rows
 
@@ -75,8 +81,8 @@ from .spec import DEVICE_SCALE, FederationSpec
 @dataclasses.dataclass
 class FleetState:
     """Struct-of-arrays state of the whole federation, tensors on one
-    device.  The round replaces the small tensors and writes the new
-    cluster model into ``cluster_flat`` in place."""
+    device.  A round builds a new state and changes no tensor of the one
+    it was handed."""
     twins: TwinState            # per-device digital twins (n,)
     rep: torch.Tensor           # (n,) Eqn-5 reputations
     channel: torch.Tensor       # (n,) Markov channel state, int64
@@ -134,19 +140,28 @@ def _row(t: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return t.index_select(0, c.reshape(1))[0]
 
 
-def _set_row(t: torch.Tensor, c: torch.Tensor, v) -> None:
-    """``t[c] = v`` in place, ``c`` a 0-d index tensor on the device."""
-    t.index_copy_(0, c.reshape(1), v.reshape((1,) + tuple(t.shape[1:])))
+def _with_row(t: torch.Tensor, c: torch.Tensor, v) -> torch.Tensor:
+    """A copy of ``t`` with ``t[c] = v``, ``c`` a 0-d index tensor on the
+    device (``t`` is left as it was)."""
+    return t.index_copy(0, c.reshape(1),
+                        v.reshape((1,) + tuple(t.shape[1:])))
 
 
-def _as_data(data, device) -> SyntheticClassification:
-    """The dataset's ``x``/``y`` (tensors, or arrays such as the JAX
-    package's) as tensors on ``device``."""
+Data = Union[SyntheticClassification, SyntheticTelemetry]
+
+
+def _as_data(data, device) -> Data:
+    """The dataset's ``x``/``y`` (and the telemetry's ``device_type``) as
+    tensors on ``device``, from tensors or arrays such as the JAX
+    package's."""
     def t(a, dtype):
         a = a if torch.is_tensor(a) else torch.from_numpy(np.array(a))
         return a.to(device=device, dtype=dtype)
-    return SyntheticClassification(x=t(data.x, torch.float32),
-                                   y=t(data.y, torch.int64), prototypes=None)
+    x, y = t(data.x, torch.float32), t(data.y, torch.int64)
+    if hasattr(data, "device_type"):
+        return SyntheticTelemetry(x=x, y=y, device_type=t(
+            data.device_type, torch.int64))
+    return SyntheticClassification(x=x, y=y, prototypes=None)
 
 
 class DeviceScaleEngine:
@@ -335,13 +350,12 @@ class DeviceScaleEngine:
         # --- Eqn 6 + Eqn 19: cluster aggregate and staleness-weighted
         # global model (async pull: the cluster adopts the global model)
         rnd = state.round + 1
-        ts = state.cluster_ts.clone()
-        _set_row(ts, c, rnd.to(torch.float32))
+        ts = _with_row(state.cluster_ts, c, rnd.to(torch.float32))
         staleness = rnd.to(torch.float32) - ts
-        cflat = state.cluster_flat
         gflat = self.aggregator.aggregate_with_global(
-            new, w, mask_f, cflat, staleness_weights(staleness), c)
-        _set_row(cflat, c, gflat)
+            new, w, mask_f, state.cluster_flat,
+            staleness_weights(staleness), c)
+        cflat = _with_row(state.cluster_flat, c, gflat)
 
         # --- Eqn 12 with the realized consumption (+inf per slot: q = 0)
         queue = ctl_queue.queue_advance(state.queue, consumed,
@@ -379,21 +393,54 @@ class DeviceScaleEngine:
                 "channel_good_frac": good,
                 "cluster_freq": _row(self._cluster_freq_table(twins), c)}
 
+    def _scan_obs(self, state: FleetState, c: torch.Tensor,
+                  feats: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The §IV-B DQN observation (OBS_DIM,) on the device, one layout
+        for the host path (`ControllerCtx.obs`) and the scanned path; it
+        reads nothing back to the host.
+
+        Slot 2 holds the Eqn-12 backlog, as in the environment the agent
+        trained on (`core.envs._obs`).  Where the deployed layout departs
+        from the environment's, it does as the JAX package's does: the
+        one-hot encodes round % 10, not the last action, and tau (the
+        cluster model's hidden-activation mean over the first 256 samples)
+        stands where the spent-budget fraction would be.
+        """
+        tau = self.task.hidden_mean(_row(state.cluster_flat, c),
+                                    self.data.x[:256])
+        # (one_hot with its class count given reads nothing back on CUDA)
+        ch3 = F.one_hot(state.channel, 3).to(torch.float32).mean(0)
+        return ctl_policy.deploy_obs(
+            feats["cluster_loss"], state.queue,
+            state.round.to(torch.float32) / 100.0, tau, state.round % 10,
+            ch3, feats["mean_freq"])
+
+    def _lazy_obs(self, state: FleetState, c: torch.Tensor, feats=None):
+        def obs():
+            f = feats if feats is not None else self._ctl_features(state, c)
+            return self._scan_obs(state, c, f)
+        return obs
+
     def _ctx(self, c: int) -> ControllerCtx:
-        f = self._ctl_features(self.state, self._cidx[c])
+        cidx = self._cidx[c]
+        f = self._ctl_features(self.state, cidx)
         loss, freq, mean_freq, good = torch.stack(
             [f["cluster_loss"], f["cluster_freq"], f["mean_freq"],
              f["channel_good_frac"]]).tolist()
         return ControllerCtx(round=self._rounds, cluster=c,
+                             obs=self._lazy_obs(self.state, cidx, f),
                              cluster_loss=loss, cluster_freq=freq,
                              mean_freq=mean_freq, channel_good_frac=good,
                              energy_used=self._energy_used)
 
     def _null_ctx(self, c: int) -> ControllerCtx:
-        """Read-free ctx for ``needs_ctx=False`` controllers."""
-        return ControllerCtx(round=self._rounds, cluster=c, cluster_loss=0.0,
-                             cluster_freq=1.0, mean_freq=1.0,
-                             channel_good_frac=1.0, energy_used=0.0)
+        """Read-free ctx for ``needs_ctx=False`` controllers; the
+        observation stays available, lazily."""
+        return ControllerCtx(round=self._rounds, cluster=c,
+                             obs=self._lazy_obs(self.state, self._cidx[c]),
+                             cluster_loss=0.0, cluster_freq=1.0,
+                             mean_freq=1.0, channel_good_frac=1.0,
+                             energy_used=0.0)
 
     # ------------------------------------------------------------------ #
     # K rounds with the controller on the device
@@ -406,10 +453,16 @@ class DeviceScaleEngine:
         per-round metrics are read back once, after round K; ``eval_final``
         appends one evaluation record of the final global model.
         Consecutive calls continue the schedule."""
-        pol = self.controller.scan_policy()
+        scan_policy = getattr(self.controller, "scan_policy", None)
+        if scan_policy is None:
+            raise ValueError(
+                f"controller {type(self.controller).__name__} has no "
+                "scan_policy(); use the event-heap run() instead")
+        pol = scan_policy()
         state, times, ctl = self.state, self._scan_times, pol.state
         energy = torch.full((), self._energy_used, dtype=torch.float32,
                             device=self.device)
+        no_obs = torch.zeros((OBS_DIM,), device=self.device)
         rows = []
         for _ in range(int(K)):
             c = torch.argmin(times)
@@ -421,11 +474,12 @@ class DeviceScaleEngine:
                 cluster_freq=feats["cluster_freq"],
                 mean_freq=feats["mean_freq"],
                 channel_good_frac=feats["channel_good_frac"],
-                energy_used=energy)
+                energy_used=energy,
+                dqn_obs=(self._scan_obs(state, c, feats) if pol.needs_obs
+                         else no_obs))
             a_raw, ctl = pol.step(ctl, cobs)
             state, m = self._fleet_round(state, c, a_raw)
-            times = times.clone()
-            _set_row(times, c, t + m["dur"])
+            times = _with_row(times, c, t + m["dur"])
             energy = energy + m["consumed"]
             rows.append(torch.stack([t, c.to(torch.float32),
                                      m["a"].to(torch.float32), m["dur"],
@@ -511,11 +565,25 @@ class DeviceScaleEngine:
 
 def default_device_data(spec: FederationSpec):
     """Synthetic non-IID federated data from the task params, generated
-    from ``spec.seed``: the MNIST-shaped prototype mixture, partitioned by
-    a Dirichlet draw over the labels."""
+    from ``spec.seed``.  Classification tasks draw the MNIST-shaped
+    prototype mixture, partitioned by a Dirichlet draw over the labels;
+    the reconstruction task draws IoT telemetry, partitioned over the
+    device types (each client sees mostly one equipment family)."""
     p = spec.task.params
-    data = make_classification(rng.generator(spec.seed, rng.DATA),
-                               n=p.get("n_samples", 4096),
+    gen = rng.generator(spec.seed, rng.DATA)
+    if spec.task.kind == "autoencoder-anomaly":
+        n_types = p.get("n_types", 8)
+        data = make_iot_telemetry(
+            gen, n=p.get("n_samples", 2048), dim=p.get("dim", 32),
+            n_types=n_types, latent=p.get("latent", 4),
+            anomaly_frac=p.get("anomaly_frac", 0.05),
+            noise=p.get("noise", 0.05))
+        parts = dirichlet_partition(data.device_type.numpy(),
+                                    spec.fleet.n_devices,
+                                    alpha=p.get("dirichlet_alpha", 0.5),
+                                    n_classes=n_types, seed=spec.seed)
+        return data, parts
+    data = make_classification(gen, n=p.get("n_samples", 4096),
                                dim=p.get("dim", 784))
     parts = dirichlet_partition(data.y.numpy(), spec.fleet.n_devices,
                                 alpha=p.get("dirichlet_alpha", 0.5),

@@ -13,6 +13,8 @@ from ``spec.seed`` (the parity tests hand over the JAX package's).
 """
 from __future__ import annotations
 
+from repro_torch.device import resolve_device
+
 from . import registry
 from .engine import DeviceScaleEngine
 from .records import FLTrace
@@ -27,8 +29,11 @@ class Federation:
                  aggregator=None, task=None):
         spec.validate()
         self.spec = spec
+        device = resolve_device(device)
+        # a controller is built on the federation's device (the DQN
+        # pretrains there)
         self.controller = controller or registry.CONTROLLERS.get(
-            spec.controller.kind)(spec.controller.params)
+            spec.controller.kind)(spec.controller.params, device=device)
         self.aggregator = aggregator or registry.AGGREGATORS.get(
             spec.aggregator.kind)(spec.aggregator.params)
         self.task = task or registry.TASKS.get(spec.task.kind)(

@@ -34,17 +34,11 @@ def unported(spec: "FederationSpec") -> Optional[str]:
                 "item 9)")
     if spec.sharding.is_sharded:
         return f"a sharding mesh (multi-device, {_QUEUE}, item 9)"
-    if spec.controller.kind == "dqn":
-        return (f"the 'dqn' controller (control plane: DQN, {_QUEUE}, "
-                "item 3)")
     if spec.aggregator.kind in ROBUST_RULES:
         return (f"the robust aggregator {spec.aggregator.kind!r} "
                 f"(core/robust.py, {_QUEUE}, item 4)")
-    if spec.task.kind == "autoencoder-anomaly":
-        return (f"the 'autoencoder-anomaly' task (core/autoencoder.py, "
-                f"{_QUEUE}, item 2)")
     if spec.privacy.clip > 0.0:
-        return f"differential privacy (core/privacy.py, {_QUEUE}, item 2)"
+        return f"differential privacy (core/privacy.py, {_QUEUE}, item 4)"
     if spec.faults.active:
         return f"fault injection (faults/model.py, {_QUEUE}, item 5)"
     return None
@@ -59,7 +53,10 @@ class ShardingSpec:
     entry; ``device_axis`` / ``cluster_axis`` say which axis shards the
     fleet's device-dim and cluster-dim state; ``impl`` picks the sharded
     implementation ("shard_map", "gspmd", or None for the default by mesh
-    rank).  The fields and their validation are the JAX package's.
+    rank).  The fields are the JAX package's; its ``validate`` and
+    ``resolved_*`` are not ported (`unported()` rejects every sharded spec
+    first) and come with the multi-device engines (ROADMAP.md, queue 1,
+    item 9).
     """
     mesh: Tuple[int, ...] = ()
     axes: Optional[Tuple[str, ...]] = None

@@ -36,6 +36,12 @@ def mlp_logits(params, x):
     return _affine(h, params["w2"], params["b2"])
 
 
+def mlp_hidden_mean(params, x):
+    """tau(t): mean hidden-layer activation, part of the DQN state
+    (§IV-B); (M,) for stacked params."""
+    return torch.relu(_affine(x, params["w1"], params["b1"])).mean((-2, -1))
+
+
 def classifier_losses(params, x, y):
     """Mean cross-entropy over the batch: a scalar, or (M,) for stacked
     params with x (M, B, dim), y (M, B)."""

@@ -22,6 +22,9 @@ import torch
 # streams of one round, and of the init-time generators
 BATCH, NOISE, CHANNEL = 0, 1, 2
 INIT, DATA = 3, 4
+# the DQN's pretraining on the DT environment: the agent's initial weights
+# (a generator), an episode's reset, and each step's draws
+DQN_INIT, ENV_RESET, DQN_STEP = 5, 6, 7
 
 _M32 = 0xFFFFFFFF
 
@@ -66,6 +69,12 @@ def uniform(seed: int, round_, stream: int, dev, index) -> torch.Tensor:
     """Float32 uniforms in [0, 1) with 24 random bits each."""
     return (hash32(seed, round_, stream, dev, index) >> 8).to(
         torch.float32) * (1.0 / (1 << 24))
+
+
+def normal(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    """Standard normals from two uniforms in [0, 1) each (Box-Muller)."""
+    return torch.sqrt(-2.0 * torch.log1p(-u1)) * torch.cos(
+        (2.0 * math.pi) * u2)
 
 
 def generator(seed: int, stream: int) -> torch.Generator:

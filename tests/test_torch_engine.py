@@ -198,9 +198,9 @@ def test_spec_dict_and_trace_jsonl_roundtrip_across_packages(needs_jax,
 
 
 @pytest.mark.parametrize("change", [
-    {"controller": {"kind": "dqn", "params": {}}},
+    {"aggregator": {"kind": "krum", "params": {}}},
     {"aggregator": {"kind": "median", "params": {}}},
-    {"task": {"kind": "autoencoder-anomaly", "params": {}}},
+    {"faults": {"straggler_frac": 0.3}},
     {"privacy": {"clip": 1.0, "noise": 0.1}},
     {"faults": {"dropout": 0.2}},
     {"sharding": {"mesh": [2]}},
@@ -211,8 +211,56 @@ def test_unported_features_raise(change):
     d.update(change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tapi.Federation.from_dict(d, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tapi.FederationSpec().validate()      # the default controller: dqn
+
+
+def test_bare_spec_runs_through_the_default_dqn():
+    """A bare `FederationSpec()` (controller ``dqn``, task ``mlp``) builds
+    and runs on the CPU: the registry pretrains the DQN on the DT
+    environment, on both entry points."""
+    spec = tapi.FederationSpec().validate()
+    fed = tapi.Federation.from_spec(spec, device="cpu")
+    assert isinstance(fed.controller, tapi.DQNController)
+    assert fed.controller.pretrain_aux["ep_return"].shape == (4,)
+    event = fed.run(max_rounds=3)
+    scanned = fed.run_scanned(3)
+    records = event.records + scanned.records
+    assert records and all(np.isfinite(r.loss) for r in records)
+    assert all(1 <= r.a <= 10 for r in records)
+
+
+def test_round_leaves_its_input_state_unchanged():
+    """`_fleet_round` is pure, as the JAX package's is: every tensor of
+    the state it was handed is unchanged after the round, and the new
+    cluster stack shares no storage with the old one."""
+    d = spec_dict(FIXED)
+    d.update(fleet={"n_devices": 32}, clustering={"n_clusters": 4})
+    eng = tapi.Federation.from_dict(d, device="cpu").engine
+    before = {k: v.clone() for k, v in eng.state.tensors().items()}
+    old = eng.state
+    new, _ = eng._fleet_round(old, eng._cidx[1], 5)
+    for k, v in old.tensors().items():
+        assert torch.equal(v, before[k]), k
+    assert not torch.equal(new.cluster_flat, old.cluster_flat)
+    assert new.cluster_flat.untyped_storage().data_ptr() != \
+        old.cluster_flat.untyped_storage().data_ptr()
+
+
+def test_run_scanned_needs_a_scan_policy():
+    class HostOnly:
+        needs_ctx = False
+        n_actions = 10
+
+        def select(self, ctx):
+            return 3
+
+        def observe(self, ctx, consumed, loss):
+            pass
+
+    fed = tapi.Federation.from_dict(spec_dict(FIXED), device="cpu",
+                                    controller=HostOnly())
+    assert fed.run(max_rounds=2).records
+    with pytest.raises(ValueError, match="no scan_policy"):
+        fed.run_scanned(2)
 
 
 def test_default_device_is_the_card():
