@@ -6,7 +6,8 @@ Needs one NVIDIA GPU and nvcc.  In order:
 
 1. prints the card, its power limit and the TF32 flags;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-   prints ptxas's registers and spills of every kernel;
+   prints ptxas's registers and spills of every kernel (the fused trust
+   kernel must not spill);
 3. builds the main path's federation (``paper-mlp-fleet1k``: 1,024
    devices in 16 clusters, the paper's 784-200-10 MLP, 65,536 synthetic
    samples, trust aggregation, Lyapunov control) and, at the shapes its
@@ -35,7 +36,9 @@ Needs one NVIDIA GPU and nvcc.  In order:
    ``run_scanned(30)`` (30 launches), three more scanned rounds with the
    fused kernel held against its plain version on each round's own
    inputs (3 launches), the final AUC against the JAX package's, and the
-   fused kernel timed cold and warm at this shape beside its bound;
+   fused kernel timed cold and warm at this shape beside its bound, with
+   its launch plan (threads, row split, tile, grid, cluster launch or
+   not), as at the main path's shape;
 5. serving: recurrentgemma-2b at full width (26 layers, d_model 2560,
    f32 weights from seed 0) through ``repro_torch.launch.serve.generate``:
    first each language-model kernel against its plain version at the
@@ -73,7 +76,8 @@ every window's time and the SM clock printed.
 ``flash_attention.cu``, ``rglru_scan.cu`` and ``selective_scan.cu`` found
 in each DIR (other versions of the kernels, with the same C interface)
 against this checkout's, in turns (old, new, new, old) at the main path's
-and the serving paths' shapes, and adds those times to the kernels line.
+and the serving paths' shapes (the fused trust kernel also at
+``anomaly-fleet1k``'s), and adds those times to the kernels line.
 
 Any failure exits non-zero before the result line.  Without a card, or
 without the repository's ``src/`` beside it, it exits non-zero at once.
@@ -398,7 +402,7 @@ def kernel_phase(M: int, B: int, N: int, dev, compare_dirs=()) -> dict:
     for i, (C, valid, Bs, Ns, pad_w) in enumerate(shapes):
         x, w, mask, stack, gw = kernel_inputs(C, valid, Bs, Ns, dev, i,
                                               pad_w)
-        for c in (0, Bs - 1):
+        for c in (0, Bs - 1, Bs):      # Bs: out of range, no substitution
             ct = torch.tensor(c, dtype=torch.int32, device=dev)
             note("global", trust_aggregate_global(x, w, mask, stack, gw, ct),
                  ref.trust_aggregate_global_ref(x, w, mask, stack, gw, ct))
@@ -685,13 +689,15 @@ def adaptive_phase(dev) -> dict:
             "peak_gib": peak, "counts": counts}
 
 
-def fused_times(M: int, B: int, N: int, dev) -> dict:
+def fused_times(M: int, B: int, N: int, dev, compare_dirs=()) -> dict:
     """The fused kernel at (C = M, B, N) on random inputs: its error
-    against the plain version, its time back to back through the wrapper,
-    warm (from a CUDA graph) and cold (L2 flushed) beside the two library
-    calls in turns, the plain version's, and its bound."""
+    against the plain version, its launch plan, its time back to back
+    through the wrapper, warm (from a CUDA graph) and cold (L2 flushed)
+    beside the two library calls and the other sources' kernels in turns,
+    the plain version's, and its bound."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.trust_aggregate import trust_aggregate_global
+    from repro_torch.kernels.trust_aggregate import (global_plan,
+                                                     trust_aggregate_global)
     x, w, mask, stack, gw = kernel_inputs(M, M, B, N, dev, 123)
     c = torch.tensor(B // 3, dtype=torch.int32, device=dev)
     e, r, ok = close_enough(trust_aggregate_global(x, w, mask, stack, gw, c),
@@ -702,18 +708,25 @@ def fused_times(M: int, B: int, N: int, dev) -> dict:
     gz[B // 3] = 0.0
     wmc = w * mask * gw[B // 3]
     out32, tmp = torch.empty((N,), device=dev), torch.empty((N,), device=dev)
-    lib = other_libraries(os.path.basename(SOURCE), [HERE_CSRC],
-                          "trust_aggregate")[HERE_CSRC]
+    src = os.path.basename(SOURCE)
 
-    def kernel():
-        status = lib.ta_aggregate_global_f32(
-            x.data_ptr(), w.data_ptr(), mask.data_ptr(), stack.data_ptr(),
-            gw.data_ptr(), c.data_ptr(), out32.data_ptr(), M, B, N,
-            torch.cuda.current_stream().cuda_stream)
-        check(status == 0, f"fused kernel failed: {status}")
+    def kernel_of(where, lib):
+        def kernel():
+            status = lib.ta_aggregate_global_f32(
+                x.data_ptr(), w.data_ptr(), mask.data_ptr(),
+                stack.data_ptr(), gw.data_ptr(), c.data_ptr(),
+                out32.data_ptr(), M, B, N,
+                torch.cuda.current_stream().cuda_stream)
+            check(status == 0, f"fused kernel of {where} failed: {status}")
+        return kernel
 
-    fns = {"kernel": kernel, "library_two_calls": lambda: torch.addmv(
-        torch.mv(stack.T, gz, out=tmp), x.T, wmc, out=out32)}
+    fns = {"kernel": kernel_of("this checkout", other_libraries(
+               src, [HERE_CSRC], "trust_aggregate")[HERE_CSRC]),
+           "library_two_calls": lambda: torch.addmv(
+               torch.mv(stack.T, gz, out=tmp), x.T, wmc, out=out32)}
+    for where, old in other_libraries(src, compare_dirs,
+                                      "trust_aggregate").items():
+        fns[where] = kernel_of(where, old)
     flush = L2Flush(dev)
     turns = {m: in_turns(fns, fl, label=f"fused N={N} {m}", reps=10,
                          windows=7, warmup=3, graph=True)
@@ -723,8 +736,9 @@ def fused_times(M: int, B: int, N: int, dev) -> dict:
            for m, tt in turns.items()}
     n_bytes = (M * N + (B - 1) * N + N) * 4 + (2 * M + B + 1) * 4
     bound = bound_ms(n_bytes, 2 * (M + B - 1) * N)
+    plan = global_plan(M, B, N)
     out = {"shape": {"C": M, "B": B, "N": N, "dtype": "float32"},
-           "max_abs_err": e,
+           "plan": plan, "max_abs_err": e,
            "ms": time_ms(lambda: trust_aggregate_global(x, w, mask, stack,
                                                         gw, c)),
            "plain_ms": time_ms(lambda: ref.trust_aggregate_global_ref(
@@ -737,11 +751,12 @@ def fused_times(M: int, B: int, N: int, dev) -> dict:
     print(f"fused kernel at (C {M}, B {B}, N {N}): cold {out['cold_ms']} ms, "
           f"warm {out['warm_ms']} ms, back to back {out['ms']} ms, plain "
           f"{out['plain_ms']} ms, bound {bound[0]} ms ({bound[1]}, "
-          f"{n_bytes} bytes)", flush=True)
+          f"{n_bytes} bytes); medians in turns, cold {med['cold']}, warm "
+          f"{med['warm']}; plan {json.dumps(plan)}", flush=True)
     return out
 
 
-def anomaly_phase(dev) -> dict:
+def anomaly_phase(dev, compare_dirs=()) -> dict:
     """4c. ``anomaly-fleet1k``: built through the registry (the DQN
     pretrains on the card), ``run_scanned(30)`` (30 fused launches), three
     more scanned rounds with the fused kernel held against its plain
@@ -798,7 +813,7 @@ def anomaly_phase(dev) -> dict:
               "peak_gib": peak, "counts": counts}
     del fed, eng, scanned
     torch.cuda.empty_cache()
-    record["fused"] = fused_times(M, B, N, dev)
+    record["fused"] = fused_times(M, B, N, dev, compare_dirs)
     free_library_memory()
     return record
 
@@ -1269,6 +1284,13 @@ def main() -> None:
         for row in build.ptxas_report(os.path.basename(p)):
             print(f"ptxas {os.path.basename(p)}: {json.dumps(row)}",
                   flush=True)
+    # the fused kernel's instantiations, one a block size
+    report = build.ptxas_report(os.path.basename(SOURCE))
+    fused_ptxas = [r for r in report
+                   if r["kernel"].startswith("trust_aggregate_global_kernel")]
+    check(fused_ptxas or not report, "ptxas named no fused kernel")
+    check(all(r.get("spill_stores", 0) == 0 and r.get("spill_loads", 0) == 0
+              for r in fused_ptxas), f"the fused kernel spills: {fused_ptxas}")
 
     # 3. the main path's federation, and its kernels at its shapes
     spec = FederationSpec.from_dict(PAPER_MLP_FLEET1K)
@@ -1287,6 +1309,10 @@ def main() -> None:
           f"B={B} clusters, N={N} parameters", flush=True)
     kp = kernel_phase(M, B, N, dev, args.compare_with)
     free_library_memory()
+    fused_plan = importlib.import_module(
+        "repro_torch.kernels.trust_aggregate").global_plan(M, B, N)
+    print(f"fused kernel's plan at (C {M}, B {B}, N {N}): "
+          f"{json.dumps(fused_plan)}", flush=True)
 
     # 4. the main path, each entry point with the counts reset before it
     counts = {}
@@ -1362,7 +1388,7 @@ def main() -> None:
     counts.update(adaptive.pop("counts"))
     torch.cuda.empty_cache()
     # 4c. the autoencoder-anomaly task under the same controller
-    anomaly = anomaly_phase(dev)
+    anomaly = anomaly_phase(dev, args.compare_with)
     counts.update(anomaly.pop("counts"))
     feds = [adaptive, {k: v for k, v in anomaly.items() if k != "fused"}]
     print(f"launch counts by path: {json.dumps(counts)}", flush=True)
@@ -1418,6 +1444,7 @@ def main() -> None:
          "plain_ms": t["global_plain"], "bound_ms": bd["global"][0],
          "bound_by": bd["global"][1], "library_ms": None,
          "shape": {"C": M, "B": B, "N": N, "dtype": "float32"},
+         "plan": fused_plan, "ptxas": fused_ptxas or "not built in this run",
          "bytes": kp["bytes"]["global"]},
         {"name": "trust_aggregate", "route": "cuda", "source": SOURCE,
          "replaces": f"{PALLAS}:44",

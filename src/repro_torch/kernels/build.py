@@ -91,9 +91,13 @@ def ptxas_report(source: str, csrc: Path = CSRC) -> List[dict]:
             name = entry[1]
             tmpl = re.search(
                 r"\d([a-z][a-z_]*_kernel)I(f|13__nv_bfloat16)Li(\d+)E", name)
+            ints = re.search(r"\d([a-z][a-z_]*_kernel)I((?:Li\d+E)+)E", name)
             if tmpl:
                 kind = "f32" if tmpl[2] == "f" else "bf16"
                 name = f"{tmpl[1]}<{kind}, {tmpl[3]}>"
+            elif ints:
+                args = ", ".join(re.findall(r"Li(\d+)E", ints[2]))
+                name = f"{ints[1]}<{args}>"
             rows.append({"kernel": name})
         elif rows:
             spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "

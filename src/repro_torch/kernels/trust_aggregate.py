@@ -11,7 +11,8 @@ CUDA tensors it launches its kernel on the current stream or raises: there
 is no fallback.  Each launch adds one to its count in `launch.launches`
 (``trust_aggregate`` with a mask, ``trust_aggregate_dense`` without one,
 ``trust_aggregate_global``), so a run can show that its rounds went through
-the kernels.
+the kernels.  `global_plan` reports how the fused kernel is launched at a
+shape.
 """
 from __future__ import annotations
 
@@ -35,6 +36,23 @@ _signatures = {
 
 def _lib() -> ctypes.CDLL:
     return typed_library(SOURCE, _signatures)
+
+
+def global_plan(rows: int, clusters: int, n: int) -> dict:
+    """How ``trust_aggregate_global`` launches at (C, B, N) on the current
+    card: threads a block, blocks a cluster (``split``; 1 is a launch
+    without a cluster), columns a tile, column tiles, blocks in the grid,
+    rows a thread loads at once, and the clusters the card holds at once
+    (0 without a cluster).  Needs the card."""
+    fn = _lib().ta_global_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    plan = (ctypes.c_int * 7)()
+    raise_on(fn(rows, clusters, n, plan), "ta_global_plan")
+    keys = ("threads", "split", "tile_columns", "tiles", "grid",
+            "rows_in_flight", "max_active_clusters")
+    return {**dict(zip(keys, plan)), "cluster_launch": plan[1] > 1}
 
 
 def _check_vector(name, t, length, device):

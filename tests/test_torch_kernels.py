@@ -190,7 +190,7 @@ def test_cuda_kernels_match_plain_versions():
         pytest.skip("needs an NVIDIA GPU (runs on the card, see README.md)")
     ta = importlib.import_module("repro_torch.kernels.trust_aggregate")
     dev = torch.device("cuda")
-    for C, valid, B, N in [(94, 80, 16, 159010), (1, 1, 3, 1001),
+    for C, valid, B, N in [(99, 80, 16, 159010), (1, 1, 3, 1001),
                            (7, 4, 5, 130), (300, 299, 2, 257)]:
         x, w0, mask = (torch.from_numpy(a).to(dev)
                        for a in _inputs(C, N, valid, seed=N))
@@ -257,4 +257,98 @@ def test_cuda_masked_kernel_at_every_row_alignment(C, valid, N, shift):
         torch.testing.assert_close(
             ta.trust_aggregate(rows, wt).float(),
             ref.trust_aggregate_ref(rows, wt).float(), atol=tol, rtol=tol)
+    torch.cuda.synchronize()
+
+
+# (C, valid rows, N, storage offset in elements) of the fused kernel: rows
+# at every alignment (16-, 8- and 4-byte loads), no valid member at all,
+# the anomaly task's and the main path's shapes (one launch a cluster of 8
+# and of 2 blocks), C = 300 (the row table built in two passes), tiny N
+GLOBAL_CASES = [(6, 4, 1024, 0), (6, 4, 1025, 0), (6, 4, 1026, 0),
+                (6, 4, 1027, 0), (6, 4, 1024, 2), (6, 4, 1026, 1),
+                (5, 0, 700, 0), (111, 111, 5288, 0), (111, 70, 5288, 1),
+                (99, 99, 159010, 0), (99, 60, 159010, 2), (300, 299, 257, 0),
+                (300, 170, 4099, 3), (1, 1, 1001, 0), (4, 2, 1, 0),
+                (4, 3, 3, 0), (7, 5, 131, 3)]
+
+
+def _global_inputs(C, valid, B, N, shift, dev):
+    """Member updates and cluster stack stored ``shift`` elements past an
+    allocation's start; padded member rows hold 1e30; weights finite also
+    without a valid row."""
+    g = np.random.default_rng(C * 1009 + N * 7 + B + shift)
+    x = g.standard_normal((C, N)).astype(np.float32)
+    x[valid:] = 1e30
+    mask = (np.arange(C) < valid).astype(np.float32)
+    w = g.random(C).astype(np.float32) * mask
+    w = (w / max(w.sum(), 1e-30)).astype(np.float32)
+    stack = g.standard_normal((B, N)).astype(np.float32)
+    gw = g.random(B).astype(np.float32)
+    gw /= gw.sum()
+
+    def at_offset(a):
+        flat = torch.empty(shift + a.size, device=dev)
+        flat[shift:] = torch.from_numpy(a).reshape(-1).to(dev)
+        return flat[shift:].view(a.shape)
+
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return at_offset(x), t(w), t(mask), at_offset(stack), t(gw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 2, 16])
+@pytest.mark.parametrize("C,valid,N,shift", GLOBAL_CASES)
+def test_cuda_global_kernel_at_every_row_alignment(C, valid, N, shift, B):
+    """The fused kernel against its plain version for c = 0, B // 2,
+    B - 1 and B (out of range: no substitution), with zero and with
+    non-zero weights left on the padded 1e30 rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (runs on the card, see README.md)")
+    ta = importlib.import_module("repro_torch.kernels.trust_aggregate")
+    dev = torch.device("cuda")
+    x, w0, mask, stack, gw = _global_inputs(C, valid, B, N, shift, dev)
+    for w in (w0, w0 + 0.5 * (1 - mask)):
+        for c in sorted({0, B // 2, B - 1, B}):
+            ct = torch.tensor(c, dtype=torch.int32, device=dev)
+            got = ta.trust_aggregate_global(x, w, mask, stack, gw, ct)
+            assert torch.isfinite(got).all()
+            torch.testing.assert_close(
+                got, ref.trust_aggregate_global_ref(x, w, mask, stack, gw,
+                                                    ct),
+                atol=1e-5, rtol=1e-5)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_global_kernel_is_deterministic_and_capturable():
+    """Two calls give the same bits; one call captured in a CUDA graph and
+    replayed gives the eager call's bits, also after c changes in place
+    (the kernel reads c on the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (runs on the card, see README.md)")
+    ta = importlib.import_module("repro_torch.kernels.trust_aggregate")
+    dev = torch.device("cuda")
+    for C, valid, B, N in [(111, 111, 16, 5288), (99, 90, 16, 159010),
+                           (300, 299, 2, 4099)]:
+        x, w, mask, stack, gw = _global_inputs(C, valid, B, N, 0, dev)
+        ct = torch.tensor(B // 2, dtype=torch.int32, device=dev)
+        first = ta.trust_aggregate_global(x, w, mask, stack, gw, ct)
+        assert torch.equal(first,
+                           ta.trust_aggregate_global(x, w, mask, stack, gw,
+                                                     ct))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ta.trust_aggregate_global(x, w, mask, stack, gw, ct)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = ta.trust_aggregate_global(x, w, mask, stack, gw, ct)
+        for c in (B // 2, 0, B):
+            ct.fill_(c)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(captured, ta.trust_aggregate_global(
+                x, w, mask, stack, gw, ct))
+        del graph
     torch.cuda.synchronize()
