@@ -39,6 +39,21 @@ Needs one NVIDIA GPU and nvcc.  In order:
    fused kernel timed cold and warm at this shape beside its bound, with
    its launch plan (threads, row split, tile, grid, cluster launch or
    not), as at the main path's shape;
+4d. DP, the robust rules and the fault model on the same fleet (the
+   two-step path: Eqn 6 through the rule or the masked kernel, Eqn 19
+   through the unmasked one): ``dp-fleet1k`` ``run_scanned(30)`` (30
+   masked and 30 unmasked launches, no fused one), ``faulty-fleet1k``
+   ``run_scanned(30)`` then ``run(max_rounds=20)`` (30 + 20 fused),
+   ``faulty-median-fleet1k`` ``run_scanned(30)`` (30 unmasked), and krum
+   on ``paper-mlp-fleet1k``'s fleet, ``run(max_rounds=10)`` (10 unmasked,
+   exact-shape clusters, its peak memory printed); after each, three more
+   rounds hold every launched kernel against its plain version on the
+   live inputs (1e-6, the fused kernel 1e-5); the state's device, finite
+   losses and the final accuracies against the JAX package's (under
+   faults over seeds 0-9: nine more ``run_scanned(30)`` of each faulty
+   spec); then the
+   unmasked kernel timed at Eqn 19's (16, 159,010), cold and warm, in
+   turns with ``w @ x``, beside its bound;
 5. serving: recurrentgemma-2b at full width (26 layers, d_model 2560,
    f32 weights from seed 0) through ``repro_torch.launch.serve.generate``:
    first each language-model kernel against its plain version at the
@@ -64,7 +79,7 @@ Needs one NVIDIA GPU and nvcc.  In order:
    read after the prefill (64 selective_scan) and the decode loop (none),
    the kernel on the first MAMBA layer's own inputs held against its plain
    version, and the 4096 + 1 consistency check;
-7. prints the federations line (4b and 4c), the serving line, the
+7. prints the federations line (4b, 4c and 4d), the serving line, the
    kernels line, then the result line.
 
 The trust kernels are timed back to back through their wrappers (the
@@ -138,6 +153,23 @@ ACC_MARGIN = 0.002
 JAX_ADAPTIVE_ACC = 0.999969
 JAX_ANOMALY_AUC = 0.90184
 AUC_MARGIN = 0.05
+# the JAX package's final accuracy after run_scanned(30) on a CPU
+# (scripts/jax_reference.py).  dp-fleet1k: the least over seeds 0-2
+# (0.999969, 0.999969, 0.999985), with the main path's margin.  Under
+# faults the final accuracy of one seed moves far with the seed (JAX:
+# 0.078-0.489 under trust), so the port's seeds 0-9 are held to the JAX
+# package's seeds 0-9: the means within three standard errors of the
+# difference of two 10-seed means (3 sqrt(2) s / sqrt(10), s the JAX
+# seeds' standard deviation, 0.124 and 0.0336), the least no lower than
+# the JAX package's least less the same margin
+JAX_DP_ACC = 0.999969
+JAX_FAULTY = {"accs": [0.415359, 0.400986, 0.408966, 0.243011, 0.078491,
+                       0.187836, 0.261993, 0.489395, 0.274734, 0.280746],
+              "mean_margin": 0.166}
+JAX_FAULTY_MEDIAN = {"accs": [0.981522, 0.981628, 0.912994, 0.956253,
+                              0.867981, 0.931854, 0.930527, 0.957474,
+                              0.946533, 0.939545],
+                     "mean_margin": 0.045}
 
 
 def fail(msg: str) -> None:
@@ -819,6 +851,254 @@ def anomaly_phase(dev, compare_dirs=()) -> dict:
 
 
 # --------------------------------------------------------------------- #
+# DP, the robust rules and the fault model: the two-step path
+# --------------------------------------------------------------------- #
+def two_step_check(fed, rounds: int, event: bool = False) -> dict:
+    """``rounds`` more rounds (scanned, or on the event heap), each launch
+    of the masked kernel (`dp_aggregate`'s Eqn 6), the unmasked one
+    (`time_weighted_average`'s Eqn 19) and the fused one held against its
+    plain version on the same live tensors.  {kernel: close_enough's
+    (max abs, max relative, ok) of each call}."""
+    from repro_torch.api import components
+    from repro_torch.core import privacy, trust
+    from repro_torch.kernels import ref
+    seen = {"trust_aggregate": [], "trust_aggregate_dense": [],
+            "trust_aggregate_global": []}
+    masked, dense = privacy.trust_aggregate, trust.trust_aggregate
+    fused = components.trust_aggregate_global
+
+    def checked_masked(x, w, mask=None):
+        got = masked(x, w, mask)
+        seen["trust_aggregate"].append(close_enough(
+            got, ref.trust_aggregate_ref(x, w, mask), 1e-6))
+        return got
+
+    def checked_dense(x, w, mask=None):
+        got = dense(x, w, mask)
+        seen["trust_aggregate_dense"].append(close_enough(
+            got, ref.trust_aggregate_ref(x, w, mask), 1e-6))
+        return got
+
+    def checked_fused(x, w, mask, stack, gw, c):
+        got = fused(x, w, mask, stack, gw, c)
+        seen["trust_aggregate_global"].append(close_enough(
+            got, ref.trust_aggregate_global_ref(x, w, mask, stack, gw, c),
+            1e-5))
+        return got
+
+    privacy.trust_aggregate = checked_masked
+    trust.trust_aggregate = checked_dense
+    components.trust_aggregate_global = checked_fused
+    try:
+        if event:
+            fed.run(max_rounds=rounds)
+        else:
+            fed.run_scanned(rounds, eval_final=False)
+    finally:
+        privacy.trust_aggregate = masked
+        trust.trust_aggregate = dense
+        components.trust_aggregate_global = fused
+    return {k: v for k, v in seen.items() if v}
+
+
+TRUST_KERNELS = ("trust_aggregate", "trust_aggregate_dense",
+                 "trust_aggregate_global")
+
+
+def robust_phase(dev) -> dict:
+    """4d. DP, the robust rules and the fault model at full width, each
+    path with the counts reset before it and read after it:
+    ``dp-fleet1k`` ``run_scanned(30)`` (30 masked and 30 unmasked
+    launches, no fused one); ``faulty-fleet1k`` ``run_scanned(30)`` then
+    ``run(max_rounds=20)`` (30 + 20 fused); ``faulty-median-fleet1k``
+    ``run_scanned(30)`` (30 unmasked); krum on ``paper-mlp-fleet1k``'s
+    fleet, ``run(max_rounds=10)`` (10 unmasked), with its peak memory.
+    After each, three more rounds hold every launched kernel against its
+    plain version on the live inputs; the final accuracies are held to the
+    JAX package's."""
+    from repro_torch.api import Federation, FederationSpec
+    from repro_torch.api.scenarios import (DP_FLEET1K, FAULTY_FLEET1K,
+                                           FAULTY_MEDIAN_FLEET1K,
+                                           PAPER_MLP_FLEET1K)
+    from repro_torch.kernels import launches, reset_launches
+    counts, live, out, shared = {}, {}, {}, {}
+
+    def drive(path, fn, expect):
+        reset_launches()
+        res, t = timed(fn)
+        counts[path] = dict(launches)
+        got = {k: launches[k] for k in TRUST_KERNELS}
+        want = {k: expect.get(k, 0) for k in TRUST_KERNELS}
+        check(got == want, f"{path} launched {got}, expected {want}")
+        return res, t
+
+    def build(name, d):
+        spec = FederationSpec.from_dict(d)
+        torch.cuda.reset_peak_memory_stats()
+        fed, t_build = timed(lambda: Federation.from_spec(spec, **shared))
+        shared.update(data=fed.engine.data, parts=fed.engine.parts)
+        print(f"{name}: built in {t_build:.2f} s (aggregator "
+              f"{spec.aggregator.kind}, privacy clip {spec.privacy.clip}, "
+              f"faults active {spec.faults.active})", flush=True)
+        return fed
+
+    def live_checked(name, fed, rounds=3, event=False):
+        seen = two_step_check(fed, rounds, event)
+        for k, v in seen.items():
+            check(len(v) == rounds and all(ok for _, _, ok in v),
+                  f"{name}: {k} on live inputs: {v}")
+        live[name] = {k: max(e for e, _, _ in v) for k, v in seen.items()}
+        print(f"{name}: kernels on {rounds} rounds' live inputs, max abs "
+              f"error {json.dumps(live[name])} (tolerance 1e-6 relative "
+              f"to 1 + |plain|, fused 1e-5)", flush=True)
+
+    def scanned(name, fed, expect, ref_acc=None, margin=None):
+        tr, t = drive(f"{name}_run_scanned",
+                      lambda: fed.run_scanned(30), expect)
+        acc = tr.records[-1].acc
+        fed_checks(fed, tr.records, name)
+        if ref_acc is not None:
+            check(acc is not None and acc >= ref_acc - margin,
+                  f"{name} final accuracy {acc} < {ref_acc} - {margin}")
+        out[name] = {"run_scanned_rounds_per_s": 30 / t, "final_acc": acc,
+                     "actions": sorted({r.a for r in tr.records[:-1]}),
+                     "final_loss": tr.records[-1].loss}
+        if ref_acc is not None:
+            out[name].update(reference_acc=ref_acc, margin=margin)
+        print(f"{name} run_scanned(30): {30 / t:.3f} rounds/s ({t:.2f} s "
+              f"incl. final eval), final acc {acc}", flush=True)
+
+    def over_seeds(name, d, ref):
+        """The final accuracy after run_scanned(30) over seeds 0-9 (seed 0
+        from the driven path) against the JAX package's over the same
+        seeds: the means within ``ref["mean_margin"]``, the least no lower
+        than the JAX package's least less the same margin."""
+        accs = [out[name]["final_acc"]]
+        for seed in range(1, len(ref["accs"])):
+            fed = Federation.from_dict({**d, "seed": seed})
+            accs.append(fed.run_scanned(30).records[-1].acc)
+            del fed
+        mean, jmean = statistics.mean(accs), statistics.mean(ref["accs"])
+        m = ref["mean_margin"]
+        out[name].update(seed_accs=accs, seed_mean=mean,
+                         reference_seed_accs=ref["accs"],
+                         reference_seed_mean=jmean, mean_margin=m)
+        print(f"{name} over seeds 0-{len(accs) - 1}: final acc {accs}, "
+              f"mean {mean} (JAX {jmean} +- {m}), least {min(accs)} (JAX "
+              f"{min(ref['accs'])} - {m})", flush=True)
+        check(abs(mean - jmean) <= m,
+              f"{name}: mean final accuracy over seeds {mean} not within "
+              f"{m} of the JAX package's {jmean}")
+        check(min(accs) >= min(ref["accs"]) - m,
+              f"{name}: least final accuracy over seeds {min(accs)} < "
+              f"{min(ref['accs'])} - {m}")
+
+    fed = build("dp-fleet1k", DP_FLEET1K)
+    scanned("dp-fleet1k", fed,
+            {"trust_aggregate": 30, "trust_aggregate_dense": 30},
+            JAX_DP_ACC, ACC_MARGIN)
+    live_checked("dp-fleet1k", fed)
+    out["dp-fleet1k"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del fed
+
+    fed = build("faulty-fleet1k", FAULTY_FLEET1K)
+    scanned("faulty-fleet1k", fed, {"trust_aggregate_global": 30})
+    tr, t = drive("faulty-fleet1k_run", lambda: fed.run(max_rounds=20),
+                  {"trust_aggregate_global": 20})
+    fed_checks(fed, tr.records, "faulty-fleet1k run")
+    out["faulty-fleet1k"]["run_rounds_per_s"] = 20 / t
+    print(f"faulty-fleet1k run(max_rounds=20): {20 / t:.3f} rounds/s "
+          f"({t:.2f} s incl. {len(tr.records)} evals), final acc "
+          f"{tr.records[-1].acc}", flush=True)
+    live_checked("faulty-fleet1k", fed)
+    out["faulty-fleet1k"]["peak_gib"] = (torch.cuda.max_memory_allocated()
+                                         / 2**30)
+    del fed
+
+    fed = build("faulty-median-fleet1k", FAULTY_MEDIAN_FLEET1K)
+    scanned("faulty-median-fleet1k", fed, {"trust_aggregate_dense": 30})
+    live_checked("faulty-median-fleet1k", fed)
+    out["faulty-median-fleet1k"]["peak_gib"] = (
+        torch.cuda.max_memory_allocated() / 2**30)
+    del fed
+    over_seeds("faulty-fleet1k", FAULTY_FLEET1K, JAX_FAULTY)
+    over_seeds("faulty-median-fleet1k", FAULTY_MEDIAN_FLEET1K,
+               JAX_FAULTY_MEDIAN)
+
+    name = "krum-fleet1k"
+    fed = build(name, {**PAPER_MLP_FLEET1K, "aggregator": {"kind": "krum"}})
+    sizes = [len(m) for m in fed.engine._members]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr, t = drive(f"{name}_run", lambda: fed.run(max_rounds=10),
+                  {"trust_aggregate_dense": 10})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fed_checks(fed, tr.records, name)
+    out[name] = {"run_rounds_per_s": 10 / t, "final_acc": tr.records[-1].acc,
+                 "peak_gib": peak, "cluster_sizes": [min(sizes), max(sizes)]}
+    print(f"{name} run(max_rounds=10), exact clusters of {min(sizes)}-"
+          f"{max(sizes)} members: {10 / t:.3f} rounds/s ({t:.2f} s incl. "
+          f"{len(tr.records)} evals), final acc {tr.records[-1].acc}, peak "
+          f"device memory {peak:.3f} GiB", flush=True)
+    live_checked(name, fed, event=True)
+    del fed, shared["data"], shared["parts"]
+    torch.cuda.empty_cache()
+    return {"specs": out, "live_max_abs_err": live, "counts": counts}
+
+
+def dense_times(B: int, N: int, dev) -> dict:
+    """The unmasked kernel at Eqn 19's (B, N) on random inputs: its error
+    against the plain version, its time back to back through the wrapper,
+    warm (from a CUDA graph) and cold (L2 flushed) in turns with ``w @ x``,
+    the plain version's, and its bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.trust_aggregate import trust_aggregate
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((B, N), generator=g, device=dev)
+    w = torch.softmax(torch.randn((B,), generator=g, device=dev), 0)
+    e, r, ok = close_enough(trust_aggregate(x, w),
+                            ref.trust_aggregate_ref(x, w), 1e-6)
+    check(ok, f"unmasked kernel at (B {B}, N {N}): error {r} > 1e-6")
+    out32 = torch.empty((N,), device=dev)
+    lib = other_libraries(os.path.basename(SOURCE), [HERE_CSRC],
+                          "trust_aggregate")[HERE_CSRC]
+
+    def kernel():
+        status = lib.ta_aggregate_f32(
+            x.data_ptr(), w.data_ptr(), None, out32.data_ptr(), B, N,
+            torch.cuda.current_stream().cuda_stream)
+        check(status == 0, f"unmasked kernel failed: {status}")
+
+    fns = {"kernel": kernel,
+           "library": lambda: torch.matmul(w, x, out=out32)}
+    flush = L2Flush(dev)
+    turns = {m: in_turns(fns, fl, label=f"dense B={B} N={N} {m}", reps=10,
+                         windows=7, warmup=3, graph=True)
+             for m, fl in (("warm", None), ("cold", flush))}
+    del flush
+    med = {m: {k: statistics.median(v) for k, v in tt.items()}
+           for m, tt in turns.items()}
+    n_bytes = (B * N + N) * 4 + B * 4
+    bound = bound_ms(n_bytes, 2 * B * N)
+    res = {"shape": {"B": B, "N": N, "dtype": "float32", "mask": False},
+           "max_abs_err": e,
+           "ms": time_ms(lambda: trust_aggregate(x, w)),
+           "plain_ms": time_ms(lambda: ref.trust_aggregate_ref(x, w)),
+           "library_ms": time_ms(lambda: w @ x),
+           "cold_ms": med["cold"]["kernel"], "warm_ms": med["warm"]["kernel"],
+           "library_cold_ms": med["cold"]["library"],
+           "library_warm_ms": med["warm"]["library"],
+           "in_turns_ms": turns, "bound_ms": bound[0], "bound_by": bound[1],
+           "bytes": n_bytes}
+    print(f"unmasked kernel at (B {B}, N {N}): cold {res['cold_ms']} ms, "
+          f"warm {res['warm_ms']} ms, back to back {res['ms']} ms, plain "
+          f"{res['plain_ms']} ms, w @ x cold {res['library_cold_ms']} / warm "
+          f"{res['library_warm_ms']} / back to back {res['library_ms']} ms, "
+          f"bound {bound[0]} ms ({bound[1]}, {n_bytes} bytes)", flush=True)
+    return res
+
+
+# --------------------------------------------------------------------- #
 # the serving path: recurrentgemma-2b
 # --------------------------------------------------------------------- #
 def attn_inputs(B, S, H, Kv, d, dtype, dev, seed):
@@ -1390,7 +1670,13 @@ def main() -> None:
     # 4c. the autoencoder-anomaly task under the same controller
     anomaly = anomaly_phase(dev, args.compare_with)
     counts.update(anomaly.pop("counts"))
-    feds = [adaptive, {k: v for k, v in anomaly.items() if k != "fused"}]
+    # 4d. DP, the robust rules and the fault model at full width
+    robust = robust_phase(dev)
+    counts.update(robust.pop("counts"))
+    dense_eqn19 = dense_times(B, N, dev)
+    free_library_memory()
+    feds = [adaptive, {k: v for k, v in anomaly.items() if k != "fused"},
+            robust]
     print(f"launch counts by path: {json.dumps(counts)}", flush=True)
     total = {k: sum(c[k] for c in counts.values()) for k in launches}
 
@@ -1449,6 +1735,8 @@ def main() -> None:
         {"name": "trust_aggregate", "route": "cuda", "source": SOURCE,
          "replaces": f"{PALLAS}:44",
          "launches": total["trust_aggregate"],
+         "launches_by_path": {p: c["trust_aggregate"]
+                              for p, c in counts.items()},
          "max_abs_err": err["f32"], "tolerance": kp["tol"]["f32"],
          **trust_times(kp, "f32", "library"),
          "plain_ms": t["f32_plain"], "bound_ms": bd["f32"][0],
@@ -1468,6 +1756,9 @@ def main() -> None:
         {"name": "trust_aggregate_dense", "route": "cuda", "source": SOURCE,
          "replaces": f"{PALLAS}:37",
          "launches": total["trust_aggregate_dense"],
+         "launches_by_path": {p: c["trust_aggregate_dense"]
+                              for p, c in counts.items()},
+         "at_eqn19_shape": dense_eqn19,
          "max_abs_err": err["f32"], "tolerance": kp["tol"]["f32"],
          **trust_times(kp, "dense", "library"),
          "plain_ms": t["dense_plain"],

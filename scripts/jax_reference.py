@@ -1,7 +1,8 @@
 """The JAX package's final accuracy and AUC at the port's card specs.
 
     JAX_PLATFORMS=cpu PYTHONPATH=src python scripts/jax_reference.py \
-        [--specs paper-adaptive-fleet1k anomaly-fleet1k] [--seeds 0 1 2]
+        [--specs paper-adaptive-fleet1k anomaly-fleet1k dp-fleet1k
+                 faulty-fleet1k faulty-median-fleet1k] [--seeds 0 1 2]
 
 For each spec of `repro_torch.api.scenarios` named and each seed, builds
 the JAX package's federation from the same spec dict (its DQN pretrained
@@ -25,7 +26,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 SPECS = {"paper-adaptive-fleet1k": "PAPER_ADAPTIVE_FLEET1K",
-         "anomaly-fleet1k": "ANOMALY_FLEET1K"}
+         "anomaly-fleet1k": "ANOMALY_FLEET1K",
+         "dp-fleet1k": "DP_FLEET1K",
+         "faulty-fleet1k": "FAULTY_FLEET1K",
+         "faulty-median-fleet1k": "FAULTY_MEDIAN_FLEET1K"}
 ROUNDS = 30
 
 

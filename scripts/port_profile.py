@@ -3,8 +3,9 @@
     python3 scripts/port_profile.py [--rounds 20] [--spec NAME]
 
 Builds one of the federations `chip_smoke.py` drives (``--spec``:
-``paper-mlp-fleet1k``, the default, ``paper-adaptive-fleet1k`` or
-``anomaly-fleet1k``, from `repro_torch.api.scenarios`), warms it up with
+``paper-mlp-fleet1k``, the default, ``paper-adaptive-fleet1k``,
+``anomaly-fleet1k``, ``dp-fleet1k``, ``faulty-fleet1k`` or
+``faulty-median-fleet1k``, from `repro_torch.api.scenarios`), warms it up with
 5 scanned rounds, then:
 
 * times ``run_scanned(rounds)`` (no final evaluation) and an event-heap
@@ -31,7 +32,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 SPECS = {"paper-mlp-fleet1k": "PAPER_MLP_FLEET1K",
          "paper-adaptive-fleet1k": "PAPER_ADAPTIVE_FLEET1K",
-         "anomaly-fleet1k": "ANOMALY_FLEET1K"}
+         "anomaly-fleet1k": "ANOMALY_FLEET1K",
+         "dp-fleet1k": "DP_FLEET1K",
+         "faulty-fleet1k": "FAULTY_FLEET1K",
+         "faulty-median-fleet1k": "FAULTY_MEDIAN_FLEET1K"}
 
 
 def main() -> None:

@@ -4,9 +4,12 @@ Aggregator        ``__call__(client_flat, weights, mask=None) -> (N,)``
                   over a (C, N) flat parameter matrix; ``supports_mask``
                   says it understands a (C,) validity mask, so the engine
                   runs it on padded fixed-shape clusters.
-                  ``aggregate_with_global`` folds the Eqn-19 global
-                  average into the same kernel pass; the engine calls it
-                  once per round.
+                  ``aggregate_with_global`` (the trust / fedavg rule)
+                  folds the Eqn-19 global average into the same kernel
+                  pass; the engine calls it once per round, except under
+                  DP.  A rule without it (the robust rules) gives the
+                  engine the Eqn-6 aggregate, and Eqn 19 runs as a second
+                  step.
 FrequencyController
                   ``select(ctx) -> int`` raw a_i before the Alg.-2 bound;
                   ``observe(ctx, consumed, loss)`` after the round;
@@ -19,9 +22,9 @@ TaskAdapter       model plug over flat parameter vectors: init, batched
                   local training, per-member losses, evaluation, the
                   hidden-activation mean tau of the DQN observation.
 
-Ported: the trust / fedavg aggregator, the fixed, Lyapunov and DQN
-controllers, and the MLP and autoencoder-anomaly tasks.  The robust rules
-are queued in ROADMAP.md; `FederationSpec.validate` raises on them.
+Ported: the trust / fedavg aggregator, the robust rules (krum,
+multi_krum, median, trimmed_mean), the fixed, Lyapunov and DQN
+controllers, and the MLP and autoencoder-anomaly tasks.
 """
 from __future__ import annotations
 
@@ -42,6 +45,8 @@ from repro_torch.core.autoencoder import (anomaly_auc, code_mean,
 from repro_torch.core.lyapunov import init_queue, step_queue
 from repro_torch.core.mlp import (accuracy, classifier_losses,
                                   init_mlp_classifier, mlp_hidden_mean)
+from repro_torch.core.robust import AGGREGATORS as ROBUST_RULES
+from repro_torch.core.robust import MASKED_AGGREGATORS as MASKED_RULES
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import flatten_rows, layout_of, leaf_views
 from repro_torch.kernels.trust_aggregate import (trust_aggregate,
@@ -105,6 +110,31 @@ class WeightedAggregator:
             staleness_w.to(torch.float32), c.to(torch.int32))
 
 
+class RobustAggregator:
+    """Byzantine-robust rules from `repro_torch.core.robust`; ignores the
+    trust weights (that is their point: no reputation signal needed).
+    Rules with a fixed-capacity masked variant (`median` /
+    `trimmed_mean`) advertise ``supports_mask=True`` and join the padded
+    round; krum and multi-krum run on exact-shape clusters, on the event
+    heap only."""
+
+    def __init__(self, rule: str, **kw):
+        self.rule_name = rule
+        self._rule = ROBUST_RULES[rule]
+        self._masked_rule = MASKED_RULES.get(rule)
+        self.supports_mask = self._masked_rule is not None
+        self._kw = kw
+
+    def __call__(self, client_flat, weights, mask=None):
+        del weights
+        if mask is not None:
+            if self._masked_rule is None:
+                raise ValueError(f"{self.rule_name} cannot run on padded "
+                                 "clusters (supports_mask=False)")
+            return self._masked_rule(client_flat, mask, **self._kw)
+        return self._rule(client_flat, **self._kw)
+
+
 @register_aggregator("trust")
 def _trust(params: Dict[str, Any]):
     return WeightedAggregator(uniform=False)
@@ -113,6 +143,17 @@ def _trust(params: Dict[str, Any]):
 @register_aggregator("fedavg")
 def _fedavg(params: Dict[str, Any]):
     return WeightedAggregator(uniform=True)
+
+
+def _register_robust(name):
+    @register_aggregator(name)
+    def _build(params: Dict[str, Any], _name=name):
+        return RobustAggregator(_name, **{k: v for k, v in params.items()
+                                          if k != "use_kernel"})
+
+
+for _name in ROBUST_RULES:
+    _register_robust(_name)
 
 
 # --------------------------------------------------------------------- #

@@ -14,6 +14,17 @@ Eqn-12 queue.  Ragged clusters run as one fixed-shape round over a padded
 (n_clusters, M) membership table whose padding slots hold the sentinel id
 ``n`` (`core.twin.take` / `put` read fills and drop writes for it).
 
+Under differential privacy (``spec.privacy.clip > 0``), and for a rule
+without ``aggregate_with_global`` (the robust rules), Eqn 6 and Eqn 19 are
+two steps: the rule's aggregate, or `core.privacy.dp_aggregate` through
+the masked ``trust_aggregate`` kernel, replaces the cluster's row, and
+`core.trust.time_weighted_average` takes Eqn 19 through the unmasked
+kernel.  Krum and multi-krum have no masked variant: they run on each
+cluster's exact member list, on the event heap only.  An active
+`FaultSpec` adds the `faults.FaultModel` transformations at the JAX
+package's places in the round; each family is gated by a Python bool, so
+an inert spec runs and draws exactly what the fault-free round does.
+
 Two entry points drive the round:
 
   run           the host event heap (per-round evaluation, ``sim_seconds``
@@ -32,10 +43,11 @@ round is pure: it returns a new `FleetState` and leaves the one it was
 handed as it was.
 
 Randomness: every per-round draw (batch rows, channel noise, next channel
-states) is a counter-based function of (seed, round, stream, device id,
-index) from `repro_torch.rng`, through the ``draws`` attribute; the parity
-tests replace it with the JAX package's draws.  Init-time draws come from
-CPU generators seeded from ``spec.seed``.
+states, and where the spec turns them on the DP normals and the fault
+uniforms and normals) is a counter-based function of (seed, round,
+stream, device id, index) from `repro_torch.rng`, through the ``draws``
+attribute; the parity tests replace it with the JAX package's draws.
+Init-time draws come from CPU generators seeded from ``spec.seed``.
 """
 from __future__ import annotations
 
@@ -55,9 +67,11 @@ from repro_torch.core.clustering import (cluster_devices, ensure_nonempty,
 from repro_torch.core.energy import (channel_cdf, draw_noise,
                                      round_energy, step_channel)
 from repro_torch.core.envs import OBS_DIM
+from repro_torch.core.privacy import dp_aggregate
 from repro_torch.core.trust import (belief, gradient_diversity,
                                     learning_quality, staleness_weights,
-                                    trust_weights, update_reputation)
+                                    time_weighted_average, trust_weights,
+                                    update_reputation)
 from repro_torch.core.twin import (TwinState, calibrate, calibrated_freq,
                                    draw_twins, member_view,
                                    observe_round_members, put,
@@ -70,6 +84,7 @@ from repro_torch.data.synthetic import (SyntheticClassification,
                                         make_classification,
                                         make_iot_telemetry)
 from repro_torch.device import resolve_device
+from repro_torch.faults.model import FaultModel
 from repro_torch.kernels.ops import flatten_rows
 
 from .components import ControllerCtx
@@ -102,10 +117,18 @@ class FleetState:
 
 
 class RoundDraws(NamedTuple):
-    """The random numbers one round consumes."""
+    """The random numbers one round consumes.  The optional fields are
+    drawn only where the spec turns their family on (None otherwise); the
+    per-member ones are keyed by the member slots' device ids before
+    dropout."""
     sel: torch.Tensor       # (M, local_batch) int64 dataset rows per member
     noise: torch.Tensor     # (M,) f32 Poisson channel-noise counts
     channel: torch.Tensor   # (n,) int64 next channel state of every device
+    dp_normal: Optional[torch.Tensor] = None       # (N,) DP noise normals
+    drop_u: Optional[torch.Tensor] = None          # (M,) dropout uniforms
+    straggle_u: Optional[torch.Tensor] = None      # (M,) straggler uniforms
+    spike_u: Optional[torch.Tensor] = None         # (M,) twin-spike uniforms
+    corrupt_normal: Optional[torch.Tensor] = None  # (M, N) gaussian mode
 
 
 def fleet_state_from_numpy(tree, device) -> FleetState:
@@ -172,11 +195,6 @@ class DeviceScaleEngine:
         if spec.scale != DEVICE_SCALE:
             raise ValueError(f"DeviceScaleEngine runs scale={DEVICE_SCALE!r}"
                              f", got {spec.scale!r}")
-        if not getattr(aggregator, "supports_mask", False):
-            raise NotImplementedError(
-                f"aggregator {type(aggregator).__name__} is not mask-aware; "
-                "the port runs only the padded round (ROADMAP.md, queue 1, "
-                "item 4)")
         dev = resolve_device(device)
         self.device = dev
         self.spec = spec
@@ -208,13 +226,37 @@ class DeviceScaleEngine:
         if n_mal:
             self.malicious[torch.randperm(n, generator=gen)[:n_mal].numpy()] \
                 = True
-        # the fault model's Byzantine subsets are not ported (an active
-        # FaultSpec is rejected), so the label flippers are the whole set
         self._malicious_dev = torch.as_tensor(self.malicious,
                                               dtype=torch.float32,
                                               device=dev)
+        # the fault model; its Byzantine subsets count as misbehaving in the
+        # Eqn-4 tallies, as the label flippers do (inert: both are zero)
+        self.faults = FaultModel(spec.faults, n, feat=self.data.x.shape[1],
+                                 device=dev)
+        self._misbehaving_dev = torch.maximum(
+            self._malicious_dev, torch.maximum(self.faults.corrupt_dev,
+                                               self.faults.poison_dev))
+        self._fault_seed = (rng.fault_seed(spec.seed, spec.faults.seed)
+                            if self.faults.active else None)
+        # mask-aware rules share the padded round; krum and multi-krum run
+        # on each cluster's exact member list (event heap only)
+        self._padded = bool(getattr(aggregator, "supports_mask", False))
+        if not self._padded:
+            self._members = [torch.as_tensor(np.where(self.assign == k)[0],
+                                             dtype=torch.int64, device=dev)
+                             for k in range(C)]
+            self._masks = [torch.ones(m.shape, dtype=torch.bool, device=dev)
+                           for m in self._members]
+        # Eqns 6 + 19 in one kernel pass, where the rule has it and DP,
+        # which needs the bare aggregate, is off
+        self._fuse_global = (self._padded and hasattr(
+            aggregator, "aggregate_with_global")
+            and spec.privacy.clip <= 0.0)
 
         gflat = task.init(gen, dim=self.data.x.shape[1])
+        # (offset, size) of each leaf in the flat layout
+        self._segments = [(off, int(torch.Size(shape).numel()))
+                          for _, shape, off in task.layout]
         if state is None:
             state = FleetState(
                 twins=TwinState(**{f.name: getattr(twins, f.name).to(dev)
@@ -234,6 +276,7 @@ class DeviceScaleEngine:
         self._part_len = part_len.to(dev)
         self._trans_cdf = channel_cdf(spec.channel.p_good).to(dev)
         self._dev_ids = torch.arange(n, device=dev)
+        self._zero = torch.zeros((), dtype=torch.int64, device=dev)
         self._batch_idx = torch.arange(spec.local_batch, device=dev)
         self._cidx = torch.arange(C, device=dev)
         self._n_actions = int(getattr(controller, "n_actions", 10))
@@ -273,7 +316,22 @@ class DeviceScaleEngine:
         channel = step_channel(
             rng.uniform(seed, r, rng.CHANNEL, self._dev_ids, 0),
             state.channel, self._trans_cdf)
-        return RoundDraws(sel=sel, noise=noise, channel=channel)
+        extra = {}
+        if self.spec.privacy.clip > 0.0:
+            extra["dp_normal"] = rng.normals(seed, r, rng.DP_NOISE,
+                                             self._zero,
+                                             state.global_flat.shape[0])
+        fm, fs = self.faults, self._fault_seed
+        for on, name, stream in ((fm.may_drop, "drop_u", rng.DROP),
+                                 (fm.may_straggle, "straggle_u",
+                                  rng.STRAGGLE),
+                                 (fm.may_spike, "spike_u", rng.SPIKE)):
+            if on:
+                extra[name] = rng.uniform(fs, r, stream, members, 0)
+        if fm.may_corrupt and fm.spec.corrupt_mode == "gaussian":
+            extra["corrupt_normal"] = rng.normals(
+                fs, r, rng.CORRUPT, members, state.global_flat.shape[0])
+        return RoundDraws(sel=sel, noise=noise, channel=channel, **extra)
 
     # ------------------------------------------------------------------ #
     # the round
@@ -286,18 +344,23 @@ class DeviceScaleEngine:
             dim=1).values
         return torch.where(self._member_mask.any(dim=1), fmin, 1.0)
 
-    def _fleet_round(self, state: FleetState, c: torch.Tensor, a_raw):
+    def _fleet_round(self, state: FleetState, c: torch.Tensor, a_raw,
+                     members=None, mask=None):
         """One asynchronous cluster round (paper §IV-D), state -> state.
 
         ``c`` is the cluster, a 0-d int64 tensor on the device; ``a_raw``
-        the controller's raw choice (int or 0-d tensor).  Returns the new
-        state and the round's metrics as 0-d device tensors."""
-        spec, task, twins = self.spec, self.task, state.twins
+        the controller's raw choice (int or 0-d tensor); ``members`` /
+        ``mask`` the cluster's exact member ids and an all-true mask, or
+        None for its padded membership row.  Returns the new state and the
+        round's metrics as 0-d device tensors."""
+        spec, task, twins, fm = self.spec, self.task, state.twins, self.faults
         dev = self.device
-        members = _row(self._member_table, c)
-        mask = _row(self._member_mask, c)
-        mask_f = _row(self._member_mask_f, c)
-        cnt = torch.clamp(mask_f.sum(), min=1.0)
+        if members is None:
+            members = _row(self._member_table, c)
+            mask = _row(self._member_mask, c)
+            mask_f = _row(self._member_mask_f, c)
+        else:
+            mask_f = mask.to(torch.float32)
 
         # --- controller choice capped by the Alg.-2 tolerance bound
         cluster_freq = self._cluster_freq_table(twins)
@@ -313,23 +376,43 @@ class DeviceScaleEngine:
         a = torch.clamp(a, 1, self._n_actions)
         steps = int(a)              # the round's one read back to the host
 
-        # --- local batches
+        # --- the round's draws; dropped members leave the mask and become
+        # the padding sentinel, so every gather fills neutrally and every
+        # scatter drops them, and they train on the sentinel's batch
+        # (dataset row 0, its one-sample shard: `padded_partition`)
         draws = self.draws(state, members)
-        x = self.data.x[draws.sel]
-        y = self.data.y[draws.sel]
+        sel = draws.sel
+        if fm.may_drop:
+            mask = fm.drop_mask(draws.drop_u, mask)
+            members = torch.where(mask, members, self.spec.fleet.n_devices)
+            sel = torch.where(mask[:, None], sel, 0)
+            mask_f = mask.to(torch.float32)
+        cnt = torch.clamp(mask_f.sum(), min=1.0)
+
+        # --- local batches
+        x = self.data.x[sel]
+        y = self.data.y[sel]
+        if fm.may_poison:
+            x = fm.poison_inputs(x, members)
         mal_m = take(self._malicious_dev, members, 0.0)
         y = torch.where(mal_m[:, None] > 0.5, task.corrupt_labels(y), y)
 
         # --- `steps` local SGD steps on every member, from the cluster model
         stacked = _row(state.cluster_flat, c).expand(members.shape[0], -1)
         new = task.local_train(stacked, x, y, spec.lr, steps)
+        if fm.may_corrupt:
+            # Byzantine members replace their deltas before trust sees them
+            new = fm.corrupt_updates(new, stacked, members, self._segments,
+                                     draws.corrupt_normal)
 
         # --- trust (Eqns 4-5)
         upd = new - stacked
         q = learning_quality(upd, mask)
         div = gradient_diversity(upd, mask)
-        b = belief(member_view(twins, members), q, spec.channel.pkt_fail,
-                   div)
+        tw_m = member_view(twins, members)
+        if fm.may_spike:
+            tw_m = fm.spike_twins(draws.spike_u, tw_m, mask)
+        b = belief(tw_m, q, spec.channel.pkt_fail, div)
         rep_m = update_reputation(take(state.rep, members, 1.0), b,
                                   spec.channel.pkt_fail, spec.iota)
         rep = put(state.rep, members, rep_m)
@@ -343,7 +426,7 @@ class DeviceScaleEngine:
                          draws.noise) * mask_f
         consumed = e.sum()
         twins = observe_round_members(twins, members, losses, e,
-                                      self._malicious_dev)
+                                      self._misbehaving_dev)
         if spec.fleet.calibrate_dt:
             twins = calibrate(twins)
 
@@ -352,10 +435,33 @@ class DeviceScaleEngine:
         rnd = state.round + 1
         ts = _with_row(state.cluster_ts, c, rnd.to(torch.float32))
         staleness = rnd.to(torch.float32) - ts
-        gflat = self.aggregator.aggregate_with_global(
-            new, w, mask_f, state.cluster_flat,
-            staleness_weights(staleness), c)
-        cflat = _with_row(state.cluster_flat, c, gflat)
+        if self._fuse_global:
+            gflat = self.aggregator.aggregate_with_global(
+                new, w, mask_f, state.cluster_flat,
+                staleness_weights(staleness), c)
+            cflat = state.cluster_flat
+        else:
+            cflat = _with_row(state.cluster_flat, c, self._eqn6(
+                state, c, new, upd, w, mask, mask_f, cnt, draws))
+            gflat, _ = time_weighted_average(cflat, staleness)
+        cflat = _with_row(cflat, c, gflat)
+
+        if fm.may_drop:
+            # a cluster whose members all dropped skips its event: it spends
+            # nothing and leaves every model, trust and twin tensor as it
+            # was; the channel and the round counter advance
+            empty = mask_f.sum() < 0.5
+
+            def keep(old, new_):
+                return torch.where(empty, old, new_)
+            consumed = keep(torch.zeros_like(consumed), consumed)
+            twins = TwinState(**{f.name: keep(getattr(state.twins, f.name),
+                                              getattr(twins, f.name))
+                                 for f in dataclasses.fields(TwinState)})
+            rep = keep(state.rep, rep)
+            cflat = keep(state.cluster_flat, cflat)
+            gflat = keep(state.global_flat, gflat)
+            ts = keep(state.cluster_ts, ts)
 
         # --- Eqn 12 with the realized consumption (+inf per slot: q = 0)
         queue = ctl_queue.queue_advance(state.queue, consumed,
@@ -363,6 +469,8 @@ class DeviceScaleEngine:
         # --- round duration from the post-calibration straggler frequency
         dur = a.to(torch.float32) / torch.clamp(
             _row(self._cluster_freq_table(twins), c), min=1e-6)
+        if fm.may_straggle:
+            dur = fm.straggle(draws.straggle_u, dur, mask)
 
         new_state = FleetState(
             twins=twins, rep=rep, channel=draws.channel, cluster_flat=cflat,
@@ -370,6 +478,22 @@ class DeviceScaleEngine:
         metrics = {"a": a, "dur": dur, "consumed": consumed,
                    "loss": (losses * mask_f).sum() / cnt}
         return new_state, metrics
+
+    def _eqn6(self, state: FleetState, c, new, upd, w, mask, mask_f, cnt,
+              draws: RoundDraws) -> torch.Tensor:
+        """The Eqn-6 aggregate of the two-step path: under DP the noised
+        sum of the clipped deltas (`dp_aggregate`, weights ``w`` for trust,
+        ``mask / cnt`` otherwise; the rule's own aggregate, which the JAX
+        package computes and discards, is not computed), else the rule's
+        aggregate of the members' parameters."""
+        priv = self.spec.privacy
+        if priv.clip > 0.0:
+            weights = (w if self.spec.aggregator.kind == "trust"
+                       else mask_f / cnt)
+            return dp_aggregate(upd, weights, mask_f,
+                                _row(state.cluster_flat, c), priv.clip,
+                                priv.noise, cnt, draws.dp_normal)
+        return self.aggregator(new, w, mask if self._padded else None)
 
     # ------------------------------------------------------------------ #
     # controller features
@@ -453,6 +577,11 @@ class DeviceScaleEngine:
         per-round metrics are read back once, after round K; ``eval_final``
         appends one evaluation record of the final global model.
         Consecutive calls continue the schedule."""
+        if not self._padded:
+            raise ValueError(
+                f"aggregator {type(self.aggregator).__name__} has "
+                "supports_mask=False (exact-shape clusters); run_scanned "
+                "needs the padded round: use run() instead")
         scan_policy = getattr(self.controller, "scan_policy", None)
         if scan_policy is None:
             raise ValueError(
@@ -543,8 +672,10 @@ class DeviceScaleEngine:
                 break
             ctx = self._ctx(c) if self._needs_ctx else self._null_ctx(c)
             a_raw = int(self.controller.select(ctx))
+            exact = (None, None) if self._padded else (self._members[c],
+                                                       self._masks[c])
             self.state, m = self._fleet_round(self.state, self._cidx[c],
-                                              a_raw)
+                                              a_raw, *exact)
             self._rounds += 1
             done += 1
             a, dur, consumed, loss = torch.stack(

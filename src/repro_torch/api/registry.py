@@ -2,7 +2,7 @@
 package's ``repro.api.registry``, which has no JAX in it).
 
 Every pluggable piece of the pipeline — aggregation rule, frequency
-controller, task adapter, engine — registers itself under a string
+controller, task adapter, scenario preset, engine — registers itself under a string
 name, so a `FederationSpec` (and therefore a config file) can name any
 component without the orchestrator knowing about it:
 
@@ -52,6 +52,7 @@ class Registry:
 AGGREGATORS = Registry("aggregator")
 CONTROLLERS = Registry("controller")
 TASKS = Registry("task")
+SCENARIOS = Registry("scenario")
 # execution engines, keyed by `FederationSpec.scale` — entries must satisfy
 # the `repro_torch.api.engine.DeviceScaleEngine` surface (classmethod ``from_spec`` plus
 # ``run``/``run_scanned`` emitting the FLTrace schema)
@@ -60,4 +61,5 @@ ENGINES = Registry("engine")
 register_aggregator = AGGREGATORS.register
 register_controller = CONTROLLERS.register
 register_task = TASKS.register
+register_scenario = SCENARIOS.register
 register_engine = ENGINES.register

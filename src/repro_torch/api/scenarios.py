@@ -1,4 +1,14 @@
-"""Named spec dicts the port is driven at on the card.
+"""Scenario presets and the named spec dicts the port is driven at on the
+card.
+
+The ten presets of the JAX package's ``repro.api.scenarios``, registered
+under the same names in `SCENARIOS` (the CLI, ``python -m
+repro_torch.api.run``, resolves from it).  ``adaptive-scanned-sharded``
+(a mesh, ROADMAP.md queue 1, item 9) and ``lm-modeA`` (the datacenter
+scale, item 10) stay registered; building them raises
+`NotImplementedError` naming their item.
+
+The full-width spec dicts:
 
 ``PAPER_MLP_FLEET1K``: the paper's 784-200-10 MLP
 (`repro/configs/paper_mnist.py`, §V) on a fleet of 1,024 devices in 16
@@ -16,8 +26,23 @@ preset: 3 episodes of 20 steps).
 batch 32, lr 0.1) on the same fleet and sample count, under the
 ``adaptive`` preset's DQN, so the autoencoder's code mean feeds the DQN
 observation.  The flat model is N = 5,288 floats.
+
+``DP_FLEET1K``: ``PAPER_MLP_FLEET1K`` with the ``dp`` preset's client-level
+differential privacy (clip 1.0, noise multiplier 0.5).
+
+``FAULTY_FLEET1K``: ``PAPER_MLP_FLEET1K`` with the ``faulty-fleet``
+preset's faults (dropout 0.15, stragglers 0.125, twin spikes 0.1, sign-flip
+corruption of a quarter of the devices at scale 4), trust aggregation.
+
+``FAULTY_MEDIAN_FLEET1K``: the same faults under the coordinate median.
 """
 from __future__ import annotations
+
+from .registry import register_scenario
+from .spec import (AggregatorSpec, ChannelSpec, ClusteringSpec,
+                   ControllerSpec, DATACENTER_SCALE, FaultSpec,
+                   FederationSpec, FleetSpec, PrivacySpec, ShardingSpec,
+                   TaskSpec)
 
 PAPER_MLP_FLEET1K = {
     "fleet": {"n_devices": 1024},
@@ -46,3 +71,129 @@ ANOMALY_FLEET1K = {
                         "hidden": 64, "code": 8}},
     "local_batch": 32, "lr": 0.1, "seed": 0,
 }
+
+# the `dp` preset's privacy and the `faulty-fleet` preset's faults
+_DP = {"clip": 1.0, "noise": 0.5}
+_FAULTY = {"dropout": 0.15, "straggler_frac": 0.125, "twin_spike_prob": 0.1,
+           "corrupt_mode": "sign_flip", "corrupt_frac": 0.25,
+           "corrupt_scale": 4.0}
+
+DP_FLEET1K = {**PAPER_MLP_FLEET1K, "privacy": _DP}
+
+FAULTY_FLEET1K = {**PAPER_MLP_FLEET1K, "faults": _FAULTY}
+
+FAULTY_MEDIAN_FLEET1K = {**FAULTY_FLEET1K,
+                         "aggregator": {"kind": "median"}}
+
+
+@register_scenario("sync-baseline")
+def _sync_baseline() -> FederationSpec:
+    """Benchmark scheme: synchronous FedAvg, one cluster, fixed a=5."""
+    return FederationSpec(
+        clustering=ClusteringSpec(n_clusters=1),
+        controller=ControllerSpec("fixed", {"a": 5}),
+        aggregator=AggregatorSpec("fedavg"),
+        sim_seconds=15.0)
+
+
+@register_scenario("byzantine")
+def _byzantine() -> FederationSpec:
+    """25% label-flipping clients; trust aggregation must down-weight them."""
+    return FederationSpec(
+        fleet=FleetSpec(n_devices=16, malicious_frac=0.25),
+        controller=ControllerSpec("fixed", {"a": 5}),
+        aggregator=AggregatorSpec("trust"),
+        sim_seconds=15.0)
+
+
+@register_scenario("faulty-fleet")
+def _faulty_fleet() -> FederationSpec:
+    """Fault injection inside the round: device dropout, stragglers,
+    twin-deviation spikes, and sign-flip Byzantine corruption, with trust
+    aggregation absorbing the damage (`repro_torch.faults`)."""
+    return FederationSpec(
+        fleet=FleetSpec(n_devices=16),
+        clustering=ClusteringSpec(n_clusters=2),
+        controller=ControllerSpec("fixed", {"a": 5}),
+        aggregator=AggregatorSpec("trust"),
+        faults=FaultSpec(**_FAULTY),
+        execution="scanned", rounds=30, sim_seconds=1e9)
+
+
+@register_scenario("dp")
+def _dp() -> FederationSpec:
+    """Client-level DP on top of trust aggregation."""
+    return FederationSpec(
+        controller=ControllerSpec("fixed", {"a": 5}),
+        privacy=PrivacySpec(**_DP),
+        sim_seconds=15.0)
+
+
+@register_scenario("heterogeneous")
+def _heterogeneous() -> FederationSpec:
+    """Wide DT deviation + bad channel; Lyapunov-greedy frequency control."""
+    return FederationSpec(
+        fleet=FleetSpec(n_devices=16, dt_max_dev=0.4),
+        channel=ChannelSpec(p_good=0.3),
+        controller=ControllerSpec("lyapunov",
+                                  {"budget": 150.0, "horizon": 60}),
+        sim_seconds=15.0)
+
+
+@register_scenario("adaptive")
+def _adaptive() -> FederationSpec:
+    """The paper's full scheme: DQN trained on the DT env picks a_i."""
+    return FederationSpec(
+        controller=ControllerSpec("dqn", {"episodes": 3, "horizon": 20}),
+        sim_seconds=15.0)
+
+
+@register_scenario("adaptive-scanned")
+def _adaptive_scanned() -> FederationSpec:
+    """Full scheme with the controller on the card: DQN pretrain on the
+    device, then K scanned rounds."""
+    return FederationSpec(
+        controller=ControllerSpec("dqn", {"episodes": 3, "horizon": 20}),
+        execution="scanned", rounds=40, sim_seconds=15.0)
+
+
+@register_scenario("adaptive-scanned-sharded")
+def _adaptive_scanned_sharded() -> FederationSpec:
+    """Scanned full scheme on an 8-way fleet mesh (not ported: ROADMAP.md,
+    queue 1, item 9)."""
+    return FederationSpec(
+        fleet=FleetSpec(n_devices=16),
+        controller=ControllerSpec("dqn", {"episodes": 3, "horizon": 20}),
+        execution="scanned", rounds=40, sim_seconds=15.0,
+        sharding=ShardingSpec(mesh=(8,)))
+
+
+@register_scenario("autoencoder-anomaly")
+def _autoencoder_anomaly() -> FederationSpec:
+    """Federated autoencoder anomaly detection on non-IID IoT telemetry
+    (reconstruction loss; trace ``acc`` is the detection AUC), scanned
+    under Lyapunov frequency control."""
+    return FederationSpec(
+        fleet=FleetSpec(n_devices=16),
+        clustering=ClusteringSpec(n_clusters=4),
+        controller=ControllerSpec("lyapunov",
+                                  {"budget": 1600.0, "horizon": 100}),
+        aggregator=AggregatorSpec("trust"),
+        task=TaskSpec("autoencoder-anomaly",
+                      {"n_samples": 2048, "dim": 32, "n_types": 8,
+                       "hidden": 64, "code": 8}),
+        execution="scanned", rounds=25, sim_seconds=1e9,
+        local_batch=32, lr=0.1)
+
+
+@register_scenario("lm-modeA")
+def _lm_mode_a() -> FederationSpec:
+    """Datacenter scale: tiny-LM FedAvg-replica (not ported: ROADMAP.md,
+    queue 1, item 10)."""
+    return FederationSpec(
+        scale=DATACENTER_SCALE,
+        fleet=FleetSpec(n_devices=8),
+        clustering=ClusteringSpec(n_clusters=2),
+        controller=ControllerSpec("fixed", {"a": 2, "n_actions": 4}),
+        task=TaskSpec("lm", {"seq": 16, "micro_batch": 2}),
+        rounds=5)

@@ -4,13 +4,16 @@ A copy of the JAX package's ``repro.api.spec``: every dataclass keeps every
 field and default, and `to_dict` / `from_dict` use the same plain dicts, so
 a spec written by either package builds in the other.  Only `validate`
 differs: it raises `NotImplementedError`, naming the ROADMAP item that will
-port it, for every feature the port does not run yet.
+port it, for what the port does not run yet (the datacenter scale, the
+multi-device scales and sharding meshes), before the JAX package's checks.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
+from repro_torch.core.robust import AGGREGATORS as _ROBUST
+from repro_torch.core.robust import MASKED_AGGREGATORS as _MASKED
 from repro_torch.faults.spec import FaultSpec
 
 from . import registry
@@ -18,15 +21,16 @@ from . import registry
 DEVICE_SCALE = "device"          # discrete-event simulator over the MLP task
 DATACENTER_SCALE = "datacenter"  # sharded fl_step modes over the LM task
 
-# the JAX package's Byzantine-robust rules (repro.core.robust.AGGREGATORS)
-ROBUST_RULES = ("krum", "multi_krum", "median", "trimmed_mean")
-
 _QUEUE = "ROADMAP.md, queue 1"
 
 
 def unported(spec: "FederationSpec") -> Optional[str]:
     """What of ``spec`` the port cannot run yet, with the ROADMAP item that
-    ports it; None when the port runs all of it."""
+    ports it; None when the port runs all of it.  The port runs the
+    device scale on one device with every aggregator (trust, fedavg and the
+    robust rules), controller and task, differential privacy and every
+    fault family; it does not run the datacenter LM scale, the multi-device
+    scales or a sharding mesh."""
     if spec.scale == DATACENTER_SCALE or spec.task.kind == "lm":
         return f"the datacenter LM scale ({_QUEUE}, item 10)"
     if spec.scale != DEVICE_SCALE:
@@ -34,13 +38,6 @@ def unported(spec: "FederationSpec") -> Optional[str]:
                 "item 9)")
     if spec.sharding.is_sharded:
         return f"a sharding mesh (multi-device, {_QUEUE}, item 9)"
-    if spec.aggregator.kind in ROBUST_RULES:
-        return (f"the robust aggregator {spec.aggregator.kind!r} "
-                f"(core/robust.py, {_QUEUE}, item 4)")
-    if spec.privacy.clip > 0.0:
-        return f"differential privacy (core/privacy.py, {_QUEUE}, item 4)"
-    if spec.faults.active:
-        return f"fault injection (faults/model.py, {_QUEUE}, item 5)"
     return None
 
 
@@ -169,9 +166,35 @@ class FederationSpec:
         registry.AGGREGATORS.get(self.aggregator.kind)
         registry.TASKS.get(self.task.kind)
         self.faults.validate()
+        # the JAX package's datacenter checks: unreachable while the
+        # datacenter scale is not ported (`unported` raises first)
+        if self.faults.active and self.scale == DATACENTER_SCALE:
+            raise ValueError(
+                "faults: fault injection is device-scale only (the "
+                "datacenter fl_step modes have no fault model)")
+        if self.scale == DATACENTER_SCALE:
+            if self.aggregator.kind not in ("trust", "fedavg"):
+                raise ValueError(
+                    f"aggregator {self.aggregator.kind!r} is not supported "
+                    "at datacenter scale (fl_step implements Eqn-6 trust "
+                    "weighting only)")
+            if self.privacy.clip > 0.0 or self.privacy.noise > 0.0:
+                raise ValueError(
+                    "privacy (DP) is not implemented at datacenter scale")
         if self.execution not in ("event", "scanned"):
             raise ValueError(f"unknown execution {self.execution!r}; "
                              "valid: 'event', 'scanned'")
+        if self.execution == "scanned":
+            # the scan needs the padded round: built-in rules without a
+            # masked variant cannot join it (custom registrations are
+            # checked at run_scanned time instead)
+            if self.aggregator.kind in set(_ROBUST) - set(_MASKED):
+                raise ValueError(
+                    f"aggregator {self.aggregator.kind!r} has no masked "
+                    "variant (supports_mask=False); execution='scanned' "
+                    "needs the padded round: pick a mask-aware rule "
+                    "(trust/fedavg/" + "/".join(sorted(_MASKED))
+                    + ") or execution='event'")
         if self.fleet.n_devices < self.clustering.n_clusters:
             raise ValueError("n_devices < n_clusters")
         return self

@@ -13,14 +13,18 @@ Reputation (Eqn 5):  T_{i->j} = sum_t b^t + iota * u
 Aggregation (Eqn 6): w_k = sum_i T_i w_i / sum_i T_i
 
 Operation order follows the JAX package so float32 results agree to the
-last few ulps.  `trust_weighted_average` is the plain form of the CUDA
-kernels in `repro_torch.kernels`.
+last few ulps.  Eqn 6 itself is the trust-aggregation kernels'
+(`repro_torch.kernels`, plain versions in `kernels.ref`);
+`time_weighted_average` takes its Eqn-19 sum through the unmasked
+`trust_aggregate` kernel (its plain version on the CPU).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from repro_torch.kernels.trust_aggregate import trust_aggregate
 
 from .twin import TwinState
 
@@ -100,15 +104,6 @@ def trust_weights(rep, mask=None) -> torch.Tensor:
                        uniform)
 
 
-def trust_weighted_average(client_flat: torch.Tensor, weights: torch.Tensor
-                           ) -> torch.Tensor:
-    """Eqn 6: weighted sum over the leading client dim of a (n, ...) tensor
-    with (n,) weights summing to 1."""
-    w = weights.reshape((-1,) + (1,) * (client_flat.dim() - 1)).to(
-        client_flat.dtype)
-    return (client_flat * w).sum(0)
-
-
 def staleness_weights(staleness, base: float = math.e / 2) -> torch.Tensor:
     """Eqn 19's normalized time-decay weights (e/2)^{-(t - timestamp_j)}.
 
@@ -121,6 +116,8 @@ def staleness_weights(staleness, base: float = math.e / 2) -> torch.Tensor:
 
 def time_weighted_average(cluster_flat, staleness, base: float = math.e / 2):
     """Eqn 19: inter-cluster aggregation with exponential time decay over a
-    (n_clusters, ...) stack."""
+    (n_clusters, N) stack: ``sum_b gw_b x_b``, one launch of the unmasked
+    `trust_aggregate` kernel on the card.  -> (the (N,) average, the (B,)
+    weights)."""
     w = staleness_weights(staleness, base)
-    return trust_weighted_average(cluster_flat, w), w
+    return trust_aggregate(cluster_flat.contiguous(), w.contiguous()), w

@@ -1,9 +1,8 @@
 """`FaultSpec`: declarative fault injection for a federation experiment.
 
 A copy of the JAX package's ``repro.faults.spec``, so the spec dicts of
-the two packages stay interchangeable.  The fault model that applies a
-spec inside the round is not ported yet: the port's engine raises on an
-active spec (ROADMAP queue 1, "Faults").
+the two packages stay interchangeable.  `repro_torch.faults.FaultModel`
+applies a spec inside the device-scale round.
 
 Five orthogonal fault families, all off by default (the default spec is
 inert: the engine compiles the exact pre-fault round):

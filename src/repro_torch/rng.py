@@ -25,6 +25,13 @@ INIT, DATA = 3, 4
 # the DQN's pretraining on the DT environment: the agent's initial weights
 # (a generator), an episode's reset, and each step's draws
 DQN_INIT, ENV_RESET, DQN_STEP = 5, 6, 7
+# the DP noise of a round's aggregate (N normals)
+DP_NOISE = 8
+# the fault model: the per-member uniforms of dropout, stragglers and twin
+# spikes, the gaussian corruption's (M, N) normals, the build-time poison
+# patterns (a generator), and the stream that mixes the fault seed into
+# the federation's (`fault_seed`)
+DROP, STRAGGLE, SPIKE, CORRUPT, POISON, FAULTS = 9, 10, 11, 12, 13, 14
 
 _M32 = 0xFFFFFFFF
 
@@ -75,6 +82,23 @@ def normal(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
     """Standard normals from two uniforms in [0, 1) each (Box-Muller)."""
     return torch.sqrt(-2.0 * torch.log1p(-u1)) * torch.cos(
         (2.0 * math.pi) * u2)
+
+
+def normals(seed: int, round_, stream: int, dev, n: int) -> torch.Tensor:
+    """(..., n) float32 standard normals, one row per entry of ``dev``
+    (an int64 tensor or an int), from 2n uniforms of each row (indices
+    0..n-1 and n..2n-1)."""
+    dev = torch.as_tensor(dev, dtype=torch.int64)
+    idx = torch.arange(2 * n, dtype=torch.int64, device=dev.device)
+    u = uniform(seed, round_, stream, dev[..., None], idx)
+    return normal(u[..., :n], u[..., n:])
+
+
+def fault_seed(seed: int, fault_seed_: int) -> int:
+    """The seed of every fault draw: the federation's seed mixed with the
+    fault spec's, so two fault specs that differ only in their seed realise
+    different faults against the same federation."""
+    return int(hash32(seed, 0, FAULTS, 0, int(fault_seed_)))
 
 
 def generator(seed: int, stream: int) -> torch.Generator:

@@ -28,6 +28,7 @@ try:            # the card's machine has no JAX: only the cuda test runs there
     from repro import api as japi
     from repro.core.energy import NOISE_MEAN_DB, step_channel
     from repro.data.federated import sample_member_batch
+    from repro.faults import model as jfaults
 except ImportError:
     jax = None
 
@@ -57,17 +58,23 @@ LYAPUNOV = {"kind": "lyapunov", "params": {"budget": 400, "horizon": 30}}
 
 class JaxDraws:
     """The JAX engine's draws for the port's round: the state key of round
-    r is the first of ``split(key_{r-1}, 5)``, whatever cluster ran."""
+    r is the first of ``split(key_{r-1}, 5)`` (6 with an active fault
+    spec), whatever cluster ran.  The DP normals come from ``kdp``, one
+    key a leaf, and the fault draws from ``kflt`` through the JAX fault
+    model's own keys, all flattened in the port's sorted-leaf layout."""
 
     def __init__(self, jeng):
         self.jeng = jeng
         self.keys = [jeng.state.key]
+        self.n_keys = 6 if jeng.faults.active else 5
 
     def __call__(self, state, members):
         r = int(state.round)
         while len(self.keys) <= r:
-            self.keys.append(jax.random.split(self.keys[-1], 5)[0])
-        _, kb, ke, kc2, _ = jax.random.split(self.keys[r], 5)
+            self.keys.append(jax.random.split(self.keys[-1],
+                                              self.n_keys)[0])
+        ks = jax.random.split(self.keys[r], self.n_keys)
+        kb, ke, kc2, kdp = ks[1], ks[2], ks[3], ks[4]
         je = self.jeng
         m = jnp.asarray(members.cpu().numpy().astype(np.int32))
         sel = sample_member_batch(kb, je._part_idx, je._part_len, m,
@@ -78,9 +85,39 @@ class JaxDraws:
             jax.random.fold_in(ke, mm), l, ()))(m, lam)
         nxt = step_channel(kc2, ch, je._trans)
         as_t = lambda a, dt: torch.from_numpy(np.array(a).astype(dt))
+        extra = {}
+        shapes = [np.shape(v) for _, v in
+                  sorted(je.state.global_params.items())]
+        if je.spec.privacy.clip > 0.0:
+            extra["dp_normal"] = as_t(np.concatenate([
+                np.ravel(jax.random.normal(k, sh, jnp.float32))
+                for k, sh in zip(jax.random.split(kdp, len(shapes)),
+                                 shapes)]), np.float32)
+        fm = je.faults
+        if fm.active:
+            kflt = ks[5]
+            for on, name, tag in ((fm.may_drop, "drop_u", jfaults._TAG_DROP),
+                                  (fm.may_straggle, "straggle_u",
+                                   jfaults._TAG_STRAGGLE),
+                                  (fm.may_spike, "spike_u",
+                                   jfaults._TAG_SPIKE)):
+                if on:
+                    extra[name] = as_t(jfaults._member_uniform(
+                        fm._key(kflt, tag), m), np.float32)
+            if fm.may_corrupt and fm.spec.corrupt_mode == "gaussian":
+                kc = fm._key(kflt, jfaults._TAG_CORRUPT)
+                rows = []
+                for i, sh in enumerate(shapes):
+                    ki = jax.random.fold_in(kc, i)
+                    rows.append(np.asarray(jax.vmap(
+                        lambda mm: jax.random.normal(
+                            jax.random.fold_in(ki, mm), sh,
+                            jnp.float32))(m)).reshape(len(m), -1))
+                extra["corrupt_normal"] = as_t(np.concatenate(rows, 1),
+                                               np.float32)
         return tapi.RoundDraws(sel=as_t(sel, np.int64),
                                noise=as_t(noise, np.float32),
-                               channel=as_t(nxt, np.int64))
+                               channel=as_t(nxt, np.int64), **extra)
 
 
 def build_pair(d):
@@ -91,7 +128,49 @@ def build_pair(d):
         d, device="cpu", data=je.data, parts=je.parts, assign=je.assign,
         state=tapi.fleet_state_from_numpy(state, "cpu"))
     tfed.engine.draws = JaxDraws(je)
+    te = tfed.engine
+    if je.malicious.any():          # the JAX package's label flippers
+        te.malicious = je.malicious.copy()
+        te._malicious_dev = torch.as_tensor(je.malicious,
+                                            dtype=torch.float32)
+        te._misbehaving_dev = torch.maximum(te._malicious_dev, torch.maximum(
+            te.faults.corrupt_dev, te.faults.poison_dev))
+    if je.faults.may_poison:        # the JAX fault model's frozen patterns
+        feat = je._x.shape[-1]
+        tfed.engine.faults.patterns = torch.from_numpy(np.array(
+            jax.random.normal(jax.random.PRNGKey(
+                je.faults._seed * 2654435761 % (2 ** 31)),
+                (je.faults.n + 1, feat), jnp.float32)))
     return jfed, tfed
+
+
+def assert_same_trace(jt, tt, n_records):
+    """Scheduling and counters exactly; t, loss and energy within 1e-5
+    relative; accuracy within 1e-5."""
+    assert len(tt.records) == len(jt.records) == n_records
+    for a, b in zip(jt.records, tt.records):
+        assert (b.round, b.cluster, b.a, b.agg_count) == \
+            (a.round, a.cluster, a.a, a.agg_count)
+        np.testing.assert_allclose([b.t, b.loss, b.energy],
+                                   [a.t, a.loss, a.energy], rtol=1e-5)
+        assert (a.acc is None) == (b.acc is None)
+        if a.acc is not None:
+            assert abs(a.acc - b.acc) < 1e-5
+
+
+def run_pair(d, execution, rounds=12):
+    """Both federations of ``build_pair(d)`` over ``rounds`` rounds of
+    ``execution``; their traces and final states must agree."""
+    jfed, tfed = build_pair(d)
+    if execution == "event":
+        jt = jfed.run(eval_every=0.0, max_rounds=rounds)
+        tt = tfed.run(eval_every=0.0, max_rounds=rounds)
+    else:
+        jt = jfed.engine.run_scanned(rounds)
+        tt = tfed.engine.run_scanned(rounds)
+    assert_same_trace(jt, tt, rounds + (execution == "scanned"))
+    assert_same_state(jfed.engine.state, tfed.engine.state)
+    return jfed, tfed, jt, tt
 
 
 def assert_same_state(js, ts, tol=1e-5):
@@ -124,25 +203,8 @@ def assert_same_state(js, ts, tol=1e-5):
          "fedavg-scanned", "jax-two-step-event"])
 def test_round_by_round_parity_on_injected_draws(needs_jax, controller,
                                                  execution, aggregator):
-    jfed, tfed = build_pair(spec_dict(controller, execution=execution,
-                                      aggregator=aggregator))
-    if execution == "event":
-        jt = jfed.run(eval_every=0.0, max_rounds=12)
-        tt = tfed.run(eval_every=0.0, max_rounds=12)
-    else:
-        jt = jfed.engine.run_scanned(12)
-        tt = tfed.engine.run_scanned(12)
-    assert len(tt.records) == len(jt.records) == (13 if execution ==
-                                                   "scanned" else 12)
-    for a, b in zip(jt.records, tt.records):
-        assert (b.round, b.cluster, b.a, b.agg_count) == \
-            (a.round, a.cluster, a.a, a.agg_count)
-        np.testing.assert_allclose([b.t, b.loss, b.energy],
-                                   [a.t, a.loss, a.energy], rtol=1e-5)
-        assert (a.acc is None) == (b.acc is None)
-        if a.acc is not None:
-            assert abs(a.acc - b.acc) < 1e-5
-    assert_same_state(jfed.engine.state, tfed.engine.state)
+    jfed, tfed, _, _ = run_pair(spec_dict(controller, execution=execution,
+                                          aggregator=aggregator), execution)
     if controller is LYAPUNOV:
         assert abs(float(tfed.controller.queue.q)
                    - float(jfed.controller.queue.q)) < 1e-4
@@ -198,11 +260,6 @@ def test_spec_dict_and_trace_jsonl_roundtrip_across_packages(needs_jax,
 
 
 @pytest.mark.parametrize("change", [
-    {"aggregator": {"kind": "krum", "params": {}}},
-    {"aggregator": {"kind": "median", "params": {}}},
-    {"faults": {"straggler_frac": 0.3}},
-    {"privacy": {"clip": 1.0, "noise": 0.1}},
-    {"faults": {"dropout": 0.2}},
     {"sharding": {"mesh": [2]}},
     {"scale": "datacenter", "task": {"kind": "lm", "params": {}}},
 ])
@@ -211,6 +268,24 @@ def test_unported_features_raise(change):
     d.update(change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tapi.Federation.from_dict(d, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    {"aggregator": {"kind": "krum", "params": {}}},
+    {"aggregator": {"kind": "median", "params": {}}},
+    {"faults": {"straggler_frac": 0.3}},
+    {"privacy": {"clip": 1.0, "noise": 0.1}},
+    {"faults": {"dropout": 0.2}},
+], ids=["krum", "median", "straggler", "privacy", "dropout"])
+def test_formerly_unported_features_build_and_run(change):
+    """The robust rules, DP and the fault model build and run on the CPU
+    (they raised until the port ran them)."""
+    d = spec_dict(FIXED)
+    d.update(change)
+    fed = tapi.Federation.from_dict(d, device="cpu")
+    records = fed.run(max_rounds=3).records
+    assert records and all(np.isfinite(r.loss) for r in records)
+    assert int(fed.engine.state.round) == 3
 
 
 def test_bare_spec_runs_through_the_default_dqn():
