@@ -54,6 +54,20 @@ Needs one NVIDIA GPU and nvcc.  In order:
    spec); then the
    unmasked kernel timed at Eqn 19's (16, 159,010), cold and warm, in
    turns with ``w @ x``, beside its bound;
+4e. the service mode (``repro_torch.serve``) at full width, in temporary
+   run dirs: ``run_service`` in 10-round segments on
+   ``paper-mlp-fleet1k``, two segments then a resume for a third against
+   three straight (trace.jsonl byte-equal, the manifests' f64 energy
+   equal, 10 fused launches a segment, the service's status metrics), one
+   more round restored from the checkpoint with the fused kernel held
+   against its plain version (1e-5); then the chaos harness on
+   ``paper-adaptive-fleet1k`` (three segments, one SIGKILL, ``python -m
+   repro_torch.serve`` children on the card, each pretraining its DQN and
+   reporting its kernel-library load as a compile event) against an
+   in-process uninterrupted run, byte-equal; then ``service_status``, the
+   ``metrics`` and ``status --watch --once`` subcommands on its run dir.
+   78.1 s on one H100 (the chaos run 32.8 s of it; 17.6 s on a host
+   twice as fast);
 5. serving: recurrentgemma-2b at full width (26 layers, d_model 2560,
    f32 weights from seed 0) through ``repro_torch.launch.serve.generate``:
    first each language-model kernel against its plain version at the
@@ -80,6 +94,9 @@ Needs one NVIDIA GPU and nvcc.  In order:
    the kernel on the first MAMBA layer's own inputs held against its plain
    version, and the 4096 + 1 consistency check;
 7. prints the federations line (4b, 4c and 4d), the serving line, the
+   service line (4e: each segment's ``service_rounds_per_sec``, its
+   checkpoint's seconds and bytes, the chaos children's start-up seconds,
+   kills and restarts, beside the card's name and power limit), the
    kernels line, then the result line.
 
 The trust kernels are timed back to back through their wrappers (the
@@ -1099,6 +1116,197 @@ def dense_times(B: int, N: int, dev) -> dict:
 
 
 # --------------------------------------------------------------------- #
+# the service mode: checkpointed segments, resume and a SIGKILL
+# --------------------------------------------------------------------- #
+def segment_metrics(run_dir: str) -> list:
+    """One entry a segment, in order, from the service's snapshots in the
+    run dir's ``metrics.jsonl``: the ``service_rounds_per_sec``,
+    ``fl_checkpoint_last_seconds`` and ``fl_checkpoint_bytes`` gauges.
+    Each run's registry counts its segments (and a resumed run its resume)
+    from 0, and its farewell snapshot repeats its last segment's."""
+    from repro_torch.obs import MetricsRegistry
+    out, last = [], None
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec.get("schema") != "metrics/1" or \
+                    rec.get("source") != "service":
+                continue
+            t = MetricsRegistry.from_snapshot(rec).totals()
+            key = (t.get("service_segments_total", 0),
+                   t.get("service_resumes_total", 0))
+            if key[0] and key != last:
+                out.append({"rounds_per_sec": t["service_rounds_per_sec"],
+                            "checkpoint_s": t["fl_checkpoint_last_seconds"],
+                            "checkpoint_bytes": t["fl_checkpoint_bytes"]})
+            last = key
+    return out
+
+
+def read_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def service_phase(dev) -> dict:
+    """4e. the service mode at full width: ``run_service`` in 10-round
+    segments on ``paper-mlp-fleet1k`` (two segments, then a resume for a
+    third, against three straight in a second run dir: trace.jsonl
+    byte-equal, the manifests' f64 energy equal, 10 fused launches a
+    segment; after the resume one more round restored from the
+    checkpoint holds the fused kernel against its plain version); then the
+    chaos harness on ``paper-adaptive-fleet1k`` (three segments, one
+    SIGKILL, ``python -m repro_torch.serve`` children on the card each
+    pretraining its DQN) against an in-process uninterrupted run; then
+    the chaos run dir read as a user would (``service_status``, the
+    ``metrics`` and ``status --watch --once`` subcommands)."""
+    import shutil
+    import tempfile
+    from repro_torch.api import Federation, FederationSpec
+    from repro_torch.api.scenarios import (PAPER_ADAPTIVE_FLEET1K,
+                                           PAPER_MLP_FLEET1K)
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.serve import (RunDir, latest_resumable,
+                                   restore_resumable, run_service,
+                                   run_supervised, service_status)
+    from repro_torch.serve.service import child_env
+    K = 10
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_service_")
+    counts, out = {}, {}
+    quiet = lambda *a: None
+
+    def run_dir(name, spec):
+        rd = RunDir(os.path.join(root, name)).ensure()
+        rd.write_spec(spec)
+        return rd
+
+    def serve(path, label, segments, **kw):
+        reset_launches()
+        t0 = time.perf_counter()
+        state = run_service(path, segment_rounds=K, max_segments=segments,
+                            keep=None, device="cuda", log=quiet, **kw)
+        dt = time.perf_counter() - t0
+        counts[label] = dict(launches)
+        check(launches["trust_aggregate_global"] == K * segments,
+              f"{label}: {segments} segments of {K} rounds launched the "
+              f"fused kernel {launches['trust_aggregate_global']} times")
+        check(state["status"] == "stopped", f"{label}: {state}")
+        return dt
+
+    def manifest(rd):
+        found = latest_resumable(rd.ckpt_dir)
+        check(found is not None, f"no verified checkpoint in {rd.root}")
+        return found[1]
+
+    try:
+        # 1. segment parity in process
+        spec = FederationSpec.from_dict(PAPER_MLP_FLEET1K)
+        a, b = run_dir("resumed", spec), run_dir("straight", spec)
+        wall = {"service_2_segments": serve(a.root, "service_2_segments", 2),
+                "service_resume": serve(a.root, "service_resume", 1,
+                                        resume=True),
+                "service_3_segments": serve(b.root, "service_3_segments", 3)}
+        check(read_bytes(a.trace_path) == read_bytes(b.trace_path),
+              "service: the resumed trace.jsonl differs from the "
+              "uninterrupted run's")
+        ma, mb = manifest(a), manifest(b)
+        check(ma["rounds"] == mb["rounds"] == 3 * K
+              and ma["energy"] == mb["energy"],
+              f"service: manifests differ: {ma} vs {mb}")
+        st = service_status(b.root)
+        m = st["metrics"]
+        check(m["fl_rounds_total"] == 3 * K and
+              m["fl_checkpoints_total"] == 3 and
+              m["service_segments_total"] == 3,
+              f"service: status metrics {m}")
+        fed = Federation.from_spec(spec)
+        restore_resumable(fed, a.ckpt_dir)
+        live = live_check(fed, 1)
+        check(len(live) == 1 and live[0][2],
+              f"service: fused kernel after the restore: {live}")
+        del fed
+        torch.cuda.empty_cache()
+        out["paper-mlp-fleet1k"] = {
+            "segments": {"resumed": segment_metrics(a.root),
+                         "straight": segment_metrics(b.root)},
+            "wall_s": wall, "rounds": ma["rounds"], "energy": ma["energy"],
+            "trace_bytes": os.path.getsize(a.trace_path),
+            "live_max_abs_err": live[0][0]}
+        print(f"service paper-mlp-fleet1k: 2 + 1 resumed segments == 3 "
+              f"straight (trace.jsonl {os.path.getsize(a.trace_path)} B "
+              f"byte-equal, energy {ma['energy']!r} J equal); fused kernel "
+              f"after the restore: max abs error {live[0][0]:.3g}; "
+              f"{json.dumps(out['paper-mlp-fleet1k']['segments'])}",
+              flush=True)
+
+        # 2. chaos: SIGKILL a child after a checkpoint lands
+        aspec = FederationSpec.from_dict(PAPER_ADAPTIVE_FLEET1K)
+        ref = run_dir("adaptive_ref", aspec)
+        t_ref = serve(ref.root, "service_chaos_reference", 3)
+        chaos = RunDir(os.path.join(root, "adaptive_chaos"))
+        t0 = time.perf_counter()
+        summary = run_supervised(
+            chaos.root, total_segments=3, segment_rounds=K, kills=1,
+            keep=0, spec_file=ref.spec_path, device="cuda",
+            kill_timeout=300.0, log=lambda msg: print(msg, flush=True))
+        t_chaos = time.perf_counter() - t0
+        if read_bytes(chaos.trace_path) != read_bytes(ref.trace_path):
+            with open(chaos.path("serve.log")) as f:
+                print(f.read()[-4000:], file=sys.stderr)
+            fail("chaos: the recovered trace.jsonl differs from the "
+                 "uninterrupted run's")
+        check(summary["segments"] == 3 and summary["kills"] == 1
+              and summary["restarts"] >= 1, f"chaos: {summary}")
+        check(manifest(chaos)["energy"] == manifest(ref)["energy"],
+              "chaos: the manifests' energy differs")
+
+        # 3. the chaos run dir, read as a user would
+        st = service_status(chaos.root)
+        check(not st["alive"] and st["state"]["status"] == "stopped"
+              and st["state"]["rounds"] == 3 * K, f"chaos status: {st}")
+        m = st["metrics"]
+        check(m["chaos_sigkills_total"] == 1 and m["fl_compiles_total"] >= 1,
+              f"chaos status metrics: {m}")
+        with open(chaos.metrics_path) as f:
+            events = [json.loads(line) for line in f
+                      if '"event/1"' in line]
+        check(events and all(e["fn"].startswith("trust_aggregate")
+                             for e in events),
+              f"chaos: compile events {events}")
+        cli = {}
+        for cmd in (["metrics"], ["status", "--watch", "--once"],
+                    ["status"]):
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.serve", *cmd,
+                 "--run-dir", chaos.root], env=child_env(),
+                capture_output=True, text=True, timeout=120)
+            check(proc.returncode == 0,
+                  f"serve {cmd}: exit {proc.returncode}: {proc.stderr}")
+            cli[" ".join(cmd)] = proc.stdout
+        check("chaos_sigkills_total 1" in cli["metrics"],
+              "serve metrics: no chaos_sigkills_total 1")
+        print(cli["status --watch --once"], flush=True)
+        out["paper-adaptive-fleet1k"] = {
+            "segments": {"reference": segment_metrics(ref.root),
+                         "chaos": segment_metrics(chaos.root)},
+            "child_startups": summary["startups"],
+            "kills": summary["kills"], "restarts": summary["restarts"],
+            "events": summary["events"],
+            "compile_events": [{"fn": e["fn"], "seconds": e["seconds"]}
+                               for e in events],
+            "wall_s": {"reference": t_ref, "chaos": t_chaos}}
+        print(f"service paper-adaptive-fleet1k: chaos run (1 SIGKILL, "
+              f"{summary['restarts']} restarts, child start-ups "
+              f"{json.dumps(summary['startups'])}) byte-equal to the "
+              f"in-process run; {t_chaos:.2f} s", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return {"service": out, "counts": counts}
+
+
+# --------------------------------------------------------------------- #
 # the serving path: recurrentgemma-2b
 # --------------------------------------------------------------------- #
 def attn_inputs(B, S, H, Kv, d, dtype, dev, seed):
@@ -1552,7 +1760,8 @@ def main() -> None:
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     print(f"device: {name}, count {torch.cuda.device_count()}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    smi_line = smi.stdout.strip().splitlines()[0]
+    print(smi_line, flush=True)
 
     # 2. the kernels, from this checkout's sources
     t0 = time.perf_counter()
@@ -1675,6 +1884,10 @@ def main() -> None:
     counts.update(robust.pop("counts"))
     dense_eqn19 = dense_times(B, N, dev)
     free_library_memory()
+    # 4e. the service mode: checkpointed segments, resume, a SIGKILL
+    service = service_phase(dev)
+    counts.update(service.pop("counts"))
+    torch.cuda.empty_cache()
     feds = [adaptive, {k: v for k, v in anomaly.items() if k != "fused"},
             robust]
     print(f"launch counts by path: {json.dumps(counts)}", flush=True)
@@ -1824,6 +2037,8 @@ def main() -> None:
     ]
     print(json.dumps({"federations": feds}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
+    print(json.dumps({"service": {"device": smi_line, **service["service"]}}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -7,8 +7,9 @@ is ported.
   components  trust / fedavg and the robust aggregators, fixed /
               Lyapunov / DQN controllers, MLP and autoencoder-anomaly
               tasks
-  engine      `DeviceScaleEngine`, `FleetState`
-  records     `RoundRecord` / `FLTrace` (same JSONL format)
+  engine      `DeviceScaleEngine`, `FleetState` (and `FleetTree`, its
+              checkpoint layout)
+  records     `RoundRecord` / `FLTrace` (same JSONL format), `tail_jsonl`
   scenarios   the JAX package's ten presets (`SCENARIOS`) and the
               full-width spec dicts the card is driven at
   run         the scenario CLI, ``python -m repro_torch.api.run``
@@ -18,9 +19,9 @@ from .components import (AutoencoderAnomalyTask, ControllerCtx,
                          DQNController, FixedController,
                          LyapunovGreedyController, MLPTask, RobustAggregator,
                          WeightedAggregator)
-from .engine import (DeviceScaleEngine, FleetState, RoundDraws,
+from .engine import (DeviceScaleEngine, FleetState, FleetTree, RoundDraws,
                      default_device_data, fleet_state_from_numpy,
-                     resolve_device)
+                     fleet_tree, resolve_device)
 from .federation import Federation
 from .records import FLTrace, JsonlSink, RoundRecord, read_jsonl_trace
 from .registry import (AGGREGATORS, CONTROLLERS, ENGINES, SCENARIOS,
@@ -32,7 +33,8 @@ from .spec import (AggregatorSpec, ChannelSpec, ClusteringSpec,
                    TaskSpec)
 
 __all__ = [
-    "Federation", "FederationSpec", "FleetState", "RoundDraws", "FLTrace",
+    "Federation", "FederationSpec", "FleetState", "FleetTree", "fleet_tree",
+    "RoundDraws", "FLTrace",
     "RoundRecord", "JsonlSink", "read_jsonl_trace", "FleetSpec",
     "ClusteringSpec", "ControllerSpec", "AggregatorSpec", "TaskSpec",
     "PrivacySpec", "ChannelSpec", "ShardingSpec", "FaultSpec",

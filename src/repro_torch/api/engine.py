@@ -42,6 +42,14 @@ sets the number of SGD steps.  (A sync-free round, a masked loop of
 round is pure: it returns a new `FleetState` and leaves the one it was
 handed as it was.
 
+Serving: `set_trace_sink` streams the records (``repro_torch.serve``
+keeps none in memory), `set_obs` attaches telemetry
+(`repro_torch.obs.EngineObs`: spans, per-segment metrics, kernel-library
+loads as compile events), and `resumable_state` / `restore_resumable`
+give the checkpointed state, in the JAX package's `FleetState` layout
+(`FleetTree`).  Telemetry reads only what a round already reads back: an
+instrumented run's trace equals an uninstrumented one's, bit for bit.
+
 Randomness: every per-round draw (batch rows, channel noise, next channel
 states, and where the spec turns them on the DP normals and the fault
 uniforms and normals) is a counter-based function of (seed, round,
@@ -51,6 +59,7 @@ Init-time draws come from CPU generators seeded from ``spec.seed``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import heapq
 from typing import Dict, NamedTuple, Optional, Union
@@ -85,7 +94,9 @@ from repro_torch.data.synthetic import (SyntheticClassification,
                                         make_iot_telemetry)
 from repro_torch.device import resolve_device
 from repro_torch.faults.model import FaultModel
-from repro_torch.kernels.ops import flatten_rows
+from repro_torch.kernels import build as kernel_build
+from repro_torch.kernels.ops import flatten_rows, leaf_views
+from repro_torch.obs.spans import fence
 
 from .components import ControllerCtx
 from .records import FLTrace, RoundRecord
@@ -131,21 +142,47 @@ class RoundDraws(NamedTuple):
     corrupt_normal: Optional[torch.Tensor] = None  # (M, N) gaussian mode
 
 
+class FleetTree(NamedTuple):
+    """A `FleetState` in the JAX package's `FleetState` layout, without its
+    PRNG key: the flat models cut into their parameter leaves (dicts of
+    views, no copy), so that a checkpoint names each leaf as the JAX
+    package's does (``fleet/.cluster_params/w1``, ``fleet/.round``)."""
+    twins: TwinState
+    rep: torch.Tensor
+    channel: torch.Tensor
+    cluster_params: Dict[str, torch.Tensor]   # leaves (n_clusters, ...)
+    global_params: Dict[str, torch.Tensor]
+    cluster_ts: torch.Tensor
+    queue: torch.Tensor
+    round: torch.Tensor
+
+
+def fleet_tree(state: FleetState, layout) -> FleetTree:
+    """``state`` as a `FleetTree`; ``layout`` is the task's flat layout
+    (`kernels.ops.layout_of`)."""
+    return FleetTree(
+        twins=state.twins, rep=state.rep, channel=state.channel,
+        cluster_params=leaf_views(state.cluster_flat, layout),
+        global_params=leaf_views(state.global_flat, layout),
+        cluster_ts=state.cluster_ts, queue=state.queue, round=state.round)
+
+
 def fleet_state_from_numpy(tree, device) -> FleetState:
-    """The port's `FleetState` from the JAX package's (leaves as numpy, or
-    anything ``np.asarray`` takes; the PRNG key is not carried)."""
+    """The port's `FleetState` from the JAX package's, or from a
+    `FleetTree` (leaves as tensors, numpy, or anything ``np.asarray``
+    takes; a PRNG key is not carried)."""
     dev = torch.device(device)
 
     def t(a, dtype=torch.float32):
-        return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
+        a = a if torch.is_tensor(a) else torch.from_numpy(np.array(a))
+        return a.to(device=dev, dtype=dtype)
 
     def flat(params, rows: bool):
-        tree_ = {k: torch.as_tensor(np.array(v), dtype=torch.float32)
-                 for k, v in params.items()}
+        tree_ = {k: t(v) for k, v in params.items()}
         if not rows:
             tree_ = {k: v[None] for k, v in tree_.items()}
         out = flatten_rows(tree_)
-        return (out if rows else out[0]).to(dev)
+        return out if rows else out[0]
 
     twins = TwinState(**{f.name: t(getattr(tree.twins, f.name))
                          for f in dataclasses.fields(TwinState)})
@@ -290,6 +327,11 @@ class DeviceScaleEngine:
         self._scan_times = torch.zeros((C,), device=dev)
         # the per-round random draws: (state, members) -> RoundDraws
         self.draws = self._own_draws
+        # streamed traces and telemetry (`set_trace_sink`, `set_obs`)
+        self.trace_sink = None
+        self.trace_retain = True
+        self.obs = None
+        self._on_library_load = None
 
     @classmethod
     def from_spec(cls, spec: FederationSpec, *, controller, aggregator, task,
@@ -302,6 +344,95 @@ class DeviceScaleEngine:
         return cls(spec, data, parts, controller=controller,
                    aggregator=aggregator, task=task, device=device,
                    assign=assign, state=state)
+
+    # ------------------------------------------------------------------ #
+    # streamed traces + resumable state (the `repro_torch.serve` surface)
+    # ------------------------------------------------------------------ #
+    def set_trace_sink(self, sink, *, retain: bool = True) -> None:
+        """Stream every emitted `RoundRecord` to ``sink`` (an object with
+        ``append(RoundRecord)``, e.g. `repro_torch.api.records.JsonlSink`).
+        ``retain=False`` stops the trace from also accumulating records in
+        memory — required for unbounded service runs."""
+        self.trace_sink = sink
+        self.trace_retain = bool(retain)
+
+    def _new_trace(self) -> FLTrace:
+        return FLTrace(sink=self.trace_sink, retain=self.trace_retain)
+
+    def set_obs(self, obs) -> None:
+        """Attach an `repro_torch.obs.EngineObs` telemetry bundle (``None``
+        detaches).  The engine publishes per-segment round aggregates,
+        state summaries, kernel-library loads (as compile events) and
+        fault tallies into it.  Attaching telemetry adds no read inside a
+        round: emitted traces stay bit-identical to an uninstrumented run
+        (pinned by tests/test_torch_obs.py)."""
+        if self._on_library_load is not None:
+            kernel_build.load_listeners.remove(self._on_library_load)
+            self._on_library_load = None
+        self.obs = obs
+        if obs is not None:
+            obs.publish_static(self)
+            self._on_library_load = obs.record_compile
+            kernel_build.load_listeners.append(self._on_library_load)
+
+    def _obs_span(self, name: str, fence_on=None, **attrs):
+        if self.obs is None:
+            return contextlib.nullcontext()
+        return self.obs.span(name, fence_on=fence_on, **attrs)
+
+    def obs_state_summary(self) -> dict:
+        """Host scalars for the telemetry gauges: Eqn-12 deficit-queue
+        level, Eqn-4 trust-weight (reputation) summary stats, and the
+        fleet's total β (negative-interaction) tally.  One read of a small
+        reduction over `FleetState`, never part of the round."""
+        st = self.state
+        vals = torch.stack([st.queue, st.rep.min(),
+                            st.rep.mean(), st.rep.max(),
+                            st.twins.beta.sum()]).tolist()
+        return dict(zip(("queue_deficit", "reputation_min",
+                         "reputation_mean", "reputation_max",
+                         "twin_beta_sum"), vals))
+
+    @property
+    def scan_times(self) -> torch.Tensor:
+        """The carried per-cluster next-event times of the scanned path."""
+        return self._scan_times
+
+    def resumable_state(self) -> dict:
+        """Everything on the device a resumed run needs, as one
+        checkpointable tree: the full `FleetState` (as a `FleetTree`, the
+        JAX package's leaf names; the port's draws need no key) plus the
+        carried per-cluster event times.  The host scalars (round counter,
+        f64 energy tally) ride in the checkpoint manifest instead."""
+        return {"fleet": fleet_tree(self.state, self.task.layout),
+                "times": self._scan_times}
+
+    def restore_resumable(self, tree: dict, *, rounds: int,
+                          energy: float) -> None:
+        """Adopt a `resumable_state` tree (typically loaded through
+        `repro_torch.checkpoint`) plus the manifest scalars.  The engine
+        must have been built from the same spec (data, assignments and the
+        malicious mask all derive from the spec seed, so a fresh process
+        rebuilds them bit for bit)."""
+        fleet = tree["fleet"]
+        if not isinstance(fleet, FleetState):
+            fleet = fleet_state_from_numpy(fleet, self.device)
+        self.state = fleet
+        self._scan_times = torch.as_tensor(
+            tree["times"], dtype=torch.float32).to(self.device)
+        self._rounds = int(rounds)
+        self._energy_used = float(energy)
+        sync_queue = getattr(self.controller, "sync_queue", None)
+        if sync_queue is not None:      # host controller adopts the
+            sync_queue(self.state.queue)  # restored Eqn-12 backlog
+
+    @property
+    def round(self) -> int:
+        return self._rounds
+
+    @property
+    def energy_used(self) -> float:
+        return self._energy_used
 
     # ------------------------------------------------------------------ #
     # randomness
@@ -593,36 +724,44 @@ class DeviceScaleEngine:
                             device=self.device)
         no_obs = torch.zeros((OBS_DIM,), device=self.device)
         rows = []
-        for _ in range(int(K)):
-            c = torch.argmin(times)
-            t = _row(times, c)
-            feats = self._ctl_features(state, c)
-            cobs = ctl_policy.CtlObs(
-                round=state.round, cluster=c, queue=state.queue,
-                cluster_loss=feats["cluster_loss"],
-                cluster_freq=feats["cluster_freq"],
-                mean_freq=feats["mean_freq"],
-                channel_good_frac=feats["channel_good_frac"],
-                energy_used=energy,
-                dqn_obs=(self._scan_obs(state, c, feats) if pol.needs_obs
-                         else no_obs))
-            a_raw, ctl = pol.step(ctl, cobs)
-            state, m = self._fleet_round(state, c, a_raw)
-            times = _with_row(times, c, t + m["dur"])
-            energy = energy + m["consumed"]
-            rows.append(torch.stack([t, c.to(torch.float32),
-                                     m["a"].to(torch.float32), m["dur"],
-                                     m["consumed"], m["loss"]]))
+        # the round span fences on the rows the segment reads back anyway
+        with self._obs_span("round", mode="scanned", rounds=int(K)) as sp:
+            for _ in range(int(K)):
+                c = torch.argmin(times)
+                t = _row(times, c)
+                feats = self._ctl_features(state, c)
+                cobs = ctl_policy.CtlObs(
+                    round=state.round, cluster=c, queue=state.queue,
+                    cluster_loss=feats["cluster_loss"],
+                    cluster_freq=feats["cluster_freq"],
+                    mean_freq=feats["mean_freq"],
+                    channel_good_frac=feats["channel_good_frac"],
+                    energy_used=energy,
+                    dqn_obs=(self._scan_obs(state, c, feats)
+                             if pol.needs_obs else no_obs))
+                a_raw, ctl = pol.step(ctl, cobs)
+                state, m = self._fleet_round(state, c, a_raw)
+                times = _with_row(times, c, t + m["dur"])
+                energy = energy + m["consumed"]
+                rows.append(torch.stack([t, c.to(torch.float32),
+                                         m["a"].to(torch.float32), m["dur"],
+                                         m["consumed"], m["loss"]]))
+            ys = torch.stack(rows)
+            if sp is not None:
+                sp.mark("dispatch")
+                fence(ys)
         self.state = state
         self._scan_times = times
-        ys = torch.stack(rows).cpu().numpy()     # the one end-of-run read
         return self._emit_scanned_trace(ys, eval_final)
 
-    def _emit_scanned_trace(self, ys: np.ndarray, eval_final: bool
+    def _emit_scanned_trace(self, ys: torch.Tensor, eval_final: bool
                             ) -> FLTrace:
         """Records from the (K, 6) float32 rows (t, cluster, a, dur,
-        consumed, loss); the float64 energy tally adds the float32
-        consumptions one by one, as the event loop does."""
+        consumed, loss) on the device, read back here once; the float64
+        energy tally adds the float32 consumptions one by one, as the
+        event loop does."""
+        with self._obs_span("host_sync", rounds=ys.shape[0]):
+            ys = ys.cpu().numpy()           # the one end-of-run read
         K = ys.shape[0]
         base = self._rounds
         self._rounds += K
@@ -633,7 +772,9 @@ class DeviceScaleEngine:
         sync_queue = getattr(self.controller, "sync_queue", None)
         if sync_queue is not None:          # host controller adopts the
             sync_queue(self.state.queue)    # device-resident backlog
-        trace = FLTrace()
+        if self.obs is not None:
+            self.obs.on_segment(ys, K, engine=self)
+        trace = self._new_trace()
         for i in range(K):
             trace.append(RoundRecord(
                 t=float(ys[i, 0]), round=base + i + 1,
@@ -641,7 +782,10 @@ class DeviceScaleEngine:
                 loss=float(ys[i, 5]), acc=None, energy=cum[i],
                 agg_count=base + i + 1))
         if eval_final and K:
-            ev = self.task.evaluate(self.state.global_flat, self.data)
+            with self._obs_span("eval"):
+                ev = self.task.evaluate(self.state.global_flat, self.data)
+            if self.obs is not None:
+                self.obs.on_eval(ev["loss"], ev["acc"])
             trace.append(RoundRecord(
                 t=float(ys[-1, 0]) + float(ys[-1, 3]), round=self._rounds,
                 cluster=int(ys[-1, 1]), a=int(ys[-1, 2]), loss=ev["loss"],
@@ -658,7 +802,7 @@ class DeviceScaleEngine:
             K = max_rounds if max_rounds is not None else self.spec.rounds
             return self.run_scanned(K)
         spec = self.spec
-        trace = FLTrace()
+        trace = self._new_trace()
         events = [(0.0, c) for c in range(spec.clustering.n_clusters)]
         heapq.heapify(events)
         t = 0.0
@@ -683,9 +827,16 @@ class DeviceScaleEngine:
                  m["loss"]]).tolist()
             self._energy_used += consumed
             self.controller.observe(None, consumed, loss)
+            if self.obs is not None:
+                self.obs.on_round(cluster=c, a=int(a), dur=dur,
+                                  consumed=consumed, loss=loss, engine=self)
             heapq.heappush(events, (t + dur, c))
             if t >= next_eval:
-                ev = self.task.evaluate(self.state.global_flat, self.data)
+                with self._obs_span("eval"):
+                    ev = self.task.evaluate(self.state.global_flat,
+                                            self.data)
+                if self.obs is not None:
+                    self.obs.on_eval(ev["loss"], ev["acc"])
                 trace.append(RoundRecord(
                     t=t, round=self._rounds, cluster=c, a=int(a),
                     loss=ev["loss"], acc=ev["acc"],

@@ -13,7 +13,9 @@ with ``append(RoundRecord)``, e.g. `JsonlSink`) and ``retain=False`` and
 every record is handed to the sink without being held in memory —
 ``summary()`` still works off the last record and the running count.  The
 batch default (``retain=True``, no sink) is unchanged.  `read_jsonl_trace`
-loads a streamed file back into an in-memory trace.
+loads a streamed file back into an in-memory trace; `tail_jsonl` reads the
+last records of an arbitrarily long file without loading it (the service
+``status`` command's live-metrics path).
 """
 from __future__ import annotations
 
@@ -180,3 +182,41 @@ def read_jsonl_trace(path: str) -> FLTrace:
                 continue
             trace.append(RoundRecord.from_dict(rec))
     return trace
+
+
+def tail_jsonl(path: str, n: int = 10, block: int = 8192) -> List[dict]:
+    """Last ``n`` records of a JSONL file, reading only its tail.
+
+    Seeks backward in ``block``-byte chunks until enough newlines are in
+    hand, so ``status`` on a multi-gigabyte trace stays O(n) — the whole
+    point of streaming the trace in the first place.  Returns parsed dicts
+    oldest-first; a torn final line (a writer mid-append) is skipped.
+    """
+    try:
+        size = os.path.getsize(path)
+    except OSError:
+        return []
+    if size == 0:
+        return []
+    chunks = []
+    newlines = 0
+    with open(path, "rb") as f:
+        pos = size
+        while pos > 0 and newlines <= n:
+            step = min(block, pos)
+            pos -= step
+            f.seek(pos)
+            chunk = f.read(step)
+            chunks.append(chunk)
+            newlines += chunk.count(b"\n")
+    data = b"".join(reversed(chunks))
+    out = []
+    for line in data.splitlines()[-(n + 1):]:
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            out.append(json.loads(line))
+        except json.JSONDecodeError:
+            continue                  # torn head (partial first line) / tail
+    return out[-n:]

@@ -23,7 +23,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Callable, Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -33,6 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_seconds: Dict[str, float] = {}   # source name -> seconds nvcc took
 ptxas_log: Dict[Path, str] = {}        # source path -> what ptxas printed
+# called as fn(library file name, seconds) after each library `load`
+# builds or opens (the engine's telemetry reports them as compile events)
+load_listeners: List[Callable[[str, float], None]] = []
 
 
 def nvcc_path() -> str:
@@ -127,6 +130,11 @@ def load(source: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<source>``, built if needed."""
     lib = _loaded.get(source)
     if lib is None:
-        lib = ctypes.CDLL(str(build(source)))
+        t0 = time.perf_counter()
+        path = build(source)
+        lib = ctypes.CDLL(str(path))
         _loaded[source] = lib
+        seconds = time.perf_counter() - t0
+        for listener in list(load_listeners):
+            listener(path.name, seconds)
     return lib
