@@ -5,4 +5,5 @@ written by hand in CUDA C++ for Hopper (``kernels/csrc``).  Entry points
 run on the card unless the caller passes ``device="cpu"``.
 
     from repro_torch.api import Federation, FederationSpec
+    from repro_torch.pop import PopulationEngine, PopulationSpec
 """

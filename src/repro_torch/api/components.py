@@ -310,10 +310,10 @@ class _FlatTask:
     """A task over flat parameter vectors: `init` fixes the sorted-key
     flat layout, every other method takes (N,) or (M, N) flat tensors and
     reads the leaves through views.  `local_train` runs ``steps`` SGD steps
-    of all M members at once: one batched forward, and one autograd
-    gradient of the *sum* of the per-member mean losses, whose (M, N) rows
-    are each member's own gradient because the members share no
-    parameters."""
+    of all M members at once: one batched forward, and one gradient
+    (`torch.func.grad`) of the *sum* of the per-member mean losses, whose
+    (M, N) rows are each member's own gradient because the members share
+    no parameters."""
 
     layout = None
 
@@ -327,16 +327,22 @@ class _FlatTask:
     def _losses(self, params, x, y):
         raise NotImplementedError
 
-    def local_train(self, flat, x, y, lr: float, steps: int):
+    def local_train(self, flat, x, y, lr, steps: int, a=None):
         """(M, N) member parameters, (M, B, dim) / (M, B) batches -> the
-        (M, N) parameters after ``steps`` SGD steps."""
+        (M, N) parameters after ``steps`` SGD steps.  ``lr`` is a float or
+        a 0-d tensor.  With ``a`` (a 0-d integer tensor, at most
+        ``steps``) the steps from the ``a``-th on leave the parameters as
+        they were, so the result is exactly the ``a``-step one: a
+        population runs its members' largest ``a`` and each member keeps
+        its own (`torch.func.grad`, unlike ``torch.autograd.grad``, runs
+        under ``torch.func.vmap``)."""
+        grad = torch.func.grad(
+            lambda q: self._losses(self.params(q), x, y).sum())
         p = flat.contiguous()
-        for _ in range(steps):
-            p = p.detach().requires_grad_(True)
-            loss = self._losses(self.params(p), x, y).sum()
-            (g,) = torch.autograd.grad(loss, p)
-            p = p - lr * g
-        return p.detach()
+        for k in range(steps):
+            stepped = p - lr * grad(p)
+            p = stepped if a is None else torch.where(k < a, stepped, p)
+        return p
 
     @torch.no_grad()
     def losses(self, flat, x, y):

@@ -95,7 +95,7 @@ from repro_torch.data.synthetic import (SyntheticClassification,
 from repro_torch.device import resolve_device
 from repro_torch.faults.model import FaultModel
 from repro_torch.kernels import build as kernel_build
-from repro_torch.kernels.ops import flatten_rows, leaf_views
+from repro_torch.kernels.ops import leaf_views
 from repro_torch.obs.spans import fence
 
 from .components import ControllerCtx
@@ -167,22 +167,26 @@ def fleet_tree(state: FleetState, layout) -> FleetTree:
         cluster_ts=state.cluster_ts, queue=state.queue, round=state.round)
 
 
-def fleet_state_from_numpy(tree, device) -> FleetState:
+def fleet_state_from_numpy(tree, device, *, population: bool = False
+                           ) -> FleetState:
     """The port's `FleetState` from the JAX package's, or from a
     `FleetTree` (leaves as tensors, numpy, or anything ``np.asarray``
-    takes; a PRNG key is not carried)."""
+    takes; a PRNG key is not carried).  With ``population=True`` every leaf
+    has a leading population axis (the JAX package's `PopulationEngine`
+    state): the result is a population's batched `FleetState`, each tensor
+    with that axis first (``cluster_flat`` (P, n_clusters, N))."""
     dev = torch.device(device)
+    lead = 1 if population else 0
 
     def t(a, dtype=torch.float32):
         a = a if torch.is_tensor(a) else torch.from_numpy(np.array(a))
         return a.to(device=dev, dtype=dtype)
 
     def flat(params, rows: bool):
-        tree_ = {k: t(v) for k, v in params.items()}
-        if not rows:
-            tree_ = {k: v[None] for k, v in tree_.items()}
-        out = flatten_rows(tree_)
-        return out if rows else out[0]
+        keep = lead + int(rows)         # leading dims that are not a leaf's
+        leaves = [t(params[k]) for k in sorted(params)]
+        return torch.cat([v.reshape(*v.shape[:keep], -1) for v in leaves],
+                         dim=-1)
 
     twins = TwinState(**{f.name: t(getattr(tree.twins, f.name))
                          for f in dataclasses.fields(TwinState)})
@@ -483,20 +487,35 @@ class DeviceScaleEngine:
         the controller's raw choice (int or 0-d tensor); ``members`` /
         ``mask`` the cluster's exact member ids and an all-true mask, or
         None for its padded membership row.  Returns the new state and the
-        round's metrics as 0-d device tensors."""
-        spec, task, twins, fm = self.spec, self.task, state.twins, self.faults
-        dev = self.device
-        if members is None:
-            members = _row(self._member_table, c)
-            mask = _row(self._member_mask, c)
-            mask_f = _row(self._member_mask_f, c)
-        else:
-            mask_f = mask.to(torch.float32)
+        round's metrics as 0-d device tensors.
 
-        # --- controller choice capped by the Alg.-2 tolerance bound
-        cluster_freq = self._cluster_freq_table(twins)
+        It is `_round_choice`, the one read of ``a`` back to the host, the
+        draws and `_round_apply`; a population runs the two halves over
+        all its members and reads the largest ``a`` in between."""
+        members, mask, mask_f = self._round_members(c, members, mask)
+        a = self._round_choice(state, c, a_raw)
+        steps = int(a)              # the round's one read back to the host
+        draws = self.draws(state, members)
+        return self._round_apply(state, c, a, steps, members, mask, mask_f,
+                                 draws)
+
+    def _round_members(self, c, members=None, mask=None):
+        """(member ids, bool mask, float mask) of cluster ``c``'s round:
+        its padded membership row, or the exact list it was given."""
+        if members is None:
+            return (_row(self._member_table, c), _row(self._member_mask, c),
+                    _row(self._member_mask_f, c))
+        return members, mask, mask.to(torch.float32)
+
+    def _round_choice(self, state: FleetState, c: torch.Tensor, a_raw
+                      ) -> torch.Tensor:
+        """The controller's raw choice capped by the Alg.-2 tolerance
+        bound: the round's local-step count ``a``, a 0-d int32 tensor."""
+        spec = self.spec
+        cluster_freq = self._cluster_freq_table(state.twins)
         if not torch.is_tensor(a_raw):
-            a_raw = torch.full((), int(a_raw), dtype=torch.int32, device=dev)
+            a_raw = torch.full((), int(a_raw), dtype=torch.int32,
+                               device=self.device)
         a_req = torch.clamp(a_raw.to(torch.int32), 1, self._n_actions)
         t_ref = a_req.to(torch.float32) / torch.clamp(cluster_freq.max(),
                                                       min=1e-6)
@@ -504,14 +523,21 @@ class DeviceScaleEngine:
             spec.clustering.alpha0 + spec.clustering.alpha_growth
             * state.round.to(torch.float32), max=1.0)
         a = tolerance_bound(a_req, _row(cluster_freq, c), t_ref, alpha)
-        a = torch.clamp(a, 1, self._n_actions)
-        steps = int(a)              # the round's one read back to the host
+        return torch.clamp(a, 1, self._n_actions)
 
-        # --- the round's draws; dropped members leave the mask and become
-        # the padding sentinel, so every gather fills neutrally and every
-        # scatter drops them, and they train on the sentinel's batch
-        # (dataset row 0, its one-sample shard: `padded_partition`)
-        draws = self.draws(state, members)
+    def _round_apply(self, state: FleetState, c: torch.Tensor, a, steps,
+                     members, mask, mask_f, draws: "RoundDraws",
+                     own_steps: bool = False):
+        """The round after its ``a`` is chosen: ``steps`` local SGD steps
+        (``steps == int(a)``; or, with ``own_steps``, the population's
+        largest ``a``, of which this member keeps its own ``a``), trust,
+        aggregation, energy, twins and the queue."""
+        spec, task, twins, fm = self.spec, self.task, state.twins, self.faults
+
+        # --- dropped members leave the mask and become the padding
+        # sentinel, so every gather fills neutrally and every scatter drops
+        # them, and they train on the sentinel's batch (dataset row 0, its
+        # one-sample shard: `padded_partition`)
         sel = draws.sel
         if fm.may_drop:
             mask = fm.drop_mask(draws.drop_u, mask)
@@ -530,7 +556,8 @@ class DeviceScaleEngine:
 
         # --- `steps` local SGD steps on every member, from the cluster model
         stacked = _row(state.cluster_flat, c).expand(members.shape[0], -1)
-        new = task.local_train(stacked, x, y, spec.lr, steps)
+        new = task.local_train(stacked, x, y, spec.lr, steps,
+                               a if own_steps else None)
         if fm.may_corrupt:
             # Byzantine members replace their deltas before trust sees them
             new = fm.corrupt_updates(new, stacked, members, self._segments,

@@ -8,6 +8,8 @@
   launch                    launch counters and the C-call helpers
   trust_aggregate, flash_attention, rglru_scan, selective_scan
                             checked wrappers, one per kernel source
+                            (trust_aggregate also holds the population-
+                            batched ones)
   ref                       the plain PyTorch versions (CPU path, oracle)
   ops                       entry points for the models and the federation
 """
@@ -18,9 +20,12 @@ from .ops import (attention, flatten_rows, layout_of, leaf_views, lru_scan,
                   trust_aggregate_tree)
 from .rglru_scan import rglru_scan
 from .selective_scan import selective_scan
-from .trust_aggregate import trust_aggregate, trust_aggregate_global
+from .trust_aggregate import (trust_aggregate, trust_aggregate_global,
+                              trust_aggregate_global_pop,
+                              trust_aggregate_pop)
 
 __all__ = ["trust_aggregate", "trust_aggregate_global", "trust_aggregate_tree",
+           "trust_aggregate_pop", "trust_aggregate_global_pop",
            "trust_aggregate_global_tree", "flatten_rows", "layout_of",
            "leaf_views", "launches", "reset_launches", "flash_attention",
            "rglru_scan", "selective_scan", "attention", "lru_scan",

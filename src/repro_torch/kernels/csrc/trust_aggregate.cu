@@ -6,6 +6,13 @@
 //                                     reached through trust_aggregate (:67)
 //   trust_aggregate_global_kernel  <- _global_kernel (:51), reached through
 //                                     trust_aggregate_global (:99)
+// and, with one more grid axis (blockIdx.y = p over P federations), the
+// launches that the JAX package's population (jax.vmap of the round) makes
+// of both through Pallas's batching rule: ta_aggregate_pop_* and
+// ta_aggregate_global_pop_f32.  Block (x, p) runs the single kernel's code
+// on federation p's slices with the single launch's plan, so slice p is
+// bitwise the single kernel's result on p's tensors; c, w, mask and gw
+// are read per p on the card, in the same one trip to memory.
 //
 // What bounds them on an H100 (3.35 TB/s): bytes.  Every output column
 // reads each input row once and does one multiply-add per element read, a
@@ -159,11 +166,18 @@ __device__ float masked_column_sum(const T* __restrict__ x,
   return acc;
 }
 
+// Federation blockIdx.y of a population-batched launch (0 alone): x is
+// (P, rows, n), w and mask (P, rows), out (P, n).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 trust_aggregate_kernel(const T* __restrict__ x, const float* __restrict__ w,
                        const float* __restrict__ mask, T* __restrict__ out,
                        int rows, int64_t n) {
+  const int64_t p = blockIdx.y;
+  x += p * rows * n;
+  w += p * rows;
+  if (mask != nullptr) mask += p * rows;
+  out += p * n;
   const int64_t col = static_cast<int64_t>(blockIdx.x) * kThreads +
                       threadIdx.x;
   const float acc = masked_column_sum(x, w, mask, rows, n, col);
@@ -176,8 +190,10 @@ inline unsigned blocks_for(int64_t n) {
 
 template <typename T>
 int launch_aggregate(const void* x, const void* w, const void* mask,
-                     void* out, int rows, long long n, void* stream) {
-  trust_aggregate_kernel<T><<<blocks_for(n), kThreads, 0,
+                     void* out, int pop, int rows, long long n,
+                     void* stream) {
+  const dim3 grid(blocks_for(n), static_cast<unsigned>(pop));
+  trust_aggregate_kernel<T><<<grid, kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const float*>(w),
       static_cast<const float*>(mask), static_cast<T*>(out), rows, n);
@@ -246,7 +262,9 @@ __device__ __forceinline__ unsigned peer_addr(unsigned addr, int rank) {
   return out;
 }
 
-// Block (tile, rank) of a cluster of `split` blocks.  Lane l of warp w owns
+// Block (tile, rank) of a cluster of `split` blocks, of federation
+// blockIdx.y (x (P, rows, n), w and mask (P, rows), stack (P, clusters, n),
+// gw (P, clusters), c (P,), out (P, n); P = 1 alone).  Lane l of warp w owns
 // the columns 32 (kWide w + e) + l (e < kWide) of the tile, so each warp
 // load is 128 contiguous bytes at any row alignment, and sums rank's share
 // of every table pass, kRows rows at a time.  The ranks deal out the
@@ -275,6 +293,16 @@ trust_aggregate_global_kernel(const float* __restrict__ x,
   __shared__ float s_gw[kChunk];             // gw[0 .. kChunk)
   __shared__ float s_recv[kCols];            // the cluster's partial sums
   __shared__ unsigned long long s_bar;       // counts their bytes
+  {                              // federation p of a batched launch
+    const int64_t p = blockIdx.y;
+    x += p * rows * n;
+    w += p * rows;
+    mask += p * rows;
+    stack += p * clusters * n;
+    gw += p * clusters;
+    c_ptr += p;
+    out += p * n;
+  }
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
@@ -466,9 +494,10 @@ GlobalKernel kernel_for(const Plan& p) {
 
 // The launch configuration of a plan; attr receives the cluster dimension.
 cudaLaunchConfig_t config_for(const Plan& p, cudaLaunchAttribute* attr,
-                              cudaStream_t stream) {
+                              cudaStream_t stream, int pop = 1) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(p.tiles * p.split));
+  cfg.gridDim = dim3(static_cast<unsigned>(p.tiles * p.split),
+                     static_cast<unsigned>(pop));
   cfg.blockDim = dim3(p.threads);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = stream;
@@ -481,36 +510,17 @@ cudaLaunchConfig_t config_for(const Plan& p, cudaLaunchAttribute* attr,
   return cfg;
 }
 
-}  // namespace
-
-extern "C" {
-
-// x: (rows, n) row-major; w, mask: (rows,) f32 (mask may be NULL);
-// out: (n,).  Returns cudaGetLastError() after the launch.
-int ta_aggregate_f32(const void* x, const void* w, const void* mask,
-                     void* out, int rows, long long n, void* stream) {
-  return launch_aggregate<float>(x, w, mask, out, rows, n, stream);
-}
-
-int ta_aggregate_bf16(const void* x, const void* w, const void* mask,
-                      void* out, int rows, long long n, void* stream) {
-  return launch_aggregate<__nv_bfloat16>(x, w, mask, out, rows, n, stream);
-}
-
-// x: (rows, n) member updates; w, mask: (rows,); stack: (clusters, n);
-// gw: (clusters,); c: one int32 in device memory; out: (n,).  All f32.
-// Returns the launch's CUDA error (0 on success).
-int ta_aggregate_global_f32(const void* x, const void* w, const void* mask,
-                            const void* stack, const void* gw, const void* c,
-                            void* out, int rows, int clusters, long long n,
-                            void* stream) {
+int launch_global(const void* x, const void* w, const void* mask,
+                  const void* stack, const void* gw, const void* c, void* out,
+                  int pop, int rows, int clusters, long long n,
+                  void* stream) {
   int sms = 0;
   cudaError_t e = sm_count(&sms);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const Plan p = plan_for(rows, clusters, n, sms);
+  const Plan p = plan_for(rows, clusters, n, sms);  // the same for any pop
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
-      config_for(p, &attr, static_cast<cudaStream_t>(stream));
+      config_for(p, &attr, static_cast<cudaStream_t>(stream), pop);
   e = cudaLaunchKernelEx(
       &cfg, kernel_for(p), static_cast<const float*>(x),
       static_cast<const float*>(w), static_cast<const float*>(mask),
@@ -522,6 +532,62 @@ int ta_aggregate_global_f32(const void* x, const void* w, const void* mask,
     return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// x: (rows, n) row-major; w, mask: (rows,) f32 (mask may be NULL);
+// out: (n,).  Returns cudaGetLastError() after the launch.
+int ta_aggregate_f32(const void* x, const void* w, const void* mask,
+                     void* out, int rows, long long n, void* stream) {
+  return launch_aggregate<float>(x, w, mask, out, 1, rows, n, stream);
+}
+
+int ta_aggregate_bf16(const void* x, const void* w, const void* mask,
+                      void* out, int rows, long long n, void* stream) {
+  return launch_aggregate<__nv_bfloat16>(x, w, mask, out, 1, rows, n,
+                                         stream);
+}
+
+// x: (rows, n) member updates; w, mask: (rows,); stack: (clusters, n);
+// gw: (clusters,); c: one int32 in device memory; out: (n,).  All f32.
+// Returns the launch's CUDA error (0 on success).
+int ta_aggregate_global_f32(const void* x, const void* w, const void* mask,
+                            const void* stack, const void* gw, const void* c,
+                            void* out, int rows, int clusters, long long n,
+                            void* stream) {
+  return launch_global(x, w, mask, stack, gw, c, out, 1, rows, clusters, n,
+                       stream);
+}
+
+// The population-batched launches: P federations' inputs stacked on a
+// leading axis (x (P, rows, n), w and mask (P, rows), out (P, n)), one
+// grid row of blocks each (P <= 65535).
+int ta_aggregate_pop_f32(const void* x, const void* w, const void* mask,
+                         void* out, int pop, int rows, long long n,
+                         void* stream) {
+  return launch_aggregate<float>(x, w, mask, out, pop, rows, n, stream);
+}
+
+int ta_aggregate_pop_bf16(const void* x, const void* w, const void* mask,
+                          void* out, int pop, int rows, long long n,
+                          void* stream) {
+  return launch_aggregate<__nv_bfloat16>(x, w, mask, out, pop, rows, n,
+                                         stream);
+}
+
+// x: (P, rows, n); w, mask: (P, rows); stack: (P, clusters, n); gw:
+// (P, clusters); c: (P,) int32 in device memory (c[p] outside [0,
+// clusters): no member row for p); out: (P, n).  All f32.
+int ta_aggregate_global_pop_f32(const void* x, const void* w,
+                                const void* mask, const void* stack,
+                                const void* gw, const void* c, void* out,
+                                int pop, int rows, int clusters, long long n,
+                                void* stream) {
+  return launch_global(x, w, mask, stack, gw, c, out, pop, rows, clusters, n,
+                       stream);
 }
 
 // The plan of ta_aggregate_global_f32: plan[0..6] = threads a block,

@@ -19,6 +19,9 @@ P = ctypes.c_void_p             # a device pointer or the stream
 launches: Dict[str, int] = {"trust_aggregate": 0,
                             "trust_aggregate_dense": 0,
                             "trust_aggregate_global": 0,
+                            "trust_aggregate_pop": 0,
+                            "trust_aggregate_dense_pop": 0,
+                            "trust_aggregate_global_pop": 0,
                             "flash_attention": 0,
                             "rglru_scan": 0,
                             "selective_scan": 0}

@@ -12,6 +12,11 @@ package's ``_flatten_params`` (for the MLP: ``b1, b2, w1, w2``).  The
 engine keeps its cluster and global models flat and reads leaves through
 views (`leaf_views`), so the kernels read the parameters in place; the tree
 functions below concatenate, as the JAX package's ``_flatten_rows`` does.
+
+A population (`repro_torch.pop`) calls the same entry points under
+``torch.func.vmap``; their batching rules launch the population-batched
+kernels, `trust_aggregate_pop` and `trust_aggregate_global_pop`, which are
+exposed here too.
 """
 from __future__ import annotations
 
@@ -22,7 +27,9 @@ import torch
 from .flash_attention import flash_attention
 from .rglru_scan import rglru_scan
 from .selective_scan import selective_scan
-from .trust_aggregate import trust_aggregate, trust_aggregate_global
+from .trust_aggregate import (trust_aggregate, trust_aggregate_global,
+                              trust_aggregate_global_pop,  # noqa: F401
+                              trust_aggregate_pop)  # noqa: F401
 
 Layout = List[Tuple[str, Tuple[int, ...], int]]   # (key, leaf shape, offset)
 

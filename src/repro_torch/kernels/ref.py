@@ -2,8 +2,9 @@
 
 Each function is the mathematical definition with no tiling: the CPU path
 of the wrappers (`trust_aggregate`, `flash_attention`, `rglru_scan`,
-`selective_scan`), and what `chip_smoke.py` holds the CUDA kernels
-against on the card.
+`selective_scan`, and the population-batched `trust_aggregate_pop` and
+`trust_aggregate_global_pop`), and what `chip_smoke.py` holds the CUDA
+kernels against on the card.
 Accumulation is in float32 and the result is cast to the input (or stack)
 dtype, as the kernels do.  They match ``src/repro/kernels/ref.py``.
 """
@@ -41,6 +42,29 @@ def trust_aggregate_global_ref(updates_flat, weights, mask, stack_flat,
                     stack_flat.to(torch.float32))
     gw = global_weights.to(torch.float32)
     return (s * gw[:, None]).sum(0).to(stack_flat.dtype)
+
+
+def trust_aggregate_pop_ref(params_flat, weights, mask=None):
+    """`trust_aggregate_ref` of each of P federations at once: (P, C, N)
+    x (P, C) [x (P, C) mask] -> (P, N)."""
+    w = _effective_weights(weights, mask)
+    out = (params_flat.to(torch.float32) * w[..., None]).sum(1)
+    return out.to(params_flat.dtype)
+
+
+def trust_aggregate_global_pop_ref(updates_flat, weights, mask, stack_flat,
+                                   global_weights, c):
+    """`trust_aggregate_global_ref` of each of P federations at once:
+    (P, C, N) updates, (P, C) weights and mask, (P, B, N) stacks, (P, B)
+    staleness weights and the (P,) rows ``c`` -> (P, N)."""
+    agg = trust_aggregate_pop_ref(updates_flat.to(torch.float32), weights,
+                                  mask)
+    rows = torch.arange(stack_flat.shape[1], device=stack_flat.device)
+    c = torch.as_tensor(c, device=stack_flat.device).reshape(-1, 1)
+    s = torch.where((rows[None, :] == c)[..., None], agg[:, None, :],
+                    stack_flat.to(torch.float32))
+    gw = global_weights.to(torch.float32)
+    return (s * gw[..., None]).sum(1).to(stack_flat.dtype)
 
 
 NEG_INF = -2.0e38               # the masked score of the JAX package

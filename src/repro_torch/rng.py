@@ -60,19 +60,24 @@ def _combine(h: torch.Tensor, v) -> torch.Tensor:
     return _fmix32(h ^ k)
 
 
-def hash32(seed: int, round_, stream: int, dev, index) -> torch.Tensor:
+def hash32(seed, round_, stream: int, dev, index) -> torch.Tensor:
     """32-bit hash of the five keys, broadcast over ``dev`` and ``index``
-    (int64 tensors); ``round_`` may be a 0-d device tensor."""
+    (int64 tensors); ``round_`` may be a 0-d device tensor, and ``seed``
+    an int or a 0-d int64 tensor (a population member's seed), which
+    give the same bits."""
     dev = torch.as_tensor(dev, dtype=torch.int64)
-    h = torch.full((), int(seed) & _M32, dtype=torch.int64,
-                   device=dev.device)
+    if torch.is_tensor(seed):
+        h = seed.to(torch.int64) & _M32
+    else:
+        h = torch.full((), int(seed) & _M32, dtype=torch.int64,
+                       device=dev.device)
     h = _fmix32(h)
     for v in (round_, stream):
         h = _combine(h, v)
     return _combine(_combine(h, dev), index)
 
 
-def uniform(seed: int, round_, stream: int, dev, index) -> torch.Tensor:
+def uniform(seed, round_, stream: int, dev, index) -> torch.Tensor:
     """Float32 uniforms in [0, 1) with 24 random bits each."""
     return (hash32(seed, round_, stream, dev, index) >> 8).to(
         torch.float32) * (1.0 / (1 << 24))
@@ -84,7 +89,7 @@ def normal(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
         (2.0 * math.pi) * u2)
 
 
-def normals(seed: int, round_, stream: int, dev, n: int) -> torch.Tensor:
+def normals(seed, round_, stream: int, dev, n: int) -> torch.Tensor:
     """(..., n) float32 standard normals, one row per entry of ``dev``
     (an int64 tensor or an int), from 2n uniforms of each row (indices
     0..n-1 and n..2n-1)."""

@@ -14,8 +14,16 @@ codes and run dirs, plus ``--device``).
 ``--device`` (``start``, ``resume``, ``chaos``) picks where the federation
 runs: ``cuda`` by default, ``cpu`` for the plain versions of the kernels;
 without a card, only ``--device cpu`` runs.  A scenario or spec the port
-does not run yet exits with code 2 naming its ROADMAP item, as do the
-``pool`` subcommands (populations: ROADMAP.md, queue 1, item 8).
+does not run yet (a sharded population among them) exits with code 2
+naming its ROADMAP item.
+
+``pool start|resume|status|stop`` drive a population of federations in
+one process (`pool.run_pool`) into per-member run dirs, with the same
+flags and ``--device``:
+
+    PYTHONPATH=src python -m repro_torch.serve pool start --run-dir /tmp/p \
+        --spec-file population.json --segment-rounds 10
+    PYTHONPATH=src python -m repro_torch.serve pool status --run-dir /tmp/p
 
 ``start`` resolves a scenario spec, writes it to ``spec.json``, and
 (by default) re-execs itself as a detached ``start --foreground`` child —
@@ -58,7 +66,6 @@ from .service import (CKPT_REQ, LOG_FILE, STOP_REQ, RunDir, child_env,
 
 EXIT_TIMEOUT = 3                        # waited past --timeout; retryable
 EXIT_UNPORTED = 2                       # the port does not run this yet
-_POOL_ITEM = "ROADMAP.md, queue 1, item 8"
 
 
 def _poll(predicate, timeout: float, *, first: float = 0.05,
@@ -155,8 +162,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser(
         "pool", help="multi-tenant supervisor: one process drives a "
-                     "population of federations into per-member run dirs "
-                     f"(not ported: {_POOL_ITEM})")
+                     "population of federations into per-member run dirs")
     pool_sub = p.add_subparsers(dest="pool_cmd", required=True)
     p = loop_flags(common(pool_sub.add_parser(
         "start", help="start a fresh pool instance")))
@@ -449,17 +455,98 @@ def cmd_chaos(args) -> int:
 
 
 # --------------------------------------------------------------------- #
-# pool (multi-tenant) commands: not ported
+# pool (multi-tenant) commands
 # --------------------------------------------------------------------- #
-def cmd_pool_unported(args) -> int:
-    print(f"error: `pool {args.pool_cmd}`: populations are not ported yet "
-          f"({_POOL_ITEM})", file=sys.stderr)
-    return EXIT_UNPORTED
+def _resolve_pool_spec(args):
+    from repro_torch.api import scenarios  # noqa: F401  (SCENARIOS)
+    from repro_torch.api.registry import SCENARIOS
+    from repro_torch.pop import PopulationSpec
+    if args.spec_file:
+        with open(args.spec_file) as f:
+            pspec = PopulationSpec.from_dict(json.load(f))
+    else:
+        base = SCENARIOS.get(args.scenario)()
+        pspec = PopulationSpec(base=base, replicates=args.replicates)
+    if args.seed is not None:
+        pspec = pspec.replace(base=pspec.base.replace(seed=args.seed))
+    return pspec.validate()
+
+
+def _pool_member_dirs(root: str, size: int) -> list:
+    from .pool import member_dir
+    return [member_dir(root, b) for b in range(size)]
+
+
+def cmd_pool_start(args) -> int:
+    from .pool import (POOL_SPEC_FILE, common_checkpoint_step,
+                       ensure_pool_dir, load_pool_spec, run_pool,
+                       write_pool_spec)
+    if _no_device(args):
+        return 1
+    rd = ensure_pool_dir(args.run_dir)
+    if _refuse_if_running(rd):
+        return 1
+    keep = args.keep if args.keep > 0 else None
+    if not os.path.exists(rd.path(POOL_SPEC_FILE)):
+        try:
+            write_pool_spec(rd.root, _resolve_pool_spec(args))
+        except NotImplementedError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return EXIT_UNPORTED
+        except (KeyError, ValueError, OSError) as e:
+            print(f"error: {e.args[0] if e.args else e}", file=sys.stderr)
+            return 1
+    pspec = load_pool_spec(rd.root)
+    if common_checkpoint_step(_pool_member_dirs(rd.root, pspec.size)) \
+            is not None:
+        print(f"error: {rd.root} already has member checkpoints; use "
+              "`python -m repro_torch.serve pool resume` (or a fresh "
+              "--run-dir)", file=sys.stderr)
+        return 1
+    if not args.foreground:
+        return _spawn(rd, ["pool", "start"] + _loop_argv(args))
+    run_pool(rd.root, segment_rounds=args.segment_rounds,
+             max_segments=args.max_segments, keep=keep, resume=False,
+             device=args.device)
+    return 0
+
+
+def cmd_pool_resume(args) -> int:
+    from .pool import common_checkpoint_step, load_pool_spec, run_pool
+    if _no_device(args):
+        return 1
+    rd = RunDir(args.run_dir)
+    if _refuse_if_running(rd):
+        return 1
+    try:
+        pspec = load_pool_spec(rd.root)
+    except FileNotFoundError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    if common_checkpoint_step(_pool_member_dirs(rd.root, pspec.size)) \
+            is None:
+        print(f"error: no common verified checkpoint across the "
+              f"{pspec.size} member dirs under {rd.root}",
+              file=sys.stderr)
+        return 1
+    keep = args.keep if args.keep > 0 else None
+    if not args.foreground:
+        return _spawn(rd, ["pool", "resume"] + _loop_argv(args))
+    run_pool(rd.root, segment_rounds=args.segment_rounds,
+             max_segments=args.max_segments, keep=keep, resume=True,
+             device=args.device)
+    return 0
+
+
+def cmd_pool_status(args) -> int:
+    from .pool import pool_status
+    print(json.dumps(pool_status(args.run_dir, tail=args.tail), indent=2))
+    return 0
 
 
 def cmd_pool(args) -> int:
-    return {"start": cmd_pool_unported, "resume": cmd_pool_unported,
-            "status": cmd_pool_unported,
+    return {"start": cmd_pool_start, "resume": cmd_pool_resume,
+            "status": cmd_pool_status,
             "stop": cmd_stop}[args.pool_cmd](args)
 
 

@@ -352,3 +352,104 @@ def test_cuda_global_kernel_is_deterministic_and_capturable():
                 x, w, mask, stack, gw, ct))
         del graph
     torch.cuda.synchronize()
+
+
+# --------------------------------------------------------------------- #
+# the population-batched kernels: P federations in one launch
+# --------------------------------------------------------------------- #
+def _pop_inputs(P, C, B, N, dev, seed):
+    """P members' fused-kernel inputs with ragged valid rows (one member
+    without any), padded rows of 1e30 with zero or non-zero weights, and
+    rows c that cover 0, B - 1 and B (no member row)."""
+    g = np.random.default_rng(seed)
+    x = g.standard_normal((P, C, N)).astype(np.float32)
+    valid = [int(v) for v in g.integers(0, C + 1, P)]
+    valid[0] = C
+    if P > 2:
+        valid[1] = 0
+    mask = np.stack([(np.arange(C) < v).astype(np.float32) for v in valid])
+    w = g.random((P, C)).astype(np.float32)
+    w = w / np.maximum((w * mask).sum(1, keepdims=True), 1e-30)
+    w = (w * np.where(np.arange(P)[:, None] % 2 == 0, mask, 1.0)).astype(
+        np.float32)
+    x[mask == 0] = 1e30
+    stack = g.standard_normal((P, B, N)).astype(np.float32)
+    gw = g.random((P, B)).astype(np.float32)
+    gw /= gw.sum(1, keepdims=True)
+    c = np.array([(0, B - 1, B)[p % 3] for p in range(P)], np.int32)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return t(x), t(w), t(mask), t(stack), t(gw), t(c)
+
+
+POP_CASES = [(8, 99, 16, 159010), (8, 111, 16, 5288), (1, 7, 5, 130),
+             (3, 300, 2, 257), (8, 6, 4, 1027)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,C,B,N", POP_CASES)
+def test_cuda_population_kernels_match_plain_and_single(P, C, B, N):
+    """The batched kernels against their batched plain versions, and every
+    slice bitwise against the single kernel launched on that member's
+    tensors (the same launch plan, the same order of rows)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (runs on the card, see README.md)")
+    ta = importlib.import_module("repro_torch.kernels.trust_aggregate")
+    dev = torch.device("cuda")
+    x, w, mask, stack, gw, c = _pop_inputs(P, C, B, N, dev, seed=P + C + N)
+    got = ta.trust_aggregate_global_pop(x, w, mask, stack, gw, c)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(
+        got, ref.trust_aggregate_global_pop_ref(x, w, mask, stack, gw, c),
+        atol=1e-5, rtol=1e-5)
+    for p in range(P):
+        assert torch.equal(got[p], ta.trust_aggregate_global(
+            x[p], w[p], mask[p], stack[p], gw[p], c[p]))
+    for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2e-2)):
+        xd = x.to(dtype)
+        for m in (mask, None):
+            ww = w * mask if m is None else w
+            got = ta.trust_aggregate_pop(xd, ww, m)
+            want = ref.trust_aggregate_pop_ref(xd.float(), ww, m)
+            torch.testing.assert_close(got.float(), want, atol=tol,
+                                       rtol=tol)
+            for p in range(P):
+                assert torch.equal(got[p], ta.trust_aggregate(
+                    xd[p], ww[p], None if m is None else m[p]))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_population_kernel_under_vmap_and_in_a_graph():
+    """``torch.func.vmap`` of the fused wrapper launches the batched
+    kernel once; the batched launch captured in a CUDA graph replays the
+    eager call's bits, also after the rows c change in place."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (runs on the card, see README.md)")
+    ta = importlib.import_module("repro_torch.kernels.trust_aggregate")
+    dev = torch.device("cuda")
+    x, w, mask, stack, gw, c = _pop_inputs(8, 99, 16, 159010, dev, seed=1)
+    before = dict(launches)
+    got = torch.func.vmap(ta.trust_aggregate_global)(x, w, mask, stack, gw,
+                                                     c)
+    assert launches["trust_aggregate_global_pop"] == \
+        before["trust_aggregate_global_pop"] + 1
+    assert launches["trust_aggregate_global"] == \
+        before["trust_aggregate_global"]
+    assert torch.equal(got, ta.trust_aggregate_global_pop(x, w, mask, stack,
+                                                          gw, c))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ta.trust_aggregate_global_pop(x, w, mask, stack, gw, c)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ta.trust_aggregate_global_pop(x, w, mask, stack, gw, c)
+    for shift in (0, 1, 2):
+        c.copy_((c + shift) % 17)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, ta.trust_aggregate_global_pop(
+            x, w, mask, stack, gw, c))
+    del graph
+    torch.cuda.synchronize()

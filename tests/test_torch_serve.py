@@ -414,9 +414,18 @@ def test_unported_specs_and_pool_exit_2(tmp_path, capsys):
     assert main(["chaos", "--run-dir", str(tmp_path / "lm2"), "--scenario",
                  "lm-modeA", "--device", "cpu"]) == 2
     assert "item 10" in capsys.readouterr().err
-    for cmd in ("start", "resume", "status"):
-        assert main(["pool", cmd, "--run-dir", str(tmp_path / "pool")]) == 2
-        assert "queue 1, item 8" in capsys.readouterr().err
+    # the pool runs since populations were ported; what it cannot run
+    # yet exits 2 naming its item: an LM base spec, a sharded population
+    assert main(["pool", "start", "--run-dir", str(tmp_path / "pool"),
+                 "--scenario", "lm-modeA", "--device", "cpu",
+                 "--foreground"]) == 2
+    assert "item 10" in capsys.readouterr().err
+    pspec = {"base": spec_dict(), "replicates": 2,
+             "sharding": {"mesh": [2]}}
+    assert main(["pool", "start", "--run-dir", str(tmp_path / "pool2"),
+                 "--spec-file", write_spec(tmp_path / "pool.json", pspec),
+                 "--device", "cpu", "--foreground"]) == 2
+    assert "queue 1, item 9" in capsys.readouterr().err
 
 
 def test_import_pulls_in_no_jax():
