@@ -1,7 +1,8 @@
 """Federation API of the port: the same surface as ``repro.api`` for what
 is ported.
 
-  spec        `FederationSpec` tree (+ dict round-trip, same dicts)
+  spec        `FederationSpec` tree (+ dict round-trip, same dicts),
+              `legacy_spec` (a legacy `AsyncFLConfig` as a spec)
   registry    named component registries (aggregators, controllers,
               tasks, scenarios, engines)
   components  trust / fedavg and the robust aggregators, fixed /
@@ -30,7 +31,7 @@ from .registry import (AGGREGATORS, CONTROLLERS, ENGINES, SCENARIOS,
 from .spec import (AggregatorSpec, ChannelSpec, ClusteringSpec,
                    ControllerSpec, DATACENTER_SCALE, DEVICE_SCALE, FaultSpec,
                    FederationSpec, FleetSpec, PrivacySpec, ShardingSpec,
-                   TaskSpec)
+                   TaskSpec, legacy_spec)
 
 __all__ = [
     "Federation", "FederationSpec", "FleetState", "FleetTree", "fleet_tree",
@@ -38,7 +39,7 @@ __all__ = [
     "RoundRecord", "JsonlSink", "read_jsonl_trace", "FleetSpec",
     "ClusteringSpec", "ControllerSpec", "AggregatorSpec", "TaskSpec",
     "PrivacySpec", "ChannelSpec", "ShardingSpec", "FaultSpec",
-    "DEVICE_SCALE", "DATACENTER_SCALE", "DeviceScaleEngine",
+    "DEVICE_SCALE", "DATACENTER_SCALE", "legacy_spec", "DeviceScaleEngine",
     "default_device_data", "fleet_state_from_numpy", "resolve_device",
     "AGGREGATORS", "CONTROLLERS", "ENGINES", "TASKS", "SCENARIOS",
     "register_aggregator", "register_controller", "register_engine",

@@ -438,6 +438,15 @@ class DeviceScaleEngine:
     def energy_used(self) -> float:
         return self._energy_used
 
+    # legacy attribute views (the `AsyncFederation` shim, examples) ---- #
+    @property
+    def agg_count(self) -> int:
+        return self._rounds
+
+    @property
+    def rep(self) -> torch.Tensor:
+        return self.state.rep
+
     # ------------------------------------------------------------------ #
     # randomness
     # ------------------------------------------------------------------ #

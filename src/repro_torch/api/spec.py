@@ -238,3 +238,36 @@ _NESTED = {
     ("FederationSpec", "sharding"): ShardingSpec,
     ("FederationSpec", "faults"): FaultSpec,
 }
+
+
+def legacy_spec(cfg) -> FederationSpec:
+    """Translate a legacy ``AsyncFLConfig`` into the equivalent spec (the
+    JAX package's ``repro.api.spec.legacy_spec``: the same dict for the
+    same config).
+
+    Used by the `AsyncFederation` shim, whose traces equal those of
+    ``Federation.from_spec(legacy_spec(cfg))`` bit for bit.
+    """
+    if cfg.fixed_frequency is not None:
+        controller = ControllerSpec("fixed", {"a": int(cfg.fixed_frequency)})
+    else:
+        # the legacy default without an agent: constant a = 5; a trained
+        # agent is attached by the caller via Federation(controller=...)
+        controller = ControllerSpec("fixed", {"a": 5})
+    return FederationSpec(
+        scale=DEVICE_SCALE,
+        fleet=FleetSpec(n_devices=cfg.n_devices,
+                        malicious_frac=cfg.malicious_frac,
+                        dt_max_dev=cfg.dt_max_dev,
+                        calibrate_dt=cfg.calibrate_dt),
+        clustering=ClusteringSpec(n_clusters=cfg.n_clusters,
+                                  alpha0=cfg.alpha0,
+                                  alpha_growth=cfg.alpha_growth),
+        controller=controller,
+        aggregator=AggregatorSpec(kind=cfg.aggregator),
+        task=TaskSpec("mlp"),
+        privacy=PrivacySpec(clip=cfg.dp_clip, noise=cfg.dp_noise),
+        channel=ChannelSpec(p_good=cfg.p_good, pkt_fail=cfg.pkt_fail),
+        sim_seconds=cfg.sim_seconds,
+        local_batch=cfg.local_batch,
+        lr=cfg.lr, iota=cfg.iota, seed=cfg.seed)

@@ -4,14 +4,18 @@
 reduced same-family variant the CPU tests use; both equal the JAX
 package's field for field.  The port serves the architectures whose layers
 it has (global and local attention, RG-LRU, Mamba-1): recurrentgemma-2b,
-gemma-2b and falcon-mamba-7b.  The JAX package's other ids raise
-`NotImplementedError` naming the ROADMAP item that ports them.
+gemma-2b and falcon-mamba-7b.  ``paper_mnist`` (alias ``paper-mnist``)
+is the paper's own experiment, an `AsyncFLConfig`.  The JAX package's
+other ids raise `NotImplementedError` naming the ROADMAP item that ports
+them.
 """
 from __future__ import annotations
 
 import importlib
 
 ARCH_IDS = ["recurrentgemma_2b", "gemma_2b", "falcon_mamba_7b"]
+# the paper's experiment, not an architecture (as in the JAX registry)
+PAPER_ID = "paper_mnist"
 
 # the JAX package's other architectures, and why the port lacks them
 _NOT_PORTED = {
@@ -22,8 +26,6 @@ _NOT_PORTED = {
     "chameleon_34b": "this config (ROADMAP queue 1, item 10)",
     "granite_3_8b": "this config (ROADMAP queue 1, item 10)",
     "gemma_7b": "this config (ROADMAP queue 1, item 10)",
-    "paper_mnist": "the paper's MLP, which the federation runs "
-                   "(repro_torch.core.mlp)",
 }
 
 
@@ -32,7 +34,7 @@ def _module(arch_id: str):
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"{arch_id}: the port does not have {_NOT_PORTED[name]} yet")
-    if name not in ARCH_IDS:
+    if name not in ARCH_IDS and name != PAPER_ID:
         raise KeyError(f"unknown architecture {arch_id!r}; the port has "
                        f"{[i.replace('_', '-') for i in ARCH_IDS]}")
     return importlib.import_module(f"repro_torch.configs.{name}")

@@ -72,40 +72,58 @@ def draw_episode(seed: int, episode: int, carry: EpCarry,
         env=envs.draw_step(u[2:k], carry.env.channel), replay_u=u[k:])
 
 
+def _transition(carry: EpCarry, cfg: dqn_lib.DQNConfig,
+                p: envs.EnvParams, draws: EpisodeDraws):
+    """`episode_step`, plus the step's TD loss and consumed energy (0 for
+    a step past the episode's end)."""
+    a = dqn_lib.select_action(carry.agent, cfg, carry.obs, draws.u_greedy,
+                              draws.rand_action)
+    env, obs2, r, done2, info = envs.step(carry.env, a, p, draws.env)
+    agent = dqn_lib.store(carry.agent, carry.obs, a, r, obs2)
+    idx = rng.randint(draws.replay_u, dqn_lib.replay_limit(agent.replay))
+    agent, td = dqn_lib.train_step(agent, cfg, idx)
+    new = EpCarry(env=env, obs=obs2, done=carry.done | done2, agent=agent,
+                  ret=carry.ret + r)
+    zero = torch.zeros((), device=td.device)
+    return (_freeze(carry.done, new, carry),
+            torch.where(carry.done, zero, td),
+            torch.where(carry.done, zero, info["consumed"]))
+
+
 def episode_step(carry: EpCarry, cfg: dqn_lib.DQNConfig,
                  p: envs.EnvParams, draws: EpisodeDraws) -> EpCarry:
     """One Alg.-1 transition: epsilon-greedy select, env step, replay
     store, TD train on replay rows drawn over the buffer as the store left
     it; a no-op once the episode is done."""
-    a = dqn_lib.select_action(carry.agent, cfg, carry.obs, draws.u_greedy,
-                              draws.rand_action)
-    env, obs2, r, done2, _ = envs.step(carry.env, a, p, draws.env)
-    agent = dqn_lib.store(carry.agent, carry.obs, a, r, obs2)
-    idx = rng.randint(draws.replay_u, dqn_lib.replay_limit(agent.replay))
-    agent, _ = dqn_lib.train_step(agent, cfg, idx)
-    new = EpCarry(env=env, obs=obs2, done=carry.done | done2, agent=agent,
-                  ret=carry.ret + r)
-    return _freeze(carry.done, new, carry)
+    return _transition(carry, cfg, p, draws)[0]
 
 
 def train_on_env(agent: dqn_lib.DQNState, cfg: dqn_lib.DQNConfig,
                  p: envs.EnvParams, *, episodes: int, seed: int = 0):
     """Train ``agent`` for ``episodes`` episodes of the DT environment
     (Alg. 1) on its device.  Returns ``(agent, aux)`` with ``aux =
-    {"ep_return": (episodes,) f32, "ep_len": (episodes,) int64}``, tensors
-    on the agent's device."""
+    {"ep_return": (episodes,) f32, "ep_len": (episodes,) int64,
+    "td_loss": (episodes, horizon) f32, "consumed": (episodes, horizon)
+    f32}``, tensors on the agent's device: each step's TD loss and
+    consumed energy, 0 past the episode's end (step ``t`` of episode ``e``
+    ran if ``t < ep_len[e]``)."""
     dev = agent.step.device
-    rets, lens = [], []
+    rets, lens, tds, used = [], [], [], []
     for ep in range(int(episodes)):
         env, obs = envs.reset(p, envs.draw_reset(seed, ep, p, dev))
         carry = EpCarry(env=env, obs=obs,
                         done=torch.zeros((), dtype=torch.bool, device=dev),
                         agent=agent, ret=torch.zeros((), device=dev))
         for _ in range(p.horizon):
-            carry = episode_step(carry, cfg, p,
-                                 draw_episode(seed, ep, carry, cfg, p))
+            carry, td, consumed = _transition(
+                carry, cfg, p, draw_episode(seed, ep, carry, cfg, p))
+            tds.append(td)
+            used.append(consumed)
         agent = carry.agent
         rets.append(carry.ret)
         lens.append(torch.where(carry.done, carry.env.round, p.horizon))
+    shape = (int(episodes), p.horizon)
     return agent, {"ep_return": torch.stack(rets),
-                   "ep_len": torch.stack(lens)}
+                   "ep_len": torch.stack(lens),
+                   "td_loss": torch.stack(tds).reshape(shape),
+                   "consumed": torch.stack(used).reshape(shape)}

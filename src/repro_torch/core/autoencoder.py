@@ -69,9 +69,11 @@ def anomaly_auc(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
     Mann-Whitney form: (sum of anomaly ranks - n_pos (n_pos + 1) / 2) /
     (n_pos n_neg), with midranks for ties; NaN when either class is
-    absent.  The ranks and sums are float64: the JAX package sums ranks of
-    up to ~6.6e4 over thousands of anomalies in float32, near its integer
-    limit, so the two agree to ~1e-6, not bit for bit.
+    absent.  NaN scores (a diverged model) rank last and tied, as in the
+    JAX package (all NaN: 0.5).  The ranks and sums are float64: the JAX
+    package sums ranks of up to ~6.6e4 over thousands of anomalies in
+    float32, near its integer limit, so the two agree to ~1e-6, not bit
+    for bit.
     """
     scores = scores.to(torch.float32).reshape(-1)
     pos = (labels.reshape(-1) > 0).to(torch.float64)
@@ -79,9 +81,17 @@ def anomaly_auc(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     sorted_scores, order = torch.sort(scores)
     base = torch.arange(1, scores.shape[0] + 1, dtype=torch.float64,
                         device=scores.device)
-    # midranks: the mean 1-based position of each tie group
-    first = torch.searchsorted(sorted_scores, sorted_scores, right=False)
-    last = torch.searchsorted(sorted_scores, sorted_scores, right=True)
+    # midranks: the mean 1-based position of each tie group.  NaN scores
+    # (a diverged model) sort last and tie with each other, as in the JAX
+    # package's sort and search
+    nan = torch.isnan(sorted_scores)
+    n = scores.shape[0]
+    key = torch.where(nan, float("inf"), sorted_scores)  # sorted, no NaN
+    first = torch.searchsorted(key, sorted_scores, right=False)
+    last = torch.searchsorted(key, sorted_scores, right=True)
+    n_num = n - nan.sum()
+    first = torch.where(nan, n_num, first)
+    last = torch.where(nan, n, torch.minimum(last, n_num))
     mid = 0.5 * (base[first] + base[last - 1])
     ranks = torch.empty_like(mid).scatter_(0, order, mid)
     auc = ((ranks * pos).sum() - n_pos * (n_pos + 1.0) / 2.0) / (

@@ -19,6 +19,8 @@ import torch
 
 from repro_torch.kernels.trust_aggregate import trust_aggregate
 
+from .member_ops import row_sq_sum
+
 
 def clip_update(update: torch.Tensor, clip: float) -> torch.Tensor:
     """Scale one (N,) update to L2 norm <= ``clip``."""
@@ -27,7 +29,7 @@ def clip_update(update: torch.Tensor, clip: float) -> torch.Tensor:
 
 def clip_client_updates(updates: torch.Tensor, clip: float) -> torch.Tensor:
     """Clip each row of an (M, N) matrix of updates to L2 norm <= ``clip``."""
-    norm = torch.sqrt(torch.square(updates.to(torch.float32)).sum(1))
+    norm = torch.sqrt(row_sq_sum(updates.to(torch.float32)))
     scale = torch.clamp(clip / (norm + 1e-12), max=1.0)
     return updates * scale[:, None].to(updates.dtype)
 

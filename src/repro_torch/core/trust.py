@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.kernels.trust_aggregate import trust_aggregate
 
+from .member_ops import gram, row_sq_sum
 from .twin import TwinState
 
 _EPS = 1e-8
@@ -41,14 +42,14 @@ def learning_quality(updates_flat: torch.Tensor, mask=None) -> torch.Tensor:
     """
     if mask is None:
         mean = updates_flat.mean(0, keepdim=True)
-        dist = torch.linalg.vector_norm(updates_flat - mean, dim=1)
+        dist = torch.sqrt(row_sq_sum(updates_flat - mean))
         rel = dist / (dist.sum() + _EPS)
         n = updates_flat.shape[0]
         return torch.clamp(1.0 - rel * n / max(n - 1, 1), _EPS, 1.0)
     m = mask.to(updates_flat.dtype)
     cnt = torch.clamp(m.sum(), min=1.0)
     mean = (updates_flat * m[:, None]).sum(0, keepdim=True) / cnt
-    dist = torch.linalg.vector_norm(updates_flat - mean, dim=1) * m
+    dist = torch.sqrt(row_sq_sum(updates_flat - mean)) * m
     rel = dist / (dist.sum() + _EPS)
     return torch.clamp(1.0 - rel * (cnt / torch.clamp(cnt - 1.0, min=1.0)),
                        _EPS, 1.0)
@@ -57,10 +58,11 @@ def learning_quality(updates_flat: torch.Tensor, mask=None) -> torch.Tensor:
 def gradient_diversity(updates_flat: torch.Tensor, mask=None) -> torch.Tensor:
     """FoolsGold signal: max pairwise cosine similarity per client, turned
     into a diversity score.  ``mask`` excludes padded peers from the max.
-    The Gram product runs in full float32 (TF32 is off in the port)."""
-    norm = updates_flat / (torch.linalg.vector_norm(
-        updates_flat, dim=1, keepdim=True) + _EPS)
-    cs = norm @ norm.T
+    The row norms and the Gram product are `member_ops`' (a population
+    member's are its standalone run's)."""
+    norm = updates_flat / (torch.sqrt(row_sq_sum(updates_flat))[:, None]
+                           + _EPS)
+    cs = gram(norm)
     cs = cs - torch.eye(cs.shape[0], device=cs.device) * 2.0
     if mask is not None:
         cs = torch.where(mask[None, :], cs, torch.full_like(cs, -2.0))

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch import rng
+from repro_torch.core.member_ops import row_sq_sum
 from repro_torch.core.twin import TwinState, take
 
 from .spec import FaultSpec
@@ -156,7 +157,7 @@ class FaultModel:
             parts = []
             for off, size in segments:
                 u = upd[:, off:off + size]
-                nrm = torch.sqrt((u * u).sum(1, keepdim=True) + 1e-12)
+                nrm = torch.sqrt(row_sq_sum(u)[:, None] + 1e-12)
                 sigma = scale * nrm / float(np.float32(np.sqrt(size or 1)))
                 parts.append(u + sigma * normal[:, off:off + size])
             bad = torch.cat(parts, dim=1)

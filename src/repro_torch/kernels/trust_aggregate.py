@@ -279,6 +279,13 @@ def _aggregate_op(params_flat: torch.Tensor, weights: torch.Tensor,
     return _aggregate(params_flat, weights, mask)
 
 
+@_aggregate_op.register_fake
+def _aggregate_fake(params_flat, weights, mask):
+    # shape and dtype only, for tracers on fake tensors (torch.compile,
+    # make_fx, torch.export); it computes nothing
+    return params_flat.new_empty(params_flat.shape[1:])
+
+
 @_aggregate_op.register_vmap
 def _aggregate_vmap(info, in_dims, params_flat, weights, mask):
     size = info.batch_size
@@ -296,6 +303,13 @@ def _aggregate_global_op(updates_flat: torch.Tensor, weights: torch.Tensor,
                          c: torch.Tensor) -> torch.Tensor:
     return _aggregate_global(updates_flat, weights, mask, stack_flat,
                              global_weights, c)
+
+
+@_aggregate_global_op.register_fake
+def _aggregate_global_fake(updates_flat, weights, mask, stack_flat,
+                           global_weights, c):
+    return updates_flat.new_empty(updates_flat.shape[1:],
+                                  dtype=torch.float32)
 
 
 @_aggregate_global_op.register_vmap

@@ -32,6 +32,9 @@ DP_NOISE = 8
 # patterns (a generator), and the stream that mixes the fault seed into
 # the federation's (`fault_seed`)
 DROP, STRAGGLE, SPIKE, CORRUPT, POISON, FAULTS = 9, 10, 11, 12, 13, 14
+# the seed of a greedy rollout on the DT environment (the paper's Figs 4
+# and 5), kept apart from every training episode's draws
+ROLLOUT = 15
 
 _M32 = 0xFFFFFFFF
 

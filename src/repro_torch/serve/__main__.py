@@ -477,10 +477,24 @@ def _pool_member_dirs(root: str, size: int) -> list:
     return [member_dir(root, b) for b in range(size)]
 
 
+def _checked_pool_spec(root: str):
+    """The validated ``pool.json`` of ``root`` and 0, or None and the exit
+    code: 1 when it is missing, `EXIT_UNPORTED` when the port cannot run
+    it (a sharded population names its ROADMAP item)."""
+    from .pool import load_pool_spec
+    try:
+        return load_pool_spec(root).validate(), 0
+    except FileNotFoundError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return None, 1
+    except NotImplementedError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return None, EXIT_UNPORTED
+
+
 def cmd_pool_start(args) -> int:
     from .pool import (POOL_SPEC_FILE, common_checkpoint_step,
-                       ensure_pool_dir, load_pool_spec, run_pool,
-                       write_pool_spec)
+                       ensure_pool_dir, run_pool, write_pool_spec)
     if _no_device(args):
         return 1
     rd = ensure_pool_dir(args.run_dir)
@@ -496,7 +510,9 @@ def cmd_pool_start(args) -> int:
         except (KeyError, ValueError, OSError) as e:
             print(f"error: {e.args[0] if e.args else e}", file=sys.stderr)
             return 1
-    pspec = load_pool_spec(rd.root)
+    pspec, rc = _checked_pool_spec(rd.root)
+    if pspec is None:
+        return rc
     if common_checkpoint_step(_pool_member_dirs(rd.root, pspec.size)) \
             is not None:
         print(f"error: {rd.root} already has member checkpoints; use "
@@ -512,17 +528,15 @@ def cmd_pool_start(args) -> int:
 
 
 def cmd_pool_resume(args) -> int:
-    from .pool import common_checkpoint_step, load_pool_spec, run_pool
+    from .pool import common_checkpoint_step, run_pool
     if _no_device(args):
         return 1
     rd = RunDir(args.run_dir)
     if _refuse_if_running(rd):
         return 1
-    try:
-        pspec = load_pool_spec(rd.root)
-    except FileNotFoundError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 1
+    pspec, rc = _checked_pool_spec(rd.root)
+    if pspec is None:
+        return rc
     if common_checkpoint_step(_pool_member_dirs(rd.root, pspec.size)) \
             is None:
         print(f"error: no common verified checkpoint across the "

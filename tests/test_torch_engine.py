@@ -122,11 +122,20 @@ class JaxDraws:
 
 def build_pair(d):
     jfed = japi.Federation.from_dict(d)
+    tfed = mirror_jax_federation(jfed, tapi.FederationSpec.from_dict(d))
+    return jfed, tfed
+
+
+def mirror_jax_federation(jfed, spec, **kw):
+    """The port's federation of ``spec`` on the JAX federation's data,
+    partition, assignment, initial state, label flippers and poison
+    patterns, with the JAX engine's draws injected; ``kw`` (a controller)
+    passes through to `Federation.from_spec`."""
     je = jfed.engine
     state = jax.device_get(je.state._replace(key=None))
-    tfed = tapi.Federation.from_dict(
-        d, device="cpu", data=je.data, parts=je.parts, assign=je.assign,
-        state=tapi.fleet_state_from_numpy(state, "cpu"))
+    tfed = tapi.Federation.from_spec(
+        spec, device="cpu", data=je.data, parts=je.parts, assign=je.assign,
+        state=tapi.fleet_state_from_numpy(state, "cpu"), **kw)
     tfed.engine.draws = JaxDraws(je)
     te = tfed.engine
     if je.malicious.any():          # the JAX package's label flippers
@@ -141,7 +150,7 @@ def build_pair(d):
             jax.random.normal(jax.random.PRNGKey(
                 je.faults._seed * 2654435761 % (2 ** 31)),
                 (je.faults.n + 1, feat), jnp.float32)))
-    return jfed, tfed
+    return tfed
 
 
 def assert_same_trace(jt, tt, n_records):
@@ -350,7 +359,10 @@ def test_default_device_is_the_card():
 def test_import_pulls_in_no_jax():
     code = ("import sys, repro_torch, repro_torch.api, repro_torch.kernels, "
             "repro_torch.models, repro_torch.configs, "
-            "repro_torch.launch.serve;"
+            "repro_torch.launch.serve, repro_torch.core.async_fl, "
+            "repro_torch.configs.paper_mnist, repro_torch.paper, "
+            "repro_torch.paper.figures, repro_torch.paper.robustness, "
+            "repro_torch.paper.__main__;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro'];"
             "print(bad); sys.exit(1 if bad else 0)")

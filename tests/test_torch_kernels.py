@@ -180,6 +180,49 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     assert launches == before
 
 
+def _trust_ops_inputs(seed, pop=None):
+    g = np.random.default_rng(seed)
+    lead = () if pop is None else (pop,)
+    x, w, mask = (torch.from_numpy(a) for a in _inputs(5, 300, 3, seed, 0.0))
+    stack = torch.from_numpy(g.standard_normal((4, 300)).astype(np.float32))
+    gw = torch.full((4,), 0.25)
+    tile = lambda t: t.expand(lead + tuple(t.shape)).clone()
+    return (tile(x), tile(w), tile(mask), tile(stack), tile(gw),
+            torch.tensor([1] * (pop or 1), dtype=torch.int32).reshape(lead))
+
+
+def _through_both_ops(x, w, mask, stack, gw, c):
+    return (trust_aggregate(x, w, mask) * 2.0
+            + trust_aggregate_global(x, w, mask, stack, gw, c))
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_trust_ops_trace_on_fake_tensors(batched):
+    """Both custom operators have fake implementations: torch.compile
+    (eager backend) and make_fx on fake tensors pass through them, alone
+    and under vmap, and give the eager result."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+    args = _trust_ops_inputs(3, pop=3 if batched else None)
+    f = (torch.func.vmap(_through_both_ops) if batched
+         else _through_both_ops)
+    want = f(*args)
+    torch._dynamo.reset()
+    got = torch.compile(f, backend="eager", fullgraph=True)(*args)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    gm = make_fx(f, tracing_mode="fake")(*args)
+    torch.testing.assert_close(gm(*args), want, rtol=0, atol=0)
+    assert gm(*args).shape == want.shape == args[0].shape[:-2] + (300,)
+    for op in (torch.ops.repro_torch.trust_aggregate.default,
+               torch.ops.repro_torch.trust_aggregate_global.default):
+        fake = torch._subclasses.FakeTensorMode()
+        with fake:
+            fx, fw, fm, fs, fg, fc = (fake.from_tensor(a) for a in
+                                      _trust_ops_inputs(3))
+            out = (op(fx, fw, fm) if "global" not in str(op)
+                   else op(fx, fw, fm, fs, fg, fc))
+        assert out.shape == (300,) and out.dtype == torch.float32
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions():
     """The CUDA kernels against their plain versions on the card, at the

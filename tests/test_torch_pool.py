@@ -199,3 +199,23 @@ def test_pool_cli_start_resume_status_on_the_cpu(tmp_path, capsys):
     assert main(["status", "--run-dir", member_dir(root, 1)]) == 0
     assert json.loads(capsys.readouterr().out)["latest_checkpoint"] \
         is not None
+
+
+@pytest.mark.parametrize("cmd", ["start", "resume"])
+def test_pool_cli_exits_2_on_a_sharded_pool_json(tmp_path, capsys, cmd):
+    """A `pool.json` the JAX package wrote for a population on a 1-D mesh:
+    both commands refuse it with `EXIT_UNPORTED` and name the ROADMAP item
+    that ports it, before any member runs."""
+    root = str(tmp_path / "pool")
+    os.makedirs(root)
+    d = PopulationSpec.from_dict({"base": spec_dict(),
+                                  "replicates": 2}).to_dict()
+    d["sharding"] = {**d["sharding"], "mesh": [2]}
+    with open(os.path.join(root, "pool.json"), "w") as f:
+        json.dump(d, f)
+    assert main(["pool", cmd, "--run-dir", root, "--max-segments", "1",
+                 "--segment-rounds", "2", "--foreground", "--device",
+                 "cpu"]) == 2
+    assert "ROADMAP.md, queue 1, item 9" in capsys.readouterr().err
+    assert not os.path.exists(member_dir(root, 0)) or \
+        not os.listdir(member_dir(root, 0))
