@@ -130,7 +130,32 @@ Needs one NVIDIA GPU and nvcc.  In order:
    read after the prefill (64 selective_scan) and the decode loop (none),
    the kernel on the first MAMBA layer's own inputs held against its plain
    version, and the 4096 + 1 consistency check;
-7. prints the federations line (4b, 4c and 4d), the serving line, the
+7. frees falcon-mamba-7b and the libraries' workspaces (the training
+   phase needs 64 GiB);
+8. training: federated mode A (``fedavg_replica``) of recurrentgemma-2b
+   at full width cut to one Griffin period (RG-LRU, RG-LRU, local
+   attention; 912,320,000 f32 parameters from seed 0), NC 2 x C 2 clients,
+   4096-token sequences, a fixed a = 2 local Adam steps of 2 microbatches
+   a round (``RECURRENTGEMMA_2B_TRAIN``), after falcon-mamba-7b is freed:
+   first the forward's lse output and both backward kernels
+   (``flash_attention_bwd``, ``rglru_scan_bwd``) against their plain
+   versions at the training shape and at ragged ones (S not a multiple of
+   any tile, 4 query heads over 2, softcap 30), the forward with a null
+   lse pointer bit for bit the forward with one, each backward timed cold
+   and warm beside its bound, the plain version and a library call
+   (``torch.autograd.grad`` through ``scaled_dot_product_attention``;
+   ``addcmul`` over the scan's bytes); then three rounds through
+   ``Federation.from_spec(spec).run(max_rounds=3)`` with the launch counts
+   set to 0 before and read after (each kernel exactly its schedule:
+   clients x a x microbatches x layers of its kind, the forwards doubled
+   by the per-layer checkpoint), finite losses, the last round's mean
+   below the first's, the state on the card, the peak memory; one client's
+   gradients on the last round's own microbatch through the kernels
+   against the plain versions (forward and backward); mode B
+   (``trust_fsdp``, NC 2) for two rounds, its counts checked the same way;
+   and ``python -m repro_torch.launch.train --steps 3`` on the card (its
+   smoke config), which must exit 0;
+9. prints the federations line (4b, 4c and 4d), the serving line, the
    service line (4e: each segment's ``service_rounds_per_sec``, its
    checkpoint's seconds and bytes, the chaos children's start-up seconds,
    kills and restarts, beside the card's name and power limit), the
@@ -139,6 +164,7 @@ Needs one NVIDIA GPU and nvcc.  In order:
    each figure's metrics, seconds and launches, the JAX bands, the grid's
    recovery and its population against sequential seconds, the
    secure-aggregation cells, beside the card's name and power limit), the
+   training line (8: seconds a round, losses, launches, peak memory), the
    kernels line, then the result line.
 
 The trust kernels are timed back to back through their wrappers (the
@@ -185,6 +211,8 @@ PALLAS = "src/repro/kernels/trust_aggregate.py"
 FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 SCAN_SOURCE = "src/repro_torch/kernels/csrc/rglru_scan.cu"
 SSM_SOURCE = "src/repro_torch/kernels/csrc/selective_scan.cu"
+FA_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+SCAN_BWD_SOURCE = "src/repro_torch/kernels/csrc/rglru_scan_bwd.cu"
 HERE_CSRC = os.path.join(HERE, os.path.dirname(SOURCE))
 SFU_EXP_PER_CLOCK_PER_SM = 16    # special-function units, compute cap. 9.0
 L2_FLUSH_BYTES = 256 * 2 ** 20   # > 5 x the H100's 50 MB L2
@@ -193,11 +221,34 @@ L2_FLUSH_BYTES = 256 * 2 ** 20   # > 5 x the H100's 50 MB L2
 ARCH = "recurrentgemma-2b"
 MAMBA_ARCH = "falcon-mamba-7b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 4096, 32
+RECURRENT_TRAIN_SEQ = 4096      # RECURRENTGEMMA_2B_TRAIN's sequence
 CONSISTENCY_TOL = 2e-2          # tests/test_models.py's prefill/decode bound
 # tests/test_kernels.py's tolerances: attention atol = rtol; the scan atol
 # with rtol 0.05
 FA_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 SCAN_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+
+# training (phase 8): recurrentgemma-2b at full width cut to one Griffin
+# period, `repro_torch.api.scenarios.RECURRENTGEMMA_2B_TRAIN`
+TRAIN_ROUNDS_A, TRAIN_ROUNDS_B = 3, 2
+# the backward kernels against their plain versions (the gradient formulas
+# in cuBLAS products and a serial loop): every gradient within BWD_TOL of
+# its largest entry.  The kernels sum over keys, queries and chunks in
+# another order, on FMAs; the first run on the card showed at most
+# 7.1e-6 at the training shape
+BWD_TOL = 1e-4
+# one client's gradients through the kernels against the plain versions
+# (forward and backward), each parameter within LIVE_GRAD_TOL of its
+# largest entry.  The two paths' forwards differ by the attention kernel's
+# 3xTF32 rounding (~1e-6 relative), and the backward amplifies it where it
+# subtracts nearly equal terms: dS = p (dP - D), D = sum_j p dP, cancels
+# to a 1 - max p share of its terms on a peaked softmax, so the K and Q
+# projections' gradients carry ~1e-6 / (1 - max p).  A first bound of
+# 1e-3, set before any run, was exceeded by the K projection (1.01e-3 of
+# its largest entry, the loss equal to 4e-7); the bound is ten times
+# that, and the loss must agree to LIVE_LOSS_TOL
+LIVE_GRAD_TOL = 1e-2
+LIVE_LOSS_TOL = 1e-5
 
 # the JAX package's final accuracy on this spec after 30 scanned rounds
 # (on a CPU); the port draws its own random numbers, so it is held to that
@@ -2739,6 +2790,371 @@ def serving_record(cfg, sv, cons) -> dict:
             "launches": sv["counts"]}
 
 
+def rel_to_max(got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    w = want.float()
+    return ((got.float() - w).abs().max() / w.abs().max().clamp_min(1e-30)
+            ).item()
+
+
+def train_kernel_phase(cfg, dev) -> dict:
+    """The forward's lse and both backward kernels against their plain
+    versions at the training shape and ragged ones; times at the training
+    shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (_forward,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd
+    S = RECURRENT_TRAIN_SEQ
+    H, Kv, d, window, W = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                           cfg.window, cfg.lru_width)
+    f32 = torch.float32
+    err = {"out": 0.0, "lse": 0.0, "fa_bwd": 0.0, "scan_bwd": 0.0,
+           "fa_bwd_abs": 0.0, "scan_bwd_abs": 0.0}
+    # (B, S, H, Kv, d, dv, window, softcap): the training shape, then S
+    # not a multiple of any tile, 4 query heads over 2 with softcap 30,
+    # dv != d, d not a multiple of 16 bytes, a window shorter than a tile
+    cases = [(1, S, H, Kv, d, d, window, 0.0),
+             (1, 1000, 4, 2, 64, 64, 0, 30.0), (1, 77, 6, 2, 48, 40, 8, 0.0),
+             (2, 100, 2, 2, 33, 33, 0, 0.0), (1, 300, H, Kv, d, d, 5, 50.0)]
+    for i, (b, s_, h, kv, dd, dv, win, cap) in enumerate(cases):
+        g = torch.Generator(device=dev).manual_seed(300 + i)
+        q = torch.randn((b, s_, h, dd), generator=g, device=dev) * 0.3
+        k = torch.randn((b, s_, kv, dd), generator=g, device=dev) * 0.3
+        v = torch.randn((b, s_, kv, dv), generator=g, device=dev)
+        do = torch.randn((b, s_, h, dv), generator=g, device=dev)
+        out, lse = _forward(q, k, v, win, cap, True)
+        served, _ = _forward(q, k, v, win, cap, False)
+        check(torch.equal(out, served), f"flash_attention {cases[i]}: the "
+              "output with an lse pointer differs from serving's (null)")
+        ro, rl = ref.flash_attention_lse_ref(q, k, v, window=win,
+                                             softcap=cap)
+        e_o, ok_o = within(out, ro, FA_TOL["float32"], FA_TOL["float32"])
+        e_l, ok_l = within(lse, rl, FA_TOL["float32"], FA_TOL["float32"])
+        check(ok_o and ok_l, f"flash_attention {cases[i]} with lse: max abs "
+              f"error {e_o} (out), {e_l} (lse) beyond {FA_TOL['float32']}")
+        got = flash_attention_bwd(q, k, v, out, lse, do, window=win,
+                                  softcap=cap)
+        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do,
+                                           window=win, softcap=cap)
+        r = max(rel_to_max(a_, b_) for a_, b_ in zip(got, want))
+        check(r <= BWD_TOL, f"flash_attention_bwd {cases[i]}: error {r} of "
+              f"the largest entry, beyond {BWD_TOL}")
+        err["out"], err["lse"] = max(err["out"], e_o), max(err["lse"], e_l)
+        err["fa_bwd"] = max(err["fa_bwd"], r)
+        err["fa_bwd_abs"] = max([err["fa_bwd_abs"]] + [
+            (a_ - b_).abs().max().item() for a_, b_ in zip(got, want)])
+        del q, k, v, do, out, lse, served, ro, rl, got, want
+    scan_cases = [(1, S, W, (0.9, 0.9999)), (2, 97, W + 1, None),
+                  (1, 5, 3, None), (3, 33, 64, None)]
+    for i, (b, s_, w, a_range) in enumerate(scan_cases):
+        a, bx = scan_inputs(b, s_, w, f32, dev, 500 + i, a_range)
+        g = torch.Generator(device=dev).manual_seed(600 + i)
+        dhs = torch.randn((b, s_, w), generator=g, device=dev)
+        dh = torch.randn((b, w), generator=g, device=dev)
+        hs, _ = ref.rglru_scan_ref(a, bx)
+        got = rglru_scan_bwd(a, hs, dhs, dh)
+        want = ref.rglru_scan_bwd_ref(a, hs, dhs, dh)
+        r = max(rel_to_max(a_, b_) for a_, b_ in zip(got, want))
+        check(r <= BWD_TOL, f"rglru_scan_bwd {scan_cases[i]}: error {r} of "
+              f"the largest entry, beyond {BWD_TOL}")
+        err["scan_bwd"] = max(err["scan_bwd"], r)
+        err["scan_bwd_abs"] = max([err["scan_bwd_abs"]] + [
+            (a_ - b_).abs().max().item() for a_, b_ in zip(got, want)])
+    torch.cuda.synchronize()
+    print(f"training kernels against their plain versions: {json.dumps(err)}"
+          f" ({len(cases)} attention shapes, out and lse atol = rtol "
+          f"{FA_TOL['float32']}, the backwards {BWD_TOL} of the largest "
+          f"entry; {len(scan_cases)} scan shapes); the forward with an lse "
+          "pointer bit for bit serving's", flush=True)
+
+    # times at the training shape, cold (L2 flushed) and warm
+    flush = L2Flush(dev)
+    g = torch.Generator(device=dev).manual_seed(99)
+    q = torch.randn((1, S, H, d), generator=g, device=dev) * 0.3
+    k = torch.randn((1, S, Kv, d), generator=g, device=dev) * 0.3
+    v = torch.randn((1, S, Kv, d), generator=g, device=dev)
+    do = torch.randn((1, S, H, d), generator=g, device=dev)
+    out, lse = _forward(q, k, v, window, 0.0, True)
+    bwd = lambda: flash_attention_bwd(q, k, v, out, lse, do, window=window)
+    pos = torch.arange(S, device=dev)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                             - window)
+    qh, kh, vh = (x.transpose(1, 2).repeat_interleave(H // x.shape[2], 1)
+                  .contiguous().requires_grad_() for x in (q, k, v))
+    doh = do.transpose(1, 2).contiguous()
+    lib_out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+    lib = lambda: torch.autograd.grad(lib_out, (qh, kh, vh), doh,
+                                      retain_graph=True)
+    t = {"fa_bwd": time_ms(bwd, reps=3, windows=5, warmup=1),
+         "fa_bwd_cold": statistics.median(window_times(
+             bwd, reps=3, windows=3, warmup=1, flush=flush)),
+         "fa_bwd_plain": time_ms(lambda: ref.flash_attention_bwd_ref(
+             q, k, v, out, lse, do, window=window), reps=1, windows=3,
+             warmup=1),
+         "fa_bwd_lib": time_ms(lib, reps=3, windows=5, warmup=1),
+         "fa_lse": time_ms(lambda: _forward(q, k, v, window, 0.0, True),
+                           reps=3, windows=5, warmup=1),
+         "fa_null": time_ms(lambda: _forward(q, k, v, window, 0.0, False),
+                            reps=3, windows=5, warmup=1)}
+    del lib_out, qh, kh, vh, doh
+    a, bx = scan_inputs(1, S, W, f32, dev, 98, (0.9, 0.9999))
+    hs, _ = ref.rglru_scan_ref(a, bx)
+    dhs = torch.randn((1, S, W), generator=g, device=dev)
+    dh = torch.randn((1, W), generator=g, device=dev)
+    sbwd = lambda: rglru_scan_bwd(a, hs, dhs, dh)
+    t.update({
+        "scan_bwd": time_ms(sbwd),
+        "scan_bwd_cold": statistics.median(window_times(
+            sbwd, reps=10, windows=5, warmup=2, flush=flush)),
+        "scan_bwd_plain": time_ms(lambda: ref.rglru_scan_bwd_ref(
+            a, hs, dhs, dh), reps=1, windows=3, warmup=1),
+        # dhs + a * hs: three of the five arrays' bytes, not the function
+        "scan_bwd_same_bytes": time_ms(lambda: torch.addcmul(dhs, a, hs))})
+    pairs = reachable_pairs(1, S, H, window)
+    flops = pairs * 2 * (3 * d + 2 * d)
+    b_fa = (1 * S * H * d * 4 + 1 * S * Kv * d * 4 + 1 * H * S) * 4
+    fa_routes = {"cuda cores": bound_ms(b_fa, flops),
+                 "tensor cores, 3xTF32": bound_ms(b_fa, 3 * flops,
+                                                  TF32_FLOPS_PER_S)}
+    fa_route = min(fa_routes, key=lambda r_: fa_routes[r_][0])
+    b_scan = 20 * S * W + 4 * W
+    print(f"flash_attention_bwd at (1, {S}, {H}, {Kv}, {d}) window "
+          f"{window}: warm {t['fa_bwd']} ms, cold {t['fa_bwd_cold']} ms, "
+          f"plain {t['fa_bwd_plain']} ms, SDPA's backward {t['fa_bwd_lib']}"
+          f" ms; bound by route {fa_routes} ms; forward with lse "
+          f"{t['fa_lse']} ms, without {t['fa_null']} ms; rglru_scan_bwd at "
+          f"(1, {S}, {W}): warm {t['scan_bwd']} ms, cold "
+          f"{t['scan_bwd_cold']} ms, plain {t['scan_bwd_plain']} ms, "
+          f"addcmul {t['scan_bwd_same_bytes']} ms, bound "
+          f"{bound_ms(b_scan, 3 * S * W)}", flush=True)
+    return {"err": err, "t": t, "pairs": pairs, "flops": flops,
+            "bound": {"fa_bwd": fa_routes[fa_route],
+                      "scan_bwd": bound_ms(b_scan, 3 * S * W)},
+            "fa_routes": fa_routes, "fa_route": fa_route,
+            "bytes": {"fa_bwd": b_fa, "scan_bwd": b_scan}}
+
+
+class _PlainAttention(torch.autograd.Function):
+    """The plain attention forward and its plain backward, on the card."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, softcap):
+        from repro_torch.kernels import ref
+        out, lse = ref.flash_attention_lse_ref(q, k, v, window=window,
+                                               softcap=softcap)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window, ctx.softcap = window, softcap
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from repro_torch.kernels import ref
+        return (*ref.flash_attention_bwd_ref(
+            *ctx.saved_tensors, dout, window=ctx.window,
+            softcap=ctx.softcap), None, None)
+
+
+class _PlainScan(torch.autograd.Function):
+    """The plain RG-LRU scan and its plain backward, on the card."""
+
+    @staticmethod
+    def forward(ctx, a, bx):
+        from repro_torch.kernels import ref
+        hs, h_last = ref.rglru_scan_ref(a, bx)
+        ctx.save_for_backward(a, hs)
+        return hs, h_last
+
+    @staticmethod
+    def backward(ctx, dhs, dh_last):
+        from repro_torch.kernels import ref
+        a, hs = ctx.saved_tensors
+        return ref.rglru_scan_bwd_ref(a, hs, dhs, dh_last)
+
+
+def live_train_check(eng, batch) -> dict:
+    """Client (0, 0)'s gradients on the first microbatch of the last
+    round's batch, through the kernels and then through the plain versions
+    (forward and backward), each parameter's within LIVE_GRAD_TOL of its
+    largest entry."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM, lm_loss, xent
+    model = LM(eng.task.cfg, device="meta", seed=None)
+    params = {k: v[0, 0].detach().requires_grad_()
+              for k, v in eng.state.params.items()}
+    mb = {k: v[0, 0, 0] for k, v in batch.items()}
+
+    def grads():
+        loss = lm_loss(model, mb, params=params, remat=True)
+        return (float(loss.detach()),
+                torch.autograd.grad(loss, list(params.values())))
+
+    l_k, g_k = grads()
+    # where a microbatch's time goes: the whole loss and gradient, against
+    # the unembedding and cross-entropy alone on the same shapes
+    x = torch.randn(mb["tokens"].shape + (eng.task.cfg.d_model,),
+                    device=mb["tokens"].device, requires_grad=True)
+    emb = params["embed"]
+
+    def head():
+        return torch.autograd.grad(xent(x @ emb.T, mb["labels"]), (x, emb))
+    split = {"microbatch_ms": time_ms(grads, reps=1, windows=3, warmup=1),
+             "unembed_xent_ms": time_ms(head, reps=1, windows=3, warmup=1)}
+    split["unembed_share"] = split["unembed_xent_ms"] / split["microbatch_ms"]
+    del x
+    print(f"a microbatch's loss and gradient (remat): {json.dumps(split)}",
+          flush=True)
+    saved = ops.attention, ops.lru_scan
+    ops.attention = lambda q, k, v, *, window=0, softcap=0.0: \
+        _PlainAttention.apply(q, k, v, window, softcap)
+    ops.lru_scan = lambda a, bx: _PlainScan.apply(a, bx)
+    try:
+        l_p, g_p = grads()
+    finally:
+        ops.attention, ops.lru_scan = saved
+    rel = {k: rel_to_max(a_, b_) for k, a_, b_ in zip(params, g_k, g_p)}
+    worst = max(rel, key=rel.get)
+    top = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
+    print(f"live: client (0, 0)'s gradients on the last round's microbatch "
+          f"through the kernels against the plain versions: loss {l_k} "
+          f"against {l_p}; the worst parameters, error over their largest "
+          f"entry: {top} (tolerance {LIVE_GRAD_TOL}), median "
+          f"{statistics.median(rel.values())}", flush=True)
+    check(abs(l_k - l_p) <= LIVE_LOSS_TOL * abs(l_p),
+          f"live loss {l_k} against {l_p}")
+    check(rel[worst] <= LIVE_GRAD_TOL,
+          f"live gradients: {worst} off by {rel[worst]} of its largest "
+          f"entry")
+    return {"loss_kernels": l_k, "loss_plain": l_p,
+            "max_rel_err": rel[worst], "worst": worst,
+            "median_rel_err": statistics.median(rel.values()),
+            "tolerance": LIVE_GRAD_TOL, "time_split": split}
+
+
+def expected_train_launches(cfg, records, clients: int, n_micro: int
+                            ) -> dict:
+    """Each training kernel's launches over ``records``: clients x a x
+    microbatches x layers of its kind, the forward twice (the per-layer
+    checkpoint recomputes it in the backward)."""
+    from repro_torch.models import LOCAL, RGLRU, ATTN
+    kinds = cfg.layer_kinds()
+    n_attn = sum(k in (ATTN, LOCAL) for k in kinds)
+    n_lru = sum(k == RGLRU for k in kinds)
+    micro = sum(r.a for r in records) * clients * n_micro
+    return {"flash_attention": 2 * micro * n_attn,
+            "flash_attention_bwd": micro * n_attn,
+            "rglru_scan": 2 * micro * n_lru,
+            "rglru_scan_bwd": micro * n_lru}
+
+
+def train_run(spec, rounds: int, what: str, keep_batch: bool = False,
+              must_fall: bool = False) -> dict:
+    """``Federation.from_spec(spec).run(max_rounds=rounds)`` with the
+    launch counts set to 0 before the run and read after; with
+    ``must_fall`` the last round's mean loss must be below the first's."""
+    from repro_torch.api import Federation
+    from repro_torch.core import fl_step
+    from repro_torch.kernels import launches, reset_launches
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fed = Federation.from_spec(spec)
+    eng = fed.engine
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    kept = []
+    if keep_batch:
+        make = eng.task.make_batch
+
+        def keeping(*a, **kw):
+            kept[:] = [make(*a, **kw)]
+            return kept[0]
+        eng.task.make_batch = keeping
+    reset_launches()
+    t0 = time.perf_counter()
+    trace = fed.run(max_rounds=rounds)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    counts = dict(launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    recs = trace.records
+    mode_a = eng.task.mode == fl_step.MODE_A
+    clients = eng.n_clusters * (eng.clients if mode_a else 1)
+    expect = expected_train_launches(eng.task.cfg, recs, clients,
+                                     eng.task.n_micro)
+    losses = [r.loss for r in recs]
+    n_params = sum(v[(0,) * fl_step.lead_dims(eng.task.mode)].numel()
+                   for v in eng.state.params.values())
+    print(f"training {what}: {n_params} parameters a client, "
+          f"{eng.n_clusters} clusters x {clients // eng.n_clusters} "
+          f"clients, seq {eng.task.seq}, {eng.task.n_micro} microbatches of "
+          f"{eng.task.micro_batch}: init {t_init:.2f} s, {len(recs)} rounds "
+          f"in {t_run:.2f} s ({t_run / max(len(recs), 1):.3f} s a round), "
+          f"a {[r.a for r in recs]}, losses {losses}, peak device memory "
+          f"{peak:.3f} GiB; launches {json.dumps(counts)}", flush=True)
+    check(len(recs) == rounds, f"{what}: {len(recs)} records of {rounds}")
+    check(all(counts[k] == expect.get(k, 0) for k in counts),
+          f"{what}: launched {counts}, the schedule implies {expect}")
+    check(all(math.isfinite(v) for v in losses), f"{what}: losses {losses}")
+    check(not must_fall or losses[-1] < losses[0],
+          f"{what}: the loss did not fall: {losses}")
+    off = [k for k, v in eng.state.params.items() if v.device.type != "cuda"]
+    off += [k for k, v in eng.state.opt["m"].items()
+            if v.device.type != "cuda"]
+    check(not off and eng.state.opt["t"].device.type == "cuda",
+          f"{what}: state off the card: {off}")
+    return {"fed": fed, "eng": eng, "batch": kept[0] if kept else None,
+            "record": {"rounds": len(recs), "init_s": t_init,
+                       "run_s": t_run, "round_s": t_run / len(recs),
+                       "a": [r.a for r in recs], "losses": losses,
+                       "peak_gib": peak, "launches": counts,
+                       "params_a_client": n_params}}
+
+
+def train_phase(dev) -> dict:
+    """Mode A (three rounds) and mode B (two rounds) of the federated LM
+    step at recurrentgemma-2b's full width, the live gradient check, and
+    the training CLI."""
+    from repro_torch.api import FederationSpec
+    from repro_torch.api.scenarios import RECURRENTGEMMA_2B_TRAIN
+    spec = FederationSpec.from_dict(RECURRENTGEMMA_2B_TRAIN)
+    t0 = time.perf_counter()
+    a = train_run(spec, TRAIN_ROUNDS_A, "mode A (fedavg_replica)",
+                  keep_batch=True, must_fall=True)
+    live = live_train_check(a["eng"], a["batch"])
+    rec_a = a["record"]
+    del a
+    spec_b = FederationSpec.from_dict({
+        **RECURRENTGEMMA_2B_TRAIN, "rounds": TRAIN_ROUNDS_B,
+        "task": {"kind": "lm", "params": {
+            **RECURRENTGEMMA_2B_TRAIN["task"]["params"],
+            "mode": "trust_fsdp"}}})
+    b = train_run(spec_b, TRAIN_ROUNDS_B, "mode B (trust_fsdp)")
+    rec_b = b["record"]
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.join(HERE, "src"), env.get("PYTHONPATH")) if p)
+    t1 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          "--steps", "3"], cwd=HERE, env=env,
+                         capture_output=True, text=True, timeout=600)
+    t_cli = time.perf_counter() - t1
+    print(f"python -m repro_torch.launch.train --steps 3: exit "
+          f"{cli.returncode} in {t_cli:.2f} s:\n{cli.stdout[-2000:]}",
+          flush=True)
+    check(cli.returncode == 0, f"the training CLI failed: "
+          f"{cli.stderr[-4000:]}")
+    wall = time.perf_counter() - t0
+    print(f"phase 8 (training) took {wall:.2f} s", flush=True)
+    return {"mode_a": rec_a, "mode_b": rec_b, "live": live,
+            "cli_s": t_cli, "phase_s": wall}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare-with", metavar="DIR", nargs="+", default=[],
@@ -2769,11 +3185,12 @@ def main() -> None:
 
     # 2. the kernels, from this checkout's sources
     t0 = time.perf_counter()
-    build.build_all([os.path.basename(p) for p in
-                     (SOURCE, FA_SOURCE, SCAN_SOURCE, SSM_SOURCE)])
+    sources = (SOURCE, FA_SOURCE, SCAN_SOURCE, SSM_SOURCE, FA_BWD_SOURCE,
+               SCAN_BWD_SOURCE)
+    build.build_all([os.path.basename(p) for p in sources])
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"({build.build_seconds})", flush=True)
-    for p in (SOURCE, FA_SOURCE, SCAN_SOURCE, SSM_SOURCE):
+    for p in sources:
         for row in build.ptxas_report(os.path.basename(p)):
             print(f"ptxas {os.path.basename(p)}: {json.dumps(row)}",
                   flush=True)
@@ -2937,8 +3354,21 @@ def main() -> None:
     for k in launches:
         serve_launches[k] += (msv["counts"]["prefill"][k]
                               + msv["counts"]["decode"][k])
+    # 7. free falcon-mamba-7b
+    del msv
+    free_library_memory()
 
-    # 7. the serving line, the kernels line, then the result line
+    # 8. training: recurrentgemma-2b at full width, one Griffin period
+    tk = train_kernel_phase(cfg, dev)
+    free_library_memory()
+    training = train_phase(dev)
+    free_library_memory()
+    train_counts = {"mode_a": training["mode_a"]["launches"],
+                    "mode_b": training["mode_b"]["launches"]}
+    train_launches = {k: sum(c[k] for c in train_counts.values())
+                      for k in launches}
+
+    # 9. the serving line, the kernels line, then the result line
     t, bd, err = kp["t"], kp["bound"], kp["err"]
     lt, lbd = lk["t"], lk["bound"]
     kernels = [
@@ -2994,7 +3424,19 @@ def main() -> None:
          "bytes": kp["bytes"]["f32"]},
         {"name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
          "replaces": "src/repro/kernels/flash_attention.py:26",
-         "launches": serve_launches["flash_attention"],
+         "launches": serve_launches["flash_attention"]
+         + train_launches["flash_attention"],
+         "launches_by_path": {"serving": serve_launches["flash_attention"],
+                              **{p: c["flash_attention"]
+                                 for p, c in train_counts.items()}},
+         "lse_variant": {"ms": tk["t"]["fa_lse"],
+                         "null_lse_ms": tk["t"]["fa_null"],
+                         "max_abs_err_out": tk["err"]["out"],
+                         "max_abs_err_lse": tk["err"]["lse"],
+                         "shape": {"B": 1, "S": RECURRENT_TRAIN_SEQ,
+                                   "H": cfg.num_heads,
+                                   "Kv": cfg.num_kv_heads,
+                                   "d": cfg.head_dim, "window": cfg.window}},
          "max_abs_err": lk["err"]["fa"]["float32"],
          "tolerance": FA_TOL["float32"],
          "bf16_max_abs_err": lk["err"]["fa"]["bfloat16"],
@@ -3015,7 +3457,11 @@ def main() -> None:
          "reachable_pairs": lk["pairs"], "bytes": lk["bytes"]["fa"]},
         {"name": "rglru_scan", "route": "cuda", "source": SCAN_SOURCE,
          "replaces": "src/repro/kernels/rglru_scan.py:22",
-         "launches": serve_launches["rglru_scan"],
+         "launches": serve_launches["rglru_scan"]
+         + train_launches["rglru_scan"],
+         "launches_by_path": {"serving": serve_launches["rglru_scan"],
+                              **{p: c["rglru_scan"]
+                                 for p, c in train_counts.items()}},
          "max_abs_err": lk["err"]["scan"]["float32"],
          "tolerance": SCAN_TOL["float32"],
          "bf16_max_abs_err": lk["err"]["scan"]["bfloat16"],
@@ -3051,6 +3497,57 @@ def main() -> None:
     ]
     kernels += pop_kernel_entries(pk, population["population"], counts,
                                   total)
+    tt, tb = tk["t"], tk["bound"]
+    kernels += [
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": FA_BWD_SOURCE,
+         "replaces": "src/repro/models/attention.py:72",
+         "replaces_note": "no Pallas counterpart: the reference is jax.grad "
+                          "of _sdpa and causal_mask "
+                          "(src/repro/models/attention.py:72-96)",
+         "launches": train_launches["flash_attention_bwd"],
+         "launches_by_path": {p: c["flash_attention_bwd"]
+                              for p, c in train_counts.items()},
+         "max_abs_err": tk["err"]["fa_bwd_abs"],
+         "max_rel_err": tk["err"]["fa_bwd"],
+         "tolerance": BWD_TOL,
+         "live_max_rel_err": training["live"]["max_rel_err"],
+         "ms": tt["fa_bwd"], "cold_ms": tt["fa_bwd_cold"],
+         "plain_ms": tt["fa_bwd_plain"], "bound_ms": tb["fa_bwd"][0],
+         "bound_by": tb["fa_bwd"][1], "bound_route": tk["fa_route"],
+         "bound_ms_by_route": {r: b_[0] for r, b_ in
+                               tk["fa_routes"].items()},
+         "library_ms": tt["fa_bwd_lib"],
+         "library": "torch.autograd.grad through "
+                    "scaled_dot_product_attention (boolean window mask, "
+                    "K/V heads repeated), its backward alone",
+         "shape": {"B": 1, "S": RECURRENT_TRAIN_SEQ, "H": cfg.num_heads,
+                   "Kv": cfg.num_kv_heads, "d": cfg.head_dim,
+                   "window": cfg.window, "dtype": "float32"},
+         "reachable_pairs": tk["pairs"], "flops": tk["flops"],
+         "bytes": tk["bytes"]["fa_bwd"]},
+        {"name": "rglru_scan_bwd", "route": "cuda",
+         "source": SCAN_BWD_SOURCE,
+         "replaces": "src/repro/models/rglru.py:67",
+         "replaces_note": "no Pallas counterpart: the reference is jax.grad "
+                          "of rglru_forward's lax.scan "
+                          "(src/repro/models/rglru.py:67)",
+         "launches": train_launches["rglru_scan_bwd"],
+         "launches_by_path": {p: c["rglru_scan_bwd"]
+                              for p, c in train_counts.items()},
+         "max_abs_err": tk["err"]["scan_bwd_abs"],
+         "max_rel_err": tk["err"]["scan_bwd"],
+         "tolerance": BWD_TOL,
+         "live_max_rel_err": training["live"]["max_rel_err"],
+         "ms": tt["scan_bwd"], "cold_ms": tt["scan_bwd_cold"],
+         "plain_ms": tt["scan_bwd_plain"], "bound_ms": tb["scan_bwd"][0],
+         "bound_by": tb["scan_bwd"][1], "library_ms": None,
+         # dhs + a * hs: three of the five arrays, not the same function
+         "same_bytes_addcmul_ms": tt["scan_bwd_same_bytes"],
+         "shape": {"B": 1, "S": RECURRENT_TRAIN_SEQ, "W": cfg.lru_width,
+                   "dtype": "float32"},
+         "bytes": tk["bytes"]["scan_bwd"]},
+    ]
     print(json.dumps({"federations": feds}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"service": {"device": smi_line, **service["service"]}}),
@@ -3060,6 +3557,8 @@ def main() -> None:
           flush=True)
     print(json.dumps({"paper": {"device": smi_line,
                                 **plain_json(paper["paper"])}}), flush=True)
+    print(json.dumps({"training": {"device": smi_line, **training}}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

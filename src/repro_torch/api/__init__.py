@@ -6,10 +6,11 @@ is ported.
   registry    named component registries (aggregators, controllers,
               tasks, scenarios, engines)
   components  trust / fedavg and the robust aggregators, fixed /
-              Lyapunov / DQN controllers, MLP and autoencoder-anomaly
-              tasks
+              Lyapunov / DQN controllers, MLP, autoencoder-anomaly and
+              LM tasks
   engine      `DeviceScaleEngine`, `FleetState` (and `FleetTree`, its
-              checkpoint layout)
+              checkpoint layout); `DatacenterEngine`, the federated LM
+              step's
   records     `RoundRecord` / `FLTrace` (same JSONL format), `tail_jsonl`
   scenarios   the JAX package's ten presets (`SCENARIOS`) and the
               full-width spec dicts the card is driven at
@@ -17,10 +18,11 @@ is ported.
 """
 from . import scenarios  # noqa: F401  (populates SCENARIOS presets)
 from .components import (AutoencoderAnomalyTask, ControllerCtx,
-                         DQNController, FixedController,
+                         DQNController, FixedController, LMTask,
                          LyapunovGreedyController, MLPTask, RobustAggregator,
                          WeightedAggregator)
-from .engine import (DeviceScaleEngine, FleetState, FleetTree, RoundDraws,
+from .engine import (DatacenterEngine, DeviceScaleEngine, FleetState,
+                     FleetTree, RoundDraws,
                      default_device_data, fleet_state_from_numpy,
                      fleet_tree, resolve_device)
 from .federation import Federation
@@ -46,4 +48,5 @@ __all__ = [
     "register_task", "register_scenario", "WeightedAggregator",
     "RobustAggregator", "FixedController", "LyapunovGreedyController",
     "MLPTask", "ControllerCtx", "DQNController", "AutoencoderAnomalyTask",
+    "LMTask", "DatacenterEngine",
 ]

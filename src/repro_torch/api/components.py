@@ -21,15 +21,17 @@ FrequencyController
 TaskAdapter       model plug over flat parameter vectors: init, batched
                   local training, per-member losses, evaluation, the
                   hidden-activation mean tau of the DQN observation.
+                  The datacenter scale's `LMTask` instead names an
+                  architecture and draws token batches.
 
 Ported: the trust / fedavg aggregator, the robust rules (krum,
 multi_krum, median, trimmed_mean), the fixed, Lyapunov and DQN
-controllers, and the MLP and autoencoder-anomaly tasks.
+controllers, the MLP and autoencoder-anomaly tasks, and the LM task.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -42,11 +44,13 @@ from repro_torch.core.autoencoder import (anomaly_auc, code_mean,
                                           init_mlp_autoencoder,
                                           reconstruction_errors,
                                           reconstruction_loss)
+from repro_torch.core.fl_step import MODE_B
 from repro_torch.core.lyapunov import init_queue, step_queue
 from repro_torch.core.mlp import (accuracy, classifier_losses,
                                   init_mlp_classifier, mlp_hidden_mean)
 from repro_torch.core.robust import AGGREGATORS as ROBUST_RULES
 from repro_torch.core.robust import MASKED_AGGREGATORS as MASKED_RULES
+from repro_torch.data.synthetic import token_stream
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import flatten_rows, layout_of, leaf_views
 from repro_torch.kernels.trust_aggregate import (trust_aggregate,
@@ -423,6 +427,70 @@ class AutoencoderAnomalyTask(_FlatTask):
         return y          # unsupervised: labels never enter the loss
 
 
+# the LMTask keywords that are not architecture dims
+_LM_TASK_KEYS = ("mode", "seq", "micro_batch", "n_micro", "local_steps",
+                 "lr")
+
+
+def lm_task_config(arch: Optional[str] = None, **dims):
+    """The `ArchConfig` an `LMTask` of these keywords trains: the smoke
+    config of ``arch``, or a config of explicit dims over the JAX package's
+    tiny defaults.  Task keywords that are not dims are ignored."""
+    from repro_torch.models import ArchConfig
+    if arch:
+        from repro_torch.configs import get_smoke_config
+        return get_smoke_config(arch)
+    base = dict(name="api-tiny", arch_type="dense", num_layers=2,
+                d_model=32, vocab_size=64, num_heads=2, num_kv_heads=1,
+                d_ff=64)
+    base.update({k: v for k, v in dims.items() if k not in _LM_TASK_KEYS})
+    if isinstance(base.get("block_pattern"), list):     # from JSON
+        base["block_pattern"] = tuple(base["block_pattern"])
+    return ArchConfig(**base)
+
+
+class LMTask:
+    """Datacenter-scale LM task over the federated step's modes.
+
+    ``arch`` names a smoke config of `repro_torch.configs`, or pass
+    explicit dims (d_model/num_layers/...) for a self-contained config
+    (the full width of an architecture, too).
+    """
+
+    def __init__(self, arch: Optional[str] = None,
+                 mode: str = "fedavg_replica", seq: int = 16,
+                 micro_batch: int = 2, n_micro: int = 1,
+                 local_steps: int = 1, lr: float = 3e-4, **dims):
+        self.cfg = lm_task_config(arch, **dims)
+        self.mode = mode
+        self.seq = seq
+        self.micro_batch = micro_batch
+        self.n_micro = n_micro
+        self.local_steps = local_steps
+        self.lr = lr
+
+    def make_batch(self, generator: torch.Generator, n_clusters: int,
+                   clients: int, device=None) -> Dict[str, torch.Tensor]:
+        """Zipf token batches drawn from ``generator`` (on the CPU):
+        tokens and labels (NC, C, n_micro, Bm, S) in mode A, (NC, n_micro,
+        Bm, S) with per-example weights in mode B."""
+        if self.mode == MODE_B:
+            shape = (n_clusters, self.n_micro, self.micro_batch,
+                     self.seq + 1)
+        else:
+            shape = (n_clusters, clients, self.n_micro, self.micro_batch,
+                     self.seq + 1)
+        toks = token_stream(generator, math.prod(shape),
+                            self.cfg.vocab_size).reshape(shape).to(device)
+        batch = {"tokens": toks[..., :-1].contiguous(),
+                 "labels": toks[..., 1:].contiguous()}
+        if self.mode == MODE_B:
+            # trust enters as per-example loss weights in mode B
+            batch["weights"] = torch.ones(
+                (n_clusters, self.n_micro, self.micro_batch), device=device)
+        return batch
+
+
 @register_task("mlp")
 def _mlp(params: Dict[str, Any]):
     return MLPTask(**{k: v for k, v in params.items()
@@ -435,3 +503,8 @@ def _autoencoder(params: Dict[str, Any]):
     # `engine.default_device_data`; only the model dims reach the task
     return AutoencoderAnomalyTask(**{k: v for k, v in params.items()
                                      if k in ("hidden", "code")})
+
+
+@register_task("lm")
+def _lm(params: Dict[str, Any]):
+    return LMTask(**params)

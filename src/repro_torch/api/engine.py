@@ -56,12 +56,17 @@ uniforms and normals) is a counter-based function of (seed, round,
 stream, device id, index) from `repro_torch.rng`, through the ``draws``
 attribute; the parity tests replace it with the JAX package's draws.
 Init-time draws come from CPU generators seeded from ``spec.seed``.
+
+`DatacenterEngine` (``scale="datacenter"``) drives the federated LM step
+of `repro_torch.core.fl_step` instead: one round a step over every
+client, the controller choosing ``a`` from a one-cluster context.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import heapq
+import math
 from typing import Dict, NamedTuple, Optional, Union
 
 import numpy as np
@@ -75,6 +80,7 @@ from repro_torch.core.clustering import (cluster_devices, ensure_nonempty,
                                          padded_membership, tolerance_bound)
 from repro_torch.core.energy import (channel_cdf, draw_noise,
                                      round_energy, step_channel)
+from repro_torch.core import fl_step
 from repro_torch.core.envs import OBS_DIM
 from repro_torch.core.privacy import dp_aggregate
 from repro_torch.core.trust import (belief, gradient_diversity,
@@ -97,11 +103,12 @@ from repro_torch.faults.model import FaultModel
 from repro_torch.kernels import build as kernel_build
 from repro_torch.kernels.ops import leaf_views
 from repro_torch.obs.spans import fence
+from repro_torch.optim import adam
 
 from .components import ControllerCtx
 from .records import FLTrace, RoundRecord
 from .registry import register_engine
-from .spec import DEVICE_SCALE, FederationSpec
+from .spec import DATACENTER_SCALE, DEVICE_SCALE, FederationSpec
 
 
 @dataclasses.dataclass
@@ -909,4 +916,97 @@ def default_device_data(spec: FederationSpec):
     return data, parts
 
 
+class DatacenterEngine:
+    """The federated LM step (`core.fl_step`, mode A or B) under the
+    federation spec and the trace schema (the JAX package's
+    ``DatacenterEngine``).
+
+    The controller picks each round's local-step count ``a`` exactly as at
+    device scale, from a one-cluster context; reputations stay all ones
+    (Eqn 6's weights uniform within a cluster) and staleness zero
+    (synchronous clusters), as in the JAX package.  A round draws its
+    token batch from a CPU generator seeded from ``spec.seed``, runs the
+    step on ``device`` and records the mean client loss.  There is no
+    energy model at this scale: records carry zero energy.
+    """
+
+    @classmethod
+    def from_spec(cls, spec: FederationSpec, *, controller, aggregator=None,
+                  task, device=None, data=None, parts=None, assign=None,
+                  state=None) -> "DatacenterEngine":
+        """``state`` (a `fl_step.TrainState`) replaces the one drawn from
+        ``spec.seed``.  Eqn-6 weighting lives inside the step and the task
+        draws its own batches: the aggregator and the device-scale data
+        overrides are unused."""
+        del aggregator, data, parts, assign
+        return cls(spec, controller=controller, task=task, device=device,
+                   state=state)
+
+    def __init__(self, spec: FederationSpec, *, controller, task,
+                 device=None, state=None):
+        self.spec = spec
+        self.controller = controller
+        self.task = task
+        self.device = resolve_device(device)
+        self.n_clusters = spec.clustering.n_clusters
+        self.clients = max(1, spec.fleet.n_devices // self.n_clusters)
+        self.opt = adam(task.lr)
+        if state is None:
+            state = fl_step.build_init_fn(
+                task.cfg, self.opt, mode=task.mode,
+                n_clusters=self.n_clusters,
+                clients_per_cluster=self.clients,
+                device=self.device)(spec.seed)
+        self.state = state
+        self.rep = torch.ones((self.n_clusters, self.clients),
+                              device=self.device)
+        self.generator = torch.Generator().manual_seed(spec.seed)
+        self._steps = {}
+
+    def _step(self, a: int):
+        if a not in self._steps:
+            self._steps[a] = fl_step.build_train_step(
+                self.task.cfg, self.opt, mode=self.task.mode,
+                local_steps=a)
+        return self._steps[a]
+
+    def run(self, eval_every: float = 1.0,
+            max_rounds: Optional[int] = None) -> FLTrace:
+        del eval_every                      # every round is recorded
+        spec, dev = self.spec, self.device
+        trace = FLTrace()
+        loss = float("nan")
+        rounds = spec.rounds if max_rounds is None else min(spec.rounds,
+                                                            max_rounds)
+        for i in range(rounds):
+            seen = 0.0 if math.isnan(loss) else loss
+            feats = torch.tensor([seen, i / max(spec.rounds, 1), 0.0])
+            ctx = ControllerCtx(
+                round=i, cluster=0,
+                obs=lambda f=feats: F.pad(f, (0, OBS_DIM - 3)).to(dev),
+                cluster_loss=seen, cluster_freq=1.0, mean_freq=1.0,
+                channel_good_frac=1.0, energy_used=0.0)
+            a = max(1, min(int(self.controller.select(ctx)),
+                           self.controller.n_actions))
+            batch = self.task.make_batch(self.generator, self.n_clusters,
+                                         self.clients, device=dev)
+            stale = torch.zeros((self.n_clusters,), device=dev)
+            self.state, metrics = self._step(a)(self.state, batch,
+                                                self.rep, stale)
+            loss = float(metrics["loss"].mean())
+            # no energy model at datacenter scale: report zero consumption
+            # (a raw step count would corrupt a Lyapunov queue's units)
+            self.controller.observe(ctx, 0.0, loss)
+            trace.append(RoundRecord(
+                t=float(i), round=i + 1, cluster=-1, a=a, loss=loss,
+                acc=None, energy=0.0, agg_count=i + 1))
+        return trace
+
+    def run_scanned(self, K: int, *, eval_final: bool = True) -> FLTrace:
+        raise ValueError(
+            "the datacenter engine has no scanned lowering (its round loop "
+            "is already a fixed-shape jit step per round); use run()")
+
+
 register_engine(DEVICE_SCALE)(DeviceScaleEngine)
+register_engine(DATACENTER_SCALE)(DatacenterEngine)

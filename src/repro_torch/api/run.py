@@ -10,9 +10,11 @@ registered preset returning a `FederationSpec`; flags override the common
 fields, and ``--spec-json`` dumps the resolved spec (the config-file
 round-trip format) instead of running.  ``--device`` picks where it runs:
 the card by default, ``cpu`` for the plain versions of the kernels.  A
-spec the port does not run yet (``--mesh``, the ``lm-modeA`` and
-``adaptive-scanned-sharded`` presets) exits with code 2, naming its
-ROADMAP item.
+spec the port does not run yet (``--mesh``, the
+``adaptive-scanned-sharded`` preset) exits with code 2, naming its
+ROADMAP item, as does a spec the JAX package's checks reject (a
+datacenter spec with DP or a robust rule).  ``lm-modeA`` trains the tiny
+LM of the datacenter scale (``--rounds`` sets its rounds).
 """
 from __future__ import annotations
 

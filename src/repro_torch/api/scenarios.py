@@ -4,9 +4,9 @@ card.
 The ten presets of the JAX package's ``repro.api.scenarios``, registered
 under the same names in `SCENARIOS` (the CLI, ``python -m
 repro_torch.api.run``, resolves from it).  ``adaptive-scanned-sharded``
-(a mesh, ROADMAP.md queue 1, item 9) and ``lm-modeA`` (the datacenter
-scale, item 10) stay registered; building them raises
-`NotImplementedError` naming their item.
+(a mesh, ROADMAP.md queue 1, item 9) stays registered; building it raises
+`NotImplementedError` naming its item.  ``lm-modeA`` runs the datacenter
+scale's federated LM step.
 
 The full-width spec dicts:
 
@@ -35,6 +35,15 @@ preset's faults (dropout 0.15, stragglers 0.125, twin spikes 0.1, sign-flip
 corruption of a quarter of the devices at scale 4), trust aggregation.
 
 ``FAULTY_MEDIAN_FLEET1K``: the same faults under the coordinate median.
+
+``RECURRENTGEMMA_2B_TRAIN``: federated mode-A training of recurrentgemma-2b
+at full width (`repro_torch/configs/recurrentgemma_2b.py`: d_model 2560,
+10 query heads of 256 over one K/V head, LRU width 2560, d_ff 7680,
+vocabulary 256,000, window 2048) cut to one Griffin period (num_layers 26
+-> 3: RG-LRU, RG-LRU, local attention; 912,314,880 parameters), NC 2 x C 2
+clients, 4096-token sequences, 2 microbatches of 1, a fixed a = 2 (the
+``lm-modeA`` controller), Adam at 3e-4.  Four clients' parameters and Adam
+moments are 40.8 GiB in float32; the full 26 layers would be 129 GiB.
 """
 from __future__ import annotations
 
@@ -84,6 +93,26 @@ FAULTY_FLEET1K = {**PAPER_MLP_FLEET1K, "faults": _FAULTY}
 
 FAULTY_MEDIAN_FLEET1K = {**FAULTY_FLEET1K,
                          "aggregator": {"kind": "median"}}
+
+
+_RG2B = {"num_layers": 3, "name": "recurrentgemma-2b-train",
+         "arch_type": "hybrid", "d_model": 2560, "vocab_size": 256000,
+         "num_heads": 10, "num_kv_heads": 1, "head_dim": 256, "d_ff": 7680,
+         "activation": "gelu", "block_pattern": ["rglru", "rglru", "local"],
+         "window": 2048, "lru_width": 2560, "ssm_conv": 4,
+         "emb_scale": True, "tie_embeddings": True,
+         "fl_mode": "fedavg_replica"}
+
+RECURRENTGEMMA_2B_TRAIN = {
+    "scale": DATACENTER_SCALE,
+    "fleet": {"n_devices": 4},
+    "clustering": {"n_clusters": 2},
+    "controller": {"kind": "fixed", "params": {"a": 2, "n_actions": 4}},
+    "task": {"kind": "lm",
+             "params": {**_RG2B, "seq": 4096, "micro_batch": 1,
+                        "n_micro": 2, "lr": 3e-4}},
+    "rounds": 3, "seed": 0,
+}
 
 
 @register_scenario("sync-baseline")
@@ -188,8 +217,7 @@ def _autoencoder_anomaly() -> FederationSpec:
 
 @register_scenario("lm-modeA")
 def _lm_mode_a() -> FederationSpec:
-    """Datacenter scale: tiny-LM FedAvg-replica (not ported: ROADMAP.md,
-    queue 1, item 10)."""
+    """Datacenter scale: tiny-LM FedAvg-replica."""
     return FederationSpec(
         scale=DATACENTER_SCALE,
         fleet=FleetSpec(n_devices=8),

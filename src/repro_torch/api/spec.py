@@ -4,8 +4,9 @@ A copy of the JAX package's ``repro.api.spec``: every dataclass keeps every
 field and default, and `to_dict` / `from_dict` use the same plain dicts, so
 a spec written by either package builds in the other.  Only `validate`
 differs: it raises `NotImplementedError`, naming the ROADMAP item that will
-port it, for what the port does not run yet (the datacenter scale, the
-multi-device scales and sharding meshes), before the JAX package's checks.
+port it, for what the port does not run yet (the multi-device scales,
+sharding meshes, and language models whose layers do not train yet),
+before the JAX package's checks.
 """
 from __future__ import annotations
 
@@ -29,15 +30,23 @@ def unported(spec: "FederationSpec") -> Optional[str]:
     ports it; None when the port runs all of it.  The port runs the
     device scale on one device with every aggregator (trust, fedavg and the
     robust rules), controller and task, differential privacy and every
-    fault family; it does not run the datacenter LM scale, the multi-device
-    scales or a sharding mesh."""
-    if spec.scale == DATACENTER_SCALE or spec.task.kind == "lm":
-        return f"the datacenter LM scale ({_QUEUE}, item 10)"
-    if spec.scale != DEVICE_SCALE:
+    fault family, and the datacenter scale's LM training for the dense
+    and hybrid kinds; it does not run the multi-device scales, a sharding
+    mesh, or the training of a model with MAMBA, MoE, MLA, qkv-bias /
+    qk-norm or audio-codebook layers."""
+    if spec.scale not in (DEVICE_SCALE, DATACENTER_SCALE):
         return (f"scale {spec.scale!r} (multi-device engines, {_QUEUE}, "
                 "item 9)")
     if spec.sharding.is_sharded:
         return f"a sharding mesh (multi-device, {_QUEUE}, item 9)"
+    if spec.scale == DATACENTER_SCALE and spec.task.kind == "lm":
+        from repro_torch.models.transformer import untrainable
+
+        from .components import lm_task_config
+        try:
+            return untrainable(lm_task_config(**spec.task.params))
+        except NotImplementedError as e:       # an unported architecture
+            return str(e)
     return None
 
 
@@ -165,14 +174,26 @@ class FederationSpec:
         registry.CONTROLLERS.get(self.controller.kind)
         registry.AGGREGATORS.get(self.aggregator.kind)
         registry.TASKS.get(self.task.kind)
+        # built-in tasks are scale-specific; custom registrations (tasks or
+        # engines) are not checked
+        scale_of = {"mlp": DEVICE_SCALE,
+                    "autoencoder-anomaly": DEVICE_SCALE,
+                    "lm": DATACENTER_SCALE}
+        want = scale_of.get(self.task.kind)
+        if want is not None and want != self.scale:
+            fit = "lm" if self.scale == DATACENTER_SCALE else "mlp"
+            raise ValueError(
+                f"task {self.task.kind!r} is {want}-scale but spec has "
+                f"scale={self.scale!r}; use task {fit!r}")
         self.faults.validate()
-        # the JAX package's datacenter checks: unreachable while the
-        # datacenter scale is not ported (`unported` raises first)
         if self.faults.active and self.scale == DATACENTER_SCALE:
             raise ValueError(
                 "faults: fault injection is device-scale only (the "
                 "datacenter fl_step modes have no fault model)")
         if self.scale == DATACENTER_SCALE:
+            # the federated step implements Eqn-6 trust weighting; robust
+            # rules and DP have no datacenter implementation, so reject
+            # rather than silently run without them
             if self.aggregator.kind not in ("trust", "fedavg"):
                 raise ValueError(
                     f"aggregator {self.aggregator.kind!r} is not supported "
@@ -185,6 +206,10 @@ class FederationSpec:
             raise ValueError(f"unknown execution {self.execution!r}; "
                              "valid: 'event', 'scanned'")
         if self.execution == "scanned":
+            if self.scale != DEVICE_SCALE:
+                raise ValueError("execution='scanned' is device-scale only "
+                                 "(the datacenter engine is already a "
+                                 "fixed round loop)")
             # the scan needs the padded round: built-in rules without a
             # masked variant cannot join it (custom registrations are
             # checked at run_scanned time instead)

@@ -2,9 +2,10 @@
 from .federated import (dirichlet_partition, padded_partition,
                         sample_member_batch)
 from .synthetic import (SyntheticClassification, SyntheticTelemetry,
-                        make_classification, make_iot_telemetry,
-                        token_stream)
+                        lm_batches, make_classification,
+                        make_iot_telemetry, token_stream)
 
 __all__ = ["dirichlet_partition", "padded_partition", "sample_member_batch",
            "SyntheticClassification", "SyntheticTelemetry",
-           "make_classification", "make_iot_telemetry", "token_stream"]
+           "make_classification", "make_iot_telemetry", "token_stream",
+           "lm_batches"]

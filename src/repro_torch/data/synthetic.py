@@ -7,12 +7,12 @@ for the federated anomaly-detection task: each device type (equipment
 family) emits readings on its own low-dimensional operating manifold, and
 a small fraction of samples carry injected faults; ``device_type`` is the
 non-IID partition key.  ``token_stream`` — Zipf-distributed token ids for
-the language models.
+the language models; ``lm_batches`` — next-token batches from it.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import Dict, Iterator, NamedTuple
 
 import torch
 
@@ -79,3 +79,17 @@ def token_stream(generator: torch.Generator, n_tokens: int, vocab: int,
     p = ranks ** -zipf_a
     return torch.multinomial(p / p.sum(), n_tokens, replacement=True,
                              generator=generator)
+
+
+def lm_batches(generator: torch.Generator, vocab: int, batch: int, seq: int,
+               n_batches: int, codebooks: int = 1
+               ) -> Iterator[Dict[str, torch.Tensor]]:
+    """Next-token-prediction batches from a synthetic stream: ``tokens``
+    and ``labels`` (B, S) (or (B, K, S) with codebooks), the labels the
+    tokens shifted by one."""
+    for _ in range(n_batches):
+        shape = ((batch, seq + 1) if codebooks == 1
+                 else (batch, codebooks, seq + 1))
+        toks = token_stream(generator, math.prod(shape), vocab
+                            ).reshape(shape)
+        yield {"tokens": toks[..., :-1], "labels": toks[..., 1:]}

@@ -11,6 +11,11 @@
 //   over keys j <= i (and j > i - window when window > 0).
 //   q: (B, S, H, d), k: (B, S, Kv, d), v: (B, S, Kv, dv), f32 or bf16, all
 //   one type; out: (B, S, H, dv) in that type.  d, dv <= 256.
+//   Optionally also lse: (B, H, S) f32, the log-sum-exp of each query row's
+//   (capped, masked) scores, m + log(l) from the online softmax's final
+//   state: what the backward (flash_attention_bwd.cu) needs to rebuild the
+//   probabilities.  With a null lse pointer nothing else changes: serving
+//   passes null and its output is bit for bit what it was without it.
 //
 // What bounds it on an H100: operations.  Each reachable (query, key) pair
 // costs 2 d + 2 dv flops.  At the serving path's shape (B = 4, S = 4096,
@@ -361,9 +366,10 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b,
 template <typename T, int NT>
 __global__ void __launch_bounds__(Layout<T>::kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int seq,
-                       int heads, int kv_heads, int d, int dv, float scale,
-                       int window, float softcap, bool vec) {
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int seq, int heads,
+                       int kv_heads, int d, int dv, float scale, int window,
+                       float softcap, bool vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int qk_pitch = Layout<T>::qk_pitch(d);
   constexpr int kSplit = Layout<T>::kSplit;
@@ -534,6 +540,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = r_pos[r];
     if (qpos >= seq) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && part == 0 && t == 0)
+      lse[(b * heads + h) * static_cast<int64_t>(seq) + qpos] =
+          m[r] + logf(l[r]);
     T* orow = ob + qpos * o_stride;
 #pragma unroll
     for (int n = 0; n < kOwn; ++n) {
@@ -547,8 +556,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int NT>
 int launch_nt(const void* q, const void* k, const void* v, void* out,
-              int batch, int seq, int heads, int kv_heads, int d, int dv,
-              float scale, int window, float softcap, cudaStream_t stream) {
+              float* lse, int batch, int seq, int heads, int kv_heads, int d,
+              int dv, float scale, int window, float softcap,
+              cudaStream_t stream) {
   auto kernel = flash_attention_kernel<T, NT>;
   const size_t smem = smem_bytes<T>(d, NT);
   if (smem > 48 * 1024) {
@@ -565,30 +575,30 @@ int launch_nt(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((seq + kBQ - 1) / kBQ, heads, batch);
   kernel<<<grid, Layout<T>::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), seq, heads, kv_heads,
-      d, dv, scale, window, softcap, vec);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, seq, heads,
+      kv_heads, d, dv, scale, window, softcap, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int batch,
-           int seq, int heads, int kv_heads, int d, int dv, float scale,
-           int window, float softcap, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int batch, int seq, int heads, int kv_heads, int d, int dv,
+           float scale, int window, float softcap, void* stream) {
   if (d < 1 || dv < 1 || d > kMaxDim || dv > kMaxDim || kv_heads < 1 ||
       heads % kv_heads != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dv <= 32)
-    return launch_nt<T, 4>(q, k, v, out, batch, seq, heads, kv_heads, d, dv,
-                           scale, window, softcap, s);
+    return launch_nt<T, 4>(q, k, v, out, lse, batch, seq, heads, kv_heads,
+                           d, dv, scale, window, softcap, s);
   if (dv <= 64)
-    return launch_nt<T, 8>(q, k, v, out, batch, seq, heads, kv_heads, d, dv,
-                           scale, window, softcap, s);
+    return launch_nt<T, 8>(q, k, v, out, lse, batch, seq, heads, kv_heads,
+                           d, dv, scale, window, softcap, s);
   if (dv <= 128)
-    return launch_nt<T, 16>(q, k, v, out, batch, seq, heads, kv_heads, d, dv,
-                            scale, window, softcap, s);
-  return launch_nt<T, 32>(q, k, v, out, batch, seq, heads, kv_heads, d, dv,
-                          scale, window, softcap, s);
+    return launch_nt<T, 16>(q, k, v, out, lse, batch, seq, heads, kv_heads,
+                            d, dv, scale, window, softcap, s);
+  return launch_nt<T, 32>(q, k, v, out, lse, batch, seq, heads, kv_heads,
+                          d, dv, scale, window, softcap, s);
 }
 
 }  // namespace
@@ -602,16 +612,28 @@ extern "C" {
 int fa_forward_f32(const void* q, const void* k, const void* v, void* out,
                    int batch, int seq, int heads, int kv_heads, int d, int dv,
                    float scale, int window, float softcap, void* stream) {
-  return launch<float>(q, k, v, out, batch, seq, heads, kv_heads, d, dv,
-                       scale, window, softcap, stream);
+  return launch<float>(q, k, v, out, nullptr, batch, seq, heads, kv_heads,
+                       d, dv, scale, window, softcap, stream);
+}
+
+// The same with lse: (batch, heads, seq) f32, each query row's log-sum-exp
+// (training: the backward rebuilds the probabilities from it).
+int fa_forward_lse_f32(const void* q, const void* k, const void* v,
+                       void* out, void* lse, int batch, int seq, int heads,
+                       int kv_heads, int d, int dv, float scale, int window,
+                       float softcap, void* stream) {
+  return launch<float>(q, k, v, out, static_cast<float*>(lse), batch, seq,
+                       heads, kv_heads, d, dv, scale, window, softcap,
+                       stream);
 }
 
 int fa_forward_bf16(const void* q, const void* k, const void* v, void* out,
                     int batch, int seq, int heads, int kv_heads, int d,
                     int dv, float scale, int window, float softcap,
                     void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, out, batch, seq, heads, kv_heads, d,
-                               dv, scale, window, softcap, stream);
+  return launch<__nv_bfloat16>(q, k, v, out, nullptr, batch, seq, heads,
+                               kv_heads, d, dv, scale, window, softcap,
+                               stream);
 }
 
 }  // extern "C"

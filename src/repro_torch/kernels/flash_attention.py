@@ -1,29 +1,48 @@
-"""Checked wrapper of the CUDA flash-attention kernel.
+"""Checked wrappers of the CUDA flash-attention kernels, forward and
+backward.
 
 ``flash_attention`` replaces the Pallas ``flash_attention`` of
-``src/repro/kernels/flash_attention.py`` (its ``_kernel``).  The kernel
-lives in ``csrc/flash_attention.cu``; see the note there for what bounds it
-on an H100 and how its design answers it.
+``src/repro/kernels/flash_attention.py`` (its ``_kernel``).  The forward
+kernel lives in ``csrc/flash_attention.cu``, the backward in
+``csrc/flash_attention_bwd.cu`` (the JAX package has no backward kernel:
+its training differentiates the jnp attention); see the notes there for
+what bounds them on an H100 and how their designs answer it.
 
-Given CPU tensors the wrapper computes the plain version from `ref`.  Given
-CUDA tensors it launches the kernel on the current stream or raises: there
-is no fallback.  Each launch adds one to ``launches["flash_attention"]``.
+When autograd needs a gradient (grad enabled and an input requires it),
+`flash_attention` is a `torch.autograd.Function`: its forward also writes
+each query row's log-sum-exp, saves q, k, v, the output and the lse, and
+its backward is `flash_attention_bwd`.  Otherwise (serving) it is the plain
+forward call with no lse.
+
+Given CPU tensors the wrappers compute the plain versions from `ref`
+(`flash_attention_lse_ref`, `flash_attention_bwd_ref`).  Given CUDA tensors
+they launch the kernels on the current stream or raise: there is no
+fallback.  Each forward launch adds one to ``launches["flash_attention"]``,
+each backward (three kernels: the row sums of dO o, then dK and dV, then
+dQ) one to ``launches["flash_attention_bwd"]``.  The backward takes
+float32 only; a bfloat16 input that needs a gradient raises.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
 from .launch import P, current_stream, launches, raise_on, typed_library
-from .ref import flash_attention_ref
+from .ref import (flash_attention_bwd_ref, flash_attention_lse_ref,
+                  flash_attention_ref)
 
 SOURCE = "flash_attention.cu"
-MAX_DIM = 256                   # largest head dim the kernel takes
+BWD_SOURCE = "flash_attention_bwd.cu"
+MAX_DIM = 256                   # largest head dim the kernels take
 
 _I, _F = ctypes.c_int, ctypes.c_float
 _signatures = {name: [P, P, P, P, _I, _I, _I, _I, _I, _I, _F, _I, _F, P]
                for name in ("fa_forward_f32", "fa_forward_bf16")}
+_signatures["fa_forward_lse_f32"] = [P, P, P, P, P, _I, _I, _I, _I, _I, _I,
+                                     _F, _I, _F, P]
+_bwd_signatures = {"fa_backward_f32": [P] * 10 + [_I] * 6 + [_F, _I, _F, P]}
 
 
 def _check(name, t, device, dtype, ndim=4):
@@ -38,18 +57,7 @@ def _check(name, t, device, dtype, ndim=4):
         raise ValueError(f"{name} must be contiguous")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int = 0, softcap: float = 0.0) -> torch.Tensor:
-    """Causal softmax attention, (B,S,H,d) x (B,S,Kv,d) x (B,S,Kv,dv) ->
-    (B,S,H,dv), query head h reading K/V head h // (H / Kv).
-
-    ``window > 0`` keeps keys j with i - window < j <= i; ``softcap > 0``
-    caps the scaled scores at softcap * tanh(s / softcap).  float32 or
-    bfloat16 (one type for all three); accumulates in float32 and returns
-    q's type.  d and dv are at most 256.
-    """
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, window=window, softcap=softcap)
+def _check_qkv(q, k, v):
     dev = q.device
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
@@ -66,16 +74,118 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head dims d={d}, dv={dv} outside 1..{MAX_DIM}")
     if B > 65535 or H > 65535:
         raise ValueError(f"batch {B} or heads {H} exceed the grid (65535)")
+
+
+def _forward(q, k, v, window: int, softcap: float, with_lse: bool
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """-> (out, lse (B, H, S) float32 or None)."""
+    if q.device.type == "cpu":
+        if with_lse:
+            return flash_attention_lse_ref(q, k, v, window=window,
+                                           softcap=softcap)
+        return flash_attention_ref(q, k, v, window=window,
+                                   softcap=softcap), None
+    _check_qkv(q, k, v)
+    if with_lse and q.dtype != torch.float32:
+        raise TypeError(f"the attention backward takes float32 only, got "
+                        f"{q.dtype}")
+    dev = q.device
+    B, S, H, d = q.shape
+    Kv, dv = k.shape[2], v.shape[3]
     out = torch.empty((B, S, H, dv), dtype=q.dtype, device=dev)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
+        return out, lse
     lib = typed_library(SOURCE, _signatures)
-    fn = (lib.fa_forward_f32 if q.dtype == torch.float32
-          else lib.fa_forward_bf16)
+    args = (B, S, H, Kv, d, dv, d ** -0.5, max(int(window), 0),
+            float(softcap), current_stream())
     with torch.cuda.device(dev):
-        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    B, S, H, Kv, d, dv, d ** -0.5, max(int(window), 0),
-                    float(softcap), current_stream())
+        if with_lse:
+            status = lib.fa_forward_lse_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), *args)
+        else:
+            fn = (lib.fa_forward_f32 if q.dtype == torch.float32
+                  else lib.fa_forward_bf16)
+            status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), *args)
     raise_on(status, "flash_attention")
     launches["flash_attention"] += 1
-    return out
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, window: int = 0,
+                        softcap: float = 0.0):
+    """The gradient of `flash_attention` at (q, k, v) given its output, its
+    lse (B, H, S) and d out -> (dq, dk, dv), float32 only."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                       window=window, softcap=softcap)
+    _check_qkv(q, k, v)
+    if q.dtype != torch.float32:
+        raise TypeError(f"the attention backward takes float32 only, got "
+                        f"{q.dtype}")
+    dev = q.device
+    B, S, H, d = q.shape
+    Kv, dv = k.shape[2], v.shape[3]
+    for name, t in (("out", out), ("dout", dout)):
+        _check(name, t, dev, torch.float32)
+        if t.shape != (B, S, H, dv):
+            raise ValueError(f"{name} must be {(B, S, H, dv)}, got "
+                             f"{tuple(t.shape)}")
+    _check("lse", lse, dev, torch.float32, ndim=3)
+    if lse.shape != (B, H, S):
+        raise ValueError(f"lse must be {(B, H, S)}, got {tuple(lse.shape)}")
+    dq, dk, dvv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk.zero_(), dvv.zero_()
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    lib = typed_library(BWD_SOURCE, _bwd_signatures)
+    with torch.cuda.device(dev):
+        status = lib.fa_backward_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(), B, S, H, Kv, d,
+            dv, d ** -0.5, max(int(window), 0), float(softcap),
+            current_stream())
+    raise_on(status, "flash_attention_bwd")
+    launches["flash_attention_bwd"] += 1
+    return dq, dk, dvv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel with its lse, and the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int, softcap: float):
+        out, lse = _forward(q, k, v, window, softcap, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window, ctx.softcap = window, softcap
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(),
+                                         window=ctx.window,
+                                         softcap=ctx.softcap)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int = 0, softcap: float = 0.0) -> torch.Tensor:
+    """Causal softmax attention, (B,S,H,d) x (B,S,Kv,d) x (B,S,Kv,dv) ->
+    (B,S,H,dv), query head h reading K/V head h // (H / Kv).
+
+    ``window > 0`` keeps keys j with i - window < j <= i; ``softcap > 0``
+    caps the scaled scores at softcap * tanh(s / softcap).  float32 or
+    bfloat16 (one type for all three); accumulates in float32 and returns
+    q's type.  d and dv are at most 256.  Differentiable (float32) when an
+    input requires a gradient.
+    """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, int(window), float(softcap))
+    return _forward(q, k, v, window, softcap, with_lse=False)[0]

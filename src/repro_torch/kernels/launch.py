@@ -23,7 +23,9 @@ launches: Dict[str, int] = {"trust_aggregate": 0,
                             "trust_aggregate_dense_pop": 0,
                             "trust_aggregate_global_pop": 0,
                             "flash_attention": 0,
+                            "flash_attention_bwd": 0,
                             "rglru_scan": 0,
+                            "rglru_scan_bwd": 0,
                             "selective_scan": 0}
 
 

@@ -4,7 +4,10 @@ Each function is the mathematical definition with no tiling: the CPU path
 of the wrappers (`trust_aggregate`, `flash_attention`, `rglru_scan`,
 `selective_scan`, and the population-batched `trust_aggregate_pop` and
 `trust_aggregate_global_pop`), and what `chip_smoke.py` holds the CUDA
-kernels against on the card.
+kernels against on the card.  The two backward versions
+(`flash_attention_bwd_ref`, `rglru_scan_bwd_ref`) compute the gradient
+formulas directly, as the backward kernels do; the JAX package has no
+backward kernel, and its reference is ``jax.grad`` of the jnp layers.
 Accumulation is in float32 and the result is cast to the input (or stack)
 dtype, as the kernels do.  They match ``src/repro/kernels/ref.py``.
 """
@@ -70,25 +73,70 @@ def trust_aggregate_global_pop_ref(updates_flat, weights, mask, stack_flat,
 NEG_INF = -2.0e38               # the masked score of the JAX package
 
 
-def flash_attention_ref(q, k, v, *, window=0, softcap=0.0):
-    """(B,S,H,d) x (B,S,Kv,d) x (B,S,Kv,dv) -> (B,S,H,dv): causal softmax
-    attention with optional sliding window and tanh logit cap, query head
-    h reading K/V head h // (H / Kv) (Kv = H is the JAX reference's case)."""
+def _attention_scores(q, k, window, softcap):
+    """-> (the capped, masked scores (B, Kv, g, S, S) in float32, tanh of
+    the capped ones (None without a cap), the mask (S, S))."""
     B, S, H, d = q.shape
     Kv = k.shape[2]
     qg = q.to(torch.float32).reshape(B, S, Kv, H // Kv, d)
     scores = torch.einsum("bskgd,btkd->bkgst", qg,
                           k.to(torch.float32)) * (d ** -0.5)
+    th = None
     if softcap > 0:
-        scores = torch.tanh(scores / softcap) * softcap
+        th = torch.tanh(scores / softcap)
+        scores = th * softcap
     pos = torch.arange(S, device=q.device)
     mask = pos[None, :] <= pos[:, None]
     if window > 0:
         mask &= pos[None, :] > pos[:, None] - window
-    scores = torch.where(mask, scores, NEG_INF)
+    return torch.where(mask, scores, NEG_INF), th, mask
+
+
+def flash_attention_ref(q, k, v, *, window=0, softcap=0.0):
+    """(B,S,H,d) x (B,S,Kv,d) x (B,S,Kv,dv) -> (B,S,H,dv): causal softmax
+    attention with optional sliding window and tanh logit cap, query head
+    h reading K/V head h // (H / Kv) (Kv = H is the JAX reference's case)."""
+    return flash_attention_lse_ref(q, k, v, window=window,
+                                   softcap=softcap)[0]
+
+
+def flash_attention_lse_ref(q, k, v, *, window=0, softcap=0.0):
+    """`flash_attention_ref` and each query row's log-sum-exp of its
+    masked scores, (B, H, S) float32: the forward kernel's lse output."""
+    B, S, H, _ = q.shape
+    scores, _, _ = _attention_scores(q, k, window, softcap)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", w, v.to(torch.float32))
-    return out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
+    lse = torch.logsumexp(scores, dim=-1).reshape(B, H, S)
+    return out.reshape(B, S, H, v.shape[-1]).to(q.dtype), lse
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, dout, *, window=0,
+                            softcap=0.0):
+    """The gradient of `flash_attention_ref` by its formulas, in float32:
+    p = exp(s - lse), dS = p (dO . v - rowsum(dO o)), times (1 - tanh^2)
+    of the capped score under a cap; dQ = scale dS k, dK = scale dS^T q
+    (summed over a group's query heads), dV = p^T dO.  -> (dq, dk, dv)
+    in the shapes of q, k, v."""
+    B, S, H, d = q.shape
+    Kv, dv = k.shape[2], v.shape[3]
+    g = H // Kv
+    scale = d ** -0.5
+    scores, th, mask = _attention_scores(q, k, window, softcap)
+    L = lse.to(torch.float32).reshape(B, Kv, g, S, 1)
+    p = torch.where(mask, torch.exp(scores - L), 0.0)
+    do = dout.to(torch.float32).reshape(B, S, Kv, g, dv)
+    dp = torch.einsum("bskgd,btkd->bkgst", do, v.to(torch.float32))
+    delta = (dout.to(torch.float32) * o.to(torch.float32)).sum(-1)
+    delta = delta.reshape(B, S, Kv, g).permute(0, 2, 3, 1)[..., None]
+    ds = p * (dp - delta)
+    if th is not None:
+        ds = ds * (1.0 - th * th)
+    qg = q.to(torch.float32).reshape(B, S, Kv, g, d)
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, k.to(torch.float32)) * scale
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, qg) * scale
+    dvv = torch.einsum("bkgst,bskgd->btkd", p, do)
+    return dq.reshape(B, S, H, d), dk, dvv
 
 
 def rglru_scan_ref(a, bx):
@@ -101,6 +149,22 @@ def rglru_scan_ref(a, bx):
         h = a[:, t].to(torch.float32) * h + bx[:, t].to(torch.float32)
         hs[:, t] = h
     return hs, h
+
+
+def rglru_scan_bwd_ref(a, hs, dhs, dh_last):
+    """The gradient of `rglru_scan_ref` by its reverse recurrence, in
+    float32: g_t = dhs_t + a_{t+1} g_{t+1}, g_{S-1} = dhs_{S-1} + dh_last;
+    d bx_t = g_t, d a_t = g_t h_{t-1} (h_{-1} = 0).  a, hs, dhs: (B,S,W);
+    dh_last: (B,W) -> (da, dbx) (B,S,W) float32."""
+    S = a.shape[1]
+    a, hs, dhs = (x.to(torch.float32) for x in (a, hs, dhs))
+    da, dbx = torch.empty_like(a), torch.empty_like(a)
+    g = dh_last.to(torch.float32)
+    for t in range(S - 1, -1, -1):
+        g = dhs[:, t] + (a[:, t + 1] * g if t + 1 < S else g)
+        dbx[:, t] = g
+        da[:, t] = g * hs[:, t - 1] if t > 0 else 0.0
+    return da, dbx
 
 
 def selective_scan_ref(xc, dt, Bc, Cc, A):

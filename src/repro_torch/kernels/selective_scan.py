@@ -8,6 +8,12 @@ on an H100 and how its design answers it.
 Given CPU tensors the wrapper computes the plain version from `ref`.  Given
 CUDA tensors it launches the kernel on the current stream or raises: there
 is no fallback.  Each launch adds one to ``launches["selective_scan"]``.
+
+The kernel has no backward yet (ROADMAP queue 1, item 10: the
+``selective_scan`` backward kernel and falcon-mamba training).  On the card
+a call that autograd would need to differentiate (grad enabled and an
+input requires a gradient) raises rather than return an output autograd
+cannot see; on the CPU the plain version is differentiable.
 """
 from __future__ import annotations
 
@@ -39,6 +45,12 @@ def selective_scan(xc: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
     """
     if xc.device.type == "cpu":
         return selective_scan_ref(xc, dt, Bc, Cc, A)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xc, dt, Bc, Cc, A)):
+        raise NotImplementedError(
+            "selective_scan has no backward kernel yet (ROADMAP queue 1, "
+            "item 10): run it under torch.no_grad() or with inputs that "
+            "need no gradient")
     dev = xc.device
     if xc.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"xc must be float32 or bfloat16, got {xc.dtype}")

@@ -1,6 +1,11 @@
 """Language models of the port: config schema, layers and the LM."""
 from .config import ATTN, LOCAL, MAMBA, RGLRU, ArchConfig
-from .transformer import LM, params_from_numpy, unstack_layers
+from .lm import lm_loss, weighted_lm_loss, xent
+from .transformer import (LM, named_from_tree, params_from_numpy,
+                          params_to_numpy, tree_from_named, unstack_layers,
+                          untrainable)
 
 __all__ = ["ArchConfig", "ATTN", "LOCAL", "MAMBA", "RGLRU", "LM",
-           "params_from_numpy", "unstack_layers"]
+           "params_from_numpy", "params_to_numpy", "named_from_tree",
+           "tree_from_named", "unstack_layers", "untrainable", "xent",
+           "lm_loss", "weighted_lm_loss"]

@@ -1,5 +1,6 @@
 """Decoder-only language model: dense (global attention), hybrid
-(RG-LRU + local attention) and SSM (Mamba-1) architectures, for serving.
+(RG-LRU + local attention) and SSM (Mamba-1) architectures, for serving
+and, for the dense and hybrid kinds, training.
 
 The JAX package's ``models/transformer.py`` keeps its layers as an
 unrolled prefix, a ``lax.scan`` over stacked groups of ``block_pattern``
@@ -12,6 +13,17 @@ multi-codebook audio models raise `NotImplementedError`.
 A decode cache is a list with one dict per layer: ``{"k", "v", "pos"}``
 for attention (a ring buffer for LOCAL layers), ``{"h", "conv"}`` for
 RG-LRU and Mamba.  `LM.decode_step` updates it in place.
+
+Training: `LM.forward` takes an optional ``params`` dict, keyed by the
+model's parameter names (``embed``, ``layers.3.attn.wq``, ...), in place
+of its own parameters, so one model (even one on the ``meta`` device,
+holding no weights) computes the loss of many clients' parameters
+(`repro_torch.core.fl_step`).  ``remat=True`` wraps each layer in
+``torch.utils.checkpoint`` (the JAX package checkpoints each group of
+``block_pattern``): its activations are recomputed in the backward, so a
+layer's kernels run twice forward.  `named_from_tree` / `tree_from_named`
+carry parameter trees between the JAX package's layout and these names,
+with leading dims (the federation's clients) or without.
 """
 from __future__ import annotations
 
@@ -20,6 +32,7 @@ from typing import Any, Dict, List, Mapping, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import attn_decode, attn_forward, init_attn, init_attn_cache
 from .config import ATTN, LOCAL, MAMBA, RGLRU, ArchConfig
@@ -49,9 +62,34 @@ def _check_supported(cfg: ArchConfig) -> None:
             raise ValueError(f"unknown layer kind {kind!r}")
 
 
-def _params(tree: Mapping[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+def untrainable(cfg: ArchConfig) -> Optional[str]:
+    """Why the port cannot train ``cfg`` yet (None: it can), naming the
+    ROADMAP item.  Training runs the dense and hybrid kinds; a Mamba layer
+    has no backward kernel, and MoE, MLA, qkv bias / qk-norm and audio
+    codebooks are not ported."""
+    if MAMBA in cfg.layer_kinds():
+        return (f"{cfg.name}: MAMBA layers do not train yet (the "
+                "selective_scan backward kernel, ROADMAP.md queue 1, "
+                "item 10)")
+    try:
+        _check_supported(cfg)
+    except NotImplementedError as e:
+        return str(e)
+    return None
+
+
+def _params(tree: Mapping[str, torch.Tensor], trainable: bool
+            ) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=trainable)
                              for k, v in tree.items()})
+
+
+def _sub(params: Mapping[str, torch.Tensor], prefix: str
+         ) -> Dict[str, torch.Tensor]:
+    """The entries of ``params`` under ``prefix.``, without it."""
+    n = len(prefix) + 1
+    return {k[n:]: v for k, v in params.items()
+            if k.startswith(prefix + ".")}
 
 
 class Layer(nn.Module):
@@ -59,40 +97,56 @@ class Layer(nn.Module):
     RMSNorm -> gated MLP -> residual; a MAMBA layer is RMSNorm -> Mamba
     block -> residual, with no second norm and no MLP."""
 
-    def __init__(self, cfg: ArchConfig, kind: str, generator, device):
+    def __init__(self, cfg: ArchConfig, kind: str, generator, device,
+                 trainable: bool = False):
         super().__init__()
         self.cfg, self.kind = cfg, kind
         ones = lambda: nn.Parameter(torch.ones((cfg.d_model,), device=device),
-                                    requires_grad=False)
+                                    requires_grad=trainable)
         self.ln1 = ones()
         if kind == MAMBA:
-            self.mamba = _params(init_mamba(cfg, generator, device=device))
+            self.mamba = _params(init_mamba(cfg, generator, device=device),
+                                 trainable)
             return
         self.ln2 = ones()
         if kind == RGLRU:
-            self.rglru = _params(init_rglru(cfg, generator, device=device))
+            self.rglru = _params(init_rglru(cfg, generator, device=device),
+                                 trainable)
         else:
-            self.attn = _params(init_attn(cfg, generator, device=device))
+            self.attn = _params(init_attn(cfg, generator, device=device),
+                                trainable)
         self.mlp = _params(init_mlp(cfg.d_model, cfg.d_ff, generator,
-                                    device=device))
+                                    device=device), trainable)
 
-    def forward(self, x, cache_len: int = 0):
-        """cache_len > 0 (prefill) also returns this layer's decode cache."""
+    @property
+    def block(self) -> str:
+        """The name of this layer's mixing block's parameters."""
+        return {MAMBA: "mamba", RGLRU: "rglru"}.get(self.kind, "attn")
+
+    def forward(self, x, cache_len: int = 0,
+                params: Optional[Mapping[str, torch.Tensor]] = None):
+        """cache_len > 0 (prefill) also returns this layer's decode cache.
+        ``params`` (keys as this layer's parameter names: ``ln1``,
+        ``rglru.w_x``, ...) replaces the layer's own parameters."""
         cfg, lcache = self.cfg, None
-        h = rmsnorm(self.ln1, x)
+        if params is None:
+            params = dict(self.named_parameters())
+        blk = _sub(params, self.block)
+        h = rmsnorm(params["ln1"], x)
         if self.kind == MAMBA:
-            y = mamba_forward(self.mamba, cfg, h, return_state=bool(cache_len))
+            y = mamba_forward(blk, cfg, h, return_state=bool(cache_len))
         elif self.kind == RGLRU:
-            y = rglru_forward(self.rglru, cfg, h, return_state=bool(cache_len))
+            y = rglru_forward(blk, cfg, h, return_state=bool(cache_len))
         else:
-            y = attn_forward(self.attn, cfg, h, self.kind,
+            y = attn_forward(blk, cfg, h, self.kind,
                              return_cache=bool(cache_len),
                              cache_len=cache_len)
         if cache_len:
             y, lcache = y
         x = x + y
         if self.kind != MAMBA:
-            x = x + mlp(self.mlp, rmsnorm(self.ln2, x), cfg.activation)
+            x = x + mlp(_sub(params, "mlp"), rmsnorm(params["ln2"], x),
+                        cfg.activation)
         return (x, lcache) if cache_len else x
 
     def decode(self, x, lcache, step: int):
@@ -123,11 +177,12 @@ class Layer(nn.Module):
 class LM(nn.Module):
     """The language model of ``cfg`` in float32, its parameters drawn from
     ``seed`` with the JAX package's init scheme (``seed=None``: left
-    uninitialised, for `params_from_numpy`).  Parameters do not require
-    gradients: the port serves and does not train yet."""
+    uninitialised, for `params_from_numpy`).  Parameters require gradients
+    only when built ``trainable`` (serving builds them frozen); training
+    may instead hand `forward` a ``params`` dict."""
 
     def __init__(self, cfg: ArchConfig, *, device=None,
-                 seed: Optional[int] = 0):
+                 seed: Optional[int] = 0, trainable: bool = False):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
@@ -137,29 +192,35 @@ class LM(nn.Module):
         emb = torch.empty((cfg.padded_vocab, cfg.d_model), device=device)
         if g is not None:
             emb.normal_(0.0, 0.02, generator=g)
-        self.embed = nn.Parameter(emb, requires_grad=False)
+        self.embed = nn.Parameter(emb, requires_grad=trainable)
         self.layers = nn.ModuleList(
-            Layer(cfg, kind, g, device)
+            Layer(cfg, kind, g, device, trainable)
             for kind in cfg.layer_kinds())
         self.final_norm = nn.Parameter(
-            torch.ones((cfg.d_model,), device=device), requires_grad=False)
+            torch.ones((cfg.d_model,), device=device),
+            requires_grad=trainable)
         if not cfg.tie_embeddings:
             head = torch.empty((cfg.d_model, cfg.padded_vocab),
                                device=device)
             if g is not None:
                 head.normal_(0.0, 0.02, generator=g)
-            self.lm_head = nn.Parameter(head, requires_grad=False)
+            self.lm_head = nn.Parameter(head, requires_grad=trainable)
 
     # -- embeddings ---------------------------------------------------- #
-    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embed[tokens]
+    def embed_tokens(self, tokens: torch.Tensor, embed=None) -> torch.Tensor:
+        x = (self.embed if embed is None else embed)[tokens]
         if self.cfg.emb_scale:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
         return x
 
-    def unembed(self, x: torch.Tensor) -> torch.Tensor:
+    def unembed(self, x: torch.Tensor, params=None) -> torch.Tensor:
         cfg = self.cfg
-        logits = x @ (self.embed.T if cfg.tie_embeddings else self.lm_head)
+        if params is None:
+            head = self.embed.T if cfg.tie_embeddings else self.lm_head
+        else:
+            head = (params["embed"].T if cfg.tie_embeddings
+                    else params["lm_head"])
+        logits = x @ head
         if cfg.padded_vocab != cfg.vocab_size:
             ids = torch.arange(cfg.padded_vocab, device=logits.device)
             logits = torch.where(ids < cfg.vocab_size, logits,
@@ -168,13 +229,24 @@ class LM(nn.Module):
         return logits
 
     # -- full sequence --------------------------------------------------- #
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B,S) -> logits (B,S,V) at every position.  (The JAX
-        package's MoE auxiliary loss has no counterpart: no MoE here.)"""
-        x = self.embed_tokens(tokens)
-        for layer in self.layers:
-            x = layer(x)
-        return self.unembed(rmsnorm(self.final_norm, x))
+    def forward(self, tokens: torch.Tensor,
+                params: Optional[Mapping[str, torch.Tensor]] = None,
+                remat: bool = False) -> torch.Tensor:
+        """tokens (B,S) -> logits (B,S,V) at every position, with the
+        model's own parameters or ``params`` (all of them, keyed by the
+        model's parameter names).  ``remat`` recomputes each layer's
+        activations in the backward.  (The JAX package's MoE auxiliary
+        loss has no counterpart: no MoE here.)"""
+        if params is None:
+            params = dict(self.named_parameters())
+        x = self.embed_tokens(tokens, params["embed"])
+        for i, layer in enumerate(self.layers):
+            lp = _sub(params, f"layers.{i}")
+            if remat:
+                x = checkpoint(layer, x, 0, lp, use_reentrant=False)
+            else:
+                x = layer(x, params=lp)
+        return self.unembed(rmsnorm(params["final_norm"], x), params)
 
     def prefill(self, tokens: torch.Tensor, cache_len: int):
         """Serving prefill: run the whole prompt, return the last position's
@@ -227,10 +299,16 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def unstack_layers(tree: Mapping[str, Any], cfg: ArchConfig) -> List[Any]:
+def _index(a, lead: int, g: int):
+    return a[(slice(None),) * lead + (g,)]
+
+
+def unstack_layers(tree: Mapping[str, Any], cfg: ArchConfig,
+                   lead: int = 0) -> List[Any]:
     """A JAX ``{"prefix", "groups", "suffix"}`` tree (parameters or cache)
-    -> one entry per layer: ``groups[j]`` leaves indexed at g give layer
-    len(prefix) + g * len(block_pattern) + j."""
+    -> one entry per layer: ``groups[j]`` leaves indexed at g (after
+    ``lead`` leading dims) give layer len(prefix) + g * len(block_pattern)
+    + j."""
     pre, groups, suf = _split_depth(cfg)
     pat = len(cfg.block_pattern)
     layers: List[Any] = [None] * cfg.num_layers
@@ -238,43 +316,91 @@ def unstack_layers(tree: Mapping[str, Any], cfg: ArchConfig) -> List[Any]:
         layers[i] = lp
     for j, stacked in enumerate(tree["groups"]):
         for g in range(groups):
-            layers[len(pre) + g * pat + j] = _map(stacked,
-                                                  lambda a, g=g: a[g])
+            layers[len(pre) + g * pat + j] = _map(
+                stacked, lambda a, g=g: _index(a, lead, g))
     for i, lp in zip(suf, tree["suffix"]):
         layers[i] = lp
     return layers
 
 
+def named_from_tree(tree: Mapping[str, Any], cfg: ArchConfig,
+                    lead: int = 0) -> Dict[str, Any]:
+    """The JAX package's parameter tree (``init_params``' layout; ``lead``
+    leading dims on every leaf, as a federation's (NC, C) or (NC,)) -> a
+    flat dict keyed by the port's parameter names (``embed``,
+    ``layers.0.ln1``, ``layers.2.attn.wq``, ...), leaves untouched."""
+    out = {"embed": tree["embed"], "final_norm": tree["final_norm"]}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = tree["lm_head"]
+    for i, lp in enumerate(unstack_layers(tree, cfg, lead)):
+        for k, v in lp.items():
+            if isinstance(v, Mapping):
+                out.update({f"layers.{i}.{k}.{kk}": vv
+                            for kk, vv in v.items()})
+            else:
+                out[f"layers.{i}.{k}"] = v
+    return out
+
+
+def tree_from_named(named: Mapping[str, Any], cfg: ArchConfig,
+                    lead: int = 0) -> Dict[str, Any]:
+    """The inverse of `named_from_tree` over numpy arrays (tensors are
+    copied to the host): the JAX package's tree, each group's layers
+    stacked at axis ``lead``."""
+    arr = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+           else np.asarray(v) for k, v in named.items()}
+    layers: List[Dict[str, Any]] = [{} for _ in range(cfg.num_layers)]
+    for k, v in arr.items():
+        if not k.startswith("layers."):
+            continue
+        _, i, rest = k.split(".", 2)
+        node = layers[int(i)]
+        if "." in rest:
+            sub, leaf = rest.split(".", 1)
+            node.setdefault(sub, {})[leaf] = v
+        else:
+            node[rest] = v
+    pre, groups, suf = _split_depth(cfg)
+    pat = len(cfg.block_pattern)
+    stack = lambda *xs: np.stack(xs, axis=lead)
+    tree = {"embed": arr["embed"], "final_norm": arr["final_norm"],
+            "prefix": [layers[i] for i in pre],
+            "groups": [_zip_map([layers[len(pre) + g * pat + j]
+                                 for g in range(groups)], stack)
+                       for j in range(pat)] if groups else [],
+            "suffix": [layers[i] for i in suf]}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = arr["lm_head"]
+    return tree
+
+
+def _zip_map(trees: List[Any], fn):
+    if isinstance(trees[0], Mapping):
+        return {k: _zip_map([t[k] for t in trees], fn) for k in trees[0]}
+    return fn(*trees)
+
+
 def params_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig, *,
-                      device=None) -> LM:
+                      device=None, trainable: bool = False) -> LM:
     """The JAX package's ``init_params`` tree, as numpy arrays -> an `LM`
     holding the same numbers."""
-    model = LM(cfg, device=device, seed=None)
-
-    def put(dst: torch.Tensor, src) -> None:
-        src = np.asarray(src)
-        if tuple(src.shape) != tuple(dst.shape):
-            raise ValueError(f"shape {src.shape} does not fit {dst.shape}")
-        dst.copy_(torch.from_numpy(np.array(src, copy=True)))
-
+    model = LM(cfg, device=device, seed=None, trainable=trainable)
+    mine = dict(model.named_parameters())
+    theirs = named_from_tree(tree, cfg)
+    if set(mine) != set(theirs):
+        raise ValueError(f"parameter names differ: "
+                         f"{sorted(set(mine) ^ set(theirs))}")
     with torch.no_grad():
-        put(model.embed, tree["embed"])
-        put(model.final_norm, tree["final_norm"])
-        if not cfg.tie_embeddings:
-            put(model.lm_head, tree["lm_head"])
-        for layer, lp in zip(model.layers, unstack_layers(tree, cfg)):
-            put(layer.ln1, lp["ln1"])
-            if layer.kind == MAMBA:
-                blocks = ("mamba",)
-            else:
-                put(layer.ln2, lp["ln2"])
-                blocks = ("rglru" if layer.kind == RGLRU else "attn", "mlp")
-            for sub in blocks:
-                mine = getattr(layer, sub)
-                if set(mine.keys()) != set(lp[sub].keys()):
-                    raise ValueError(f"{sub}: keys {sorted(lp[sub])} != "
-                                     f"{sorted(mine.keys())}")
-                for k in mine.keys():
-                    put(mine[k], lp[sub][k])
+        for k, dst in mine.items():
+            src = np.asarray(theirs[k])
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"{k}: shape {src.shape} does not fit "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(torch.from_numpy(np.array(src, copy=True)))
     return model
 
+
+def params_to_numpy(model: LM) -> Dict[str, Any]:
+    """The inverse of `params_from_numpy`: the model's parameters as the
+    JAX package's ``init_params`` tree of numpy arrays."""
+    return tree_from_named(dict(model.named_parameters()), model.cfg)

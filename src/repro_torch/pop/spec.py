@@ -34,8 +34,8 @@ import dataclasses
 import itertools
 from typing import Any, Dict, List, Tuple
 
-from repro_torch.api.spec import (FederationSpec, ShardingSpec, _NESTED,
-                                  _from_dict)
+from repro_torch.api.spec import (DEVICE_SCALE, FederationSpec,
+                                  ShardingSpec, _NESTED, _from_dict)
 
 __all__ = ["PopulationSpec", "member_seed"]
 
@@ -140,6 +140,11 @@ class PopulationSpec:
                 "population batch axis is the parallel dim (set sharding "
                 "on the PopulationSpec instead)")
         self.base.validate()
+        if self.base.scale != DEVICE_SCALE:
+            raise NotImplementedError(
+                f"not ported yet: a population of {self.base.scale!r}-scale "
+                "federations (a population batches the device-scale round; "
+                "ROADMAP.md, queue 1, item 10)")
         return self
 
     def pop_axis(self) -> str:

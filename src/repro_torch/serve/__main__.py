@@ -211,7 +211,7 @@ def build_parser() -> argparse.ArgumentParser:
 def _resolve_spec(args):
     from repro_torch.api import scenarios  # noqa: F401  (SCENARIOS)
     from repro_torch.api.registry import SCENARIOS
-    from repro_torch.api.spec import FederationSpec
+    from repro_torch.api.spec import DEVICE_SCALE, FederationSpec
     if args.spec_file:
         with open(args.spec_file) as f:
             spec = FederationSpec.from_dict(json.load(f))
@@ -219,7 +219,14 @@ def _resolve_spec(args):
         spec = SCENARIOS.get(args.scenario)()
     if args.seed is not None:
         spec = spec.replace(seed=args.seed)
-    return spec.validate()
+    spec.validate()
+    if spec.scale != DEVICE_SCALE:
+        # a segment is run_scanned(K), which only the device scale has
+        raise NotImplementedError(
+            f"not ported yet: the service mode of the {spec.scale!r} scale "
+            "(its segments are device-scale run_scanned calls; ROADMAP.md, "
+            "queue 1, item 10)")
+    return spec
 
 
 def _loop_argv(args) -> list:
