@@ -139,10 +139,13 @@ Needs one NVIDIA GPU and nvcc.  In order:
    a round (``RECURRENTGEMMA_2B_TRAIN``), after falcon-mamba-7b is freed:
    first the forward's lse output and both backward kernels
    (``flash_attention_bwd``, ``rglru_scan_bwd``) against their plain
-   versions at the training shape and at ragged ones (S not a multiple of
-   any tile, 4 query heads over 2, softcap 30), the forward with a null
-   lse pointer bit for bit the forward with one, each backward timed cold
-   and warm beside its bound, the plain version and a library call
+   versions at the training shape and at ragged ones (S = 1, 31, 33, 4097
+   and others not a multiple of any tile, H / Kv = 10, 5, 3, 2 and 1,
+   softcap 30, d = 48 and 33, W not a multiple of the scan's channels a
+   block), two calls of each backward bit for bit equal, the forward with
+   a null lse pointer bit for bit the forward with one, each backward
+   timed cold and warm beside its bound, the plain version and a library
+   call
    (``torch.autograd.grad`` through ``scaled_dot_product_attention``;
    ``addcmul`` over the scan's bytes); then three rounds through
    ``Federation.from_spec(spec).run(max_rounds=3)`` with the launch counts
@@ -173,11 +176,13 @@ calls from one CUDA graph) and cold (the L2 flushed before each call;
 ``warm_ms`` and ``cold_ms``), each in turns with its library call, with
 every window's time and the SM clock printed.
 ``--compare-with DIR ...`` also times the ``trust_aggregate.cu``,
-``flash_attention.cu``, ``rglru_scan.cu`` and ``selective_scan.cu`` found
-in each DIR (other versions of the kernels, with the same C interface)
-against this checkout's, in turns (old, new, new, old) at the main path's
-and the serving paths' shapes (the fused trust kernel also at
-``anomaly-fleet1k``'s), and adds those times to the kernels line.
+``flash_attention.cu``, ``rglru_scan.cu``, ``selective_scan.cu``,
+``flash_attention_bwd.cu`` and ``rglru_scan_bwd.cu`` found in each DIR
+(other versions of the kernels, with the same C interface) against this
+checkout's, in turns (old, new, new, old) at the main path's, the serving
+paths' and the training shapes (the fused trust kernel also at
+``anomaly-fleet1k``'s; the backwards warm and cold), and adds those times
+to the kernels line.
 
 Any failure exits non-zero before the result line.  Without a card, or
 without the repository's ``src/`` beside it, it exits non-zero at once.
@@ -447,9 +452,11 @@ def in_turns(fns: dict, flush=None, label=None, reps: int = 5,
     return t
 
 
-def other_libraries(source: str, dirs, module: str) -> dict:
+def other_libraries(source: str, dirs, module: str,
+                    signatures: str = "_signatures") -> dict:
     """{dir: the library built from ``dir/source``} for each of ``dirs``
-    that holds ``source``, with the C signatures of this checkout's wrapper
+    that holds ``source``, with the C signatures (the dict named
+    ``signatures``) of this checkout's wrapper
     ``repro_torch.kernels.<module>``."""
     from repro_torch.kernels import build
     libs = {}
@@ -457,8 +464,8 @@ def other_libraries(source: str, dirs, module: str) -> dict:
         if not os.path.isfile(os.path.join(d, source)):
             continue
         lib = ctypes.CDLL(str(build.build(source, d)))
-        for fn, argtypes in importlib.import_module(
-                f"repro_torch.kernels.{module}")._signatures.items():
+        for fn, argtypes in getattr(importlib.import_module(
+                f"repro_torch.kernels.{module}"), signatures).items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         libs[d] = lib
@@ -2797,11 +2804,24 @@ def rel_to_max(got, want) -> float:
             ).item()
 
 
-def train_kernel_phase(cfg, dev) -> dict:
+def bwd_rel(got, want) -> float:
+    """The worst of the attention gradients' errors, each over its largest
+    entry.  With one position (S = 1) the softmax over its one key has no
+    gradient: dq and dk are zero in exact arithmetic and both sides hold
+    rounding of dP - D, so they are held to dv's largest entry instead."""
+    if got[0].shape[1] > 1:
+        return max(rel_to_max(a_, b_) for a_, b_ in zip(got, want))
+    top = want[2].float().abs().max().clamp_min(1e-30)
+    return max([rel_to_max(got[2], want[2])] + [
+        ((a_.float() - b_.float()).abs().max() / top).item()
+        for a_, b_ in zip(got[:2], want[:2])])
+
+
+def bwd_check(cfg, dev) -> dict:
     """The forward's lse and both backward kernels against their plain
-    versions at the training shape and ragged ones; times at the training
-    shape."""
-    import torch.nn.functional as F
+    versions at the training shape and at shapes that cross the kernels'
+    partitions; two calls of each backward on the same inputs bit for bit
+    equal.  -> the worst errors."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (_forward,
                                                      flash_attention_bwd)
@@ -2814,10 +2834,15 @@ def train_kernel_phase(cfg, dev) -> dict:
            "fa_bwd_abs": 0.0, "scan_bwd_abs": 0.0}
     # (B, S, H, Kv, d, dv, window, softcap): the training shape, then S
     # not a multiple of any tile, 4 query heads over 2 with softcap 30,
-    # dv != d, d not a multiple of 16 bytes, a window shorter than a tile
+    # dv != d, d not a multiple of 16 bytes, a window shorter than a tile;
+    # H / Kv = 10, 5 and 1 across the per-head partials and their sum;
+    # S = 1, 31, 33 and 4097 across the tiles of 32; d = 48
     cases = [(1, S, H, Kv, d, d, window, 0.0),
              (1, 1000, 4, 2, 64, 64, 0, 30.0), (1, 77, 6, 2, 48, 40, 8, 0.0),
-             (2, 100, 2, 2, 33, 33, 0, 0.0), (1, 300, H, Kv, d, d, 5, 50.0)]
+             (2, 100, 2, 2, 33, 33, 0, 0.0), (1, 300, H, Kv, d, d, 5, 50.0),
+             (1, 1, H, Kv, d, d, window, 0.0), (1, 31, 5, 1, 48, 48, 0, 0.0),
+             (2, 33, 10, 2, 64, 64, 16, 0.0), (1, 33, 3, 3, 48, 32, 0, 0.0),
+             (1, S + 1, H, Kv, d, d, window, 0.0)]
     for i, (b, s_, h, kv, dd, dv, win, cap) in enumerate(cases):
         g = torch.Generator(device=dev).manual_seed(300 + i)
         q = torch.randn((b, s_, h, dd), generator=g, device=dev) * 0.3
@@ -2836,9 +2861,15 @@ def train_kernel_phase(cfg, dev) -> dict:
               f"error {e_o} (out), {e_l} (lse) beyond {FA_TOL['float32']}")
         got = flash_attention_bwd(q, k, v, out, lse, do, window=win,
                                   softcap=cap)
+        if i == 0:
+            again = flash_attention_bwd(q, k, v, out, lse, do, window=win,
+                                        softcap=cap)
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  f"flash_attention_bwd {cases[i]}: two calls differ")
+            del again
         want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do,
                                            window=win, softcap=cap)
-        r = max(rel_to_max(a_, b_) for a_, b_ in zip(got, want))
+        r = bwd_rel(got, want)
         check(r <= BWD_TOL, f"flash_attention_bwd {cases[i]}: error {r} of "
               f"the largest entry, beyond {BWD_TOL}")
         err["out"], err["lse"] = max(err["out"], e_o), max(err["lse"], e_l)
@@ -2846,8 +2877,12 @@ def train_kernel_phase(cfg, dev) -> dict:
         err["fa_bwd_abs"] = max([err["fa_bwd_abs"]] + [
             (a_ - b_).abs().max().item() for a_, b_ in zip(got, want)])
         del q, k, v, do, out, lse, served, ro, rl, got, want
+    # (B, S, W, range of a): the training shape, ragged, S = 1, S not a
+    # multiple of the 128-step tile, W not a multiple of the channels a
+    # block (and not of 4: plain loads)
     scan_cases = [(1, S, W, (0.9, 0.9999)), (2, 97, W + 1, None),
-                  (1, 5, 3, None), (3, 33, 64, None)]
+                  (1, 5, 3, None), (3, 33, 64, None), (2, 1, W, None),
+                  (1, 129, W + 4, None), (1, S + 1, W + 8, (0.9, 0.9999))]
     for i, (b, s_, w, a_range) in enumerate(scan_cases):
         a, bx = scan_inputs(b, s_, w, f32, dev, 500 + i, a_range)
         g = torch.Generator(device=dev).manual_seed(600 + i)
@@ -2855,10 +2890,17 @@ def train_kernel_phase(cfg, dev) -> dict:
         dh = torch.randn((b, w), generator=g, device=dev)
         hs, _ = ref.rglru_scan_ref(a, bx)
         got = rglru_scan_bwd(a, hs, dhs, dh)
+        if i == 0:
+            again = rglru_scan_bwd(a, hs, dhs, dh)
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  f"rglru_scan_bwd {scan_cases[i]}: two calls differ")
         want = ref.rglru_scan_bwd_ref(a, hs, dhs, dh)
         r = max(rel_to_max(a_, b_) for a_, b_ in zip(got, want))
-        check(r <= BWD_TOL, f"rglru_scan_bwd {scan_cases[i]}: error {r} of "
-              f"the largest entry, beyond {BWD_TOL}")
+        ok = all(within(a_, b_, SCAN_TOL["float32"], 0.05)[1]
+                 for a_, b_ in zip(got, want))
+        check(r <= BWD_TOL and ok, f"rglru_scan_bwd {scan_cases[i]}: error "
+              f"{r} of the largest entry (bound {BWD_TOL}), within atol "
+              f"{SCAN_TOL['float32']} rtol 0.05: {ok}")
         err["scan_bwd"] = max(err["scan_bwd"], r)
         err["scan_bwd_abs"] = max([err["scan_bwd_abs"]] + [
             (a_ - b_).abs().max().item() for a_, b_ in zip(got, want)])
@@ -2866,8 +2908,114 @@ def train_kernel_phase(cfg, dev) -> dict:
     print(f"training kernels against their plain versions: {json.dumps(err)}"
           f" ({len(cases)} attention shapes, out and lse atol = rtol "
           f"{FA_TOL['float32']}, the backwards {BWD_TOL} of the largest "
-          f"entry; {len(scan_cases)} scan shapes); the forward with an lse "
-          "pointer bit for bit serving's", flush=True)
+          f"entry; {len(scan_cases)} scan shapes, also atol "
+          f"{SCAN_TOL['float32']} rtol 0.05); the forward with an lse "
+          "pointer bit for bit serving's; two calls of each backward bit "
+          "for bit equal", flush=True)
+    return err
+
+
+def bwd_turns(cfg, dev, dirs) -> dict:
+    """Each DIR's ``flash_attention_bwd.cu`` and ``rglru_scan_bwd.cu``
+    (the same C interfaces) against this checkout's at the training shape,
+    in turns (old, new, new, old), warm and cold (L2 flushed): {source:
+    {dir: {"warm": {"old": [...], "new": [...]}, "cold": ...,
+    "max_rel_diff": x}}}, ms.  Both sides call their C function on the
+    same preallocated outputs."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (_forward,
+                                                     bwd_scratch_floats)
+    sources = ((FA_BWD_SOURCE, "flash_attention"),
+               (SCAN_BWD_SOURCE, "rglru_scan"))
+    others = {os.path.basename(src): other_libraries(
+        os.path.basename(src), dirs, module, "_bwd_signatures")
+        for src, module in sources}
+    if not any(others.values()):
+        return {name: {} for name in others}
+    S = RECURRENT_TRAIN_SEQ
+    H, Kv, d, window, W = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                           cfg.window, cfg.lru_width)
+    flush = L2Flush(dev)
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    g = torch.Generator(device=dev).manual_seed(97)
+    q = torch.randn((1, S, H, d), generator=g, device=dev) * 0.3
+    k = torch.randn((1, S, Kv, d), generator=g, device=dev) * 0.3
+    v = torch.randn((1, S, Kv, d), generator=g, device=dev)
+    do = torch.randn((1, S, H, d), generator=g, device=dev)
+    out, lse = _forward(q, k, v, window, 0.0, True)
+    scratch = torch.empty((bwd_scratch_floats(1, S, H, Kv, d, d),),
+                          device=dev)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    a, bx = scan_inputs(1, S, W, torch.float32, dev, 96, (0.9, 0.9999))
+    hs, _ = ref.rglru_scan_ref(a, bx)
+    dhs = torch.randn((1, S, W), generator=g, device=dev)
+    dh = torch.randn((1, W), generator=g, device=dev)
+    da, dbx = torch.empty_like(a), torch.empty_like(a)
+
+    def fa_call(where, lib):
+        def call():
+            status = lib.fa_backward_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), 1, S, H, Kv, d,
+                d, d ** -0.5, window, 0.0, stream())
+            check(status == 0, f"flash_attention_bwd of {where}: {status}")
+        return call
+
+    def scan_call(where, lib):
+        def call():
+            status = lib.rglru_scan_bwd_f32(
+                a.data_ptr(), hs.data_ptr(), dhs.data_ptr(), dh.data_ptr(),
+                da.data_ptr(), dbx.data_ptr(), 1, S, W, stream())
+            check(status == 0, f"rglru_scan_bwd of {where}: {status}")
+        return call
+
+    out_t = {}
+    for (src, module), make, kw in zip(sources, (fa_call, scan_call), (
+            {"reps": 3, "windows": 3, "warmup": 1}, {"reps": 10})):
+        name = os.path.basename(src)
+        out_t[name] = {}
+        if not others[name]:
+            continue
+        mine = other_libraries(name, [HERE_CSRC], module,
+                               "_bwd_signatures")[HERE_CSRC]
+        for where, old in others[name].items():
+            fns = {"old": make(where, old), "new": make("this checkout", mine)}
+            outs = (dq, dk, dv) if module == "flash_attention" else (da, dbx)
+            for x in outs:             # what the other version leaves
+                x.fill_(float("nan"))  # unwritten shows as NaN
+            fns["old"]()
+            got_old = [x.clone() for x in outs]
+            fns["new"]()
+            # how far the other version's outputs are from this checkout's,
+            # over each one's largest entry (a timing-only variant may
+            # differ; NaN where it wrote nothing)
+            diff = [rel_to_max(a_, b_) for a_, b_ in zip(got_old, outs)]
+            out_t[name][where] = {
+                "warm": in_turns(fns, graph=name.startswith("rglru"), **kw),
+                "cold": in_turns(fns, flush=flush, **kw),
+                "max_rel_diff": torch.tensor(diff).max().item()}
+            print(f"{name} in turns against {where} (old, new, new, old), "
+                  f"ms: {json.dumps(out_t[name][where])}", flush=True)
+    return out_t
+
+
+def train_kernel_phase(cfg, dev, compare_dirs=()) -> dict:
+    """The forward's lse and both backward kernels against their plain
+    versions at the training shape and ragged ones; times at the training
+    shape, and in turns with each of ``compare_dirs``' backward
+    sources."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (_forward,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd
+    S = RECURRENT_TRAIN_SEQ
+    H, Kv, d, window, W = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                           cfg.window, cfg.lru_width)
+    f32 = torch.float32
+    err = bwd_check(cfg, dev)
+    turns = bwd_turns(cfg, dev, compare_dirs)
 
     # times at the training shape, cold (L2 flushed) and warm
     flush = L2Flush(dev)
@@ -2929,7 +3077,8 @@ def train_kernel_phase(cfg, dev) -> dict:
           f"{t['scan_bwd_cold']} ms, plain {t['scan_bwd_plain']} ms, "
           f"addcmul {t['scan_bwd_same_bytes']} ms, bound "
           f"{bound_ms(b_scan, 3 * S * W)}", flush=True)
-    return {"err": err, "t": t, "pairs": pairs, "flops": flops,
+    return {"err": err, "t": t, "turns": turns, "pairs": pairs,
+            "flops": flops,
             "bound": {"fa_bwd": fa_routes[fa_route],
                       "scan_bwd": bound_ms(b_scan, 3 * S * W)},
             "fa_routes": fa_routes, "fa_route": fa_route,
@@ -3159,8 +3308,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare-with", metavar="DIR", nargs="+", default=[],
                     help="time each DIR's trust_aggregate.cu, "
-                         "flash_attention.cu, rglru_scan.cu and "
-                         "selective_scan.cu against this checkout's")
+                         "flash_attention.cu, rglru_scan.cu, "
+                         "selective_scan.cu, flash_attention_bwd.cu and "
+                         "rglru_scan_bwd.cu against this checkout's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3359,7 +3509,7 @@ def main() -> None:
     free_library_memory()
 
     # 8. training: recurrentgemma-2b at full width, one Griffin period
-    tk = train_kernel_phase(cfg, dev)
+    tk = train_kernel_phase(cfg, dev, args.compare_with)
     free_library_memory()
     training = train_phase(dev)
     free_library_memory()
@@ -3524,6 +3674,9 @@ def main() -> None:
          "shape": {"B": 1, "S": RECURRENT_TRAIN_SEQ, "H": cfg.num_heads,
                    "Kv": cfg.num_kv_heads, "d": cfg.head_dim,
                    "window": cfg.window, "dtype": "float32"},
+         "in_turns_ms": tk["turns"][os.path.basename(FA_BWD_SOURCE)],
+         "ptxas": build.ptxas_report(os.path.basename(FA_BWD_SOURCE))
+         or "not built in this run",
          "reachable_pairs": tk["pairs"], "flops": tk["flops"],
          "bytes": tk["bytes"]["fa_bwd"]},
         {"name": "rglru_scan_bwd", "route": "cuda",
@@ -3544,6 +3697,9 @@ def main() -> None:
          "bound_by": tb["scan_bwd"][1], "library_ms": None,
          # dhs + a * hs: three of the five arrays, not the same function
          "same_bytes_addcmul_ms": tt["scan_bwd_same_bytes"],
+         "in_turns_ms": tk["turns"][os.path.basename(SCAN_BWD_SOURCE)],
+         "ptxas": build.ptxas_report(os.path.basename(SCAN_BWD_SOURCE))
+         or "not built in this run",
          "shape": {"B": 1, "S": RECURRENT_TRAIN_SEQ, "W": cfg.lru_width,
                    "dtype": "float32"},
          "bytes": tk["bytes"]["scan_bwd"]},

@@ -18,136 +18,404 @@
 //   with query head h reading K/V head h / (H / Kv), so dK and dV sum over
 //   the H / Kv query heads of a group.
 //   q, dq: (B, S, H, d); k, dk: (B, S, Kv, d); v, dv: (B, S, Kv, dv);
-//   o, dO: (B, S, H, dv); lse, delta: (B, H, S).  d, dv <= 256.
+//   o, dO: (B, S, H, dv); lse: (B, H, S).  d, dv <= 256.
 //
 // What bounds it on an H100: operations.  A reachable pair needs five
-// products of its vectors, 2 (3 d + 2 dv) flops (S and dP recomputed, dV,
-// dK, dQ).  At the training shape (B 1, S 4096, H 10, Kv 1, d = dv = 256,
-// window 2048) the 62,924,800 reachable pairs are 1.611e11 flops: 2.40 ms
-// on the f32 CUDA cores (67 TFLOP/s).  The bytes (q, k, v, o, dO, lse read
-// once, dq, dk, dv written once) bound it at ~0.05 ms.
+// products of its vectors, 2 (3 d + 2 dv) flops (S, dP, dV, dK, dQ).  At
+// the training shape (B 1, S 4096, H 10, Kv 1, d = dv = 256, window 2048)
+// the 62,924,800 reachable pairs are 1.611e11 flops: 0.98 ms as three
+// TF32 tensor-core products each (3 x 1.611e11 over 495 TFLOP/s), 2.40 ms
+// on the f32 CUDA cores.  This design computes S and dP twice, once in
+// each pass (no atomics), 2.255e11 flops: 1.37 ms as 3xTF32.  The bytes
+// (q, k, v, o, dO, lse read once, dq, dk, dv written once) bound it at
+// ~0.05 ms.
 //
-// Design: a simple kernel that is right, on the CUDA cores in full f32
-// (FMA), no atomics, so the result is deterministic.  Three launches:
+// Numerics.  All five products run on the tensor cores through mma.sync
+// m16n8k8 TF32 with the forward's 3xTF32 split (flash_attention.cu):
+// hi = tf32(x), lo = tf32(x - hi), both rounded to nearest with ties away
+// from zero, and a.b = hi_a.hi_b + (hi_a.lo_b + lo_a.hi_b) with f32
+// accumulation.  In S and dP the two small products go to an accumulator
+// of their own, added to the big one after the last d-step; in dV, dK and
+// dQ they accumulate into the output first and the big product after
+// them.  D = rowsum(dO o), the softmax rebuilt from lse and dS = p (dP - D)
+// stay in f32 on the CUDA cores.  Masked pairs get p = dS = 0 exactly.
+//
+// Design.  Three steps, no atomics (two calls on the same inputs give the
+// same bits):
 //   1. fa_bwd_delta_kernel: D_i, one warp a row.
-//   2. fa_bwd_dkdv_kernel: one block per (key tile of 32, K/V head, b).  K
-//      and V of the tile stay in shared memory; the block walks the
-//      group's query heads and, for each, the query tiles of 32 that can
-//      see the tile (from the tile's first key to its last key + window),
-//      loading Q and dO, recomputing S and dP (each thread a 2 x 2 block of
-//      the 32 x 32 tile), forming P and dS in shared memory, and adding
-//      P^T dO and dS^T Q into dV and dK held in registers (each thread 4
-//      keys x 8 columns of each, 32 lanes on consecutive columns).
-//   3. fa_bwd_dq_kernel: one block per (query tile of 32, head, b), walking
-//      the reachable key tiles the same way and adding dS K into dQ.
-// So S and dP are computed twice (the pairs cost 2 (4 d + 3 dv) flops, 1.4
-// times the bound's count).  Shared-memory rows have an odd pitch, so the
-// 16 rows one warp reads at one column fall on distinct banks.  Rows past
-// S load as zeros and masked pairs get p = dS = 0 exactly.  Any S, H a
-// multiple of Kv, d and dv up to 256.  Tiles are loaded with plain loads
-// and each block computes one tile at a time: making it fast (tensor cores
-// as the forward's 3xTF32 split, double-buffered copies) is later work.
+//   2. fa_bwd_dkdv_kernel: one block per (key tile of 32, query head, b),
+//      so that the grid fills the card when Kv = 1 and B = 1 (1,280 blocks
+//      at the training shape, where one block per K/V head gave 128 on
+//      132 SMs).  K and V of the tile stay in shared memory; the block
+//      walks the query tiles of 32 that can see the tile (from the tile's
+//      first key to its last key + window), Q and dO double-buffered with
+//      cp.async, and adds P^T dO and dS^T Q into dV and dK held in the
+//      mma accumulators.  When query heads share a K/V head, each block
+//      writes its head's partial dK and dV into scratch, (B, H, S, d) and
+//      (B, H, S, dv), and
+//   2b. fa_bwd_sum_kernel adds each group's heads in head order (a fixed
+//      order: the sum is deterministic).  With H = Kv the blocks write dK
+//      and dV directly.
+//   3. fa_bwd_dq_kernel: one block per (query tile of 32, head, b), late
+//      tiles first, walking the reachable key tiles (K and V
+//      double-buffered) and adding dS K into dQ.
+// A block's 8 warps form 2 row groups of 16 (keys in step 2, queries in
+// step 3) x 4 parts.  For S and dP the 4 warps of a group each take a
+// quarter of d (of dv), like the forward's pairs, and add their partial
+// scores through shared memory in one fixed order (a 128-thread named
+// barrier), so all 4 hold the same 16 x 32 block of p and dS.  For the
+// outputs each takes a quarter of the columns: p and dS go from the
+// accumulator into the A fragment with no data movement (the forward's
+// P V trick), and the streamed tile's rows are the B fragment.  So Q (K in
+// step 3) and dO are read two ways: as 128-bit loads of 4 consecutive
+// columns from one row (the scores' B fragment) and as 32-bit loads of one
+// column from two rows (the outputs' B fragment).  Both are free of bank
+// conflicts with rows padded to 8 words mod 16 and the n index g of an
+// 8-row group standing for tile row perm(g) = {0, 6, 1, 7, 2, 4, 3, 5}[g]:
+// a quarter-warp's 128-bit loads read rows perm(2m), perm(2m + 1), 16
+// words apart mod 32, and an accumulator's columns 2t, 2t + 1 are rows t
+// and t ^ 6, four rows 8 words apart for t = 0..3.  The A rows take the
+// same permutation within each 8.  Shared memory at d = dv = 256: K and V
+// 67.6 KB, two Q and dO tiles 135.2 KB, the partial scores 16 KB: 219,648
+// bytes, one block an SM (and 255 registers a thread in step 2, with 44
+// bytes of spill stores and 52 of loads, 207 in step 3, at d = 256: 8
+// warps an SM either way).  Rows past S load as zeros; d and dv that are
+// not a multiple of 16 bytes take plain loads in place of cp.async.  Any
+// S, H a multiple of Kv, d and dv up to 256.
+//
+// Measured on "NVIDIA H100 80GB HBM3, 700.00 W" at the training shape
+// (scripts/bwd_sweep.py and chip_smoke.py, in turns with the other
+// version, ms warm / cold): 7.37-7.65 / 7.37-7.58, against the FMA kernel
+// before it 26.9-27.6 / 26.9-27.6, SDPA's backward 12.96-13.08,
+// the plain version 13.30-13.34: ~18 % of the two-pass 3xTF32 bound, each
+// mma m16n8k8 taking ~6.5 SM cycles, as in the forward.  What lost:
+//   - a thread-block cluster a (key tile, K/V head) in place of the
+//     per-head partials, its blocks walking the group's heads in turn and
+//     rank 0 adding their dK and dV through distributed shared memory:
+//     2 blocks of 5 heads 8.60-8.83 / 8.58-8.61, 5 blocks of 2 heads
+//     8.37-8.38 / 8.36-8.38 (this design 7.37-7.49 / 7.40-7.40);
+//   - the output products with a branch per n-tile (before `kAll`):
+//     9.36-9.56 / 9.36 (7.40-7.52 / 7.39); the dK/dV pass took 5.4 ms of
+//     it and dQ 4.0.  With the branch in step 2 alone (240 registers, no
+//     spills) 8.67-8.86 / 8.67 (7.39-7.51 / 7.37-7.38); with the n-tile
+//     loop unrolled by 4 (its accumulators on the stack) 10.54-10.55 /
+//     10.52-10.53;
+//   - the output products in three phases over the n-tiles (hi lo, lo hi,
+//     hi hi) 7.66-7.67 / 7.65-7.66, and with the scores' two small
+//     products in accumulators of their own 7.63-7.64 / 7.62-7.65 (7.40);
+//   - `#pragma unroll 4` over the score chunks 7.41-7.42 (7.45), dK's
+//     products before dV's 7.38 (7.39): no difference; and the row
+//     groups' named barriers removed (a timing-only variant) 9.31-9.32
+//     against 9.36, ~0.5 %.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kT = 32;               // queries of a query tile, keys of a key tile
-constexpr int kThreads = 256;
+constexpr int kT = 32;                    // keys or queries of a tile
+constexpr int kParts = 4;                 // warps of a row group of 16
+constexpr int kWarps = 2 * kParts;
+constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxDim = 256;
-constexpr int kCols = kMaxDim / 32;  // column slots of a thread (8)
-constexpr int kPP = kT + 1;          // pitch of the P and dS tiles
+constexpr int kExchange = 16 * 32;        // floats of a warp's scores
+constexpr int64_t kAlign = 64;            // floats: scratch regions
 
-// an odd row pitch: the rows of one column fall on distinct banks
-__host__ __device__ inline int pitch_of(int n) { return n | 1; }
-
-// rows [0, kT) x columns [0, n) of src (row stride `stride`) into dst (row
-// pitch `pitch`); rows >= valid are zeros
-__device__ __forceinline__ void load_tile(float* dst, int pitch,
-                                          const float* src, int64_t stride,
-                                          int valid, int n) {
-  for (int i = threadIdx.x; i < kT * n; i += kThreads) {
-    const int r = i / n, c = i - r * n;
-    dst[r * pitch + c] = r < valid ? src[r * stride + c] : 0.f;
-  }
+// d rounded up to the fragment loads' chunk of 16, plus 8: 8 words mod 16
+__host__ __device__ inline int pitch_of(int n) {
+  return (n + 15) / 16 * 16 + 8;
+}
+__host__ __device__ inline int64_t aligned(int64_t n) {
+  return (n + kAlign - 1) / kAlign * kAlign;
 }
 
-// acc[a][b] = sum_k A[ti + 16 a][k] B[tj + 16 b][k]
-__device__ __forceinline__ void dot2x2(float (&acc)[2][2], const float* A,
-                                       int pa, const float* B, int pb, int n,
-                                       int ti, int tj) {
-  const float* a0 = A + ti * pa;
-  const float* a1 = a0 + 16 * pa;
-  const float* b0 = B + tj * pb;
-  const float* b1 = b0 + 16 * pb;
-#pragma unroll 4
-  for (int k = 0; k < n; ++k) {
-    const float x0 = a0[k], x1 = a1[k], y0 = b0[k], y1 = b1[k];
-    acc[0][0] = fmaf(x0, y0, acc[0][0]);
-    acc[0][1] = fmaf(x0, y1, acc[0][1]);
-    acc[1][0] = fmaf(x1, y0, acc[1][0]);
-    acc[1][1] = fmaf(x1, y1, acc[1][1]);
-  }
+// the tile row that n (or m) index g of an 8-row group stands for;
+// perm(2t) = t, perm(2t + 1) = t ^ 6
+__device__ __forceinline__ int perm(int g) {
+  return (0x53427160 >> (4 * g)) & 15;
 }
 
-// acc[r][m] += sum_i W(i, w + 8 r) X[i][lane + 32 m] over the kT rows i,
-// where W(i, j) = W[i][j] when kTrans (P^T, dS^T) and W[j][i] otherwise
-template <bool kTrans>
-__device__ __forceinline__ void accumulate(float (&acc)[4][kCols],
-                                           const float* W, const float* X,
-                                           int px, int n, int w, int lane) {
-#pragma unroll 2
-  for (int i = 0; i < kT; ++i) {
-    float wv[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      wv[r] = kTrans ? W[i * kPP + w + 8 * r] : W[(w + 8 * r) * kPP + i];
-#pragma unroll
-    for (int m = 0; m < kCols; ++m) {
-      const int c = lane + 32 * m;
-      const float x = c < n ? X[i * px + c] : 0.f;
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[r][m] = fmaf(wv[r], x, acc[r][m]);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory; src_bytes = 0 writes zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_prior() {   // all but the last
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// rows [0, kT) x cols [0, cols) of src (row pitch src_pitch) into dst (row
+// pitch dst_pitch); rows >= valid are zeros.  vec: cols and the pitches are
+// whole 16-byte units and src is 16-byte aligned, so the copy is
+// asynchronous; otherwise plain loads and stores.
+__device__ __forceinline__ void stage(float* dst, int dst_pitch,
+                                      const float* src, int64_t src_pitch,
+                                      int valid, int cols, bool vec) {
+  if (vec) {
+    const int per_row = cols / 4;
+    for (int i = threadIdx.x; i < kT * per_row; i += kThreads) {
+      const int r = i / per_row, c = (i - r * per_row) * 4;
+      const bool ok = r < valid;
+      cp_async16(dst + r * dst_pitch + c, src + (ok ? r * src_pitch + c : 0),
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kT * cols; i += kThreads) {
+      const int r = i / cols, c = i - r * cols;
+      dst[r * dst_pitch + c] = r < valid ? src[r * src_pitch + c] : 0.f;
     }
   }
 }
 
-// p and dS of this thread's 2 x 2 entries of the (query tile q0, key tile
-// k0) pair, written to sP (if not null) and sdS
-__device__ __forceinline__ void probs(const float (&s)[2][2],
-                                      const float (&dp)[2][2], float* sP,
-                                      float* sdS, const float* sL,
-                                      const float* sD, int q0, int k0,
-                                      int ti, int tj, int seq, float scale,
-                                      int window, float softcap) {
+// lse and D of the kT rows from `row` into shared memory (zeros past seq)
+__device__ __forceinline__ void stage_rows(float* sl, float* sd,
+                                           const float* lrow,
+                                           const float* drow, int row,
+                                           int seq) {
+  if (threadIdx.x < kT) {
+    const int i = row + threadIdx.x;
+    sl[threadIdx.x] = i < seq ? lrow[i] : 0.f;
+    sd[threadIdx.x] = i < seq ? drow[i] : 0.f;
+  }
+}
+
+// ---- tensor-core products --------------------------------------------- //
+
+// hi = tf32(x), lo = tf32(x - hi), both rounded to nearest with ties away
+// from zero as cvt.rna.tf32.f32 rounds, in integer ops (the forward's)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+// c += a b, a: 16 x 8 (row), b: 8 x 8 (col), TF32 in, f32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// s[j] (streamed rows 8 j + perm(n) of the tile) += A B^T over this warp's
+// chunks of 16 columns, for its 16 A rows.  a_row: A's row perm(g) of the
+// group at column 4t of its first chunk (row perm(g) + 8 is 8 rows on);
+// b_row: B's row perm(g) at the same column.  Lane (g, t) loads columns
+// 4t .. 4t + 3 of a chunk as one 128-bit word; each k-step takes these
+// columns in place of the mma's own k order, the same for A and B, which
+// the sum over columns does not see.
+__device__ __forceinline__ void scores(float (&s)[4][4], const float* a_row,
+                                       const float* b_row, int pitch,
+                                       int chunks) {
+  float small[4][4];
 #pragma unroll
-  for (int a = 0; a < 2; ++a)
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int b = 0; b < 2; ++b) {
-      const int r = ti + 16 * a, c = tj + 16 * b;
-      const int i = q0 + r, j = k0 + c;
-      const bool ok = i < seq && j <= i && (window <= 0 || j > i - window);
-      float x = s[a][b] * scale, th = 0.f;
+    for (int e = 0; e < 4; ++e) small[j][e] = 0.f;
+#pragma unroll 2
+  for (int ch = 0; ch < chunks; ++ch) {
+    const float4 xa = *reinterpret_cast<const float4*>(a_row + ch * 16);
+    const float4 xb =
+        *reinterpret_cast<const float4*>(a_row + 8 * pitch + ch * 16);
+    uint32_t ah[2][4], al[2][4];
+    split(xa.x, ah[0][0], al[0][0]);
+    split(xb.x, ah[0][1], al[0][1]);
+    split(xa.y, ah[0][2], al[0][2]);
+    split(xb.y, ah[0][3], al[0][3]);
+    split(xa.z, ah[1][0], al[1][0]);
+    split(xb.z, ah[1][1], al[1][1]);
+    split(xa.w, ah[1][2], al[1][2]);
+    split(xb.w, ah[1][3], al[1][3]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 kv = *reinterpret_cast<const float4*>(
+          b_row + 8 * j * pitch + ch * 16);
+      uint32_t bh[4], bl[4];
+      split(kv.x, bh[0], bl[0]);
+      split(kv.y, bh[1], bl[1]);
+      split(kv.z, bh[2], bl[2]);
+      split(kv.w, bh[3], bl[3]);
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        mma_tf32(small[j], ah[ks], bl[2 * ks], bl[2 * ks + 1]);
+        mma_tf32(small[j], al[ks], bh[2 * ks], bh[2 * ks + 1]);
+        mma_tf32(s[j], ah[ks], bh[2 * ks], bh[2 * ks + 1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] += small[j][e];
+}
+
+// o[n] (columns 8 n .. 8 n + 7 from x) += W X over the tile's 32 streamed
+// rows, for this warp's 16 rows.  w[j] holds the 16 x 8 block of streamed
+// rows 8 j .. 8 j + 7 in the accumulator layout of `scores` (columns 2t,
+// 2t + 1 stand for rows perm(2t) = t, perm(2t + 1) = t ^ 6); x: the
+// streamed tile at this warp's first column, pitch px.  kAll: all NT
+// n-tiles are live, so the unrolled loop has no branch and the scheduler
+// can interleave the n-tiles' products; otherwise n-tiles at or past
+// `cols` columns are skipped.
+template <int NT, bool kAll>
+__device__ __forceinline__ void outer_tiles(float (&o)[NT][4],
+                                            const float (&w)[4][4],
+                                            const float* x, int px, int cols,
+                                            int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    // k-step j: mma k = t <-> row 8 j + t, k = t + 4 <-> row 8 j + (t ^ 6)
+    uint32_t ah[4], al[4];
+    split(w[j][0], ah[0], al[0]);
+    split(w[j][2], ah[1], al[1]);
+    split(w[j][1], ah[2], al[2]);
+    split(w[j][3], ah[3], al[3]);
+    const float* x0 = x + (8 * j + t) * px + g;
+    const float* x1 = x + (8 * j + (t ^ 6)) * px + g;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      if (kAll || 8 * n < cols) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split(x0[8 * n], bh0, bl0);
+        split(x1[8 * n], bh1, bl1);
+        mma_tf32(o[n], ah, bl0, bl1);
+        mma_tf32(o[n], al, bh0, bh1);
+        mma_tf32(o[n], ah, bh0, bh1);
+      }
+    }
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void outer(float (&o)[NT][4], const float (&w)[4][4],
+                                      const float* x, int px, int cols,
+                                      int lane) {
+  if (cols >= 8 * NT)
+    outer_tiles<NT, true>(o, w, x, px, cols, lane);
+  else
+    outer_tiles<NT, false>(o, w, x, px, cols, lane);
+}
+
+// the 4 warps of a row group (ids 1 and 2; __syncthreads is 0)
+__device__ __forceinline__ void group_sync(int warp) {
+  static_assert(kParts == 4, "a row group is 128 threads");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + warp / kParts) : "memory");
+}
+
+// s = the sum of the partial scores of the row group's 4 warps, added in
+// one order in all 4, so that they hold the same bits
+__device__ __forceinline__ void exchange(float (&s)[4][4], float* sx,
+                                         int warp, int lane) {
+  float4* mine = reinterpret_cast<float4*>(sx + warp * kExchange) + lane;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    mine[32 * j] = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+  group_sync(warp);
+  const float4* first = reinterpret_cast<const float4*>(
+                            sx + (warp / kParts) * kParts * kExchange) + lane;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float4 acc = first[32 * j];
+#pragma unroll
+    for (int p = 1; p < kParts; ++p) {
+      const float4 x = first[p * kExchange / 4 + 32 * j];
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    s[j][0] = acc.x;
+    s[j][1] = acc.y;
+    s[j][2] = acc.z;
+    s[j][3] = acc.w;
+  }
+}
+
+// p and dS of this lane's 16 entries, in place of the scores s and dP dp:
+// entry (j, e) is A row r_pos[e >> 1] against streamed row 8 j + (t or
+// t ^ 6); keys_are_rows: A rows are keys (step 2) or queries (step 3)
+__device__ __forceinline__ void probs(float (&s)[4][4], float (&dp)[4][4],
+                                      const int (&a_pos)[2], int b0,
+                                      bool keys_are_rows, const float* lb,
+                                      const float* db, const float (&la)[2],
+                                      const float (&da)[2], int t, int seq,
+                                      float scale, int window,
+                                      float softcap) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int br = 8 * j + ((e & 1) ? (t ^ 6) : t);
+      const int ap = a_pos[e >> 1], bp = b0 + br;
+      const int i = keys_are_rows ? bp : ap;    // query
+      const int jk = keys_are_rows ? ap : bp;   // key
+      const bool ok = i < seq && jk <= i && (window <= 0 || jk > i - window);
+      const float L = keys_are_rows ? lb[br] : la[e >> 1];
+      const float D = keys_are_rows ? db[br] : da[e >> 1];
+      float x = s[j][e] * scale, th = 0.f;
       if (softcap > 0.f) {
         th = tanhf(x / softcap);
         x = th * softcap;
       }
-      const float p = ok ? expf(x - sL[r]) : 0.f;
-      float ds = p * (dp[a][b] - sD[r]);
+      const float p = ok ? expf(x - L) : 0.f;
+      float ds = p * (dp[j][e] - D);
       if (softcap > 0.f) ds *= 1.f - th * th;
-      if (sP != nullptr) sP[r * kPP + c] = p;
-      sdS[r * kPP + c] = ds;
+      s[j][e] = p;
+      dp[j][e] = ds;
     }
 }
 
+__device__ __forceinline__ void store2(float* p, float a, float b, bool both,
+                                       bool pair) {
+  if (both && pair) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  } else {
+    p[0] = a;
+    if (both) p[1] = b;
+  }
+}
+
+// rows R and R + 8 of this warp's accumulators o into the rows of dst at
+// positions pos[0], pos[1] (row stride `stride`), columns col0 + 8 n + 2t
+// below `dim`, times `mul`
+template <int NT>
+__device__ __forceinline__ void store_rows(float* dst, int64_t stride,
+                                           const float (&o)[NT][4],
+                                           const int (&pos)[2], int seq,
+                                           int col0, int dim, int t,
+                                           float mul) {
+  const bool pair = (dim & 1) == 0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (pos[r] >= seq) continue;
+    float* row = dst + pos[r] * stride;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int col = col0 + 8 * n + 2 * t;
+      if (col < dim)
+        store2(row + col, o[n][2 * r] * mul, o[n][2 * r + 1] * mul,
+               col + 1 < dim, pair);
+    }
+  }
+}
+
 // D = rowsum(dO * o): one warp a (b, i, h) row, rows in memory order
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(256)
 fa_bwd_delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
                     float* __restrict__ delta, int64_t rows, int seq,
                     int heads, int dv) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) +
-                      threadIdx.x / 32;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * 8 + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
   const float* po = o + row * dv;
@@ -171,172 +439,325 @@ struct Dims {
   float scale, softcap;
 };
 
-size_t dkdv_smem(int d, int dv) {
-  return sizeof(float) * (2 * kT * (pitch_of(d) + pitch_of(dv)) +
-                          2 * kT * kPP + 2 * kT);
-}
-size_t dq_smem(int d, int dv) {
-  return sizeof(float) * (2 * kT * (pitch_of(d) + pitch_of(dv)) + kT * kPP +
-                          2 * kT);
+// K and V (or Q and dO), two tiles of the other pair, the partial scores,
+// and (step 2) two tiles' lse and D
+size_t bwd_smem(int d, int dv) {
+  return sizeof(float) * (3 * kT * static_cast<size_t>(pitch_of(d) +
+                                                       pitch_of(dv)) +
+                          kWarps * kExchange + 4 * kT);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// where this warp's chunks of 16 columns of an n-column row begin and end
+__device__ __forceinline__ void part_chunks(int n, int part, int& c0,
+                                            int& c1) {
+  const int chunks = (n + 15) / 16;
+  const int per = (chunks + kParts - 1) / kParts;
+  c0 = min(chunks, part * per);
+  c1 = min(chunks, c0 + per);
+}
+
+// NT: 8-column tiles of dK and dV a warp holds; 4 parts x 8 NT >= d, dv
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 1)
 fa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v,
                    const float* __restrict__ dout,
                    const float* __restrict__ lse,
-                   const float* __restrict__ delta, float* __restrict__ dk,
-                   float* __restrict__ dvo, Dims z) {
+                   float* __restrict__ scratch, float* __restrict__ dk,
+                   float* __restrict__ dvo, Dims z, bool vec) {
   extern __shared__ __align__(16) float smem[];
   const int pd = pitch_of(z.d), pv = pitch_of(z.dv);
   float* sK = smem;                    // [kT][pd]
   float* sV = sK + kT * pd;            // [kT][pv]
-  float* sQ = sV + kT * pv;            // [kT][pd]
-  float* sO = sQ + kT * pd;            // [kT][pv]  dO
-  float* sP = sO + kT * pv;            // [kT][kPP]
-  float* sS = sP + kT * kPP;           // [kT][kPP] dS
-  float* sL = sS + kT * kPP;           // [kT] lse
-  float* sD = sL + kT;                 // [kT] delta
-  const int tid = threadIdx.x, ti = tid >> 4, tj = tid & 15;
-  const int w = tid >> 5, lane = tid & 31;
-  const int k0 = blockIdx.x * kT;
-  const int kvh = blockIdx.y;
-  const int64_t b = blockIdx.z;
-  const int group = z.heads / z.kv_heads;
+  float* sQ = sV + kT * pv;            // [2][kT][pd]
+  float* sO = sQ + 2 * kT * pd;        // [2][kT][pv]  dO
+  float* sX = sO + 2 * kT * pv;        // [kWarps][kExchange]
+  float* sL = sX + kWarps * kExchange; // [2][kT] lse
+  float* sD = sL + 2 * kT;             // [2][kT] delta
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rg = warp / kParts, part = warp % kParts;
+  const int g = lane >> 2, t = lane & 3;
+  const int kt = blockIdx.x / z.heads, h = blockIdx.x % z.heads;
+  const int k0 = kt * kT;
+  const int64_t b = blockIdx.y;
+  const int group = z.heads / z.kv_heads, kvh = h / group;
   const int64_t qs = static_cast<int64_t>(z.heads) * z.d;
   const int64_t os = static_cast<int64_t>(z.heads) * z.dv;
   const int64_t ks = static_cast<int64_t>(z.kv_heads) * z.d;
   const int64_t vs = static_cast<int64_t>(z.kv_heads) * z.dv;
+  const float* qb = q + b * z.seq * qs + static_cast<int64_t>(h) * z.d;
+  const float* ob = dout + b * z.seq * os + static_cast<int64_t>(h) * z.dv;
+  const float* lrow = lse + (b * z.heads + h) * z.seq;
+  const float* drow = scratch + (b * z.heads + h) * z.seq;   // D
 
-  load_tile(sK, pd, k + (b * z.seq + k0) * ks + kvh * z.d, ks, z.seq - k0,
-            z.d);
-  load_tile(sV, pv, v + (b * z.seq + k0) * vs + kvh * z.dv, vs, z.seq - k0,
-            z.dv);
-  float acc_k[4][kCols], acc_v[4][kCols];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int m = 0; m < kCols; ++m) acc_k[r][m] = acc_v[r][m] = 0.f;
+  // the pad columns stay zero: no copy writes them
+  for (int i = tid; i < 3 * kT * (pd + pv); i += kThreads) smem[i] = 0.f;
+  __syncthreads();
 
+  stage(sK, pd, k + (b * z.seq + k0) * ks + kvh * z.d, ks, z.seq - k0, z.d,
+        vec);
+  stage(sV, pv, v + (b * z.seq + k0) * vs + kvh * z.dv, vs, z.seq - k0,
+        z.dv, vec);
   // queries that can see a key of this tile: [k0, k0 + kT - 1 + window)
   const int q_end = z.window > 0 ? min(z.seq, k0 + kT - 1 + z.window)
                                  : z.seq;
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = kvh * group + hh;
-    const float* lrow = lse + (b * z.heads + h) * z.seq;
-    const float* drow = delta + (b * z.heads + h) * z.seq;
-    for (int q0 = k0; q0 < q_end; q0 += kT) {
-      __syncthreads();                 // the last tile's Q, dO, P, dS used
-      load_tile(sQ, pd, q + (b * z.seq + q0) * qs + h * z.d, qs, z.seq - q0,
-                z.d);
-      load_tile(sO, pv, dout + (b * z.seq + q0) * os + h * z.dv, os,
-                z.seq - q0, z.dv);
-      if (tid < kT) {
-        const bool in = q0 + tid < z.seq;
-        sL[tid] = in ? lrow[q0 + tid] : 0.f;
-        sD[tid] = in ? drow[q0 + tid] : 0.f;
-      }
-      __syncthreads();
-      float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-      float dp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-      dot2x2(s, sQ, pd, sK, pd, z.d, ti, tj);
-      dot2x2(dp, sO, pv, sV, pv, z.dv, ti, tj);
-      probs(s, dp, sP, sS, sL, sD, q0, k0, ti, tj, z.seq, z.scale, z.window,
-            z.softcap);
-      __syncthreads();
-      accumulate<true>(acc_v, sP, sO, pv, z.dv, w, lane);
-      accumulate<true>(acc_k, sS, sQ, pd, z.d, w, lane);
+  const int n_q = (q_end - k0 + kT - 1) / kT;
+  stage(sQ, pd, qb + k0 * qs, qs, z.seq - k0, z.d, vec);
+  stage(sO, pv, ob + k0 * os, os, z.seq - k0, z.dv, vec);
+  stage_rows(sL, sD, lrow, drow, k0, z.seq);
+  cp_async_commit();
+
+  // this lane's A rows (keys of the tile): R0 and R0 + 8
+  const int R0 = 16 * rg + perm(g);
+  const int a_pos[2] = {k0 + R0, k0 + R0 + 8};
+  int c0q, c1q, c0v, c1v;
+  part_chunks(z.d, part, c0q, c1q);
+  part_chunks(z.dv, part, c0v, c1v);
+  const float* k_row = sK + R0 * pd + c0q * 16 + 4 * t;
+  const float* v_row = sV + R0 * pv + c0v * 16 + 4 * t;
+  const int bq = perm(g) * pd + c0q * 16 + 4 * t;   // in a Q tile
+  const int bo = perm(g) * pv + c0v * 16 + 4 * t;   // in a dO tile
+  const int col0 = part * 8 * NT;
+  const float none[2] = {0.f, 0.f};
+  float acc_k[NT][4], acc_v[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+
+  const int kmin = k0 + 16 * rg, kmax = kmin + 15;   // the group's keys
+  for (int it = 0; it < n_q; ++it) {
+    const int q0 = k0 + it * kT, buf = it & 1;
+    if (it + 1 < n_q) {
+      const int q1 = q0 + kT, nb = buf ^ 1;
+      stage(sQ + nb * kT * pd, pd, qb + q1 * qs, qs, z.seq - q1, z.d, vec);
+      stage(sO + nb * kT * pv, pv, ob + q1 * os, os, z.seq - q1, z.dv, vec);
+      stage_rows(sL + nb * kT, sD + nb * kT, lrow, drow, q1, z.seq);
     }
+    cp_async_commit();
+    cp_async_wait_prior();
+    __syncthreads();
+
+    // can a key of this row group see a query of this tile?  (one answer
+    // for the group's 4 warps, so all reach their barriers or none)
+    const int qmax = min(q0 + kT, z.seq) - 1;
+    const bool live = kmin < z.seq && kmin <= qmax &&
+                      (z.window <= 0 || kmax > q0 - z.window);
+    if (live) {
+      const float* sq = sQ + buf * kT * pd;
+      const float* so = sO + buf * kT * pv;
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      scores(s, k_row, sq + bq, pd, c1q - c0q);
+      exchange(s, sX, warp, lane);
+      scores(dp, v_row, so + bo, pv, c1v - c0v);
+      group_sync(warp);                // every warp has read the scores
+      exchange(dp, sX, warp, lane);
+      probs(s, dp, a_pos, q0, true, sL + buf * kT, sD + buf * kT, none,
+            none, t, z.seq, z.scale, z.window, z.softcap);
+      outer<NT>(acc_v, s, so + col0, pv, z.dv - col0, lane);
+      outer<NT>(acc_k, dp, sq + col0, pd, z.d - col0, lane);
+    }
+    __syncthreads();   // this buffer (and the partial scores) are consumed
   }
 
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int j = k0 + w + 8 * r;
-    if (j >= z.seq) continue;
-    float* krow = dk + (b * z.seq + j) * ks + kvh * z.d;
-    float* vrow = dvo + (b * z.seq + j) * vs + kvh * z.dv;
-#pragma unroll
-    for (int m = 0; m < kCols; ++m) {
-      const int c = lane + 32 * m;
-      if (c < z.d) krow[c] = acc_k[r][m] * z.scale;
-      if (c < z.dv) vrow[c] = acc_v[r][m];
-    }
+  // H = Kv: dK and dV directly; otherwise this head's partials, (B, H, S,
+  // d) and (B, H, S, dv) after D in the scratch
+  const int64_t n_rows = static_cast<int64_t>(gridDim.y) * z.heads * z.seq;
+  float* part_k = scratch + aligned(n_rows);
+  float* part_v = part_k + aligned(n_rows * z.d);
+  const int64_t head_row = (b * z.heads + h) * z.seq;
+  if (group == 1) {
+    store_rows<NT>(dk + b * z.seq * ks + kvh * z.d, ks, acc_k, a_pos, z.seq,
+                   col0, z.d, t, z.scale);
+    store_rows<NT>(dvo + b * z.seq * vs + kvh * z.dv, vs, acc_v, a_pos,
+                   z.seq, col0, z.dv, t, 1.f);
+  } else {
+    store_rows<NT>(part_k + head_row * z.d, z.d, acc_k, a_pos, z.seq, col0,
+                   z.d, t, z.scale);
+    store_rows<NT>(part_v + head_row * z.dv, z.dv, acc_v, a_pos, z.seq,
+                   col0, z.dv, t, 1.f);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// out (B, S, Kv, dim) = the sum over each group's heads of part (B, H, S,
+// dim), in head order
+__global__ void __launch_bounds__(256)
+fa_bwd_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
+                  int64_t n, int seq, int heads, int kv_heads, int dim) {
+  const int group = heads / kv_heads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int c = static_cast<int>(i % dim);
+    int64_t r = i / dim;
+    const int kvh = static_cast<int>(r % kv_heads);
+    r /= kv_heads;
+    const int j = static_cast<int>(r % seq);
+    const int64_t b = r / seq;
+    const float* p =
+        part + ((b * heads + kvh * group) * seq + j) * dim + c;
+    float acc = 0.f;
+    for (int hh = 0; hh < group; ++hh)
+      acc += p[static_cast<int64_t>(hh) * seq * dim];
+    out[i] = acc;
+  }
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 1)
 fa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, float* __restrict__ dq,
-                 Dims z) {
+                 Dims z, bool vec) {
   extern __shared__ __align__(16) float smem[];
   const int pd = pitch_of(z.d), pv = pitch_of(z.dv);
   float* sQ = smem;                    // [kT][pd]
   float* sO = sQ + kT * pd;            // [kT][pv]  dO
-  float* sK = sO + kT * pv;            // [kT][pd]
-  float* sV = sK + kT * pd;            // [kT][pv]
-  float* sS = sV + kT * pv;            // [kT][kPP] dS
-  float* sL = sS + kT * kPP;           // [kT]
-  float* sD = sL + kT;                 // [kT]
-  const int tid = threadIdx.x, ti = tid >> 4, tj = tid & 15;
-  const int w = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * kT;
-  const int h = blockIdx.y;
-  const int64_t b = blockIdx.z;
+  float* sK = sO + kT * pv;            // [2][kT][pd]
+  float* sV = sK + 2 * kT * pd;        // [2][kT][pv]
+  float* sX = sV + 2 * kT * pv;        // [kWarps][kExchange]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rg = warp / kParts, part = warp % kParts;
+  const int g = lane >> 2, t = lane & 3;
+  const int tiles = (z.seq + kT - 1) / kT;
+  const int qt = tiles - 1 - static_cast<int>(blockIdx.x) / z.heads;
+  const int h = blockIdx.x % z.heads;   // late query tiles first
+  const int q0 = qt * kT;
+  const int64_t b = blockIdx.y;
   const int kvh = h / (z.heads / z.kv_heads);
   const int64_t qs = static_cast<int64_t>(z.heads) * z.d;
   const int64_t os = static_cast<int64_t>(z.heads) * z.dv;
   const int64_t ks = static_cast<int64_t>(z.kv_heads) * z.d;
   const int64_t vs = static_cast<int64_t>(z.kv_heads) * z.dv;
+  const float* kb = k + b * z.seq * ks + static_cast<int64_t>(kvh) * z.d;
+  const float* vb = v + b * z.seq * vs + static_cast<int64_t>(kvh) * z.dv;
 
-  load_tile(sQ, pd, q + (b * z.seq + q0) * qs + h * z.d, qs, z.seq - q0,
-            z.d);
-  load_tile(sO, pv, dout + (b * z.seq + q0) * os + h * z.dv, os, z.seq - q0,
-            z.dv);
-  if (tid < kT) {
-    const bool in = q0 + tid < z.seq;
-    sL[tid] = in ? lse[(b * z.heads + h) * z.seq + q0 + tid] : 0.f;
-    sD[tid] = in ? delta[(b * z.heads + h) * z.seq + q0 + tid] : 0.f;
-  }
-  float acc[4][kCols];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int m = 0; m < kCols; ++m) acc[r][m] = 0.f;
+  for (int i = tid; i < 3 * kT * (pd + pv); i += kThreads) smem[i] = 0.f;
+  __syncthreads();
 
+  stage(sQ, pd, q + (b * z.seq + q0) * qs + h * z.d, qs, z.seq - q0, z.d,
+        vec);
+  stage(sO, pv, dout + (b * z.seq + q0) * os + h * z.dv, os, z.seq - q0,
+        z.dv, vec);
   // keys this tile's queries can see: [q0 - window + 1, q0 + kT)
   int k_begin = z.window > 0 ? max(0, q0 - z.window + 1) : 0;
   k_begin -= k_begin % kT;
   const int k_end = min(z.seq, q0 + kT);
-  for (int k0 = k_begin; k0 < k_end; k0 += kT) {
-    __syncthreads();                   // the last tile's K, V, dS used
-    load_tile(sK, pd, k + (b * z.seq + k0) * ks + kvh * z.d, ks, z.seq - k0,
-              z.d);
-    load_tile(sV, pv, v + (b * z.seq + k0) * vs + kvh * z.dv, vs,
-              z.seq - k0, z.dv);
+  const int n_k = (k_end - k_begin + kT - 1) / kT;
+  stage(sK, pd, kb + k_begin * ks, ks, z.seq - k_begin, z.d, vec);
+  stage(sV, pv, vb + k_begin * vs, vs, z.seq - k_begin, z.dv, vec);
+  cp_async_commit();
+
+  // this lane's A rows (queries of the tile), their lse and D
+  const int R0 = 16 * rg + perm(g);
+  const int a_pos[2] = {q0 + R0, q0 + R0 + 8};
+  float la[2], da[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = a_pos[r] < z.seq;
+    const int64_t o = (b * z.heads + h) * z.seq + a_pos[r];
+    la[r] = in ? lse[o] : 0.f;
+    da[r] = in ? delta[o] : 0.f;
+  }
+  int c0q, c1q, c0v, c1v;
+  part_chunks(z.d, part, c0q, c1q);
+  part_chunks(z.dv, part, c0v, c1v);
+  const float* q_row = sQ + R0 * pd + c0q * 16 + 4 * t;
+  const float* o_row = sO + R0 * pv + c0v * 16 + 4 * t;
+  const int bk = perm(g) * pd + c0q * 16 + 4 * t;   // in a K tile
+  const int bv = perm(g) * pv + c0v * 16 + 4 * t;   // in a V tile
+  const int col0 = part * 8 * NT;
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  const int qmin = q0 + 16 * rg;                       // the group's queries
+  const int qmax = min(qmin + 15, z.seq - 1);
+  for (int it = 0; it < n_k; ++it) {
+    const int k0 = k_begin + it * kT, buf = it & 1;
+    if (it + 1 < n_k) {
+      const int k1 = k0 + kT, nb = buf ^ 1;
+      stage(sK + nb * kT * pd, pd, kb + k1 * ks, ks, z.seq - k1, z.d, vec);
+      stage(sV + nb * kT * pv, pv, vb + k1 * vs, vs, z.seq - k1, z.dv, vec);
+    }
+    cp_async_commit();
+    cp_async_wait_prior();
     __syncthreads();
-    float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-    float dp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-    dot2x2(s, sQ, pd, sK, pd, z.d, ti, tj);
-    dot2x2(dp, sO, pv, sV, pv, z.dv, ti, tj);
-    probs(s, dp, nullptr, sS, sL, sD, q0, k0, ti, tj, z.seq, z.scale,
-          z.window, z.softcap);
+
+    const bool live = qmin < z.seq && k0 <= qmax &&
+                      (z.window <= 0 || k0 + kT - 1 > qmin - z.window);
+    if (live) {
+      const float* sk = sK + buf * kT * pd;
+      const float* sv = sV + buf * kT * pv;
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      scores(s, q_row, sk + bk, pd, c1q - c0q);
+      exchange(s, sX, warp, lane);
+      scores(dp, o_row, sv + bv, pv, c1v - c0v);
+      group_sync(warp);
+      exchange(dp, sX, warp, lane);
+      probs(s, dp, a_pos, k0, false, nullptr, nullptr, la, da, t, z.seq,
+            z.scale, z.window, z.softcap);
+      outer<NT>(acc, dp, sk + col0, pd, z.d - col0, lane);
+    }
     __syncthreads();
-    accumulate<false>(acc, sS, sK, pd, z.d, w, lane);
   }
 
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = q0 + w + 8 * r;
-    if (i >= z.seq) continue;
-    float* row = dq + (b * z.seq + i) * qs + h * z.d;
-#pragma unroll
-    for (int m = 0; m < kCols; ++m) {
-      const int c = lane + 32 * m;
-      if (c < z.d) row[c] = acc[r][m] * z.scale;
+  store_rows<NT>(dq + b * z.seq * qs + static_cast<int64_t>(h) * z.d, qs,
+                 acc, a_pos, z.seq, col0, z.d, t, z.scale);
+}
+
+template <int NT>
+int launch_nt(const float* q, const float* k, const float* v,
+              const float* dout, const float* lse, float* scratch, float* dq,
+              float* dk, float* dv, int batch, const Dims& z, bool vec,
+              cudaStream_t s) {
+  const size_t smem = bwd_smem(z.d, z.dv);
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_bwd_dkdv_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(fa_bwd_dq_kernel<NT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (z.seq + kT - 1) / kT;
+  const dim3 grid(static_cast<unsigned>(tiles) * z.heads, batch);
+  fa_bwd_dkdv_kernel<NT><<<grid, kThreads, smem, s>>>(q, k, v, dout, lse,
+                                                      scratch, dk, dv, z,
+                                                      vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (z.heads != z.kv_heads) {
+    const int64_t n_rows = static_cast<int64_t>(batch) * z.heads * z.seq;
+    const float* part_k = scratch + aligned(n_rows);
+    const float* part_v = part_k + aligned(n_rows * z.d);
+    const int64_t out_rows = static_cast<int64_t>(batch) * z.seq * z.kv_heads;
+    for (int which = 0; which < 2; ++which) {
+      const int dim = which == 0 ? z.d : z.dv;
+      const int64_t n = out_rows * dim;
+      const int64_t blocks = (n + 255) / 256 < (1 << 20) ? (n + 255) / 256
+                                                         : (1 << 20);
+      fa_bwd_sum_kernel<<<static_cast<unsigned>(blocks), 256, 0, s>>>(
+          which == 0 ? part_k : part_v, which == 0 ? dk : dv, n, z.seq,
+          z.heads, z.kv_heads, dim);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
     }
   }
+  fa_bwd_dq_kernel<NT><<<grid, kThreads, smem, s>>>(q, k, v, dout, lse,
+                                                    scratch, dq, z, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -345,9 +766,12 @@ extern "C" {
 
 // q: (batch, seq, heads, d), k: (batch, seq, kv_heads, d), v: (batch, seq,
 // kv_heads, dv), o and dout: (batch, seq, heads, dv), lse: (batch, heads,
-// seq), all f32 and row-major; delta: (batch, heads, seq) f32 scratch.
-// Writes dq, dk, dv (the shapes of q, k, v).  Three launches on `stream`;
-// returns the first CUDA error (0 on success).
+// seq), all f32 and row-major.  delta: f32 scratch of batch * heads * seq
+// floats when heads == kv_heads; otherwise of
+// a(n) + a(n d) + n dv floats, n = batch * heads * seq and a(x) = x
+// rounded up to a multiple of 64 (D, then each head's partial dK and dV).
+// Writes dq, dk, dv (the shapes of q, k, v).  Three or five launches on
+// `stream`; returns the first CUDA error (0 on success).
 int fa_backward_f32(const void* q, const void* k, const void* v,
                     const void* o, const void* dout, const void* lse,
                     void* delta, void* dq, void* dk, void* dv, int batch,
@@ -361,38 +785,38 @@ int fa_backward_f32(const void* q, const void* k, const void* v,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dims z{seq, heads, kv_heads, d, dv_dim, window, scale, softcap};
   const int64_t rows = static_cast<int64_t>(batch) * seq * heads;
-  const int per_block = kThreads / 32;
-  fa_bwd_delta_kernel<<<static_cast<unsigned>((rows + per_block - 1) /
-                                              per_block),
-                        kThreads, 0, s>>>(
+  fa_bwd_delta_kernel<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(
       static_cast<const float*>(o), static_cast<const float*>(dout),
       static_cast<float*>(delta), rows, seq, heads, dv_dim);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const size_t smem_kv = dkdv_smem(d, dv_dim), smem_q = dq_smem(d, dv_dim);
-  err = cudaFuncSetAttribute(fa_bwd_dkdv_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_kv));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(fa_bwd_dq_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_q));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (seq + kT - 1) / kT;
-  fa_bwd_dkdv_kernel<<<dim3(tiles, kv_heads, batch), kThreads, smem_kv, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dk), static_cast<float*>(dv), z);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fa_bwd_dq_kernel<<<dim3(tiles, heads, batch), kThreads, smem_q, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dq), z);
-  return static_cast<int>(cudaGetLastError());
+  const bool vec = d % 4 == 0 && dv_dim % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(q) |
+                    reinterpret_cast<uintptr_t>(k) |
+                    reinterpret_cast<uintptr_t>(v) |
+                    reinterpret_cast<uintptr_t>(dout)) % 16 == 0;
+  const auto* qf = static_cast<const float*>(q);
+  const auto* kf = static_cast<const float*>(k);
+  const auto* vf = static_cast<const float*>(v);
+  const auto* df = static_cast<const float*>(dout);
+  const auto* lf = static_cast<const float*>(lse);
+  auto* sf = static_cast<float*>(delta);
+  auto* dqf = static_cast<float*>(dq);
+  auto* dkf = static_cast<float*>(dk);
+  auto* dvf = static_cast<float*>(dv);
+  const int widest = d > dv_dim ? d : dv_dim;
+  if (widest <= 32)
+    return launch_nt<1>(qf, kf, vf, df, lf, sf, dqf, dkf, dvf, batch, z, vec,
+                        s);
+  if (widest <= 64)
+    return launch_nt<2>(qf, kf, vf, df, lf, sf, dqf, dkf, dvf, batch, z, vec,
+                        s);
+  if (widest <= 128)
+    return launch_nt<4>(qf, kf, vf, df, lf, sf, dqf, dkf, dvf, batch, z, vec,
+                        s);
+  return launch_nt<8>(qf, kf, vf, df, lf, sf, dqf, dkf, dvf, batch, z, vec,
+                      s);
 }
 
 }  // extern "C"

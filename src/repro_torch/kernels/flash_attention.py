@@ -18,8 +18,9 @@ Given CPU tensors the wrappers compute the plain versions from `ref`
 (`flash_attention_lse_ref`, `flash_attention_bwd_ref`).  Given CUDA tensors
 they launch the kernels on the current stream or raise: there is no
 fallback.  Each forward launch adds one to ``launches["flash_attention"]``,
-each backward (three kernels: the row sums of dO o, then dK and dV, then
-dQ) one to ``launches["flash_attention_bwd"]``.  The backward takes
+each backward (the row sums of dO o, then dK and dV, then their sums
+over a group's query heads when heads share a K/V head, then dQ) one to
+``launches["flash_attention_bwd"]``.  The backward takes
 float32 only; a bfloat16 input that needs a gradient raises.
 """
 from __future__ import annotations
@@ -115,6 +116,19 @@ def _forward(q, k, v, window: int, softcap: float, with_lse: bool
     return out, lse
 
 
+def bwd_scratch_floats(B: int, S: int, H: int, Kv: int, d: int,
+                       dv: int) -> int:
+    """Floats of the backward's scratch: the row sums D (B, H, S) and, when
+    query heads share a K/V head, each head's partial dK (B, H, S, d) and
+    dV (B, H, S, dv), each region from a multiple of 64 floats (the C
+    interface's rule)."""
+    n = B * H * S
+    if H == Kv:
+        return n
+    up = lambda x: -(-x // 64) * 64
+    return up(n) + up(n * d) + n * dv
+
+
 def flash_attention_bwd(q, k, v, out, lse, dout, *, window: int = 0,
                         softcap: float = 0.0):
     """The gradient of `flash_attention` at (q, k, v) given its output, its
@@ -140,12 +154,13 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, window: int = 0,
     dq, dk, dvv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk.zero_(), dvv.zero_()
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    scratch = torch.empty((bwd_scratch_floats(B, S, H, Kv, d, dv),),
+                          dtype=torch.float32, device=dev)
     lib = typed_library(BWD_SOURCE, _bwd_signatures)
     with torch.cuda.device(dev):
         status = lib.fa_backward_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(), B, S, H, Kv, d,
             dv, d ** -0.5, max(int(window), 0), float(softcap),
             current_stream())

@@ -230,6 +230,75 @@ def test_chunked_scan_order_meets_the_tolerance(needs_jax, B, S, W,
                                    rtol=0.05)
 
 
+def _chunked_rglru_scan_bwd(a, hs, dhs, dh_last, steps=4, lanes=32):
+    """The RG-LRU backward in the CUDA kernel's order: the reverse scan
+    g_t = a_{t+1} g_{t+1} + dhs_t (a_S = 1, entering g = dh_last) in tiles
+    of lanes * steps steps, the last first; each lane scans its sub-chunk
+    from zero, latest step first, into (prod a, G), the lanes' maps are
+    combined by a Kogge-Stone scan from lane 31 down, the exclusive one
+    applied to the carry gives the g entering each sub-chunk, and each lane
+    runs its sub-chunk again from it; d a = g h_{t-1}.  Steps at or past S
+    scan as a = 1, dhs = 0.  -> (da, dbx) f32."""
+    B, S, W = a.shape
+    tile = steps * lanes
+    pad = (-S) % tile
+    alpha = torch.cat([a[:, 1:].float(), torch.ones(B, 1 + pad, W)], 1)
+    beta = torch.cat([dhs.float(), torch.zeros(B, pad, W)], 1)
+    h_prev = torch.cat([torch.zeros(B, 1, W), hs[:, :-1].float()], 1)
+    dbx = torch.empty_like(beta)
+    carry = dh_last.float().clone()
+    for t0 in range(S + pad - tile, -1, -tile):
+        at = alpha[:, t0:t0 + tile].reshape(B, lanes, steps, W)
+        bt = beta[:, t0:t0 + tile].reshape(B, lanes, steps, W)
+        A, G = at[:, :, -1].clone(), bt[:, :, -1].clone()
+        for i in range(steps - 2, -1, -1):
+            G = _fma(at[:, :, i], G, bt[:, :, i])
+            A = A * at[:, :, i]
+        d = 1
+        while d < lanes:                  # every lane reads before any writes
+            A_new, G_new = A.clone(), G.clone()
+            G_new[:, :-d] = _fma(A[:, :-d], G[:, d:], G[:, :-d])
+            A_new[:, :-d] = A[:, :-d] * A[:, d:]
+            A, G = A_new, G_new
+            d *= 2
+        g = torch.cat([_fma(A[:, 1:], carry[:, None], G[:, 1:]),
+                       carry[:, None]], 1)
+        out = torch.empty_like(at)
+        for i in range(steps - 1, -1, -1):
+            g = _fma(at[:, :, i], g, bt[:, :, i])
+            out[:, :, i] = g
+        dbx[:, t0:t0 + tile] = out.reshape(B, tile, W)
+        carry = g[:, 0]
+    dbx = dbx[:, :S]
+    return dbx * h_prev, dbx
+
+
+# (B, S, W, a close to 1): S = 4097 with a in [0.9, 0.9999], S not a
+# multiple of the 128-step tile, S = 1
+CHUNKED_BWD_CASES = [(1, 4097, 32, True), (2, 300, 24, False),
+                     (3, 37, 8, True), (1, 1, 16, False)]
+
+
+@pytest.mark.parametrize("B,S,W,near_one", CHUNKED_BWD_CASES)
+def test_chunked_backward_scan_order_meets_the_tolerance(B, S, W, near_one):
+    """The backward kernel's combine order (tiles of 128 steps walked from
+    the end, 32 sub-chunks of 4, a Kogge-Stone combine from the last lane)
+    emulated on the CPU: within atol 1e-5 and rtol 0.05 of the plain
+    backward, and within 1e-4 of each gradient's largest entry."""
+    a, bx = (_scan_inputs_near_one if near_one else _scan_inputs)(
+        B, S, W, seed=S + W)
+    g = np.random.default_rng(S)
+    dhs = torch.from_numpy(g.standard_normal((B, S, W)).astype(np.float32))
+    dh = torch.from_numpy(g.standard_normal((B, W)).astype(np.float32))
+    ta = torch.from_numpy(a)
+    hs, _ = ref.rglru_scan_ref(ta, torch.from_numpy(bx))
+    got = _chunked_rglru_scan_bwd(ta, hs, dhs, dh)
+    want = ref.rglru_scan_bwd_ref(ta, hs, dhs, dh)
+    for g_, w_ in zip(got, want):
+        np.testing.assert_allclose(_f32(g_), _f32(w_), atol=1e-5, rtol=0.05)
+        assert (g_ - w_).abs().max() <= 1e-4 * w_.abs().max()
+
+
 def _tf32(x):
     """x rounded to TF32 (10 mantissa bits) to nearest, ties away from
     zero, as ``cvt.rna.tf32.f32``: on the int32 view, add half of the 13
