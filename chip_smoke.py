@@ -158,7 +158,27 @@ Needs one NVIDIA GPU and nvcc.  In order:
    (``trust_fsdp``, NC 2) for two rounds, its counts checked the same way;
    and ``python -m repro_torch.launch.train --steps 3`` on the card (its
    smoke config), which must exit 0;
-9. prints the federations line (4b, 4c and 4d), the serving line, the
+9. training falcon-mamba-7b: federated mode A at full width (d_model 4096,
+   d_inner 8192, N 16, vocabulary 65,024) cut to two MAMBA layers
+   (476,966,912 f32 parameters from seed 0) with phase 8's clients,
+   sequences and schedule (``FALCON_MAMBA_7B_TRAIN``), after phase 8's
+   memory is freed: first the selective-scan backward kernel
+   (``selective_scan_bwd``) against its plain version at the training
+   shape (1, 4096, 8192, 16) and at ragged ones (S = 1, 31, 33, 4097; Di
+   not a multiple of its 64 channels a block; N = 4, 16, 17, 32, 64; B =
+   2 and 3; d h_last absent, zero and random; a dt whose decays
+   underflow), each gradient within 1e-4 of its largest entry, two calls
+   bit for bit equal, timed cold and warm beside its bound, the plain
+   version and ``addcmul`` over its largest arrays; then three rounds
+   through ``Federation.from_spec(spec).run(max_rounds=3)`` (64
+   ``selective_scan`` and 32 ``selective_scan_bwd`` a round, exactly),
+   each round's seconds, the peak memory (< 80 GB), finite losses falling
+   from the first round to the third, one client's gradients through the
+   kernels against the plain versions (1e-3 of each parameter's largest
+   entry, the loss 1e-5 relative); and ``python -m
+   repro_torch.launch.train --arch falcon-mamba-7b --steps 3`` on the card
+   (its smoke config), which must exit 0;
+10. prints the federations line (4b, 4c and 4d), the serving line, the
    service line (4e: each segment's ``service_rounds_per_sec``, its
    checkpoint's seconds and bytes, the chaos children's start-up seconds,
    kills and restarts, beside the card's name and power limit), the
@@ -167,8 +187,8 @@ Needs one NVIDIA GPU and nvcc.  In order:
    each figure's metrics, seconds and launches, the JAX bands, the grid's
    recovery and its population against sequential seconds, the
    secure-aggregation cells, beside the card's name and power limit), the
-   training line (8: seconds a round, losses, launches, peak memory), the
-   kernels line, then the result line.
+   training line (8 and 9: seconds a round, losses, launches, peak
+   memory), the kernels line, then the result line.
 
 The trust kernels are timed back to back through their wrappers (the
 kernels line's ``ms`` and ``library_ms``) and by device time, warm (ten
@@ -177,7 +197,8 @@ calls from one CUDA graph) and cold (the L2 flushed before each call;
 every window's time and the SM clock printed.
 ``--compare-with DIR ...`` also times the ``trust_aggregate.cu``,
 ``flash_attention.cu``, ``rglru_scan.cu``, ``selective_scan.cu``,
-``flash_attention_bwd.cu`` and ``rglru_scan_bwd.cu`` found in each DIR
+``flash_attention_bwd.cu``, ``rglru_scan_bwd.cu`` and
+``selective_scan_bwd.cu`` found in each DIR
 (other versions of the kernels, with the same C interface) against this
 checkout's, in turns (old, new, new, old) at the main path's, the serving
 paths' and the training shapes (the fused trust kernel also at
@@ -218,6 +239,7 @@ SCAN_SOURCE = "src/repro_torch/kernels/csrc/rglru_scan.cu"
 SSM_SOURCE = "src/repro_torch/kernels/csrc/selective_scan.cu"
 FA_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 SCAN_BWD_SOURCE = "src/repro_torch/kernels/csrc/rglru_scan_bwd.cu"
+SSM_BWD_SOURCE = "src/repro_torch/kernels/csrc/selective_scan_bwd.cu"
 HERE_CSRC = os.path.join(HERE, os.path.dirname(SOURCE))
 SFU_EXP_PER_CLOCK_PER_SM = 16    # special-function units, compute cap. 9.0
 L2_FLUSH_BYTES = 256 * 2 ** 20   # > 5 x the H100's 50 MB L2
@@ -254,6 +276,13 @@ BWD_TOL = 1e-4
 # that, and the loss must agree to LIVE_LOSS_TOL
 LIVE_GRAD_TOL = 1e-2
 LIVE_LOSS_TOL = 1e-5
+# training falcon-mamba-7b (phase 9): full width cut to two MAMBA layers,
+# `repro_torch.api.scenarios.FALCON_MAMBA_7B_TRAIN`.  Its live gradients
+# are held to LIVE_GRAD_TOL_MAMBA of each parameter's largest entry, a
+# bound set before any run: a Mamba layer has none of the softmax
+# cancellation that raised attention's to LIVE_GRAD_TOL
+TRAIN_ROUNDS_MAMBA = 3
+LIVE_GRAD_TOL_MAMBA = 1e-3
 
 # the JAX package's final accuracy on this spec after 30 scanned rounds
 # (on a CPU); the port draws its own random numbers, so it is held to that
@@ -3122,10 +3151,25 @@ class _PlainScan(torch.autograd.Function):
         return ref.rglru_scan_bwd_ref(a, hs, dhs, dh_last)
 
 
-def live_train_check(eng, batch) -> dict:
+class _PlainSSM(torch.autograd.Function):
+    """The plain selective scan and its plain backward, on the card."""
+
+    @staticmethod
+    def forward(ctx, xc, dt, Bc, Cc, A):
+        from repro_torch.kernels import ref
+        ctx.save_for_backward(xc, dt, Bc, Cc, A)
+        return ref.selective_scan_ref(xc, dt, Bc, Cc, A)
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        from repro_torch.kernels import ref
+        return ref.selective_scan_bwd_ref(*ctx.saved_tensors, dy, dh_last)
+
+
+def live_train_check(eng, batch, tol: float = LIVE_GRAD_TOL) -> dict:
     """Client (0, 0)'s gradients on the first microbatch of the last
     round's batch, through the kernels and then through the plain versions
-    (forward and backward), each parameter's within LIVE_GRAD_TOL of its
+    (forward and backward), each parameter's within ``tol`` of its
     largest entry."""
     from repro_torch.kernels import ops
     from repro_torch.models import LM, lm_loss, xent
@@ -3154,31 +3198,33 @@ def live_train_check(eng, batch) -> dict:
     del x
     print(f"a microbatch's loss and gradient (remat): {json.dumps(split)}",
           flush=True)
-    saved = ops.attention, ops.lru_scan
+    saved = ops.attention, ops.lru_scan, ops.mamba_scan
     ops.attention = lambda q, k, v, *, window=0, softcap=0.0: \
         _PlainAttention.apply(q, k, v, window, softcap)
     ops.lru_scan = lambda a, bx: _PlainScan.apply(a, bx)
+    ops.mamba_scan = lambda xc, dt, Bc, Cc, A: _PlainSSM.apply(
+        xc, dt, Bc, Cc, A)
     try:
         l_p, g_p = grads()
     finally:
-        ops.attention, ops.lru_scan = saved
+        ops.attention, ops.lru_scan, ops.mamba_scan = saved
     rel = {k: rel_to_max(a_, b_) for k, a_, b_ in zip(params, g_k, g_p)}
     worst = max(rel, key=rel.get)
     top = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
     print(f"live: client (0, 0)'s gradients on the last round's microbatch "
           f"through the kernels against the plain versions: loss {l_k} "
           f"against {l_p}; the worst parameters, error over their largest "
-          f"entry: {top} (tolerance {LIVE_GRAD_TOL}), median "
+          f"entry: {top} (tolerance {tol}), median "
           f"{statistics.median(rel.values())}", flush=True)
     check(abs(l_k - l_p) <= LIVE_LOSS_TOL * abs(l_p),
           f"live loss {l_k} against {l_p}")
-    check(rel[worst] <= LIVE_GRAD_TOL,
+    check(rel[worst] <= tol,
           f"live gradients: {worst} off by {rel[worst]} of its largest "
           f"entry")
     return {"loss_kernels": l_k, "loss_plain": l_p,
             "max_rel_err": rel[worst], "worst": worst,
             "median_rel_err": statistics.median(rel.values()),
-            "tolerance": LIVE_GRAD_TOL, "time_split": split}
+            "tolerance": tol, "time_split": split}
 
 
 def expected_train_launches(cfg, records, clients: int, n_micro: int
@@ -3186,22 +3232,27 @@ def expected_train_launches(cfg, records, clients: int, n_micro: int
     """Each training kernel's launches over ``records``: clients x a x
     microbatches x layers of its kind, the forward twice (the per-layer
     checkpoint recomputes it in the backward)."""
-    from repro_torch.models import LOCAL, RGLRU, ATTN
+    from repro_torch.models import LOCAL, MAMBA, RGLRU, ATTN
     kinds = cfg.layer_kinds()
     n_attn = sum(k in (ATTN, LOCAL) for k in kinds)
     n_lru = sum(k == RGLRU for k in kinds)
+    n_ssm = sum(k == MAMBA for k in kinds)
     micro = sum(r.a for r in records) * clients * n_micro
     return {"flash_attention": 2 * micro * n_attn,
             "flash_attention_bwd": micro * n_attn,
             "rglru_scan": 2 * micro * n_lru,
-            "rglru_scan_bwd": micro * n_lru}
+            "rglru_scan_bwd": micro * n_lru,
+            "selective_scan": 2 * micro * n_ssm,
+            "selective_scan_bwd": micro * n_ssm}
 
 
 def train_run(spec, rounds: int, what: str, keep_batch: bool = False,
               must_fall: bool = False) -> dict:
     """``Federation.from_spec(spec).run(max_rounds=rounds)`` with the
     launch counts set to 0 before the run and read after; with
-    ``must_fall`` the last round's mean loss must be below the first's."""
+    ``must_fall`` the last round's mean loss must be below the first's.
+    A round's seconds run from its batch's draw to the next's (each round
+    ends reading its loss on the host)."""
     from repro_torch.api import Federation
     from repro_torch.core import fl_step
     from repro_torch.kernels import launches, reset_launches
@@ -3213,19 +3264,23 @@ def train_run(spec, rounds: int, what: str, keep_batch: bool = False,
     eng = fed.engine
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
-    kept = []
-    if keep_batch:
-        make = eng.task.make_batch
+    kept, marks = [], []
+    make = eng.task.make_batch
 
-        def keeping(*a, **kw):
-            kept[:] = [make(*a, **kw)]
-            return kept[0]
-        eng.task.make_batch = keeping
+    def marking(*a, **kw):
+        marks.append(time.perf_counter())
+        batch = make(*a, **kw)
+        if keep_batch:
+            kept[:] = [batch]
+        return batch
+    eng.task.make_batch = marking
     reset_launches()
     t0 = time.perf_counter()
     trace = fed.run(max_rounds=rounds)
     torch.cuda.synchronize()
-    t_run = time.perf_counter() - t0
+    t_end = time.perf_counter()
+    t_run = t_end - t0
+    each = [b_ - a_ for a_, b_ in zip(marks, marks[1:] + [t_end])]
     counts = dict(launches)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     recs = trace.records
@@ -3240,7 +3295,8 @@ def train_run(spec, rounds: int, what: str, keep_batch: bool = False,
           f"{eng.n_clusters} clusters x {clients // eng.n_clusters} "
           f"clients, seq {eng.task.seq}, {eng.task.n_micro} microbatches of "
           f"{eng.task.micro_batch}: init {t_init:.2f} s, {len(recs)} rounds "
-          f"in {t_run:.2f} s ({t_run / max(len(recs), 1):.3f} s a round), "
+          f"in {t_run:.2f} s ({t_run / max(len(recs), 1):.3f} s a round; "
+          f"each {each}), "
           f"a {[r.a for r in recs]}, losses {losses}, peak device memory "
           f"{peak:.3f} GiB; launches {json.dumps(counts)}", flush=True)
     check(len(recs) == rounds, f"{what}: {len(recs)} records of {rounds}")
@@ -3257,6 +3313,7 @@ def train_run(spec, rounds: int, what: str, keep_batch: bool = False,
     return {"fed": fed, "eng": eng, "batch": kept[0] if kept else None,
             "record": {"rounds": len(recs), "init_s": t_init,
                        "run_s": t_run, "round_s": t_run / len(recs),
+                       "round_s_each": each,
                        "a": [r.a for r in recs], "losses": losses,
                        "peak_gib": peak, "launches": counts,
                        "params_a_client": n_params}}
@@ -3304,13 +3361,207 @@ def train_phase(dev) -> dict:
             "cli_s": t_cli, "phase_s": wall}
 
 
+# --------------------------------------------------------------------- #
+# training: falcon-mamba-7b
+# --------------------------------------------------------------------- #
+def ssm_bwd_inputs(B, S, Di, N, dev, seed, dt_scale=1.0):
+    """`ssm_inputs`' draws in float32 with dt scaled by ``dt_scale``, then
+    dy (B, S, Di) and d h_last (B, Di, N)."""
+    xc, dt, Bc, Cc, A = ssm_inputs(B, S, Di, N, torch.float32, dev, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1000)
+    dy = torch.randn((B, S, Di), generator=g, device=dev)
+    dh = torch.randn((B, Di, N), generator=g, device=dev)
+    return [xc, dt * dt_scale, Bc, Cc, A], dy, dh
+
+
+SSM_GRADS = ("dxc", "ddt", "dBc", "dCc", "dA")
+
+
+def ssm_bwd_turns(cfg, dev, dirs) -> dict:
+    """Each DIR's ``selective_scan_bwd.cu`` (the same C interface) against
+    this checkout's at the training shape, in turns (old, new, new, old),
+    warm and cold: {dir: {"warm": {"old": [...], "new": [...]}, "cold":
+    ..., "max_rel_diff": x}}, ms.  Both sides call their C function on the
+    same preallocated outputs, with twice this checkout's scratch (room for
+    a variant with half the channels a block)."""
+    from repro_torch.kernels.selective_scan import bwd_scratch_floats
+    name = os.path.basename(SSM_BWD_SOURCE)
+    others = other_libraries(name, dirs, "selective_scan", "_bwd_signatures")
+    if not others:
+        return {}
+    mine = other_libraries(name, [HERE_CSRC], "selective_scan",
+                           "_bwd_signatures")[HERE_CSRC]
+    S, Di, N = RECURRENT_TRAIN_SEQ, cfg.d_inner, cfg.ssm_state
+    args, dy, _ = ssm_bwd_inputs(1, S, Di, N, dev, 96)
+    outs = [torch.empty_like(t) for t in args]
+    scratch = torch.empty((2 * bwd_scratch_floats(1, S, Di, N),),
+                          device=dev)
+    flush = L2Flush(dev)
+
+    def call(where, lib):
+        def fn():
+            status = lib.selective_scan_bwd_f32(
+                *(t.data_ptr() for t in args), dy.data_ptr(), None,
+                *(t.data_ptr() for t in outs), scratch.data_ptr(), 1, S, Di,
+                N, torch.cuda.current_stream().cuda_stream)
+            check(status == 0, f"selective_scan_bwd of {where}: {status}")
+        return fn
+
+    out_t = {}
+    for where, old in others.items():
+        fns = {"old": call(where, old), "new": call("this checkout", mine)}
+        for x in outs:              # what the other version leaves unwritten
+            x.fill_(float("nan"))   # shows as NaN
+        fns["old"]()
+        got_old = [x.clone() for x in outs]
+        fns["new"]()
+        diff = [rel_to_max(a_, b_) for a_, b_ in zip(got_old, outs)]
+        out_t[where] = {"warm": in_turns(fns, reps=10),
+                        "cold": in_turns(fns, flush=flush, reps=5),
+                        "max_rel_diff": torch.tensor(diff).max().item()}
+        print(f"{name} in turns against {where} (old, new, new, old), ms: "
+              f"{json.dumps(out_t[where])}", flush=True)
+    return out_t
+
+
+def ssm_bwd_phase(cfg, dev, compare_dirs=()) -> dict:
+    """The selective-scan backward kernel against its plain version at the
+    training shape and at ragged ones (every gradient within BWD_TOL of
+    its largest entry), two calls bit for bit equal; its times at the
+    training shape, warm and cold, beside its bound, the plain version, an
+    ``addcmul`` over its largest arrays and the forward at B = 1, and in
+    turns with each of ``compare_dirs``' ``selective_scan_bwd.cu``."""
+    from repro_torch.kernels import ref, selective_scan
+    from repro_torch.kernels.selective_scan import selective_scan_bwd
+    S, Di, N = RECURRENT_TRAIN_SEQ, cfg.d_inner, cfg.ssm_state
+    # (B, S, Di, N, dt scale, d h_last: None, "zero" or "random"): the
+    # training shape as training calls it (no d h_last) and with one; S = 1,
+    # 31, 33 and 4097 across the 32-step chunks; Di not a multiple of the
+    # 64 channels a block (8193 and 100 also not of 16 bytes: plain
+    # loads); N = 4, 16, 17, 32 and 64 (one, two and four lanes a
+    # channel); B = 2 and 3; a dt large enough that exp(dt A) underflows
+    cases = [(1, S, Di, N, 1.0, None), (1, S, Di, N, 1.0, "random"),
+             (1, 1, Di, N, 1.0, "random"), (2, 31, 130, N, 1.0, "zero"),
+             (3, 33, 100, 4, 1.0, "random"), (1, S + 1, 100, N, 1.0, "random"),
+             (1, 300, Di + 1, N, 1.0, "random"), (2, 97, 72, 64, 1.0, None),
+             (1, 65, 96, 32, 1.0, "random"), (2, 50, 200, N, 300.0, "random"),
+             (1, 40, 64, 17, 1.0, "zero")]
+    err = {k: 0.0 for k in SSM_GRADS}
+    abs_err = 0.0
+    for i, (b, s_, d, n, scale, dh_kind) in enumerate(cases):
+        args, dy, dh = ssm_bwd_inputs(b, s_, d, n, dev, 700 + i, scale)
+        dh = {None: None, "zero": torch.zeros_like(dh), "random": dh}[dh_kind]
+        if scale > 1.0:
+            check(float(torch.exp(args[1][..., None] * args[4]).min()) == 0,
+                  f"selective_scan_bwd {cases[i]}: no decay underflows")
+        got = selective_scan_bwd(*args, dy, dh)
+        if i < 2:
+            again = selective_scan_bwd(*args, dy, dh)
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  f"selective_scan_bwd {cases[i]}: two calls differ")
+            del again
+        want = ref.selective_scan_bwd_ref(*args, dy, dh)
+        rel = {k: rel_to_max(g_, w_) for k, g_, w_ in zip(SSM_GRADS, got,
+                                                          want)}
+        check(max(rel.values()) <= BWD_TOL, f"selective_scan_bwd "
+              f"{cases[i]}: errors {rel} of the largest entries, beyond "
+              f"{BWD_TOL}")
+        err = {k: max(err[k], rel[k]) for k in err}
+        abs_err = max([abs_err] + [(g_ - w_).abs().max().item()
+                                   for g_, w_ in zip(got, want)])
+        del args, dy, dh, got, want
+    torch.cuda.synchronize()
+    print(f"selective_scan_bwd against its plain version, {len(cases)} "
+          f"shapes: worst error over each gradient's largest entry "
+          f"{json.dumps(err)} (tolerance {BWD_TOL}), max abs {abs_err}; two "
+          "calls bit for bit equal", flush=True)
+    turns = ssm_bwd_turns(cfg, dev, compare_dirs)
+
+    flush = L2Flush(dev)
+    args, dy, _ = ssm_bwd_inputs(1, S, Di, N, dev, 98)
+    bwd = lambda: selective_scan_bwd(*args, dy)
+    xc, dt = args[0], args[1]
+    t = {"ssm_bwd": time_ms(bwd, reps=10, windows=5, warmup=2),
+         "ssm_bwd_cold": statistics.median(window_times(
+             bwd, reps=5, windows=5, warmup=1, flush=flush)),
+         "ssm_bwd_plain": time_ms(lambda: ref.selective_scan_bwd_ref(
+             *args, dy), reps=1, windows=2, warmup=1),
+         # dy + xc * dt: four of the five (B, S, Di) arrays' bytes, not the
+         # same function
+         "ssm_bwd_same_bytes": time_ms(lambda: torch.addcmul(dy, xc, dt)),
+         "ssm_fwd_b1": time_ms(lambda: selective_scan(*args))}
+    # xc, dt, dy read and dxc, ddt written; Bc, Cc read and dBc, dCc
+    # written; A read and dA written
+    n_bytes = 4 * (5 * S * Di + 4 * S * N + 2 * Di * N)
+    # per (t, d, n): the states' recurrence (dt A, (dt x) B, the update's
+    # FMA), g's update (dy C, an FMA), the dBc and dCc terms and their sums
+    # over d, sum_n g B, u = g dA h_{t-1}, its sum with A and its dA term
+    n_flops = 19 * S * Di * N
+    n_exp = S * Di * N
+    terms = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "flops": n_flops / FP32_FLOPS_PER_S * 1e3,
+             "exponentials": n_exp / sfu_exp_per_s() * 1e3}
+    term = max(terms, key=terms.get)
+    print(f"selective_scan_bwd at (1, {S}, {Di}, {N}): warm {t['ssm_bwd']} "
+          f"ms, cold {t['ssm_bwd_cold']} ms, plain {t['ssm_bwd_plain']} ms, "
+          f"addcmul over four of its five largest arrays "
+          f"{t['ssm_bwd_same_bytes']} ms, the forward at B = 1 "
+          f"{t['ssm_fwd_b1']} ms; bound terms {terms} ms: bounded by {term}",
+          flush=True)
+    return {"err": err, "abs_err": abs_err, "t": t, "turns": turns,
+            "terms": terms, "term": term,
+            "bound": (terms[term], "bytes" if term == "bytes"
+                      else "operations"),
+            "bytes": n_bytes, "flops": n_flops, "exponentials": n_exp,
+            "cases": len(cases)}
+
+
+def mamba_train_phase(dev) -> dict:
+    """Mode A (three rounds) of the federated LM step at falcon-mamba-7b's
+    full width cut to two MAMBA layers, its peak memory, the live gradient
+    check, and the training CLI on ``--arch falcon-mamba-7b``."""
+    from repro_torch.api import FederationSpec
+    from repro_torch.api.scenarios import FALCON_MAMBA_7B_TRAIN
+    spec = FederationSpec.from_dict(FALCON_MAMBA_7B_TRAIN)
+    t0 = time.perf_counter()
+    a = train_run(spec, TRAIN_ROUNDS_MAMBA,
+                  "falcon-mamba-7b mode A (fedavg_replica)", keep_batch=True,
+                  must_fall=True)
+    rec = a["record"]
+    check(rec["peak_gib"] * 2 ** 30 < 80e9,
+          f"falcon-mamba-7b training peaked at {rec['peak_gib']} GiB")
+    live = live_train_check(a["eng"], a["batch"], LIVE_GRAD_TOL_MAMBA)
+    del a
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.join(HERE, "src"), env.get("PYTHONPATH")) if p)
+    t1 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          "--arch", MAMBA_ARCH, "--steps", "3"], cwd=HERE,
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    t_cli = time.perf_counter() - t1
+    print(f"python -m repro_torch.launch.train --arch {MAMBA_ARCH} --steps "
+          f"3: exit {cli.returncode} in {t_cli:.2f} s:\n"
+          f"{cli.stdout[-2000:]}", flush=True)
+    check(cli.returncode == 0, f"the training CLI failed on {MAMBA_ARCH}: "
+          f"{cli.stderr[-4000:]}")
+    wall = time.perf_counter() - t0
+    print(f"phase 9 (falcon-mamba-7b training) took {wall:.2f} s",
+          flush=True)
+    return {"mode_a": rec, "live": live, "cli_s": t_cli, "phase_s": wall}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare-with", metavar="DIR", nargs="+", default=[],
                     help="time each DIR's trust_aggregate.cu, "
                          "flash_attention.cu, rglru_scan.cu, "
-                         "selective_scan.cu, flash_attention_bwd.cu and "
-                         "rglru_scan_bwd.cu against this checkout's")
+                         "selective_scan.cu, flash_attention_bwd.cu, "
+                         "rglru_scan_bwd.cu and selective_scan_bwd.cu "
+                         "against this checkout's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3336,7 +3587,7 @@ def main() -> None:
     # 2. the kernels, from this checkout's sources
     t0 = time.perf_counter()
     sources = (SOURCE, FA_SOURCE, SCAN_SOURCE, SSM_SOURCE, FA_BWD_SOURCE,
-               SCAN_BWD_SOURCE)
+               SCAN_BWD_SOURCE, SSM_BWD_SOURCE)
     build.build_all([os.path.basename(p) for p in sources])
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"({build.build_seconds})", flush=True)
@@ -3513,12 +3764,19 @@ def main() -> None:
     free_library_memory()
     training = train_phase(dev)
     free_library_memory()
+
+    # 9. training: falcon-mamba-7b at full width, two MAMBA layers
+    sk = ssm_bwd_phase(mcfg, dev, args.compare_with)
+    free_library_memory()
+    mtraining = mamba_train_phase(dev)
+    free_library_memory()
     train_counts = {"mode_a": training["mode_a"]["launches"],
-                    "mode_b": training["mode_b"]["launches"]}
+                    "mode_b": training["mode_b"]["launches"],
+                    "falcon_mamba_mode_a": mtraining["mode_a"]["launches"]}
     train_launches = {k: sum(c[k] for c in train_counts.values())
                       for k in launches}
 
-    # 9. the serving line, the kernels line, then the result line
+    # 10. the serving line, the kernels line, then the result line
     t, bd, err = kp["t"], kp["bound"], kp["err"]
     lt, lbd = lk["t"], lk["bound"]
     kernels = [
@@ -3631,7 +3889,12 @@ def main() -> None:
          "bytes": lk["bytes"]["scan"]},
         {"name": "selective_scan", "route": "cuda", "source": SSM_SOURCE,
          "replaces": "src/repro/kernels/selective_scan.py:25",
-         "launches": serve_launches["selective_scan"],
+         "launches": serve_launches["selective_scan"]
+         + train_launches["selective_scan"],
+         "launches_by_path": {"serving": serve_launches["selective_scan"],
+                              **{p: c["selective_scan"]
+                                 for p, c in train_counts.items()}},
+         "at_training_shape_ms": sk["t"]["ssm_fwd_b1"],
          "max_abs_err": mk["err"]["float32"],
          "tolerance": SCAN_TOL["float32"],
          "bf16_max_abs_err": mk["err"]["bfloat16"],
@@ -3703,6 +3966,32 @@ def main() -> None:
          "shape": {"B": 1, "S": RECURRENT_TRAIN_SEQ, "W": cfg.lru_width,
                    "dtype": "float32"},
          "bytes": tk["bytes"]["scan_bwd"]},
+        {"name": "selective_scan_bwd", "route": "cuda",
+         "source": SSM_BWD_SOURCE,
+         "replaces": "src/repro/kernels/ref.py:37",
+         "replaces_note": "no Pallas counterpart: the reference is jax.vjp "
+                          "of selective_scan_ref (src/repro/kernels/ref.py:"
+                          "37-55) and jax.grad of mamba_forward's lax.scan "
+                          "(src/repro/models/mamba.py:68-83)",
+         "launches": train_launches["selective_scan_bwd"],
+         "launches_by_path": {p: c["selective_scan_bwd"]
+                              for p, c in train_counts.items()},
+         "max_abs_err": sk["abs_err"], "max_rel_err": max(sk["err"].values()),
+         "rel_err_by_gradient": sk["err"], "tolerance": BWD_TOL,
+         "live_max_rel_err": mtraining["live"]["max_rel_err"],
+         "ms": sk["t"]["ssm_bwd"], "cold_ms": sk["t"]["ssm_bwd_cold"],
+         "plain_ms": sk["t"]["ssm_bwd_plain"], "bound_ms": sk["bound"][0],
+         "bound_by": sk["bound"][1], "bound_term": sk["term"],
+         "bound_terms_ms": sk["terms"], "library_ms": None,
+         # dy + xc * dt: four of its five largest arrays, not the function
+         "same_bytes_addcmul_ms": sk["t"]["ssm_bwd_same_bytes"],
+         "in_turns_ms": sk["turns"],
+         "ptxas": build.ptxas_report(os.path.basename(SSM_BWD_SOURCE))
+         or "not built in this run",
+         "shape": {"B": 1, "S": RECURRENT_TRAIN_SEQ, "Di": mcfg.d_inner,
+                   "N": mcfg.ssm_state, "dtype": "float32"},
+         "bytes": sk["bytes"], "flops": sk["flops"],
+         "exponentials": sk["exponentials"]},
     ]
     print(json.dumps({"federations": feds}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
@@ -3713,7 +4002,8 @@ def main() -> None:
           flush=True)
     print(json.dumps({"paper": {"device": smi_line,
                                 **plain_json(paper["paper"])}}), flush=True)
-    print(json.dumps({"training": {"device": smi_line, **training}}),
+    print(json.dumps({"training": {"device": smi_line, **training,
+                                   "falcon_mamba_7b": mtraining}}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,14 @@
-"""The two backward kernels against other versions of their sources.
+"""The three backward kernels against other versions of their sources.
 
     python3 scripts/bwd_sweep.py [DIR ...]
 
-Each DIR holds a ``flash_attention_bwd.cu`` and/or ``rglru_scan_bwd.cu``
-with this checkout's C interface (a timing-only variant needs no
-correctness).  Runs ``chip_smoke.py``'s training-kernel phase alone: this
-checkout's backward kernels against their plain versions at the training
-shape of recurrentgemma-2b and at shapes that cross their partitions (two
-calls bit for bit equal), then each DIR's kernels timed in turns with the
+Each DIR holds a ``flash_attention_bwd.cu``, ``rglru_scan_bwd.cu`` and/or
+``selective_scan_bwd.cu`` with this checkout's C interface (a timing-only
+variant needs no correctness).  Runs ``chip_smoke.py``'s two
+training-kernel phases alone: this checkout's backward kernels against
+their plain versions at the training shapes of recurrentgemma-2b and
+falcon-mamba-7b and at shapes that cross their partitions (two calls bit
+for bit equal), then each DIR's kernels timed in turns with the
 checkout's (old, new, new, old), warm and cold, then the checkout's beside
 its plain version, the library call and the bound.  Then ptxas's
 registers and spills of each source.  A DIR that holds a copy of a source
@@ -40,18 +41,26 @@ def main() -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     sources = [os.path.basename(p) for p in (
-        chip_smoke.FA_SOURCE, chip_smoke.SCAN_SOURCE,
-        chip_smoke.FA_BWD_SOURCE, chip_smoke.SCAN_BWD_SOURCE)]
+        chip_smoke.FA_SOURCE, chip_smoke.SCAN_SOURCE, chip_smoke.SSM_SOURCE,
+        chip_smoke.FA_BWD_SOURCE, chip_smoke.SCAN_BWD_SOURCE,
+        chip_smoke.SSM_BWD_SOURCE)]
     build.build_all(sources)
-    r = chip_smoke.train_kernel_phase(get_config(chip_smoke.ARCH),
-                                      torch.device("cuda"), dirs)
+    dev = torch.device("cuda")
+    r = chip_smoke.train_kernel_phase(get_config(chip_smoke.ARCH), dev,
+                                      dirs)
+    chip_smoke.free_library_memory()
+    m = chip_smoke.ssm_bwd_phase(get_config(chip_smoke.MAMBA_ARCH), dev,
+                                 dirs)
     for d in [chip_smoke.HERE_CSRC] + dirs:
-        for src in sources[2:]:
+        for src in sources[3:]:
             for row in build.ptxas_report(src, d):
                 print(f"ptxas {d}/{src}: {json.dumps(row)}", flush=True)
     print(json.dumps({"device": smi.stdout.strip(), "err": r["err"],
                       "t": r["t"], "turns": r["turns"],
-                      "bound_ms": r["bound"]}), flush=True)
+                      "bound_ms": r["bound"],
+                      "selective_scan_bwd": {
+                          "err": m["err"], "t": m["t"], "turns": m["turns"],
+                          "bound_ms": m["bound"]}}), flush=True)
 
 
 if __name__ == "__main__":

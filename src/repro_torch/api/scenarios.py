@@ -44,6 +44,17 @@ vocabulary 256,000, window 2048) cut to one Griffin period (num_layers 26
 clients, 4096-token sequences, 2 microbatches of 1, a fixed a = 2 (the
 ``lm-modeA`` controller), Adam at 3e-4.  Four clients' parameters and Adam
 moments are 40.8 GiB in float32; the full 26 layers would be 129 GiB.
+
+``FALCON_MAMBA_7B_TRAIN``: the same federation and traffic (NC 2 x C 2
+clients, 4096-token sequences, 2 microbatches of 1, a fixed a = 2, Adam at
+3e-4) training falcon-mamba-7b at full width
+(`repro_torch/configs/falcon_mamba_7b.py`: d_model 4096, d_inner 8192,
+N 16, dt_rank 256, conv 4, vocabulary 65,024, tied embeddings; its own
+``fl_mode``, ``fedavg_replica``) cut to 2 MAMBA layers (num_layers 64 ->
+2), so that one layer's input gradient passes back through the layer
+before it: 476,966,912 parameters (266,338,304 of embedding, 105,312,256 a
+layer, the final norm).  Four clients' parameters and Adam moments are
+21.3 GiB in float32; the full 64 layers would be ~313 GiB.
 """
 from __future__ import annotations
 
@@ -112,6 +123,19 @@ RECURRENTGEMMA_2B_TRAIN = {
              "params": {**_RG2B, "seq": 4096, "micro_batch": 1,
                         "n_micro": 2, "lr": 3e-4}},
     "rounds": 3, "seed": 0,
+}
+
+_FM7B = {"num_layers": 2, "name": "falcon-mamba-7b-train",
+         "arch_type": "ssm", "d_model": 4096, "vocab_size": 65024,
+         "d_ff": 0, "block_pattern": ["mamba"], "ssm_state": 16,
+         "ssm_expand": 2, "ssm_conv": 4, "dt_rank": 256,
+         "tie_embeddings": True, "fl_mode": "fedavg_replica"}
+
+FALCON_MAMBA_7B_TRAIN = {
+    **RECURRENTGEMMA_2B_TRAIN,
+    "task": {"kind": "lm",
+             "params": {**_FM7B, "seq": 4096, "micro_batch": 1,
+                        "n_micro": 2, "lr": 3e-4}},
 }
 
 

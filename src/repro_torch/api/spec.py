@@ -5,8 +5,8 @@ field and default, and `to_dict` / `from_dict` use the same plain dicts, so
 a spec written by either package builds in the other.  Only `validate`
 differs: it raises `NotImplementedError`, naming the ROADMAP item that will
 port it, for what the port does not run yet (the multi-device scales,
-sharding meshes, and language models whose layers do not train yet),
-before the JAX package's checks.
+sharding meshes, and language models with MoE, MLA, qkv-bias / qk-norm or
+audio-codebook layers), before the JAX package's checks.
 """
 from __future__ import annotations
 
@@ -30,9 +30,9 @@ def unported(spec: "FederationSpec") -> Optional[str]:
     ports it; None when the port runs all of it.  The port runs the
     device scale on one device with every aggregator (trust, fedavg and the
     robust rules), controller and task, differential privacy and every
-    fault family, and the datacenter scale's LM training for the dense
-    and hybrid kinds; it does not run the multi-device scales, a sharding
-    mesh, or the training of a model with MAMBA, MoE, MLA, qkv-bias /
+    fault family, and the datacenter scale's LM training for the dense,
+    hybrid and SSM (Mamba) kinds; it does not run the multi-device scales,
+    a sharding mesh, or the training of a model with MoE, MLA, qkv-bias /
     qk-norm or audio-codebook layers."""
     if spec.scale not in (DEVICE_SCALE, DATACENTER_SCALE):
         return (f"scale {spec.scale!r} (multi-device engines, {_QUEUE}, "

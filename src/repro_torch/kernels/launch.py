@@ -26,7 +26,8 @@ launches: Dict[str, int] = {"trust_aggregate": 0,
                             "flash_attention_bwd": 0,
                             "rglru_scan": 0,
                             "rglru_scan_bwd": 0,
-                            "selective_scan": 0}
+                            "selective_scan": 0,
+                            "selective_scan_bwd": 0}
 
 
 def reset_launches() -> None:

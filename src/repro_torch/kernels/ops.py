@@ -100,6 +100,8 @@ def lru_scan(a, bx):
 
 def mamba_scan(xc, dt, Bc, Cc, A):
     """The Mamba-1 selective scan over (B,S,Di) with (B,S,N) B and C and a
-    (Di,N) A, through the scan kernel -> (y, h_last)."""
+    (Di,N) A, through the scan kernel -> (y, h_last); differentiable
+    through the backward kernel (float32) when an input needs a gradient.
+    """
     return selective_scan(xc.contiguous(), dt.contiguous(), Bc.contiguous(),
                           Cc.contiguous(), A.contiguous())

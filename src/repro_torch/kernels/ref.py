@@ -4,10 +4,11 @@ Each function is the mathematical definition with no tiling: the CPU path
 of the wrappers (`trust_aggregate`, `flash_attention`, `rglru_scan`,
 `selective_scan`, and the population-batched `trust_aggregate_pop` and
 `trust_aggregate_global_pop`), and what `chip_smoke.py` holds the CUDA
-kernels against on the card.  The two backward versions
-(`flash_attention_bwd_ref`, `rglru_scan_bwd_ref`) compute the gradient
-formulas directly, as the backward kernels do; the JAX package has no
-backward kernel, and its reference is ``jax.grad`` of the jnp layers.
+kernels against on the card.  The three backward versions
+(`flash_attention_bwd_ref`, `rglru_scan_bwd_ref`,
+`selective_scan_bwd_ref`) compute the gradient formulas directly, as the
+backward kernels do; the JAX package has no backward kernel, and its
+reference is ``jax.grad`` of the jnp layers.
 Accumulation is in float32 and the result is cast to the input (or stack)
 dtype, as the kernels do.  They match ``src/repro/kernels/ref.py``.
 """
@@ -184,3 +185,48 @@ def selective_scan_ref(xc, dt, Bc, Cc, A):
         y[:, t] = torch.einsum("bdn,bn->bd", h,
                                Cc[:, t].to(torch.float32)).to(xc.dtype)
     return y, h
+
+
+def selective_scan_bwd_ref(xc, dt, Bc, Cc, A, dy, dh_last=None):
+    """The gradient of `selective_scan_ref` by its reverse recurrence, in
+    float32.  The states h_t are recomputed as the forward computes them;
+    then, from t = S-1 down to 0, with dA_t = exp(dt_t A):
+
+      g_t    = dy_t C_t + dA_{t+1} g_{t+1}    (+ dh_last at t = S-1)
+      dCc_t  = sum_d dy_t h_t,     dBc_t = sum_d g_t dt_t x_t,
+      dxc_t  = dt_t sum_n g_t B_t,
+      ddt_t  = x_t sum_n g_t B_t + sum_n g_t A dA_t h_{t-1},
+      dA     = sum_{b,t} g_t dt_t dA_t h_{t-1}        (h_{-1} = 0).
+
+    xc, dt, dy: (B,S,Di); Bc, Cc: (B,S,N); A: (Di,N); dh_last: (B,Di,N) or
+    None (no gradient reaches the final state) -> (dxc, ddt, dBc, dCc, dA)
+    in the shapes and types of the inputs."""
+    B, S, Di = xc.shape
+    x, d, b, c, a, gy = (t.to(torch.float32) for t in (xc, dt, Bc, Cc, A, dy))
+    hs = torch.empty((S, B, Di, a.shape[1]), dtype=torch.float32,
+                     device=xc.device)
+    h = torch.zeros_like(hs[0])
+    for t in range(S):
+        h = torch.exp(d[:, t, :, None] * a) * h + \
+            (d[:, t] * x[:, t])[..., None] * b[:, t, None, :]
+        hs[t] = h
+    dx, ddt = torch.empty_like(x), torch.empty_like(x)
+    db, dc = torch.empty_like(b), torch.empty_like(c)
+    da = torch.zeros_like(a)
+    g = (torch.zeros_like(h) if dh_last is None
+         else dh_last.to(torch.float32).clone())
+    decay_next = None                       # dA_{t+1}
+    for t in range(S - 1, -1, -1):
+        decay = torch.exp(d[:, t, :, None] * a)
+        g = gy[:, t, :, None] * c[:, t, None, :] + (
+            g if decay_next is None else decay_next * g)
+        dc[:, t] = torch.einsum("bdn,bd->bn", hs[t], gy[:, t])
+        db[:, t] = torch.einsum("bdn,bd->bn", g, d[:, t] * x[:, t])
+        gb = torch.einsum("bdn,bn->bd", g, b[:, t])
+        dx[:, t] = d[:, t] * gb
+        u = g * decay * (hs[t - 1] if t > 0 else 0.0)
+        ddt[:, t] = x[:, t] * gb + (u * a).sum(-1)
+        da += (u * d[:, t, :, None]).sum(0)
+        decay_next = decay
+    return (dx.to(xc.dtype), ddt.to(dt.dtype), db.to(Bc.dtype),
+            dc.to(Cc.dtype), da.to(A.dtype))

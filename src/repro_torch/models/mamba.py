@@ -9,6 +9,12 @@ JAX package's ``models/mamba.py`` runs a ``lax.scan``.  Decode is one
 recurrence step in plain PyTorch, as in the JAX package, with an O(1)
 state: the (B, Di, N) SSM state and the (B, K-1, Di) conv history, both
 float32.
+
+The block trains: autograd reaches every parameter (``in_proj``,
+``conv_w``, ``conv_b``, ``x_proj``, ``dt_proj``, ``dt_bias``, ``A_log``
+through A, ``D``, ``out_proj``), through the PyTorch ops and, for the scan,
+the backward kernel (`kernels.selective_scan_bwd`; on the CPU its plain
+version), as the JAX package's training differentiates its ``lax.scan``.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Decoder-only language model: dense (global attention), hybrid
 (RG-LRU + local attention) and SSM (Mamba-1) architectures, for serving
-and, for the dense and hybrid kinds, training.
+and training.
 
 The JAX package's ``models/transformer.py`` keeps its layers as an
 unrolled prefix, a ``lax.scan`` over stacked groups of ``block_pattern``
@@ -44,19 +44,19 @@ Cache = List[Dict[str, torch.Tensor]]
 
 
 def _check_supported(cfg: ArchConfig) -> None:
+    item = "ROADMAP.md, queue 1, item 10"
     if cfg.use_mla:
         raise NotImplementedError(f"{cfg.name}: MLA attention is not ported "
-                                  "yet (ROADMAP queue 1, item 10)")
+                                  f"yet ({item})")
     if cfg.qkv_bias or cfg.qk_norm:
         raise NotImplementedError(f"{cfg.name}: qkv bias and qk-norm are not "
-                                  "ported yet (ROADMAP queue 1, item 10)")
+                                  f"ported yet ({item})")
     if cfg.num_experts:
         raise NotImplementedError(f"{cfg.name}: MoE layers are not ported "
-                                  "yet (ROADMAP queue 1, item 10)")
+                                  f"yet ({item})")
     if cfg.num_codebooks > 1:
         raise NotImplementedError(f"{cfg.name}: multi-codebook audio heads "
-                                  "are not ported yet (ROADMAP queue 1, "
-                                  "item 10)")
+                                  f"are not ported yet ({item})")
     for kind in cfg.layer_kinds():
         if kind not in (ATTN, LOCAL, RGLRU, MAMBA):
             raise ValueError(f"unknown layer kind {kind!r}")
@@ -64,13 +64,9 @@ def _check_supported(cfg: ArchConfig) -> None:
 
 def untrainable(cfg: ArchConfig) -> Optional[str]:
     """Why the port cannot train ``cfg`` yet (None: it can), naming the
-    ROADMAP item.  Training runs the dense and hybrid kinds; a Mamba layer
-    has no backward kernel, and MoE, MLA, qkv bias / qk-norm and audio
-    codebooks are not ported."""
-    if MAMBA in cfg.layer_kinds():
-        return (f"{cfg.name}: MAMBA layers do not train yet (the "
-                "selective_scan backward kernel, ROADMAP.md queue 1, "
-                "item 10)")
+    ROADMAP item.  Training runs every kind the port serves: dense, hybrid
+    (RG-LRU and local attention) and SSM (Mamba) layers.  MoE, MLA, qkv
+    bias / qk-norm and audio codebooks are not ported."""
     try:
         _check_supported(cfg)
     except NotImplementedError as e:

@@ -270,10 +270,11 @@ def test_spec_dict_and_trace_jsonl_roundtrip_across_packages(needs_jax,
 
 @pytest.mark.parametrize("change", [
     {"sharding": {"mesh": [2]}},
-    # the datacenter scale trains the dense and hybrid kinds since the LM
-    # training slice; a MAMBA model still has no backward kernel
+    # the datacenter scale trains the dense, hybrid and MAMBA kinds; an
+    # MoE model is not ported
     {"scale": "datacenter",
-     "task": {"kind": "lm", "params": {"arch": "falcon-mamba-7b"}}},
+     "task": {"kind": "lm", "params": {"num_experts": 4, "topk": 2,
+                                       "moe_d_ff": 16}}},
 ])
 def test_unported_features_raise(change):
     d = spec_dict(FIXED)

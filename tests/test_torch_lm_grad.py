@@ -13,8 +13,10 @@ jnp layers (``_sdpa`` with ``causal_mask``, the ``lax.scan`` of
   on carried-over parameters: recurrentgemma-2b's smoke widths cut to one
   Griffin period (3 layers) at seq 96 > window 64, and gemma-2b's smoke
   config (global attention);
+  (and falcon-mamba-7b's smoke config, two MAMBA layers);
 * `cuda`-marked twins: the backward kernels against the plain versions on
-  the card, and `selective_scan` refusing a gradient there.
+  the card, and `selective_scan`'s gradient through its backward kernel
+  there.
 
 Tolerances: the backward formulas against autograd or ``jax.vjp`` of the
 same forward, 2e-5 relative to each gradient's largest entry (float32 sums
@@ -256,7 +258,8 @@ def _rg3(get):
     return dataclasses.replace(get("recurrentgemma-2b"), num_layers=3)
 
 
-LM_CASES = {"recurrentgemma-2b-3": (_rg3, 96), "gemma-2b": (None, 48)}
+LM_CASES = {"recurrentgemma-2b-3": (_rg3, 96), "gemma-2b": (None, 48),
+            "falcon-mamba-7b": (None, 24)}
 
 
 @pytest.fixture(scope="module", params=sorted(LM_CASES))
@@ -378,7 +381,9 @@ def test_cuda_rglru_scan_backward_matches_plain_version(B, S, W):
 
 
 @pytest.mark.cuda
-def test_cuda_selective_scan_refuses_a_gradient():
+def test_cuda_selective_scan_gradient_goes_through_its_backward_kernel():
+    """A gradient of the selective scan on the card launches the backward
+    kernel once, and its gradients agree with the plain backward."""
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(0)
     xc = torch.randn((1, 8, 16), generator=g, device=dev)
@@ -386,8 +391,16 @@ def test_cuda_selective_scan_refuses_a_gradient():
     Bc, Cc = (torch.randn((1, 8, 4), generator=g, device=dev)
               for _ in range(2))
     A = -torch.rand((16, 4), generator=g, device=dev)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        selective_scan(xc.requires_grad_(), dt, Bc, Cc, A)
+    dy = torch.randn((1, 8, 16), generator=g, device=dev)
+    leaves = [t.clone().requires_grad_() for t in (xc, dt, Bc, Cc, A)]
+    before = launches["selective_scan_bwd"]
+    y, _ = selective_scan(*leaves)
+    got = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert launches["selective_scan_bwd"] == before + 1
+    want = ref.selective_scan_bwd_ref(xc, dt, Bc, Cc, A, dy)
+    for g_, w_ in zip(got, want):
+        assert _rel(g_.cpu(), w_.cpu()) < 1e-4
     with torch.no_grad():
         y, _ = selective_scan(xc, dt, Bc, Cc, A)
     assert y.shape == xc.shape

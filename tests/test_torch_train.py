@@ -376,10 +376,20 @@ def test_lm_task_on_the_device_scale_is_rejected():
         spec.validate()
 
 
+@pytest.mark.parametrize("params", [
+    {"arch": "falcon-mamba-7b"},
+    {"arch_type": "ssm", "block_pattern": ["mamba"], "ssm_state": 4},
+])
+def test_mamba_layers_train_at_the_datacenter_scale(params):
+    """MAMBA layers train since the selective scan has a backward kernel:
+    the specs the port once refused now pass `unported()` and
+    `validate()`."""
+    spec = _datacenter_spec(task=TaskSpec("lm", params))
+    assert unported(spec) is None
+    spec.validate()
+
+
 @pytest.mark.parametrize("params,what", [
-    ({"arch": "falcon-mamba-7b"}, "MAMBA"),
-    ({"arch_type": "ssm", "block_pattern": ["mamba"], "ssm_state": 4},
-     "MAMBA"),
     ({"num_experts": 4, "topk": 2, "moe_d_ff": 16}, "MoE"),
     ({"use_mla": True, "kv_lora_rank": 8, "qk_nope_dim": 8,
       "qk_rope_dim": 8, "v_head_dim": 8}, "MLA"),
