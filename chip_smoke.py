@@ -125,7 +125,10 @@ Needs one NVIDIA GPU and nvcc.  In order:
    recurrentgemma-2b is freed: first the selective-scan kernel against its
    plain version at the serving path's shape, at the JAX tests'
    parametrisations and at ragged ones, timed beside the plain version,
-   with its bound from bytes, flops and exponentials; then the same
+   with its bound from bytes, flops and exponentials; the forward that
+   also writes the chunk states for training held bit for bit to
+   serving's forward (y, h_last) and its states to the plain ones; then
+   the same
    traffic (batch 4, 4096-token prompts, 32 greedy tokens) with the counts
    read after the prefill (64 selective_scan) and the decode loop (none),
    the kernel on the first MAMBA layer's own inputs held against its plain
@@ -168,10 +171,14 @@ Needs one NVIDIA GPU and nvcc.  In order:
    not a multiple of its 64 channels a block; N = 4, 16, 17, 32, 64; B =
    2 and 3; d h_last absent, zero and random; a dt whose decays
    underflow), each gradient within 1e-4 of its largest entry, two calls
-   bit for bit equal, timed cold and warm beside its bound, the plain
-   version and ``addcmul`` over its largest arrays; then three rounds
+   bit for bit equal; timed cold and warm given the forward's chunk states
+   (as training calls it) and with the forward writing them, beside its
+   bound, its warps resident an SM, the plain version and ``addcmul``
+   over its largest arrays; the forward at B = 1 with and without its
+   states output in turns; then three rounds
    through ``Federation.from_spec(spec).run(max_rounds=3)`` (64
-   ``selective_scan`` and 32 ``selective_scan_bwd`` a round, exactly),
+   ``selective_scan``, 32 of them writing chunk states (the checkpoint's
+   recomputes), and 32 ``selective_scan_bwd`` a round, exactly),
    each round's seconds, the peak memory (< 80 GB), finite losses falling
    from the first round to the third, one client's gradients through the
    kernels against the plain versions (1e-3 of each parameter's largest
@@ -203,7 +210,11 @@ every window's time and the SM clock printed.
 checkout's, in turns (old, new, new, old) at the main path's, the serving
 paths' and the training shapes (the fused trust kernel also at
 ``anomaly-fleet1k``'s; the backwards warm and cold), and adds those times
-to the kernels line.
+to the kernels line.  A ``selective_scan_bwd.cu`` with the C interface
+before the chunk states (its own forward walk) is timed against this
+checkout's backward given the states and against the forward writing them
+then the backward; each DIR's ``selective_scan.cu`` is also timed at B = 1
+against this checkout's forward with and without its states output.
 
 Any failure exits non-zero before the result line.  Without a card, or
 without the repository's ``src/`` beside it, it exits non-zero at once.
@@ -486,7 +497,8 @@ def other_libraries(source: str, dirs, module: str,
     """{dir: the library built from ``dir/source``} for each of ``dirs``
     that holds ``source``, with the C signatures (the dict named
     ``signatures``) of this checkout's wrapper
-    ``repro_torch.kernels.<module>``."""
+    ``repro_torch.kernels.<module>`` set on those of its functions that
+    the library has (an older source may lack a newer function)."""
     from repro_torch.kernels import build
     libs = {}
     for d in dirs or ():
@@ -495,6 +507,8 @@ def other_libraries(source: str, dirs, module: str,
         lib = ctypes.CDLL(str(build.build(source, d)))
         for fn, argtypes in getattr(importlib.import_module(
                 f"repro_torch.kernels.{module}"), signatures).items():
+            if not hasattr(lib, fn):
+                continue
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         libs[d] = lib
@@ -2765,21 +2779,45 @@ def mamba_kernel_phase(cfg, dev, compare_dirs=()) -> dict:
           f"{SCAN_TOL} with rtol 0.05), {len(cases)} shapes", flush=True)
 
     args = ssm_inputs(B, S, Di, N, f32, dev, 97)
+    # serving's forward (a null states pointer) against the forward that
+    # also writes the chunk states for the backward: y and h_last bit for
+    # bit, the states within the scan's tolerance of the plain ones
+    from repro_torch.kernels.selective_scan import _forward
+    (y0, h0), (y1, h1, states) = _forward(*args), _forward(*args,
+                                                           states=True)
+    check(torch.equal(y0, y1) and torch.equal(h0, h1),
+          "selective_scan with its states output differs from serving's")
+    e_states, ok = within(states, ref.selective_scan_chunk_states_ref(*args),
+                          SCAN_TOL["float32"], 0.05)
+    check(ok, f"selective_scan's chunk states: max abs error {e_states}")
+    print(f"selective_scan at {(B, S, Di, N)}: y and h_last with the "
+          f"states output bit for bit those without it; the states' max "
+          f"abs error {e_states}", flush=True)
+    del y0, h0, y1, h1, states
     t = {"ssm": time_ms(lambda: selective_scan(*args)),
          "ssm_plain": time_ms(lambda: ref.selective_scan_ref(*args), reps=1,
                               windows=3, warmup=1)}
     y = torch.empty_like(args[0])
     h = torch.empty((B, Di, N), dtype=torch.float32, device=dev)
     t["ssm_turns"] = {}
-    for where, old in other_libraries(os.path.basename(SSM_SOURCE),
-                                      compare_dirs, "selective_scan").items():
-        def old_ssm():
-            status = old.selective_scan_f32(
-                *(x.data_ptr() for x in args), y.data_ptr(), h.data_ptr(),
-                B, S, Di, N, torch.cuda.current_stream().cuda_stream)
-            check(status == 0, f"selective_scan of {where} failed: {status}")
+    # both sides through their C functions on the same outputs (the
+    # wrapper's allocations are not the kernel's)
+    others = other_libraries(os.path.basename(SSM_SOURCE), compare_dirs,
+                             "selective_scan")
+    mine = other_libraries(os.path.basename(SSM_SOURCE), [HERE_CSRC],
+                           "selective_scan")[HERE_CSRC] if others else None
+    for where, old in others.items():
+        def c_ssm(lib, where):
+            def fn():
+                status = lib.selective_scan_f32(
+                    *(x.data_ptr() for x in args), y.data_ptr(),
+                    h.data_ptr(), B, S, Di, N,
+                    torch.cuda.current_stream().cuda_stream)
+                check(status == 0,
+                      f"selective_scan of {where} failed: {status}")
+            return fn
         t["ssm_turns"][where] = in_turns(
-            {"old": old_ssm, "new": lambda: selective_scan(*args)})
+            {"old": c_ssm(old, where), "new": c_ssm(mine, "this checkout")})
         print(f"selective_scan in turns against {where} (old, new, new, "
               f"old), ms: {t['ssm_turns'][where]}", flush=True)
     # xc, dt read and y written; Bc, Cc and A read; h_last written
@@ -2797,7 +2835,7 @@ def mamba_kernel_phase(cfg, dev, compare_dirs=()) -> dict:
           f"{term}", flush=True)
     return {"err": err, "t": t, "terms": terms, "term": term,
             "bound": (terms[term], "bytes" if term == "bytes"
-                      else "operations"),
+                      else "operations"), "states_err": e_states,
             "bytes": n_bytes, "flops": n_flops, "exponentials": n_exp}
 
 
@@ -3251,11 +3289,13 @@ def train_run(spec, rounds: int, what: str, keep_batch: bool = False,
     """``Federation.from_spec(spec).run(max_rounds=rounds)`` with the
     launch counts set to 0 before the run and read after; with
     ``must_fall`` the last round's mean loss must be below the first's.
-    A round's seconds run from its batch's draw to the next's (each round
-    ends reading its loss on the host)."""
+    The forwards that write the selective scan's chunk states must be as
+    many as its backwards (under each layer's checkpoint only the
+    recompute writes them).  A round's seconds run from its batch's draw
+    to the next's (each round ends reading its loss on the host)."""
     from repro_torch.api import Federation
     from repro_torch.core import fl_step
-    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.kernels import launches, reset_launches, state_launches
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3275,6 +3315,7 @@ def train_run(spec, rounds: int, what: str, keep_batch: bool = False,
         return batch
     eng.task.make_batch = marking
     reset_launches()
+    state_launches["selective_scan"] = 0
     t0 = time.perf_counter()
     trace = fed.run(max_rounds=rounds)
     torch.cuda.synchronize()
@@ -3282,6 +3323,7 @@ def train_run(spec, rounds: int, what: str, keep_batch: bool = False,
     t_run = t_end - t0
     each = [b_ - a_ for a_, b_ in zip(marks, marks[1:] + [t_end])]
     counts = dict(launches)
+    with_states = state_launches["selective_scan"]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     recs = trace.records
     mode_a = eng.task.mode == fl_step.MODE_A
@@ -3298,10 +3340,14 @@ def train_run(spec, rounds: int, what: str, keep_batch: bool = False,
           f"in {t_run:.2f} s ({t_run / max(len(recs), 1):.3f} s a round; "
           f"each {each}), "
           f"a {[r.a for r in recs]}, losses {losses}, peak device memory "
-          f"{peak:.3f} GiB; launches {json.dumps(counts)}", flush=True)
+          f"{peak:.3f} GiB; launches {json.dumps(counts)}, "
+          f"{with_states} selective_scan writing chunk states", flush=True)
     check(len(recs) == rounds, f"{what}: {len(recs)} records of {rounds}")
     check(all(counts[k] == expect.get(k, 0) for k in counts),
           f"{what}: launched {counts}, the schedule implies {expect}")
+    check(with_states == expect["selective_scan_bwd"],
+          f"{what}: {with_states} selective_scan launches wrote chunk "
+          f"states, {expect['selective_scan_bwd']} backwards read them")
     check(all(math.isfinite(v) for v in losses), f"{what}: losses {losses}")
     check(not must_fall or losses[-1] < losses[0],
           f"{what}: the loss did not fall: {losses}")
@@ -3316,6 +3362,7 @@ def train_run(spec, rounds: int, what: str, keep_batch: bool = False,
                        "round_s_each": each,
                        "a": [r.a for r in recs], "losses": losses,
                        "peak_gib": peak, "launches": counts,
+                       "state_launches": with_states,
                        "params_a_client": n_params}}
 
 
@@ -3377,14 +3424,38 @@ def ssm_bwd_inputs(B, S, Di, N, dev, seed, dt_scale=1.0):
 SSM_GRADS = ("dxc", "ddt", "dBc", "dCc", "dA")
 
 
+# the C interface of selective_scan_bwd.cu before the chunk states
+# (selective_scan_bwd_f32: it walks the states itself), to time such a
+# source in turns with this checkout's
+OLD_SSM_BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [
+    ctypes.c_void_p]
+
+
+def old_ssm_bwd_scratch_floats(B, S, Di, N) -> int:
+    """The scratch of that interface: the chunk states (chunks, B, N,
+    Di), each block's partials (blocks, B, S, 2, N) at 64 / L channels a
+    block (L = 1, 2 or 4 lanes for N <= 16, 32 or 64) and each b's dA."""
+    lanes = 1
+    while lanes * 16 < N:
+        lanes *= 2
+    up = lambda x: -(-x // 64) * 64
+    return (up(-(-S // 32) * B * Di * N)
+            + up(-(-Di // (64 // lanes)) * B * S * 2 * N) + B * N * Di)
+
+
 def ssm_bwd_turns(cfg, dev, dirs) -> dict:
-    """Each DIR's ``selective_scan_bwd.cu`` (the same C interface) against
-    this checkout's at the training shape, in turns (old, new, new, old),
-    warm and cold: {dir: {"warm": {"old": [...], "new": [...]}, "cold":
-    ..., "max_rel_diff": x}}, ms.  Both sides call their C function on the
-    same preallocated outputs, with twice this checkout's scratch (room for
-    a variant with half the channels a block)."""
-    from repro_torch.kernels.selective_scan import bwd_scratch_floats
+    """Each DIR's ``selective_scan_bwd.cu`` against this checkout's at the
+    training shape, in turns (old, new, ..., new, old), warm and cold:
+    {dir: {"warm": {"old": [...], ...}, "cold": ..., "max_rel_diff": x}},
+    ms.  A source with the C interface before the chunk states (it walks
+    the states itself, `OLD_SSM_BWD_ARGTYPES`) is timed against this
+    checkout's backward given the forward's chunk states ("new") and
+    against the forward writing them then the backward
+    ("new_with_forward"); a source with this checkout's interface against
+    the backward given the states.  Every side calls its C function on the
+    same preallocated outputs and scratch."""
+    from repro_torch.kernels.selective_scan import (_forward,
+                                                    bwd_scratch_floats)
     name = os.path.basename(SSM_BWD_SOURCE)
     others = other_libraries(name, dirs, "selective_scan", "_bwd_signatures")
     if not others:
@@ -3394,22 +3465,43 @@ def ssm_bwd_turns(cfg, dev, dirs) -> dict:
     S, Di, N = RECURRENT_TRAIN_SEQ, cfg.d_inner, cfg.ssm_state
     args, dy, _ = ssm_bwd_inputs(1, S, Di, N, dev, 96)
     outs = [torch.empty_like(t) for t in args]
-    scratch = torch.empty((2 * bwd_scratch_floats(1, S, Di, N),),
+    scratch = torch.empty((2 * max(bwd_scratch_floats(1, S, Di, N),
+                                   old_ssm_bwd_scratch_floats(1, S, Di, N)),),
                           device=dev)
+    states = _forward(*args, states=True)[2]
     flush = L2Flush(dev)
+    ptrs = lambda ts: [t.data_ptr() for t in ts]
 
-    def call(where, lib):
+    def new_call(where, lib, with_forward=False):
         def fn():
-            status = lib.selective_scan_bwd_f32(
-                *(t.data_ptr() for t in args), dy.data_ptr(), None,
-                *(t.data_ptr() for t in outs), scratch.data_ptr(), 1, S, Di,
-                N, torch.cuda.current_stream().cuda_stream)
+            h = _forward(*args, states=True)[2] if with_forward else states
+            status = lib.selective_scan_bwd_states_f32(
+                *ptrs(args), dy.data_ptr(), None, h.data_ptr(), *ptrs(outs),
+                scratch.data_ptr(), 1, S, Di, N,
+                torch.cuda.current_stream().cuda_stream)
+            check(status == 0, f"selective_scan_bwd of {where}: {status}")
+        return fn
+
+    def old_call(where, lib):
+        fn_ = lib.selective_scan_bwd_f32
+        fn_.argtypes, fn_.restype = OLD_SSM_BWD_ARGTYPES, ctypes.c_int
+
+        def fn():
+            status = fn_(*ptrs(args), dy.data_ptr(), None, *ptrs(outs),
+                         scratch.data_ptr(), 1, S, Di, N,
+                         torch.cuda.current_stream().cuda_stream)
             check(status == 0, f"selective_scan_bwd of {where}: {status}")
         return fn
 
     out_t = {}
     for where, old in others.items():
-        fns = {"old": call(where, old), "new": call("this checkout", mine)}
+        if hasattr(old, "selective_scan_bwd_states_f32"):
+            fns = {"old": new_call(where, old),
+                   "new": new_call("this checkout", mine)}
+        else:
+            fns = {"old": old_call(where, old),
+                   "new": new_call("this checkout", mine),
+                   "new_with_forward": new_call("this checkout", mine, True)}
         for x in outs:              # what the other version leaves unwritten
             x.fill_(float("nan"))   # shows as NaN
         fns["old"]()
@@ -3419,8 +3511,8 @@ def ssm_bwd_turns(cfg, dev, dirs) -> dict:
         out_t[where] = {"warm": in_turns(fns, reps=10),
                         "cold": in_turns(fns, flush=flush, reps=5),
                         "max_rel_diff": torch.tensor(diff).max().item()}
-        print(f"{name} in turns against {where} (old, new, new, old), ms: "
-              f"{json.dumps(out_t[where])}", flush=True)
+        print(f"{name} in turns against {where} (each in order, then in "
+              f"reverse), ms: {json.dumps(out_t[where])}", flush=True)
     return out_t
 
 
@@ -3428,11 +3520,19 @@ def ssm_bwd_phase(cfg, dev, compare_dirs=()) -> dict:
     """The selective-scan backward kernel against its plain version at the
     training shape and at ragged ones (every gradient within BWD_TOL of
     its largest entry), two calls bit for bit equal; its times at the
-    training shape, warm and cold, beside its bound, the plain version, an
-    ``addcmul`` over its largest arrays and the forward at B = 1, and in
-    turns with each of ``compare_dirs``' ``selective_scan_bwd.cu``."""
-    from repro_torch.kernels import ref, selective_scan
-    from repro_torch.kernels.selective_scan import selective_scan_bwd
+    training shape, warm and cold, given the forward's chunk states and
+    with the forward writing them, beside its bound, its warps resident an
+    SM, the plain version and an ``addcmul``
+    over its largest arrays; the forward at B = 1 with and without its
+    states output in turns; and in turns with each of ``compare_dirs``'
+    ``selective_scan_bwd.cu``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.launch import typed_library
+    from repro_torch.kernels.selective_scan import (BWD_SOURCE, SOURCE,
+                                                    _bwd_signatures,
+                                                    _forward, _signatures,
+                                                    bwd_channels,
+                                                    selective_scan_bwd)
     S, Di, N = RECURRENT_TRAIN_SEQ, cfg.d_inner, cfg.ssm_state
     # (B, S, Di, N, dt scale, d h_last: None, "zero" or "random"): the
     # training shape as training calls it (no d h_last) and with one; S = 1,
@@ -3477,22 +3577,75 @@ def ssm_bwd_phase(cfg, dev, compare_dirs=()) -> dict:
           "calls bit for bit equal", flush=True)
     turns = ssm_bwd_turns(cfg, dev, compare_dirs)
 
+    # the backward given the forward's chunk states (as training calls
+    # it), without them (the forward writing them first), and the forward
+    # at B = 1 with and without its states output, warm and cold
     flush = L2Flush(dev)
     args, dy, _ = ssm_bwd_inputs(1, S, Di, N, dev, 98)
-    bwd = lambda: selective_scan_bwd(*args, dy)
+    states = _forward(*args, states=True)[2]
+    bwd = lambda: selective_scan_bwd(*args, dy, None, states)
+    bwd_fwd = lambda: selective_scan_bwd(*args, dy)
+    # the forward's C functions on preallocated outputs, without the
+    # wrapper's allocations: serving's and the one that writes the states
+    y_, h_ = torch.empty_like(args[0]), torch.empty((1, Di, N), device=dev)
+    st_ = torch.empty_like(states)
+
+    def c_fwd(lib, with_states, where):
+        def fn():
+            ptrs = [x.data_ptr() for x in args] + [y_.data_ptr(),
+                                                    h_.data_ptr()]
+            stream = torch.cuda.current_stream().cuda_stream
+            status = (lib.selective_scan_states_f32(
+                *ptrs, st_.data_ptr(), 1, S, Di, N, stream) if with_states
+                else lib.selective_scan_f32(*ptrs, 1, S, Di, N, stream))
+            check(status == 0, f"selective_scan of {where} failed: {status}")
+        return fn
+    fwd_lib = typed_library(SOURCE, _signatures)
+    fwd_turns = {"without_states": c_fwd(fwd_lib, False, "this checkout"),
+                 "with_states": c_fwd(fwd_lib, True, "this checkout")}
+    cold = lambda fn: statistics.median(window_times(
+        fn, reps=5, windows=5, warmup=1, flush=flush))
     xc, dt = args[0], args[1]
     t = {"ssm_bwd": time_ms(bwd, reps=10, windows=5, warmup=2),
-         "ssm_bwd_cold": statistics.median(window_times(
-             bwd, reps=5, windows=5, warmup=1, flush=flush)),
+         "ssm_bwd_cold": cold(bwd),
+         "ssm_bwd_with_forward": time_ms(bwd_fwd, reps=10, windows=5,
+                                         warmup=2),
+         "ssm_bwd_with_forward_cold": cold(bwd_fwd),
          "ssm_bwd_plain": time_ms(lambda: ref.selective_scan_bwd_ref(
              *args, dy), reps=1, windows=2, warmup=1),
          # dy + xc * dt: four of the five (B, S, Di) arrays' bytes, not the
          # same function
          "ssm_bwd_same_bytes": time_ms(lambda: torch.addcmul(dy, xc, dt)),
-         "ssm_fwd_b1": time_ms(lambda: selective_scan(*args))}
+         "ssm_fwd_b1_turns": {"warm": in_turns(fwd_turns, reps=10),
+                              "cold": in_turns(fwd_turns, flush=flush,
+                                               reps=5)}}
+    for key, name in (("ssm_fwd_b1", "without_states"),
+                      ("ssm_fwd_states_b1", "with_states")):
+        t[key] = statistics.median(t["ssm_fwd_b1_turns"]["warm"][name])
+        t[key + "_cold"] = statistics.median(
+            t["ssm_fwd_b1_turns"]["cold"][name])
+    # each compare DIR's selective_scan.cu (serving's C interface) against
+    # this checkout's forward without and with its states output, at B = 1
+    t["ssm_fwd_b1_vs"] = {}
+    for where, old in other_libraries(os.path.basename(SSM_SOURCE),
+                                      compare_dirs, "selective_scan").items():
+        fns = {"old": c_fwd(old, False, where), **fwd_turns}
+        if hasattr(old, "selective_scan_states_f32"):
+            fns["old_with_states"] = c_fwd(old, True, where)
+        t["ssm_fwd_b1_vs"][where] = {
+            "warm": in_turns(fns, reps=10),
+            "cold": in_turns(fns, flush=flush, reps=5)}
+        print(f"selective_scan at (1, {S}, {Di}, {N}) in turns against "
+              f"{where}, ms: {json.dumps(t['ssm_fwd_b1_vs'][where])}",
+              flush=True)
+    lib = typed_library(BWD_SOURCE, _bwd_signatures)
+    warps = lib.selective_scan_bwd_warps_per_sm(N)
+    check(warps > 0, f"selective_scan_bwd's occupancy is unknown ({warps})")
+    blocks = -(-Di // bwd_channels(N))
+    chunks = -(-S // 32)
     # xc, dt, dy read and dxc, ddt written; Bc, Cc read and dBc, dCc
-    # written; A read and dA written
-    n_bytes = 4 * (5 * S * Di + 4 * S * N + 2 * Di * N)
+    # written; A read and dA written; the forward's chunk states read
+    n_bytes = 4 * (5 * S * Di + 4 * S * N + 2 * Di * N + chunks * Di * N)
     # per (t, d, n): the states' recurrence (dt A, (dt x) B, the update's
     # FMA), g's update (dy C, an FMA), the dBc and dCc terms and their sums
     # over d, sum_n g B, u = g dA h_{t-1}, its sum with A and its dA term
@@ -3502,16 +3655,34 @@ def ssm_bwd_phase(cfg, dev, compare_dirs=()) -> dict:
              "flops": n_flops / FP32_FLOPS_PER_S * 1e3,
              "exponentials": n_exp / sfu_exp_per_s() * 1e3}
     term = max(terms, key=terms.get)
-    print(f"selective_scan_bwd at (1, {S}, {Di}, {N}): warm {t['ssm_bwd']} "
-          f"ms, cold {t['ssm_bwd_cold']} ms, plain {t['ssm_bwd_plain']} ms, "
-          f"addcmul over four of its five largest arrays "
-          f"{t['ssm_bwd_same_bytes']} ms, the forward at B = 1 "
-          f"{t['ssm_fwd_b1']} ms; bound terms {terms} ms: bounded by {term}",
-          flush=True)
+    # the forward at B = 1: xc, dt read, y written, Bc, Cc, A read, h_last
+    # written (the states output adds its 4 chunks Di N bytes), 6 flops and
+    # one exponential a (t, d, n)
+    fwd_bytes = 4 * (3 * S * Di + 2 * S * N + 2 * Di * N)
+    fwd_terms = {"bytes": fwd_bytes / HBM_BYTES_PER_S * 1e3,
+                 "bytes_with_states": (fwd_bytes + 4 * chunks * Di * N)
+                 / HBM_BYTES_PER_S * 1e3,
+                 "flops": 6 * S * Di * N / FP32_FLOPS_PER_S * 1e3,
+                 "exponentials": terms["exponentials"]}
+    print(f"selective_scan_bwd at (1, {S}, {Di}, {N}) given the chunk "
+          f"states: warm {t['ssm_bwd']} ms, cold {t['ssm_bwd_cold']} ms; "
+          f"with the forward writing them: warm "
+          f"{t['ssm_bwd_with_forward']} ms, cold "
+          f"{t['ssm_bwd_with_forward_cold']} ms; {blocks} blocks, {warps} "
+          f"warps resident an SM; plain {t['ssm_bwd_plain']} ms, addcmul over "
+          f"four of its five largest arrays {t['ssm_bwd_same_bytes']} ms; "
+          f"bound terms {terms} ms: bounded by {term}.  The forward at B = "
+          f"1 without / with its states output: warm {t['ssm_fwd_b1']} / "
+          f"{t['ssm_fwd_states_b1']} ms, cold {t['ssm_fwd_b1_cold']} / "
+          f"{t['ssm_fwd_states_b1_cold']} ms, in turns "
+          f"{json.dumps(t['ssm_fwd_b1_turns'])}; its bound terms "
+          f"{fwd_terms} ms", flush=True)
     return {"err": err, "abs_err": abs_err, "t": t, "turns": turns,
             "terms": terms, "term": term,
             "bound": (terms[term], "bytes" if term == "bytes"
                       else "operations"),
+            "fwd_terms": fwd_terms, "warps_per_sm": warps, "blocks": blocks,
+            "partial_bytes": 2 * 4 * blocks * S * 2 * N,
             "bytes": n_bytes, "flops": n_flops, "exponentials": n_exp,
             "cases": len(cases)}
 
@@ -3894,7 +4065,16 @@ def main() -> None:
          "launches_by_path": {"serving": serve_launches["selective_scan"],
                               **{p: c["selective_scan"]
                                  for p, c in train_counts.items()}},
+         "with_states_launches_falcon_mamba_mode_a":
+             mtraining["mode_a"]["state_launches"],
          "at_training_shape_ms": sk["t"]["ssm_fwd_b1"],
+         "at_training_shape_cold_ms": sk["t"]["ssm_fwd_b1_cold"],
+         "with_states_at_training_shape_ms": sk["t"]["ssm_fwd_states_b1"],
+         "with_states_at_training_shape_cold_ms":
+             sk["t"]["ssm_fwd_states_b1_cold"],
+         "at_training_shape_in_turns_ms": sk["t"]["ssm_fwd_b1_turns"],
+         "at_training_shape_bound_terms_ms": sk["fwd_terms"],
+         "states_max_abs_err": mk["states_err"],
          "max_abs_err": mk["err"]["float32"],
          "tolerance": SCAN_TOL["float32"],
          "bf16_max_abs_err": mk["err"]["bfloat16"],
@@ -3980,6 +4160,11 @@ def main() -> None:
          "rel_err_by_gradient": sk["err"], "tolerance": BWD_TOL,
          "live_max_rel_err": mtraining["live"]["max_rel_err"],
          "ms": sk["t"]["ssm_bwd"], "cold_ms": sk["t"]["ssm_bwd_cold"],
+         "given": "the forward's chunk states, as training calls it",
+         "with_forward_ms": sk["t"]["ssm_bwd_with_forward"],
+         "with_forward_cold_ms": sk["t"]["ssm_bwd_with_forward_cold"],
+         "warps_per_sm": sk["warps_per_sm"], "blocks": sk["blocks"],
+         "partial_bytes": sk["partial_bytes"],
          "plain_ms": sk["t"]["ssm_bwd_plain"], "bound_ms": sk["bound"][0],
          "bound_by": sk["bound"][1], "bound_term": sk["term"],
          "bound_terms_ms": sk["terms"], "library_ms": None,

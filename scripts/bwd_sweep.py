@@ -1,6 +1,6 @@
 """The three backward kernels against other versions of their sources.
 
-    python3 scripts/bwd_sweep.py [DIR ...]
+    python3 scripts/bwd_sweep.py [--ssm] [DIR ...]
 
 Each DIR holds a ``flash_attention_bwd.cu``, ``rglru_scan_bwd.cu`` and/or
 ``selective_scan_bwd.cu`` with this checkout's C interface (a timing-only
@@ -12,7 +12,11 @@ for bit equal), then each DIR's kernels timed in turns with the
 checkout's (old, new, new, old), warm and cold, then the checkout's beside
 its plain version, the library call and the bound.  Then ptxas's
 registers and spills of each source.  A DIR that holds a copy of a source
-with one constant changed times that choice against the checkout's.
+with one constant changed times that choice against the checkout's; a
+``selective_scan_bwd.cu`` with the C interface before the chunk states
+(its own forward walk) is timed against the checkout's given the
+forward's chunk states and with the forward writing them.  ``--ssm`` runs
+the selective scan's phase alone.
 Needs one NVIDIA GPU; prints the card's name and power limit first.
 """
 from __future__ import annotations
@@ -31,7 +35,8 @@ import chip_smoke  # noqa: E402  (puts the repository's src/ on the path)
 
 
 def main() -> None:
-    dirs = sys.argv[1:]
+    ssm_only = sys.argv[1:2] == ["--ssm"]
+    dirs = sys.argv[2:] if ssm_only else sys.argv[1:]
     if not torch.cuda.is_available():
         sys.exit("bwd_sweep: no CUDA device; this script runs on the card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -46,21 +51,22 @@ def main() -> None:
         chip_smoke.SSM_BWD_SOURCE)]
     build.build_all(sources)
     dev = torch.device("cuda")
-    r = chip_smoke.train_kernel_phase(get_config(chip_smoke.ARCH), dev,
-                                      dirs)
+    r = {} if ssm_only else chip_smoke.train_kernel_phase(
+        get_config(chip_smoke.ARCH), dev, dirs)
     chip_smoke.free_library_memory()
     m = chip_smoke.ssm_bwd_phase(get_config(chip_smoke.MAMBA_ARCH), dev,
                                  dirs)
     for d in [chip_smoke.HERE_CSRC] + dirs:
-        for src in sources[3:]:
+        for src in sources[5:] if ssm_only else sources[3:]:
             for row in build.ptxas_report(src, d):
                 print(f"ptxas {d}/{src}: {json.dumps(row)}", flush=True)
-    print(json.dumps({"device": smi.stdout.strip(), "err": r["err"],
-                      "t": r["t"], "turns": r["turns"],
-                      "bound_ms": r["bound"],
+    print(json.dumps({"device": smi.stdout.strip(), "err": r.get("err"),
+                      "t": r.get("t"), "turns": r.get("turns"),
+                      "bound_ms": r.get("bound"),
                       "selective_scan_bwd": {
                           "err": m["err"], "t": m["t"], "turns": m["turns"],
-                          "bound_ms": m["bound"]}}), flush=True)
+                          "bound_ms": m["bound"],
+                          "warps_per_sm": m["warps_per_sm"]}}), flush=True)
 
 
 if __name__ == "__main__":

@@ -6,7 +6,7 @@
   csrc/rglru_scan.cu        the RG-LRU gated linear recurrence
   csrc/rglru_scan_bwd.cu    its backward (the reverse scan)
   csrc/selective_scan.cu    the Mamba-1 selective scan
-  csrc/selective_scan_bwd.cu    its backward (the states recomputed)
+  csrc/selective_scan_bwd.cu    its backward (from the chunk states)
   build                     nvcc -> shared library -> ctypes, at first use
   launch                    launch counters and the C-call helpers
   trust_aggregate, flash_attention, rglru_scan, selective_scan
@@ -23,7 +23,8 @@ from .ops import (attention, flatten_rows, layout_of, leaf_views, lru_scan,
                   mamba_scan, trust_aggregate_global_tree,
                   trust_aggregate_tree)
 from .rglru_scan import rglru_scan, rglru_scan_bwd
-from .selective_scan import selective_scan, selective_scan_bwd
+from .selective_scan import (selective_scan, selective_scan_bwd,
+                             state_launches, without_chunk_states)
 from .trust_aggregate import (trust_aggregate, trust_aggregate_global,
                               trust_aggregate_global_pop,
                               trust_aggregate_pop)
@@ -33,5 +34,5 @@ __all__ = ["trust_aggregate", "trust_aggregate_global", "trust_aggregate_tree",
            "trust_aggregate_global_tree", "flatten_rows", "layout_of",
            "leaf_views", "launches", "reset_launches", "flash_attention",
            "flash_attention_bwd", "rglru_scan", "rglru_scan_bwd",
-           "selective_scan", "selective_scan_bwd", "attention", "lru_scan",
-           "mamba_scan"]
+           "selective_scan", "selective_scan_bwd", "state_launches",
+           "without_chunk_states", "attention", "lru_scan", "mamba_scan"]

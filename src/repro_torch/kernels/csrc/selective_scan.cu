@@ -46,6 +46,18 @@
 // multiple of 16 bytes) take plain loads and stores in place of cp.async
 // and 16-byte stores.  The Pallas kernel needed Di % 512 == 0.  Offsets are
 // 64-bit (B S Di is 1.3e8 on the serving path).
+//   For training, an instance of its own (selective_scan_states_f32) also
+// writes the state entering each chunk, (n_chunks, B, N, Di), for the
+// backward kernel (selective_scan_bwd.cu): at the end of a chunk each
+// thread puts its states in a shared-memory tile, and after the chunk's
+// barrier the block stores the tile in rows of 16-byte units beside y.
+// Serving's instance does not write them, so its code is the one before.
+// Measured at (1, 4096, 8192, 16) on "NVIDIA H100 80GB HBM3, 700.00 W"
+// (scripts/bwd_sweep.py --ssm, in turns): 0.733-0.746 ms with the states
+// against 0.646-0.662 without; at B = 1 (two warps an SM) the kernel moves
+// its bytes at ~0.6 TB/s, so the states' 67 MB cost ~85 us, not the ~20 us
+// of the card's rate (stores from registers, streaming stores and stores
+// spread over the next chunk's steps were no faster).
 //
 // Numerics.  A is pre-scaled once per state, a2 = A log2(e) (rounded to
 // f32), and dA = ex2.approx.ftz(dt a2): relative error ~2^-22 in dA beside
@@ -152,6 +164,7 @@ __device__ __forceinline__ void cp_async_wait_stage() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1) : "memory");
 }
 
+
 // rows [0, kChunk) x cols [0, cols) of src (row pitch src_pitch) into dst
 // (row pitch dst_pitch); entries at rows >= rows_ok or cols >= cols_ok are
 // zeros.  vec: cols, cols_ok and the pitches are whole 16-byte units and
@@ -179,22 +192,26 @@ __device__ __forceinline__ void stage(T* dst, int dst_pitch, const T* src,
   }
 }
 
-template <typename T, int L>
+// the chunks of xc, dt, Bc and Cc, y's chunk, and with kSave the state
+// tile [N padded][kChannels]
+template <typename T, int L, bool kSave>
 constexpr size_t smem_bytes() {
   return sizeof(T) * kStages * kChunk * (2 * kChannels + 2 * kStates * L) +
-         sizeof(float) * kChunk * kChannels;
+         sizeof(float) * (kChunk + (kSave ? kStates * L : 0)) * kChannels;
 }
 
 // Block: kChannels * L threads; thread c * L + lane holds states
 // n = lane * kStates .. + kStates - 1 of channel d0 + c.  Grid: (Di / 64
-// rounded up, B).
-template <typename T, int L>
-__global__ void __launch_bounds__(kChannels * L)
-selective_scan_kernel(const T* __restrict__ xc, const T* __restrict__ dt,
-                      const T* __restrict__ bc, const T* __restrict__ cc,
-                      const float* __restrict__ a_mat, T* __restrict__ y,
-                      float* __restrict__ h_last, int seq, int d_inner,
-                      int n_state, bool vec_x, bool vec_n) {
+// rounded up, B).  kSave: also write the state entering each chunk to
+// chunk_h (selective_scan_states_kernel; serving's selective_scan_kernel
+// is this body without it, its code the one before the states output).
+template <typename T, int L, bool kSave>
+__device__ __forceinline__ void scan_body(
+    const T* __restrict__ xc, const T* __restrict__ dt,
+    const T* __restrict__ bc, const T* __restrict__ cc,
+    const float* __restrict__ a_mat, T* __restrict__ y,
+    float* __restrict__ h_last, float* __restrict__ chunk_h, int batch,
+    int seq, int d_inner, int n_state, bool vec_x, bool vec_n) {
   constexpr int kThreads = kChannels * L;
   constexpr int kWidth = L * kStates;            // N padded to the lanes
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -205,6 +222,7 @@ selective_scan_kernel(const T* __restrict__ xc, const T* __restrict__ dt,
   T* s_b = s_dt + kStages * kXs;                 // [kStages][kChunk][kWidth]
   T* s_c = s_b + kStages * kNs;                  // [kStages][kChunk][kWidth]
   float* s_y = reinterpret_cast<float*>(s_c + kStages * kNs);
+  float* s_h = s_y + kChunk * kChannels;   // [kWidth][64], kSave only
 
   const int tid = threadIdx.x;
   const int c = tid / L;
@@ -236,6 +254,29 @@ selective_scan_kernel(const T* __restrict__ xc, const T* __restrict__ dt,
                 : 0.f;
     h[r] = 0.f;
   }
+  // kSave: the state entering chunk k, (n_chunks, B, N, Di), for the
+  // backward, from the tile s_h (zeros for chunk 0) in rows, 16 bytes a
+  // store where rows are whole 16-byte units
+  auto save_states = [&](int k) {
+    float* dst = chunk_h + (static_cast<int64_t>(k) * batch + b) * n_state *
+                               d_inner + d0;
+    if (vec_x) {
+      for (int i = tid * 4; i < kWidth * kChannels; i += kThreads * 4) {
+        const int n = i / kChannels, ch = i % kChannels;
+        if (n < n_state && ch < cols_ok)
+          *reinterpret_cast<float4*>(dst + static_cast<int64_t>(n) * d_inner +
+                                     ch) =
+              k == 0 ? make_float4(0.f, 0.f, 0.f, 0.f)
+                     : *reinterpret_cast<const float4*>(s_h + i);
+      }
+    } else {
+      for (int i = tid; i < kWidth * kChannels; i += kThreads) {
+        const int n = i / kChannels, ch = i % kChannels;
+        if (n < n_state && ch < cols_ok)
+          dst[static_cast<int64_t>(n) * d_inner + ch] = k == 0 ? 0.f : s_h[i];
+      }
+    }
+  };
   __syncthreads();
 
   auto stage_chunk = [&](int t0, int buf) {
@@ -292,7 +333,17 @@ selective_scan_kernel(const T* __restrict__ xc, const T* __restrict__ dt,
         pr += __shfl_xor_sync(0xffffffffu, pr, off);
       if (lane == 0) s_y[tt * kChannels + c] = pr;
     }
+    if constexpr (kSave) {   // the state entering the next chunk
+#pragma unroll
+      for (int r = 0; r < kStates; ++r)
+        s_h[(lane * kStates + r) * kChannels + c] = h[r];
+    }
     __syncthreads();         // s_y is complete; this buffer is consumed
+
+    if constexpr (kSave) {
+      if (t0 == 0) save_states(0);
+      if (t0 + kChunk < seq) save_states(t0 / kChunk + 1);
+    }
 
     if (vec_x) {             // rows of y are whole 16-byte units too
       constexpr int kVec = 16 / sizeof(T);
@@ -324,57 +375,116 @@ selective_scan_kernel(const T* __restrict__ xc, const T* __restrict__ dt,
 }
 
 template <typename T, int L>
-int launch_lanes(const void* xc, const void* dt, const void* bc,
-                 const void* cc, const void* a, void* y, void* h_last,
-                 int batch, int seq, int d_inner, int n_state,
-                 cudaStream_t stream) {
-  auto kernel = selective_scan_kernel<T, L>;
-  constexpr size_t smem = smem_bytes<T, L>();
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+__global__ void __launch_bounds__(kChannels * L)
+selective_scan_kernel(const T* __restrict__ xc, const T* __restrict__ dt,
+                      const T* __restrict__ bc, const T* __restrict__ cc,
+                      const float* __restrict__ a_mat, T* __restrict__ y,
+                      float* __restrict__ h_last, int seq, int d_inner,
+                      int n_state, bool vec_x, bool vec_n) {
+  scan_body<T, L, false>(xc, dt, bc, cc, a_mat, y, h_last, nullptr, 0, seq,
+                         d_inner, n_state, vec_x, vec_n);
+}
+
+template <typename T, int L>
+__global__ void __launch_bounds__(kChannels * L)
+selective_scan_states_kernel(const T* __restrict__ xc,
+                             const T* __restrict__ dt,
+                             const T* __restrict__ bc,
+                             const T* __restrict__ cc,
+                             const float* __restrict__ a_mat,
+                             T* __restrict__ y, float* __restrict__ h_last,
+                             float* __restrict__ chunk_h, int batch,
+                             int seq, int d_inner, int n_state, bool vec_x,
+                             bool vec_n) {
+  scan_body<T, L, true>(xc, dt, bc, cc, a_mat, y, h_last, chunk_h, batch,
+                        seq, d_inner, n_state, vec_x, vec_n);
+}
+
+template <typename T, int L, bool kSave>
+int launch_kernel(const void* xc, const void* dt, const void* bc,
+                  const void* cc, const void* a, void* y, void* h_last,
+                  void* chunk_h, int batch, int seq, int d_inner,
+                  int n_state, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<T, L, kSave>();
+  const auto allow_smem = [](auto kernel) {
+    return smem > 48 * 1024
+               ? cudaFuncSetAttribute(
+                     kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                     static_cast<int>(smem))
+               : cudaSuccess;
+  };
   constexpr int kVec = 16 / sizeof(T);
   const auto aligned = [](const void* p, const void* q) {
     return (reinterpret_cast<uintptr_t>(p) | reinterpret_cast<uintptr_t>(q))
            % 16 == 0;
   };
-  const bool vec_x =
-      d_inner % kVec == 0 && aligned(xc, dt) && aligned(y, y);
+  const bool vec_x = d_inner % kVec == 0 && aligned(xc, dt) &&
+                     aligned(y, kSave ? chunk_h : y);
   const bool vec_n = n_state % kVec == 0 && aligned(bc, cc);
   const dim3 grid((d_inner + kChannels - 1) / kChannels, batch);
-  kernel<<<grid, kChannels * L, smem, stream>>>(
-      static_cast<const T*>(xc), static_cast<const T*>(dt),
-      static_cast<const T*>(bc), static_cast<const T*>(cc),
-      static_cast<const float*>(a), static_cast<T*>(y),
-      static_cast<float*>(h_last), seq, d_inner, n_state, vec_x, vec_n);
+  const auto x = static_cast<const T*>(xc);
+  const auto t = static_cast<const T*>(dt);
+  const auto b = static_cast<const T*>(bc);
+  const auto c = static_cast<const T*>(cc);
+  const auto af = static_cast<const float*>(a);
+  cudaError_t err;
+  if constexpr (kSave) {
+    auto kernel = selective_scan_states_kernel<T, L>;
+    if ((err = allow_smem(kernel)) != cudaSuccess)
+      return static_cast<int>(err);
+    kernel<<<grid, kChannels * L, smem, stream>>>(
+        x, t, b, c, af, static_cast<T*>(y), static_cast<float*>(h_last),
+        static_cast<float*>(chunk_h), batch, seq, d_inner, n_state, vec_x,
+        vec_n);
+  } else {
+    auto kernel = selective_scan_kernel<T, L>;
+    if ((err = allow_smem(kernel)) != cudaSuccess)
+      return static_cast<int>(err);
+    kernel<<<grid, kChannels * L, smem, stream>>>(
+        x, t, b, c, af, static_cast<T*>(y), static_cast<float*>(h_last), seq,
+        d_inner, n_state, vec_x, vec_n);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// chunk_h (float32 only) selects the instance that writes the states
+template <typename T, int L>
+int launch_lanes(const void* xc, const void* dt, const void* bc,
+                 const void* cc, const void* a, void* y, void* h_last,
+                 void* chunk_h, int batch, int seq, int d_inner, int n_state,
+                 cudaStream_t stream) {
+  if (chunk_h == nullptr)
+    return launch_kernel<T, L, false>(xc, dt, bc, cc, a, y, h_last, chunk_h,
+                                      batch, seq, d_inner, n_state, stream);
+  if constexpr (sizeof(T) == sizeof(float))
+    return launch_kernel<T, L, true>(xc, dt, bc, cc, a, y, h_last, chunk_h,
+                                     batch, seq, d_inner, n_state, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // the least power of two L >= lanes, up to kMaxLanes
 template <typename T, int L = 1>
 int launch_scan(const void* xc, const void* dt, const void* bc,
                 const void* cc, const void* a, void* y, void* h_last,
-                int batch, int seq, int d_inner, int n_state, int lanes,
-                cudaStream_t stream) {
+                void* chunk_h, int batch, int seq, int d_inner, int n_state,
+                int lanes, cudaStream_t stream) {
   if constexpr (L < kMaxLanes) {
     if (lanes > L)
-      return launch_scan<T, 2 * L>(xc, dt, bc, cc, a, y, h_last, batch, seq,
-                                   d_inner, n_state, lanes, stream);
+      return launch_scan<T, 2 * L>(xc, dt, bc, cc, a, y, h_last, chunk_h,
+                                   batch, seq, d_inner, n_state, lanes,
+                                   stream);
   }
-  return launch_lanes<T, L>(xc, dt, bc, cc, a, y, h_last, batch, seq,
-                            d_inner, n_state, stream);
+  return launch_lanes<T, L>(xc, dt, bc, cc, a, y, h_last, chunk_h, batch,
+                            seq, d_inner, n_state, stream);
 }
 
 template <typename T>
 int launch(const void* xc, const void* dt, const void* bc, const void* cc,
-           const void* a, void* y, void* h_last, int batch, int seq,
-           int d_inner, int n_state, void* stream) {
+           const void* a, void* y, void* h_last, void* chunk_h, int batch,
+           int seq, int d_inner, int n_state, void* stream) {
   if (n_state > kMaxState) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_scan<T>(xc, dt, bc, cc, a, y, h_last, batch, seq, d_inner,
-                        n_state, (n_state + kStates - 1) / kStates,
+  return launch_scan<T>(xc, dt, bc, cc, a, y, h_last, chunk_h, batch, seq,
+                        d_inner, n_state, (n_state + kStates - 1) / kStates,
                         static_cast<cudaStream_t>(stream));
 }
 
@@ -390,16 +500,30 @@ int selective_scan_f32(const void* xc, const void* dt, const void* bc,
                        const void* cc, const void* a, void* y, void* h_last,
                        int batch, int seq, int d_inner, int n_state,
                        void* stream) {
-  return launch<float>(xc, dt, bc, cc, a, y, h_last, batch, seq, d_inner,
-                       n_state, stream);
+  return launch<float>(xc, dt, bc, cc, a, y, h_last, nullptr, batch, seq,
+                       d_inner, n_state, stream);
+}
+
+// selective_scan_f32 that also writes the state entering each chunk of
+// kChunk = 32 steps to chunk_h, (ceil(seq / 32), batch, n_state, d_inner)
+// f32 (chunk 0's is zero), for the backward kernel
+// (selective_scan_bwd.cu).  y and h_last are bit for bit those of
+// selective_scan_f32: only the stores differ.
+int selective_scan_states_f32(const void* xc, const void* dt, const void* bc,
+                              const void* cc, const void* a, void* y,
+                              void* h_last, void* chunk_h, int batch,
+                              int seq, int d_inner, int n_state,
+                              void* stream) {
+  return launch<float>(xc, dt, bc, cc, a, y, h_last, chunk_h, batch, seq,
+                       d_inner, n_state, stream);
 }
 
 int selective_scan_bf16(const void* xc, const void* dt, const void* bc,
                         const void* cc, const void* a, void* y, void* h_last,
                         int batch, int seq, int d_inner, int n_state,
                         void* stream) {
-  return launch<__nv_bfloat16>(xc, dt, bc, cc, a, y, h_last, batch, seq,
-                               d_inner, n_state, stream);
+  return launch<__nv_bfloat16>(xc, dt, bc, cc, a, y, h_last, nullptr, batch,
+                               seq, d_inner, n_state, stream);
 }
 
 }  // extern "C"

@@ -187,6 +187,26 @@ def selective_scan_ref(xc, dt, Bc, Cc, A):
     return y, h
 
 
+def selective_scan_chunk_states_ref(xc, dt, Bc, Cc, A, chunk: int = 32):
+    """The state of `selective_scan_ref` entering each chunk of ``chunk``
+    steps: (ceil(S / chunk), B, N, Di) float32, chunk k's the state after
+    steps 0 .. k chunk - 1 (chunk 0's zero), as the forward kernel's
+    states output lays it out for the backward."""
+    B, S, Di = xc.shape
+    h = torch.zeros((B, Di, A.shape[1]), dtype=torch.float32,
+                    device=xc.device)
+    out = torch.empty((-(-S // chunk), B, A.shape[1], Di),
+                      dtype=torch.float32, device=xc.device)
+    for t in range(S):
+        if t % chunk == 0:
+            out[t // chunk] = h.transpose(1, 2)
+        dA = torch.exp(dt[:, t, :, None].to(torch.float32) * A)
+        dBx = (dt[:, t] * xc[:, t])[..., None].to(torch.float32) * \
+            Bc[:, t, None, :].to(torch.float32)
+        h = dA * h + dBx
+    return out
+
+
 def selective_scan_bwd_ref(xc, dt, Bc, Cc, A, dy, dh_last=None):
     """The gradient of `selective_scan_ref` by its reverse recurrence, in
     float32.  The states h_t are recomputed as the forward computes them;

@@ -10,36 +10,68 @@ notes there for what bounds them on an H100 and how their designs answer
 it.
 
 When autograd needs a gradient (grad enabled and an input requires it),
-`selective_scan` is a `torch.autograd.Function` that saves its five inputs
-and whose backward is `selective_scan_bwd` (which recomputes the states).
+`selective_scan` is a `torch.autograd.Function` whose forward also writes
+the state entering each 32-step chunk (``selective_scan_states_f32``) and
+saves it with its five inputs, and whose backward is `selective_scan_bwd`
+given those states.  Called without them, `selective_scan_bwd` first runs
+the forward kernel for them.  Inside `without_chunk_states` (the first
+pass of a checkpointed layer, whose saved tensors are dropped and
+recomputed) the forward writes none and saves a placeholder of their
+shape.
 
 Given CPU tensors the wrappers compute the plain versions from `ref`.
 Given CUDA tensors they launch the kernels on the current stream or raise:
 there is no fallback.  Each forward launch adds one to
-``launches["selective_scan"]``, each backward (the scan, then the sums of
-its partials) one to ``launches["selective_scan_bwd"]``.  The backward
-takes float32 only; a bfloat16 input that needs a gradient raises.
+``launches["selective_scan"]``, and one that also writes the chunk states
+one to ``state_launches["selective_scan"]`` as well; each backward (the
+walk, then the sums of its partials) adds one to
+``launches["selective_scan_bwd"]``.  The backward takes float32 only; a
+bfloat16 input that needs a gradient raises.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from .launch import P, current_stream, launches, raise_on, typed_library
-from .ref import selective_scan_bwd_ref, selective_scan_ref
+from .ref import (selective_scan_bwd_ref, selective_scan_chunk_states_ref,
+                  selective_scan_ref)
 
 SOURCE = "selective_scan.cu"
 BWD_SOURCE = "selective_scan_bwd.cu"
 MAX_STATE = 64                  # largest N the kernels take
-BWD_CHUNK = 32                  # the backward's steps a chunk (the .cu's)
-BWD_THREADS = 64                # and its threads a block
+CHUNK = 32                      # the forward's steps a chunk (the .cu's)
+BWD_STATES = 4                  # the backward's states a lane (the .cu's)
 
 _I = ctypes.c_int
 _signatures = {name: [P, P, P, P, P, P, P, _I, _I, _I, _I, P]
                for name in ("selective_scan_f32", "selective_scan_bf16")}
-_bwd_signatures = {"selective_scan_bwd_f32": [P] * 13 + [_I] * 4 + [P]}
+_signatures["selective_scan_states_f32"] = [P] * 8 + [_I] * 4 + [P]
+_bwd_signatures = {"selective_scan_bwd_states_f32": [P] * 14 + [_I] * 4
+                   + [P],
+                   "selective_scan_bwd_warps_per_sm": [_I]}
+
+# forward launches that also wrote the chunk states (each is counted in
+# launches["selective_scan"] too); reset and read beside `launches`
+state_launches: Dict[str, int] = {"selective_scan": 0}
+
+_keep_states = contextvars.ContextVar("keep_chunk_states", default=True)
+
+
+@contextlib.contextmanager
+def without_chunk_states():
+    """`selective_scan`'s forwards in this context write no chunk states:
+    a checkpoint's first pass, whose saved tensors its recompute replaces
+    (`repro_torch.models.transformer.remat_contexts`)."""
+    token = _keep_states.set(False)
+    try:
+        yield
+    finally:
+        _keep_states.reset(token)
 
 
 def _check(xc, dt, Bc, Cc, A, dtypes, extra=()):
@@ -75,48 +107,72 @@ def _check(xc, dt, Bc, Cc, A, dtypes, extra=()):
         raise ValueError(f"batch {B} exceeds the grid (65535)")
 
 
-def _forward(xc, dt, Bc, Cc, A) -> Tuple[torch.Tensor, torch.Tensor]:
+def _forward(xc, dt, Bc, Cc, A, states: bool = False):
+    """(y, h_last), and with ``states`` the state entering each chunk of
+    `CHUNK` steps, (chunks, B, N, Di) float32 (float32 inputs only)."""
     if xc.device.type == "cpu":
-        return selective_scan_ref(xc, dt, Bc, Cc, A)
-    _check(xc, dt, Bc, Cc, A, (torch.float32, torch.bfloat16))
+        out = selective_scan_ref(xc, dt, Bc, Cc, A)
+        return out + (selective_scan_chunk_states_ref(xc, dt, Bc, Cc, A),
+                      ) if states else out
+    _check(xc, dt, Bc, Cc, A, (torch.float32,) if states
+           else (torch.float32, torch.bfloat16))
     dev = xc.device
     B, S, Di = xc.shape
     N = A.shape[1]
     y = torch.empty_like(xc)
     h_last = torch.zeros((B, Di, N), dtype=torch.float32, device=dev)
+    chunk_h = (torch.empty((-(-S // CHUNK), B, N, Di), dtype=torch.float32,
+                           device=dev) if states else None)
     if y.numel() == 0:
-        return y, h_last
+        return (y, h_last, chunk_h) if states else (y, h_last)
     lib = typed_library(SOURCE, _signatures)
-    fn = (lib.selective_scan_f32 if xc.dtype == torch.float32
-          else lib.selective_scan_bf16)
     with torch.cuda.device(dev):
-        status = fn(xc.data_ptr(), dt.data_ptr(), Bc.data_ptr(),
-                    Cc.data_ptr(), A.data_ptr(), y.data_ptr(),
-                    h_last.data_ptr(), B, S, Di, N, current_stream())
+        ptrs = (xc.data_ptr(), dt.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
+                A.data_ptr(), y.data_ptr(), h_last.data_ptr())
+        if states:
+            status = lib.selective_scan_states_f32(
+                *ptrs, chunk_h.data_ptr(), B, S, Di, N, current_stream())
+        else:
+            fn = (lib.selective_scan_f32 if xc.dtype == torch.float32
+                  else lib.selective_scan_bf16)
+            status = fn(*ptrs, B, S, Di, N, current_stream())
     raise_on(status, "selective_scan")
     launches["selective_scan"] += 1
-    return y, h_last
+    if states:
+        state_launches["selective_scan"] += 1
+    return (y, h_last, chunk_h) if states else (y, h_last)
+
+
+def bwd_lanes(N: int) -> int:
+    """The backward's lanes a channel: N / 4 rounded up to a power of
+    two."""
+    lanes = 1
+    while lanes * BWD_STATES < N:
+        lanes *= 2
+    return lanes
+
+
+def bwd_channels(N: int) -> int:
+    """The backward's channels a block: 64 channels of `bwd_lanes` lanes,
+    at most 1024 (d, n) pairs (the .cu's kPairs) a block."""
+    lanes = bwd_lanes(N)
+    return min(64 * lanes, 1024 // BWD_STATES) // lanes
 
 
 def bwd_scratch_floats(B: int, S: int, Di: int, N: int) -> int:
-    """Floats of the backward's scratch: the states entering each chunk of
-    32 steps (chunks, B, N, Di), each block's partial sums of dBc and dCc
-    (blocks, B, S, 2, N) and each b's dA (B, N, Di), each region from a
-    multiple of 64 floats (the C interface's rule); a block holds 64 / L
-    channels, L = 1, 2 or 4 lanes a channel for N <= 16, 32 or 64."""
-    lanes = 1
-    while lanes * 16 < N:
-        lanes *= 2
-    blocks = -(-Di // (BWD_THREADS // lanes))
-    up = lambda x: -(-x // 64) * 64
-    return (up(-(-S // BWD_CHUNK) * B * Di * N) + up(blocks * B * S * 2 * N)
-            + B * N * Di)
+    """Floats of the backward's scratch: each block's partial sums of dBc
+    and dCc (blocks, B, S, 2, N), then each b's dA (B, N, Di) from a
+    multiple of 64 floats (the C interface's rule)."""
+    blocks = -(-Di // bwd_channels(N))
+    return -(-(blocks * B * S * 2 * N) // 64) * 64 + B * N * Di
 
 
-def selective_scan_bwd(xc, dt, Bc, Cc, A, dy, dh_last=None):
+def selective_scan_bwd(xc, dt, Bc, Cc, A, dy, dh_last=None, chunk_h=None):
     """The gradient of `selective_scan` at (xc, dt, Bc, Cc, A) given dy
     (B, S, Di) and d h_last (B, Di, N), or None when no gradient reaches
-    the final state -> (dxc, ddt, dBc, dCc, dA), float32 only."""
+    the final state -> (dxc, ddt, dBc, dCc, dA), float32 only.  chunk_h:
+    the forward's state entering each chunk, (chunks, B, N, Di); without
+    it the forward kernel runs first to write it."""
     if xc.device.type == "cpu":
         return selective_scan_bwd_ref(xc, dt, Bc, Cc, A, dy, dh_last)
     B, S, Di = xc.shape
@@ -124,46 +180,74 @@ def selective_scan_bwd(xc, dt, Bc, Cc, A, dy, dh_last=None):
     extra = [("dy", dy, (B, S, Di))]
     if dh_last is not None:
         extra.append(("dh_last", dh_last, (B, Di, N)))
+    if chunk_h is not None:
+        extra.append(("chunk_h", chunk_h, (-(-S // CHUNK), B, N, Di)))
     _check(xc, dt, Bc, Cc, A, (torch.float32,), extra)
     dxc, ddt, dBc, dCc = (torch.empty_like(t) for t in (xc, dt, Bc, Cc))
     dA = torch.empty_like(A)
     if xc.numel() == 0:
         return dxc, ddt, dBc.zero_(), dCc.zero_(), dA.zero_()
+    if chunk_h is None:
+        chunk_h = _forward(xc, dt, Bc, Cc, A, states=True)[2]
     scratch = torch.empty((bwd_scratch_floats(B, S, Di, N),),
                           dtype=torch.float32, device=xc.device)
     lib = typed_library(BWD_SOURCE, _bwd_signatures)
     with torch.cuda.device(xc.device):
-        status = lib.selective_scan_bwd_f32(
+        status = lib.selective_scan_bwd_states_f32(
             xc.data_ptr(), dt.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
             A.data_ptr(), dy.data_ptr(),
             None if dh_last is None else dh_last.data_ptr(),
-            dxc.data_ptr(), ddt.data_ptr(), dBc.data_ptr(), dCc.data_ptr(),
-            dA.data_ptr(), scratch.data_ptr(), B, S, Di, N, current_stream())
+            chunk_h.data_ptr(), dxc.data_ptr(), ddt.data_ptr(),
+            dBc.data_ptr(), dCc.data_ptr(), dA.data_ptr(), scratch.data_ptr(),
+            B, S, Di, N, current_stream())
     raise_on(status, "selective_scan_bwd")
     launches["selective_scan_bwd"] += 1
     return dxc, ddt, dBc, dCc, dA
 
 
+def _placeholder(t: torch.Tensor) -> bool:
+    """A saved slot that holds no chunk states: all strides 0."""
+    return all(st == 0 for st in t.stride())
+
+
 class _SelectiveScan(torch.autograd.Function):
-    """The forward kernel, saving its inputs, and the backward kernel."""
+    """The forward kernel, saving its inputs and (on the card) its chunk
+    states, and the backward kernel given them.
+
+    Inside `without_chunk_states` the chunk states' slot holds a zero-
+    strided view of their shape: a checkpoint's recompute must save as
+    many tensors, of the same shapes, as its first pass did.  A backward
+    handed that view runs the forward for the states."""
 
     @staticmethod
     def forward(ctx, xc, dt, Bc, Cc, A):
-        if xc.device.type != "cpu" and xc.dtype != torch.float32:
-            raise TypeError(f"the selective-scan backward takes float32 "
-                            f"only, got {xc.dtype}")
-        y, h_last = _forward(xc, dt, Bc, Cc, A)
-        ctx.save_for_backward(xc, dt, Bc, Cc, A)
+        if xc.device.type == "cpu":
+            y, h_last = _forward(xc, dt, Bc, Cc, A)
+            chunk_h = None          # the plain backward recomputes them
+        else:
+            if xc.dtype != torch.float32:
+                raise TypeError(f"the selective-scan backward takes float32 "
+                                f"only, got {xc.dtype}")
+            if _keep_states.get():
+                y, h_last, chunk_h = _forward(xc, dt, Bc, Cc, A, states=True)
+            else:
+                y, h_last = _forward(xc, dt, Bc, Cc, A)
+                B, S, Di = xc.shape
+                chunk_h = xc.new_zeros(()).expand(
+                    -(-S // CHUNK), B, A.shape[1], Di)
+        ctx.save_for_backward(xc, dt, Bc, Cc, A, chunk_h)
         ctx.set_materialize_grads(False)
         return y, h_last
 
     @staticmethod
     def backward(ctx, dy, dh_last):
-        saved = ctx.saved_tensors          # unpacked once (the checkpoint)
+        *saved, chunk_h = ctx.saved_tensors   # unpacked once (the checkpoint)
         dy = torch.zeros_like(saved[0]) if dy is None else dy.contiguous()
         if dh_last is not None:
             dh_last = dh_last.contiguous()
-        return selective_scan_bwd(*saved, dy, dh_last)
+        if chunk_h is not None and _placeholder(chunk_h):
+            chunk_h = None
+        return selective_scan_bwd(*saved, dy, dh_last, chunk_h)
 
 
 def selective_scan(xc: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,

@@ -21,12 +21,15 @@ holding no weights) computes the loss of many clients' parameters
 (`repro_torch.core.fl_step`).  ``remat=True`` wraps each layer in
 ``torch.utils.checkpoint`` (the JAX package checkpoints each group of
 ``block_pattern``): its activations are recomputed in the backward, so a
-layer's kernels run twice forward.  `named_from_tree` / `tree_from_named`
-carry parameter trees between the JAX package's layout and these names,
-with leading dims (the federation's clients) or without.
+layer's kernels run twice forward (`remat_contexts`: only the recompute
+writes the selective scan's chunk states).  `named_from_tree` /
+`tree_from_named` carry parameter trees between the JAX package's layout
+and these names, with leading dims (the federation's clients) or
+without.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
@@ -34,6 +37,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels import without_chunk_states
 from .attention import attn_decode, attn_forward, init_attn, init_attn_cache
 from .config import ATTN, LOCAL, MAMBA, RGLRU, ArchConfig
 from .mamba import init_mamba, init_mamba_cache, mamba_decode, mamba_forward
@@ -170,6 +174,13 @@ class Layer(nn.Module):
                                device=dev)
 
 
+def remat_contexts():
+    """A layer checkpoint's two contexts: its first pass, whose saved
+    tensors are dropped, writes no selective-scan chunk states; its
+    recompute, which the backward uses, does."""
+    return without_chunk_states(), contextlib.nullcontext()
+
+
 class LM(nn.Module):
     """The language model of ``cfg`` in float32, its parameters drawn from
     ``seed`` with the JAX package's init scheme (``seed=None``: left
@@ -239,7 +250,8 @@ class LM(nn.Module):
         for i, layer in enumerate(self.layers):
             lp = _sub(params, f"layers.{i}")
             if remat:
-                x = checkpoint(layer, x, 0, lp, use_reentrant=False)
+                x = checkpoint(layer, x, 0, lp, use_reentrant=False,
+                               context_fn=remat_contexts)
             else:
                 x = layer(x, params=lp)
         return self.unembed(rmsnorm(params["final_norm"], x), params)

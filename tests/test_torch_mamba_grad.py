@@ -9,14 +9,21 @@ The JAX package has no backward kernel: its training differentiates the
   JAX package's ``selective_scan_ref``, with d h_last zero, absent and
   non-zero, and the wrapper's `torch.autograd.Function` on the CPU;
 * the numerics of ``csrc/selective_scan_bwd.cu`` emulated on the CPU (the
-  exp2 decay, the fused updates, the butterfly over a warp's channels, the
-  blocks' partials summed in order) against the plain backward;
+  exp2 decay, the fused updates, the pairwise sums over a warp's channels
+  and a channel's lanes, the warps' and blocks' partials summed in order)
+  against the plain backward; the backward's blocks; the forward's chunk
+  states (`ref.selective_scan_chunk_states_ref`) against the JAX
+  package's ``selective_scan_ref`` on prefixes; which forwards keep chunk
+  states under a layer checkpoint;
 * a MAMBA layer's gradients (every parameter) against ``jax.vjp`` of the
   JAX package's ``mamba_forward``;
 * one mode-A and one mode-B federated step of falcon-mamba-7b's smoke
   config against the JAX package's ``fl_step``;
 * `cuda`-marked twins: the backward kernel against the plain backward on
-  the card, and a MAMBA layer's gradients through both kernels.
+  the card, the forward's states output (its outputs bit for bit those
+  without it), the launches of a direct backward call and of a
+  checkpointed layer, and a MAMBA layer's gradients through both
+  kernels.
 
 The falcon-mamba smoke config's `lm_loss` value and gradient against the
 JAX package's is a case of ``tests/test_torch_lm_grad.py``'s ``LM_CASES``.
@@ -25,9 +32,9 @@ Tolerances: the backward formulas against autograd or ``jax.vjp`` of the
 same forward, FORMULA_TOL = 2e-5 relative to each gradient's largest entry
 (float32 sums in another order); the kernel's numerics and the kernel on
 the card against the plain backward, BWD_TOL = 1e-4 of each gradient's
-largest entry (its sums over channels in a butterfly and over blocks, on
-FMAs, and exp2 in place of exp); a layer's gradients 1e-4 of each leaf's
-largest entry; a federated step 1e-5 of each leaf's largest entry, the
+largest entry (its sums over channels pairwise and over blocks, on FMAs,
+and exp2 in place of exp); a layer's gradients 1e-4 of
+each leaf's largest entry; a federated step 1e-5 of each leaf's largest entry, the
 losses 1e-5 relative (as ``tests/test_torch_train.py``).
 """
 import dataclasses
@@ -41,7 +48,9 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core import fl_step as tfl  # noqa: E402
 from repro_torch.kernels import (launches, ref,  # noqa: E402
                                  reset_launches, selective_scan,
-                                 selective_scan_bwd)
+                                 selective_scan_bwd, state_launches)
+from repro_torch.kernels.selective_scan import (  # noqa: E402
+    BWD_STATES, bwd_channels, bwd_lanes, bwd_scratch_floats)
 from repro_torch.models.mamba import mamba_forward  # noqa: E402
 from repro_torch import optim as topt  # noqa: E402
 
@@ -155,86 +164,102 @@ def _fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
-def _butterfly(v):
-    """The sum over a warp's 32 channels as csrc/selective_scan_bwd.cu's
-    reduce_scatter takes it: (..., 32 lanes, items) -> (..., items), the
-    lanes paired on bit 4 of the lane first, then bits 3, 2, 1, 0."""
-    for _ in range(5):
-        half = v.shape[-2] // 2
-        v = v[..., :half, :] + v[..., half:, :]
-    return v[..., 0, :]
+def _halving(v, dim):
+    """Sum over ``dim`` (a power of two long) pairwise, the first half
+    plus the second each round: the order of the kernel's halving and
+    butterfly shuffles (lanes paired on their highest bit first)."""
+    while v.shape[dim] > 1:
+        half = v.shape[dim] // 2
+        v = v.narrow(dim, 0, half) + v.narrow(dim, half, half)
+    return v.squeeze(dim)
+
+
+def _in_order(parts):
+    """Sum of a sequence of tensors from 0, one after another."""
+    s = torch.zeros_like(parts[0])
+    for p in parts:
+        s = s + p
+    return s
 
 
 def _scan_bwd_kernel_numerics(xc, dt, Bc, Cc, A, dy, dh_last):
-    """csrc/selective_scan_bwd.cu's arithmetic at N <= 16 (one lane a
-    channel), in float32 on the CPU: the states recomputed as the forward
-    kernel computes them (dA = exp2(dt a2), a2 = A log2 e rounded to f32,
-    one FMA an update); each step back g = fma(dA_{t+1}, g, dy C), the
-    dBc and dCc terms summed over a warp's 32 channels by the butterfly,
-    then over the two warps of a block, then over the blocks in order;
-    sum_n g B and sum_n a2 u in two accumulators by the parity of n; dA
-    over t backward by FMAs, then over b in order."""
+    """csrc/selective_scan_bwd.cu's arithmetic in float32 on the CPU: the
+    states as the forward kernel computes them (dA = exp2(dt a2), a2 = A
+    log2 e rounded to f32, one FMA an update; S padded to whole 32-step
+    chunks with dt = dy = 0); g entering the last step as d h_last, then
+    each step back g = fma(dA_{t+1}, g, dy C); a lane's `BWD_STATES`
+    states summed by FMAs, then its channel's L lanes pairwise; the dBc
+    and dCc terms summed over a warp's 32 / L channels pairwise, then the
+    warps of a block, then the blocks in order; dA over the steps backward
+    by FMAs, then over b in order."""
     B, S, Di = xc.shape
     N = A.shape[1]
-    blocks = -(-Di // 64)
-    pad = blocks * 64 - Di
-    x, d, gy = (torch.nn.functional.pad(t, (0, pad)) for t in (xc, dt, dy))
-    a2 = torch.nn.functional.pad(A * np.float32(LOG2E), (0, 0, 0, pad))
-    D = blocks * 64
-    h = torch.zeros((B, D, N))
-    hs = []
-    for t in range(S):
+    K, lanes = BWD_STATES, bwd_lanes(N)
+    width, channels = K * lanes, bwd_channels(N)
+    warps = channels * lanes // 32
+    per_warp = 32 // lanes
+    blocks = -(-Di // channels)
+    D = blocks * channels
+    T = -(-S // 32) * 32
+    pad = lambda t, w: torch.nn.functional.pad(t, (0, w - t.shape[-1], 0,
+                                                   T - t.shape[1]))
+    x, d, gy = (pad(t, D) for t in (xc, dt, dy))
+    b, c = pad(Bc, width), pad(Cc, width)
+    a2 = torch.nn.functional.pad(A * np.float32(LOG2E),
+                                 (0, width - N, 0, D - Di))
+    # the states: hs[t + 1] = h_t, hs[0] = h_{-1} = 0
+    h = torch.zeros((B, D, width))
+    hs, das = [h], []
+    for t in range(T):
+        da = torch.exp2(d[:, t, :, None] * a2)
+        h = _fma(da, h, (d[:, t] * x[:, t])[..., None] * b[:, t, None, :])
         hs.append(h)
-        dtx = d[:, t] * x[:, t]
-        h = _fma(torch.exp2(d[:, t, :, None] * a2), h,
-                 dtx[..., None] * Bc[:, t, None, :])
-    hc = h
-    g = torch.zeros((B, D, N))
+        das.append(da)
+    g = torch.zeros((B, D, width))
     if dh_last is not None:
-        g[:, :Di] = dh_last
-    dan = torch.ones((B, D, N))
-    dacc = torch.zeros((B, D, N))
-    dx, ddt = torch.empty((B, S, D)), torch.empty((B, S, D))
-    part = torch.empty((blocks, B, S, 2, N))
-    for t in range(S - 1, -1, -1):
+        g[:, :Di, :N] = dh_last
+    dan = torch.ones((B, D, width))
+    dacc = torch.zeros((B, D, width))
+    dx, ddt = torch.empty((B, T, D)), torch.empty((B, T, D))
+    dbc = torch.empty((B, T, 2, width))
+    for t in range(T - 1, -1, -1):
         dtv, xv, dyv = d[:, t, :, None], x[:, t, :, None], gy[:, t, :, None]
         dtx = dtv * xv
-        hp = hs[t]
-        da = torch.exp2(dtv * a2)
-        g = _fma(dan, g, dyv * Cc[:, t, None, :])
-        terms = torch.cat([g * dtx, dyv * hc], -1)           # (B, D, 2N)
-        warp = _butterfly(terms.reshape(B, blocks, 2, 32, 2 * N))
-        part[:, :, t] = (warp[:, :, 0] + warp[:, :, 1]).reshape(
-            B, blocks, 2, N).transpose(0, 1)
-        gb = torch.zeros((B, D, 2))
-        s2 = torch.zeros((B, D, 2))
+        da, hp = das[t], hs[t]
+        g = _fma(dan, g, dyv * c[:, t, None, :])
+        terms = torch.stack([g * dtx, dyv * hs[t + 1]], 2)
+        warp = _halving(terms.reshape(B, blocks, warps, per_warp, 2, width),
+                        3)
+        dbc[:, t] = _in_order(_in_order(warp.unbind(2)).unbind(1))
         u = g * da * hp
-        for r in range(N):
-            gb[..., r % 2] = _fma(g[..., r], Bc[:, t, None, r], gb[..., r % 2])
-            s2[..., r % 2] = _fma(a2[:, r], u[..., r], s2[..., r % 2])
-        sgb, ss2 = gb.sum(-1), s2.sum(-1)
+        gb = torch.zeros((B, D, lanes))
+        s2 = torch.zeros((B, D, lanes))
+        for r in range(K):
+            gb = _fma(g[..., r::K], b[:, t, None, r::K], gb)
+            s2 = _fma(a2[:, r::K], u[..., r::K], s2)
+        sgb, ss2 = _halving(gb, 2), _halving(s2, 2)
         dx[:, t] = dtv[..., 0] * sgb
         ddt[:, t] = _fma(xv[..., 0], sgb, ss2 * np.float32(LN2))
         dacc = _fma(u, dtv, dacc)
-        dan, hc = da, hp
-    sums = torch.zeros((B, S, 2, N))
-    for k in range(blocks):
-        sums = sums + part[k]
-    dA = torch.zeros((D, N))
-    for b in range(B):
-        dA = dA + dacc[b]
-    return (dx[..., :Di], ddt[..., :Di], sums[:, :, 0], sums[:, :, 1],
-            dA[:Di])
+        dan = da
+    dA = _in_order(dacc.unbind(0))
+    return (dx[:, :S, :Di], ddt[:, :S, :Di], dbc[:, :S, 0, :N],
+            dbc[:, :S, 1, :N], dA[:Di, :N])
+
+
+# (B, S, Di, N, dt scale) beyond SCAN_CASES: Di = 130 spans three blocks of
+# 64 channels; S = 200 seven chunks with decays that underflow; N = 33
+# sixteen lanes a channel (16 channels a block) over four chunks
+KERNEL_CASES = SCAN_CASES + [(1, 37, 130, 16, 1.0), (1, 200, 40, 16, 300.0),
+                             (2, 100, 20, 33, 1.0)]
 
 
 @pytest.mark.parametrize("dh", [False, True])
-@pytest.mark.parametrize("B,S,Di,N,dt_scale", SCAN_CASES + [
-    (1, 37, 130, 16, 1.0)])
+@pytest.mark.parametrize("B,S,Di,N,dt_scale", KERNEL_CASES)
 def test_backward_kernel_numerics_meet_the_tolerance(B, S, Di, N, dt_scale,
                                                      dh):
     """The kernel's exp2, fused updates and summation orders stay within
-    BWD_TOL of each gradient's largest entry of the plain backward; Di =
-    130 spans three blocks of 64 channels."""
+    BWD_TOL of each gradient's largest entry of the plain backward."""
     xc, dt, Bc, Cc, A, dy, dh_np = (torch.from_numpy(x) for x in _scan_case(
         B, S, Di, N, seed=S + Di + 1, dt_scale=dt_scale))
     dh_last = dh_np if dh else None
@@ -242,6 +267,87 @@ def test_backward_kernel_numerics_meet_the_tolerance(B, S, Di, N, dt_scale,
     want = ref.selective_scan_bwd_ref(xc, dt, Bc, Cc, A, dy, dh_last)
     for name, g_, w_ in zip(("xc", "dt", "Bc", "Cc", "A"), got, want):
         assert _rel(g_, w_) < BWD_TOL, name
+
+
+def test_backward_launch_plan():
+    """The backward's blocks: at falcon-mamba-7b's training shape (1, 4096,
+    8192, 16) 128 blocks of 64 channels (4 lanes a channel), one an SM;
+    the scratch holds the blocks' partials and each b's dA."""
+    assert (bwd_lanes(16), bwd_channels(16)) == (4, 64)
+    assert (bwd_lanes(4), bwd_lanes(17), bwd_lanes(64)) == (1, 8, 16)
+    assert (bwd_channels(32), bwd_channels(64)) == (32, 16)
+    assert bwd_scratch_floats(1, 4096, 8192, 16) == (
+        128 * 4096 * 2 * 16 + 8192 * 16)
+    assert bwd_scratch_floats(2, 37, 100, 16) == (
+        -(-(2 * 2 * 37 * 2 * 16) // 64) * 64 + 2 * 16 * 100)
+
+
+def _small_lm():
+    """falcon-mamba-7b's smoke config (two MAMBA layers) at `_small` width,
+    on the CPU."""
+    from repro_torch.models import LM
+    cfg = _small(get_smoke_config)
+    assert cfg.num_layers == 2
+    return LM(cfg, trainable=True)
+
+
+@pytest.mark.parametrize("how", ["remat", "plain", "no_grad"])
+def test_checkpoint_keeps_chunk_states_only_in_the_recompute(monkeypatch,
+                                                             how):
+    """Under `LM.forward(remat=True)` each MAMBA layer's first pass runs
+    inside `without_chunk_states` (its saved tensors are dropped) and its
+    recompute outside it, so on the card only the recompute writes the
+    chunk states; without the checkpoint every forward keeps them, and
+    under no_grad no scan is differentiable.  The gradients with and
+    without the checkpoint are equal."""
+    from repro_torch.kernels.selective_scan import (_SelectiveScan,
+                                                    _keep_states)
+    seen = []
+    real = _SelectiveScan.forward
+
+    def spy(ctx, *args):
+        seen.append(_keep_states.get())
+        return real(ctx, *args)
+    monkeypatch.setattr(_SelectiveScan, "forward", staticmethod(spy))
+    model = _small_lm()
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, model.cfg.vocab_size, (2, 12)))
+    if how == "no_grad":
+        with torch.no_grad():
+            model(toks, remat=True)
+        assert seen == []
+        return
+    params = dict(model.named_parameters())
+    out = model(toks, remat=how == "remat")
+    grads = torch.autograd.grad(out.square().mean(), list(params.values()))
+    if how == "remat":
+        assert seen == [False, False, True, True]
+        want = torch.autograd.grad(model(toks).square().mean(),
+                                   list(params.values()))
+        assert all(torch.equal(g_, w_) for g_, w_ in zip(grads, want))
+    else:
+        assert seen == [True, True]
+
+
+@pytest.mark.parametrize("N", [16, 17])
+def test_chunk_states_match_jax_prefixes(needs_jax, N):
+    """`selective_scan_chunk_states_ref`'s state entering chunk k (the
+    forward kernel's states output) against the JAX package's
+    ``selective_scan_ref`` h_last over the first 32 k steps; chunk 0's is
+    zero."""
+    S, Di = 100, 130
+    xc, dt, Bc, Cc, A, _, _ = _scan_case(1, S, Di, N, seed=N)
+    got = ref.selective_scan_chunk_states_ref(
+        *(torch.from_numpy(x) for x in (xc, dt, Bc, Cc, A)))
+    assert got.shape == (4, 1, N, Di)
+    assert float(got[0].abs().max()) == 0.0
+    for k in range(1, 4):
+        _, h = jax.jit(jax_ref.selective_scan_ref)(
+            *(jnp.asarray(x[:, :32 * k]) for x in (xc, dt, Bc, Cc)),
+            jnp.asarray(A))
+        np.testing.assert_allclose(got[k].numpy(),
+                                   np.asarray(h).transpose(0, 2, 1),
+                                   rtol=1e-5, atol=1e-6)
 
 
 # --------------------------------------------------------------------- #
@@ -394,13 +500,16 @@ def _card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,Di,N,dt_scale", SCAN_CASES + [
     (1, 4096, 8192, 16, 1.0), (2, 31, 130, 16, 1.0), (1, 4097, 100, 16, 1.0),
-    (3, 33, 72, 64, 1.0), (2, 50, 64, 17, 1.0), (1, 65, 96, 32, 300.0)])
+    (3, 33, 72, 64, 1.0), (2, 50, 64, 17, 1.0), (1, 65, 96, 32, 300.0),
+    (2, 1000, 96, 16, 300.0)])
 def test_cuda_selective_scan_gradient_matches_plain_backward(B, S, Di, N,
                                                              dt_scale):
-    """Through the autograd Function on the card: the forward and the
-    backward kernel, one launch each, every gradient within BWD_TOL of its
-    largest entry of the plain backward; d h_last zero or not; two calls
-    of the backward bit for bit equal."""
+    """Through the autograd Function on the card: the forward (writing its
+    chunk states) and the backward kernel given them, one launch each,
+    every gradient within BWD_TOL of its largest entry of the plain
+    backward; d h_last zero or not; two calls of the backward bit for bit
+    equal.  (2, 1000, 96, 16) walks 32 chunks with decays that
+    underflow."""
     dev = _card()
     xc, dt, Bc, Cc, A, dy, dh = (torch.from_numpy(x).to(dev) for x in
                                  _scan_case(B, S, Di, N, seed=S + Di,
@@ -424,6 +533,52 @@ def test_cuda_selective_scan_gradient_matches_plain_backward(B, S, Di, N,
     with pytest.raises(TypeError, match="float32"):
         selective_scan(xc.bfloat16().requires_grad_(), dt.bfloat16(),
                        Bc.bfloat16(), Cc.bfloat16(), A)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Di,N", [(4, 4096, 8192, 16), (2, 70, 100, 17),
+                                      (1, 33, 64, 64), (3, 5, 3, 5)])
+def test_cuda_forward_states_leave_the_outputs_bit_for_bit(B, S, Di, N):
+    """The forward with its states output gives y and h_last bit for bit
+    those of the forward without it (serving's call), and states within
+    atol 1e-5 (rtol 0.05) of `selective_scan_chunk_states_ref`."""
+    dev = _card()
+    from repro_torch.kernels.selective_scan import _forward
+    xc, dt, Bc, Cc, A, _, _ = (torch.from_numpy(x).to(dev) for x in
+                               _scan_case(B, S, Di, N, seed=S + N))
+    y0, h0 = _forward(xc, dt, Bc, Cc, A)
+    y1, h1, states = _forward(xc, dt, Bc, Cc, A, states=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y0, y1) and torch.equal(h0, h1)
+    want = ref.selective_scan_chunk_states_ref(xc, dt, Bc, Cc, A)
+    torch.testing.assert_close(states, want, atol=1e-5, rtol=0.05)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_counts_its_forward_without_states():
+    """A direct `selective_scan_bwd` call without chunk states launches the
+    forward kernel for them (one `selective_scan` launch) and the backward;
+    given the states, the backward alone, with the same bits, within
+    BWD_TOL (3 blocks of 64 channels, 10 chunks)."""
+    dev = _card()
+    from repro_torch.kernels.selective_scan import _forward
+    xc, dt, Bc, Cc, A, dy, dh = (torch.from_numpy(x).to(dev) for x in
+                                 _scan_case(1, 300, 130, 16, seed=11))
+    reset_launches()
+    got = selective_scan_bwd(xc, dt, Bc, Cc, A, dy, dh)
+    torch.cuda.synchronize()
+    assert launches["selective_scan"] == 1
+    assert launches["selective_scan_bwd"] == 1
+    states = _forward(xc, dt, Bc, Cc, A, states=True)[2]
+    reset_launches()
+    again = selective_scan_bwd(xc, dt, Bc, Cc, A, dy, dh, states)
+    torch.cuda.synchronize()
+    assert launches["selective_scan"] == 0
+    assert launches["selective_scan_bwd"] == 1
+    assert all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
+    want = ref.selective_scan_bwd_ref(xc, dt, Bc, Cc, A, dy, dh)
+    for name, g_, w_ in zip(("xc", "dt", "Bc", "Cc", "A"), again, want):
+        assert _rel(g_.cpu(), w_.cpu()) < BWD_TOL, name
 
 
 @pytest.mark.cuda
@@ -451,6 +606,30 @@ def test_cuda_mamba_layer_gradients_match_the_cpu():
     for k in cp:
         assert float(gp[k].abs().max()) > 0.0, k
         assert _rel(gp[k].cpu(), cp[k]) < 1e-4, k
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_writes_the_chunk_states_once():
+    """`LM.forward(remat=True)` on the card: each MAMBA layer's scan runs
+    twice forward (the first pass, then the recompute) and once backward,
+    and only the recompute writes chunk states (`state_launches`); the
+    gradients equal those without the checkpoint bit for bit."""
+    dev = _card()
+    from repro_torch.models import LM
+    model = LM(_small(get_smoke_config), device=dev, trainable=True)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, model.cfg.vocab_size, (2, 70))).to(dev)
+    params = list(model.parameters())
+    want = torch.autograd.grad(model(toks).square().mean(), params)
+    reset_launches()
+    state_launches["selective_scan"] = 0
+    got = torch.autograd.grad(model(toks, remat=True).square().mean(),
+                              params)
+    torch.cuda.synchronize()
+    assert launches["selective_scan"] == 4
+    assert state_launches["selective_scan"] == 2
+    assert launches["selective_scan_bwd"] == 2
+    assert all(torch.equal(g_, w_) for g_, w_ in zip(got, want))
 
 
 def test_train_cli_runs_falcon_mamba_on_the_cpu(capsys):
