@@ -185,7 +185,33 @@ Needs one NVIDIA GPU and nvcc.  In order:
    entry, the loss 1e-5 relative); and ``python -m
    repro_torch.launch.train --arch falcon-mamba-7b --steps 3`` on the card
    (its smoke config), which must exit 0;
-10. prints the federations line (4b, 4c and 4d), the serving line, the
+10. the cluster-major federation over ``torch.distributed`` ranks
+   (``repro_torch.api.cluster_engine``), its ranks started by
+   ``repro_torch.launch.distributed.spawn_local`` on this script's hidden
+   ``--dist-worker`` flag: ``paper-mlp-fleet1k`` at full width at mesh
+   (1,) (NCCL, one rank) and at mesh (2,) (gloo, two ranks sharing
+   cuda:0), each ``run_scanned(30)`` then ``run(max_rounds=20)``, and
+   ``faulty-fleet1k`` and ``dp-fleet1k`` at mesh (2,), ``run_scanned(30)``,
+   and ``paper-adaptive-fleet1k`` (its DQN pretrained on rank 0 alone and
+   broadcast at build) at mesh (2,), ``run_scanned(30)`` then
+   ``run(max_rounds=10)``: every rank's trace equal to the others', and
+   the schedule (cluster, a, round, agg_count) equal to the unsharded port
+   engine's of this process on the same seed (the DQN federation's: to
+   rank 0's unsharded engine under the same net), t, losses and energy
+   within 1e-5 relative; exactly 2
+   all-reduces a scanned round and 3 an event round on every rank, one
+   masked ``trust_aggregate`` a round over the ranks, one unmasked a round
+   on each rank and no fused one; three more rounds with every trust
+   kernel call held against its plain version (1e-6); B = 8 replicates of
+   ``paper-mlp-fleet1k`` as a population over the two ranks against the
+   unsharded population (schedule equal, values bit for bit or within
+   1e-6); the steady rounds/s of each mesh beside the unsharded engine's
+   of the same process (rank 0: three interleaved windows of 100 scanned
+   rounds each, their median and spread), the all-reduce milliseconds a
+   round, each rank's backend, device and
+   peak memory, the kernel library each rank loaded; then the unmasked
+   kernel timed at a rank's Eqn-19 shape (C_loc 8, N 159,010);
+11. prints the federations line (4b, 4c and 4d), the serving line, the
    service line (4e: each segment's ``service_rounds_per_sec``, its
    checkpoint's seconds and bytes, the chaos children's start-up seconds,
    kills and restarts, beside the card's name and power limit), the
@@ -195,7 +221,8 @@ Needs one NVIDIA GPU and nvcc.  In order:
    recovery and its population against sequential seconds, the
    secure-aggregation cells, beside the card's name and power limit), the
    training line (8 and 9: seconds a round, losses, launches, peak
-   memory), the kernels line, then the result line.
+   memory), the multi-device line (10, beside the card's name and power
+   limit), the kernels line, then the result line.
 
 The trust kernels are timed back to back through their wrappers (the
 kernels line's ``ms`` and ``library_ms``) and by device time, warm (ten
@@ -210,11 +237,10 @@ every window's time and the SM clock printed.
 checkout's, in turns (old, new, new, old) at the main path's, the serving
 paths' and the training shapes (the fused trust kernel also at
 ``anomaly-fleet1k``'s; the backwards warm and cold), and adds those times
-to the kernels line.  A ``selective_scan_bwd.cu`` with the C interface
-before the chunk states (its own forward walk) is timed against this
-checkout's backward given the states and against the forward writing them
-then the backward; each DIR's ``selective_scan.cu`` is also timed at B = 1
-against this checkout's forward with and without its states output.
+to the kernels line.  Each DIR's ``selective_scan_bwd.cu`` is timed
+against this checkout's backward given the forward's chunk states; each
+DIR's ``selective_scan.cu`` is also timed at B = 1 against this checkout's
+forward with and without its states output.
 
 Any failure exits non-zero before the result line.  Without a card, or
 without the repository's ``src/`` beside it, it exits non-zero at once.
@@ -3424,36 +3450,12 @@ def ssm_bwd_inputs(B, S, Di, N, dev, seed, dt_scale=1.0):
 SSM_GRADS = ("dxc", "ddt", "dBc", "dCc", "dA")
 
 
-# the C interface of selective_scan_bwd.cu before the chunk states
-# (selective_scan_bwd_f32: it walks the states itself), to time such a
-# source in turns with this checkout's
-OLD_SSM_BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [
-    ctypes.c_void_p]
-
-
-def old_ssm_bwd_scratch_floats(B, S, Di, N) -> int:
-    """The scratch of that interface: the chunk states (chunks, B, N,
-    Di), each block's partials (blocks, B, S, 2, N) at 64 / L channels a
-    block (L = 1, 2 or 4 lanes for N <= 16, 32 or 64) and each b's dA."""
-    lanes = 1
-    while lanes * 16 < N:
-        lanes *= 2
-    up = lambda x: -(-x // 64) * 64
-    return (up(-(-S // 32) * B * Di * N)
-            + up(-(-Di // (64 // lanes)) * B * S * 2 * N) + B * N * Di)
-
-
 def ssm_bwd_turns(cfg, dev, dirs) -> dict:
     """Each DIR's ``selective_scan_bwd.cu`` against this checkout's at the
     training shape, in turns (old, new, ..., new, old), warm and cold:
     {dir: {"warm": {"old": [...], ...}, "cold": ..., "max_rel_diff": x}},
-    ms.  A source with the C interface before the chunk states (it walks
-    the states itself, `OLD_SSM_BWD_ARGTYPES`) is timed against this
-    checkout's backward given the forward's chunk states ("new") and
-    against the forward writing them then the backward
-    ("new_with_forward"); a source with this checkout's interface against
-    the backward given the states.  Every side calls its C function on the
-    same preallocated outputs and scratch."""
+    ms.  Each side is the backward given the forward's chunk states, its C
+    function called on the same preallocated outputs and scratch."""
     from repro_torch.kernels.selective_scan import (_forward,
                                                     bwd_scratch_floats)
     name = os.path.basename(SSM_BWD_SOURCE)
@@ -3465,43 +3467,24 @@ def ssm_bwd_turns(cfg, dev, dirs) -> dict:
     S, Di, N = RECURRENT_TRAIN_SEQ, cfg.d_inner, cfg.ssm_state
     args, dy, _ = ssm_bwd_inputs(1, S, Di, N, dev, 96)
     outs = [torch.empty_like(t) for t in args]
-    scratch = torch.empty((2 * max(bwd_scratch_floats(1, S, Di, N),
-                                   old_ssm_bwd_scratch_floats(1, S, Di, N)),),
+    scratch = torch.empty((2 * bwd_scratch_floats(1, S, Di, N),),
                           device=dev)
     states = _forward(*args, states=True)[2]
     flush = L2Flush(dev)
     ptrs = lambda ts: [t.data_ptr() for t in ts]
 
-    def new_call(where, lib, with_forward=False):
+    def call(where, lib):
         def fn():
-            h = _forward(*args, states=True)[2] if with_forward else states
             status = lib.selective_scan_bwd_states_f32(
-                *ptrs(args), dy.data_ptr(), None, h.data_ptr(), *ptrs(outs),
-                scratch.data_ptr(), 1, S, Di, N,
+                *ptrs(args), dy.data_ptr(), None, states.data_ptr(),
+                *ptrs(outs), scratch.data_ptr(), 1, S, Di, N,
                 torch.cuda.current_stream().cuda_stream)
-            check(status == 0, f"selective_scan_bwd of {where}: {status}")
-        return fn
-
-    def old_call(where, lib):
-        fn_ = lib.selective_scan_bwd_f32
-        fn_.argtypes, fn_.restype = OLD_SSM_BWD_ARGTYPES, ctypes.c_int
-
-        def fn():
-            status = fn_(*ptrs(args), dy.data_ptr(), None, *ptrs(outs),
-                         scratch.data_ptr(), 1, S, Di, N,
-                         torch.cuda.current_stream().cuda_stream)
             check(status == 0, f"selective_scan_bwd of {where}: {status}")
         return fn
 
     out_t = {}
     for where, old in others.items():
-        if hasattr(old, "selective_scan_bwd_states_f32"):
-            fns = {"old": new_call(where, old),
-                   "new": new_call("this checkout", mine)}
-        else:
-            fns = {"old": old_call(where, old),
-                   "new": new_call("this checkout", mine),
-                   "new_with_forward": new_call("this checkout", mine, True)}
+        fns = {"old": call(where, old), "new": call("this checkout", mine)}
         for x in outs:              # what the other version leaves unwritten
             x.fill_(float("nan"))   # shows as NaN
         fns["old"]()
@@ -3630,8 +3613,6 @@ def ssm_bwd_phase(cfg, dev, compare_dirs=()) -> dict:
     for where, old in other_libraries(os.path.basename(SSM_SOURCE),
                                       compare_dirs, "selective_scan").items():
         fns = {"old": c_fwd(old, False, where), **fwd_turns}
-        if hasattr(old, "selective_scan_states_f32"):
-            fns["old_with_states"] = c_fwd(old, True, where)
         t["ssm_fwd_b1_vs"][where] = {
             "warm": in_turns(fns, reps=10),
             "cold": in_turns(fns, flush=flush, reps=5)}
@@ -3725,6 +3706,425 @@ def mamba_train_phase(dev) -> dict:
     return {"mode_a": rec, "live": live, "cli_s": t_cli, "phase_s": wall}
 
 
+# --------------------------------------------------------------------- #
+# 10. the cluster-major federation over torch.distributed ranks
+# --------------------------------------------------------------------- #
+DIST_K = 30             # run_scanned(30) on every spec
+DIST_E = 20             # then run(max_rounds=20) on paper-mlp-fleet1k
+DIST_E_DQN = 10         # and run(max_rounds=10) on paper-adaptive-fleet1k
+DIST_STEADY = 100       # the steady rounds/s: windows of run_scanned(100),
+DIST_WINDOWS = 3        # ... three of each engine, interleaved
+DIST_AR_ROUNDS = 10     # rounds with every all-reduce timed
+DIST_LIVE = 3           # rounds with the kernels held against plain ones
+DIST_POP_B = 8          # replicates of paper-mlp-fleet1k over the ranks
+DIST_POP_K = 10
+DIST_RTOL = 1e-5        # the cross-shard contract of repro.api.cluster_engine
+DIST_TIMEOUT = 300      # seconds, a spawn_local job
+DIST_SPECS = ("paper-mlp-fleet1k", "faulty-fleet1k", "dp-fleet1k")
+# the DQN controller: rank 0 pretrains, one broadcast at build hands its net
+# to every rank; held against the unsharded engine under that same net
+DIST_DQN = "paper-adaptive-fleet1k"
+
+
+def dist_spec_dicts() -> dict:
+    from repro_torch.api.scenarios import (DP_FLEET1K, FAULTY_FLEET1K,
+                                           PAPER_ADAPTIVE_FLEET1K,
+                                           PAPER_MLP_FLEET1K)
+    return {"paper-mlp-fleet1k": PAPER_MLP_FLEET1K,
+            "faulty-fleet1k": FAULTY_FLEET1K, "dp-fleet1k": DP_FLEET1K,
+            DIST_DQN: PAPER_ADAPTIVE_FLEET1K}
+
+
+def spread(xs: list) -> dict:
+    xs = sorted(xs)
+    return {"median": xs[len(xs) // 2], "min": xs[0], "max": xs[-1],
+            "windows": xs}
+
+
+def steady_windows(eng, plain) -> dict:
+    """``DIST_WINDOWS`` windows of ``DIST_STEADY`` scanned rounds of the
+    sharded engine ``eng`` and of the unsharded ``plain`` of the same
+    process (rank 0's; None on the other ranks), interleaved, in rounds/s:
+    their median and spread.  The ranks start each sharded window
+    together."""
+    import torch.distributed as dist
+    out = {"sharded": [], "unsharded": []}
+    for _ in range(DIST_WINDOWS):
+        dist.barrier()
+        _, s = timed(lambda: eng.run_scanned(DIST_STEADY, eval_final=False))
+        out["sharded"].append(DIST_STEADY / s)
+        if plain is not None:
+            _, s = timed(lambda: plain.run_scanned(DIST_STEADY,
+                                                   eval_final=False))
+            out["unsharded"].append(DIST_STEADY / s)
+    return {k: spread(v) for k, v in out.items() if v}
+
+
+def trace_rows(trace) -> list:
+    return [[r.t, r.round, r.cluster, r.a, r.loss, r.energy, r.acc]
+            for r in trace.records]
+
+
+def rows_agree(got, want, rtol=DIST_RTOL) -> bool:
+    """The schedule (round, cluster, a; agg_count is the round) equal; t,
+    loss and energy within ``rtol``; accuracy within 1e-5."""
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        if g[1:4] != w[1:4] or (g[6] is None) != (w[6] is None):
+            return False
+        if any(abs(a - b) > rtol * abs(b) + 1e-12
+               for a, b in ((g[0], w[0]), (g[4], w[4]), (g[5], w[5]))):
+            return False
+        if g[6] is not None and abs(g[6] - w[6]) > 1e-5:
+            return False
+    return True
+
+
+def dist_live_check(eng, rounds: int) -> dict:
+    """``rounds`` more scanned rounds on this rank, every trust-kernel call
+    held against its plain version on the same live tensors (1e-6): the
+    masked Eqn 6 on the owner (the aggregator's, or `dp_aggregate`'s) and
+    each rank's unmasked Eqn-19 partial sum."""
+    from repro_torch.api import cluster_engine, components
+    from repro_torch.core import privacy
+    from repro_torch.kernels import ref
+    seen = {"trust_aggregate": [], "trust_aggregate_dense": []}
+    saved = {m: m.trust_aggregate for m in (components, privacy,
+                                             cluster_engine)}
+
+    def checked(kernel, name):
+        def fn(x, w, mask=None):
+            got = kernel(x, w, mask)
+            e, r, ok = close_enough(got, ref.trust_aggregate_ref(x, w, mask),
+                                    1e-6)
+            seen[name].append({"max_abs_err": e, "rel": r, "ok": ok,
+                               "shape": list(x.shape)})
+            return got
+        return fn
+
+    components.trust_aggregate = checked(saved[components], "trust_aggregate")
+    privacy.trust_aggregate = checked(saved[privacy], "trust_aggregate")
+    cluster_engine.trust_aggregate = checked(saved[cluster_engine],
+                                             "trust_aggregate_dense")
+    try:
+        eng.run_scanned(rounds, eval_final=False)
+    finally:
+        for m, fn in saved.items():
+            m.trust_aggregate = fn
+    return seen
+
+
+def dist_worker(cfg: dict) -> None:
+    """One rank of a phase-10 job (``--dist-worker``, started by
+    `spawn_local`): each spec at mesh (G,) on the card, its counts, live
+    checks and figures, then the sharded population; one JSON line."""
+    import torch.distributed as dist
+    from repro_torch.launch.distributed import initialize_from_env
+    rank = initialize_from_env()
+    from repro_torch.api import Federation, FederationSpec, ShardingSpec
+    from repro_torch.kernels import build, launches, reset_launches
+    from repro_torch.pop import PopulationEngine, PopulationSpec
+    G = dist.get_world_size()
+    loads = []
+    build.load_listeners.append(lambda name, s: loads.append([name, s]))
+    calls = {"n": 0, "ms": None}
+    all_reduce = dist.all_reduce
+
+    def counted(t, *a, **k):
+        calls["n"] += 1
+        if calls["ms"] is None:
+            return all_reduce(t, *a, **k)
+        # the collective alone: the ranks meet first, so a rank's wait for
+        # the owner's member round is not counted
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = all_reduce(t, *a, **k)
+        torch.cuda.synchronize()
+        calls["ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    dist.all_reduce = counted
+    out = {"rank": rank, "world": G, "backend": dist.get_backend(),
+           "device": str(torch.device("cuda", torch.cuda.current_device())),
+           "runs": {}}
+    torch.cuda.reset_peak_memory_stats()
+    specs = dist_spec_dicts()
+    events = cfg.get("event", {})
+    for name in cfg["specs"]:
+        spec = FederationSpec.from_dict({**specs[name],
+                                         "sharding": {"mesh": [G]}})
+        t0 = time.perf_counter()
+        fed = Federation.from_spec(spec)
+        eng = fed.engine
+        run = {"build_s": time.perf_counter() - t0,
+               "engine": type(eng).__name__, "C_pad": eng._C_pad,
+               "C_loc": eng._C_loc, "S": eng._S, "n_pad": eng._n_pad,
+               "pretrained": getattr(fed.controller, "pretrain_aux",
+                                     None) is not None}
+        bad = [k for k, v in eng.state.tensors().items()
+               if v.device.type != "cuda"]
+        run["off_card"] = bad
+        reset_launches()
+        n0 = calls["n"]
+        tr, run["scanned_s"] = timed(lambda: eng.run_scanned(DIST_K))
+        run.update(scanned=trace_rows(tr), scanned_calls=calls["n"] - n0,
+                   scanned_launches=dict(launches))
+        if name in events:
+            reset_launches()
+            n0 = calls["n"]
+            ev, run["event_s"] = timed(
+                lambda: fed.run(max_rounds=events[name]))
+            run.update(event=trace_rows(ev), event_calls=calls["n"] - n0,
+                       event_launches=dict(launches))
+        plain = pfed = None
+        if rank == 0 and (name == DIST_DQN or (
+                name == DIST_SPECS[0] and cfg.get("steady"))):
+            # the unsharded engine in this process, on the same rounds
+            # (a DQN federation's under the same net); the other ranks
+            # wait for it in their next collective
+            pfed = Federation.from_spec(
+                spec.replace(sharding=ShardingSpec()),
+                controller=fed.controller if name == DIST_DQN else None)
+            plain = pfed.engine
+            run["plain_scanned"] = trace_rows(plain.run_scanned(DIST_K))
+            if name in events:
+                run["plain_event"] = trace_rows(
+                    pfed.run(max_rounds=events[name]))
+        if name == DIST_SPECS[0] and cfg.get("steady"):
+            run["steady_rounds_per_s"] = steady_windows(eng, plain)
+            calls["ms"] = []
+            eng.run_scanned(DIST_AR_ROUNDS, eval_final=False)
+            run["all_reduce_ms"] = calls["ms"]
+            calls["ms"] = None
+        if cfg.get("live"):
+            run["live"] = dist_live_check(eng, DIST_LIVE)
+        out["runs"][name] = run
+        del fed, eng, tr, plain, pfed
+        torch.cuda.empty_cache()
+    if cfg.get("pop"):
+        pspec = PopulationSpec(
+            base=FederationSpec.from_dict(specs[DIST_SPECS[0]]),
+            replicates=DIST_POP_B, sharding=ShardingSpec(mesh=(G,)))
+        n0 = calls["n"]
+        pop = PopulationEngine.from_population(pspec)
+        reset_launches()
+        n1 = calls["n"]
+        traces, s = timed(lambda: pop.run_scanned(DIST_POP_K))
+        out["pop"] = {"members": [pop._lo, pop._hi],
+                      "traces": [trace_rows(t) for t in traces],
+                      "energy": [pop.member_energy(b) for b in range(pop.B)],
+                      "rounds": [pop.member_rounds(b) for b in range(pop.B)],
+                      "build_calls": n1 - n0, "run_calls": calls["n"] - n1,
+                      "member_rounds_per_s_incl_eval":
+                          (pop._hi - pop._lo) * DIST_POP_K / s,
+                      "launches": dict(launches)}
+        del pop
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["library_loads"] = loads
+    out["libraries"] = sorted(name for name, _ in loads)
+    print("DISTRESULT" + json.dumps(out), flush=True)
+    dist.destroy_process_group()
+
+
+def dist_job(G: int, cfg: dict) -> list:
+    """``G`` ranks of this script on the card; their results, rank order."""
+    from repro_torch.launch.distributed import spawn_local
+    t0 = time.perf_counter()
+    res = spawn_local([os.path.abspath(__file__), "--dist-worker",
+                       json.dumps(cfg)], n_procs=G, timeout=DIST_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for r in res:
+        check(r.returncode == 0, f"mesh ({G},) rank failed "
+              f"({r.returncode}): {r.stderr[-4000:]}")
+    out = [json.loads(r.stdout.split("DISTRESULT", 1)[1]) for r in res]
+    check([o["rank"] for o in out] == list(range(G)),
+          f"mesh ({G},): ranks {[o['rank'] for o in out]}")
+    print(f"mesh ({G},): {G} ranks, backend {out[0]['backend']}, "
+          f"{wall:.2f} s", flush=True)
+    return out, wall
+
+
+def multi_device_phase(dev, smi_line: str) -> dict:
+    """10. The cluster-major engine over ``torch.distributed`` ranks on the
+    card, against the unsharded port engine of this process on the same
+    seed: ``paper-mlp-fleet1k`` at mesh (1,) (NCCL, one rank) and (2,)
+    (gloo, two ranks sharing cuda:0), ``run_scanned(30)`` then
+    ``run(max_rounds=20)``; ``faulty-fleet1k`` and ``dp-fleet1k`` at mesh
+    (2,), ``run_scanned(30)``; ``paper-adaptive-fleet1k`` at mesh (2,)
+    against rank 0's unsharded engine under the same DQN net; the
+    collectives and trust-kernel launches a round; three more rounds with every kernel call held against its
+    plain version; B = 8 replicates as a population over the two ranks
+    against the unsharded population; rounds/s, all-reduce ms and peak
+    memory."""
+    from repro_torch.api import Federation, FederationSpec
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.pop import PopulationEngine, PopulationSpec
+    t_phase = time.perf_counter()
+    specs = dist_spec_dicts()
+    ref_rows, ref_fig = {}, {}
+    for name in DIST_SPECS:
+        fed = Federation.from_spec(FederationSpec.from_dict(specs[name]))
+        eng = fed.engine
+        reset_launches()
+        tr, s = timed(lambda: eng.run_scanned(DIST_K))
+        ref_rows[name] = {"scanned": trace_rows(tr)}
+        ref_fig[name] = {"scanned_s": s, "launches": dict(launches)}
+        if name == DIST_SPECS[0]:
+            ev, ref_fig[name]["event_s"] = timed(
+                lambda: fed.run(max_rounds=DIST_E))
+            ref_rows[name]["event"] = trace_rows(ev)
+        del fed, eng, tr
+        torch.cuda.empty_cache()
+    pspec = PopulationSpec(base=FederationSpec.from_dict(specs[DIST_SPECS[0]]),
+                           replicates=DIST_POP_B)
+    pop = PopulationEngine.from_population(pspec)
+    ref_pop = [trace_rows(t) for t in pop.run_scanned(DIST_POP_K)]
+    ref_pop_energy = [pop.member_energy(b) for b in range(pop.B)]
+    del pop
+    torch.cuda.empty_cache()
+    free_library_memory()
+
+    one, wall1 = dist_job(1, {"specs": [DIST_SPECS[0]],
+                              "event": {DIST_SPECS[0]: DIST_E},
+                              "steady": True})
+    two, wall2 = dist_job(2, {"specs": list(DIST_SPECS) + [DIST_DQN],
+                              "event": {DIST_SPECS[0]: DIST_E,
+                                        DIST_DQN: DIST_E_DQN},
+                              "steady": True, "live": True, "pop": True})
+    counts, runs = {}, {}
+    for G, res in ((1, one), (2, two)):
+        check(res[0]["backend"] == ("nccl" if G == 1 else "gloo"),
+              f"mesh ({G},) ran on {res[0]['backend']}")
+        libs = {json.dumps(r["libraries"], sort_keys=True) for r in res}
+        check(len(libs) == 1, f"mesh ({G},): the ranks loaded other "
+              f"libraries: {libs}")
+        for name in res[0]["runs"]:
+            rs = [r["runs"][name] for r in res]
+            what = f"{name} at mesh ({G},)"
+            check(all(not r["off_card"] for r in rs),
+                  f"{what}: state off the card {rs[0]['off_card']}")
+            check(all(r["engine"] == "ClusterMajorEngine" for r in rs),
+                  f"{what}: engine {rs[0]['engine']}")
+            if name == DIST_DQN:
+                check([r["pretrained"] for r in rs]
+                      == [True] + [False] * (G - 1),
+                      f"{what}: pretrained on ranks "
+                      f"{[r['pretrained'] for r in rs]}, not rank 0 alone")
+            for key in ("scanned", "event"):
+                if key not in rs[0]:
+                    continue
+                check(all(json.dumps(r[key]) == json.dumps(rs[0][key])
+                          for r in rs), f"{what}: the ranks' {key} traces "
+                      "differ")
+                # the DQN federation against the unsharded engine of rank
+                # 0 under the same net; the others against this process's
+                want = (rs[0][f"plain_{key}"] if name == DIST_DQN
+                        else ref_rows[name][key])
+                check(rows_agree(rs[0][key], want),
+                      f"{what}: {key} trace departs from the unsharded "
+                      f"engine's: {rs[0][key][:3]} vs {want[:3]}")
+                rounds = (DIST_K if key == "scanned" else
+                          DIST_E_DQN if name == DIST_DQN else DIST_E)
+                per = 2 if key == "scanned" else 3
+                check(all(r[f"{key}_calls"] == per * rounds for r in rs),
+                      f"{what}: {[r[key + '_calls'] for r in rs]} "
+                      f"all-reduces in {rounds} {key} rounds, not {per} a "
+                      "round")
+                lk = [r[f"{key}_launches"] for r in rs]
+                check(sum(x["trust_aggregate"] for x in lk) == rounds,
+                      f"{what}: masked launches {lk}")
+                check(all(x["trust_aggregate_dense"] == rounds
+                          and x["trust_aggregate_global"] == 0 for x in lk),
+                      f"{what}: unmasked / fused launches {lk}")
+                counts[f"multi_device_{G}_{name}_{key}"] = {
+                    k: sum(x[k] for x in lk) for k in launches}
+            if name == DIST_SPECS[0]:
+                acc = rs[0]["scanned"][-1][6]
+                check(acc is not None and acc >= JAX_ACC - ACC_MARGIN,
+                      f"{what}: final accuracy {acc}")
+            if "live" in rs[0]:
+                for k in ("trust_aggregate", "trust_aggregate_dense"):
+                    seen = [c for r in rs for c in r["live"][k]]
+                    want = DIST_LIVE * (1 if k == "trust_aggregate" else G)
+                    check(len(seen) == want and all(c["ok"] for c in seen),
+                          f"{what}: live {k}: {seen}")
+            runs.setdefault(name, {})[f"mesh_{G}"] = {
+                "rounds_per_s_incl_eval": DIST_K / rs[0]["scanned_s"],
+                # rank 0's windows, the sharded engine's and the
+                # unsharded one's in the same process
+                "steady_rounds_per_s": rs[0].get("steady_rounds_per_s"),
+                "all_reduce_ms_a_round": [
+                    sum(r["all_reduce_ms"]) / DIST_AR_ROUNDS
+                    if "all_reduce_ms" in r else None for r in rs],
+                "all_reduce_ms_each": [r.get("all_reduce_ms") for r in rs],
+                "build_s": [r["build_s"] for r in rs],
+                "live_max_abs_err": {
+                    k: max([c["max_abs_err"] for r in rs
+                            for c in r["live"][k]], default=None)
+                    for k in ("trust_aggregate", "trust_aggregate_dense")}
+                if "live" in rs[0] else None,
+                "final_acc": rs[0]["scanned"][-1][6],
+                "C_pad": rs[0]["C_pad"], "C_loc": rs[0]["C_loc"],
+                "S": rs[0]["S"], "launches_a_scanned_run": [
+                    r["scanned_launches"] for r in rs]}
+    for name, fig in ref_fig.items():
+        runs[name]["unsharded"] = {
+            "rounds_per_s_incl_eval": DIST_K / fig["scanned_s"],
+            "final_acc": ref_rows[name]["scanned"][-1][6]}
+    for G in (1, 2):
+        st = runs[DIST_SPECS[0]][f"mesh_{G}"]["steady_rounds_per_s"]
+        print(f"{DIST_SPECS[0]} mesh ({G},) steady rounds/s, rank 0, "
+              f"{DIST_WINDOWS} windows of {DIST_STEADY} rounds, median "
+              f"[min, max]: " + "; ".join(
+                  f"{k} {v['median']} [{v['min']}, {v['max']}]"
+                  for k, v in st.items()) + f" ({smi_line})", flush=True)
+
+    # the sharded population against the unsharded one
+    pops = [r["pop"] for r in two]
+    check([p["members"] for p in pops] == [[0, 4], [4, 8]],
+          f"population blocks {[p['members'] for p in pops]}")
+    check(all(json.dumps(p["traces"]) == json.dumps(pops[0]["traces"])
+              for p in pops), "the ranks' population traces differ")
+    check(all(p["run_calls"] == 1 for p in pops),
+          f"population all-reduces {[p['run_calls'] for p in pops]}: one "
+          "gather a run_scanned, none in a round")
+    bitwise = json.dumps(pops[0]["traces"]) == json.dumps(ref_pop)
+    check(bitwise or all(rows_agree(g, w, 1e-6) for g, w in
+                         zip(pops[0]["traces"], ref_pop)),
+          "sharded population members depart from the unsharded ones")
+    check(pops[0]["energy"] == ref_pop_energy or all(
+        abs(a - b) <= 1e-6 * abs(b) for a, b in zip(pops[0]["energy"],
+                                                    ref_pop_energy)),
+          "sharded population energies")
+    counts["multi_device_population"] = {
+        k: sum(p["launches"][k] for p in pops) for k in launches}
+
+    res = {"device": smi_line, "runs": runs,
+           "backend": {"mesh_1": one[0]["backend"],
+                       "mesh_2": two[0]["backend"]},
+           "rank_devices": {"mesh_1": [r["device"] for r in one],
+                            "mesh_2": [r["device"] for r in two]},
+           "peak_gib": {"mesh_1": [r["peak_gib"] for r in one],
+                        "mesh_2": [r["peak_gib"] for r in two]},
+           "library_loads": {"mesh_1": [r["library_loads"] for r in one],
+                             "mesh_2": [r["library_loads"] for r in two]},
+           "population": {"B": DIST_POP_B, "rounds": DIST_POP_K,
+                          "members_bit_for_bit": bitwise,
+                          "member_rounds_per_s_incl_eval": [
+                              p["member_rounds_per_s_incl_eval"]
+                              for p in pops]},
+           "job_wall_s": {"mesh_1": wall1, "mesh_2": wall2},
+           "note": "mesh (2,) is two ranks sharing one card's SMs, not two "
+                   "cards",
+           "phase_s": time.perf_counter() - t_phase, "counts": counts}
+    print(f"phase 10 (multi-device): {res['phase_s']:.2f} s, "
+          f"{json.dumps({k: v for k, v in res.items() if k != 'counts'})}",
+          flush=True)
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare-with", metavar="DIR", nargs="+", default=[],
@@ -3733,11 +4133,16 @@ def main() -> None:
                          "selective_scan.cu, flash_attention_bwd.cu, "
                          "rglru_scan_bwd.cu and selective_scan_bwd.cu "
                          "against this checkout's")
+    ap.add_argument("--dist-worker", metavar="JSON",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         sys.exit(2)
+    if args.dist_worker:
+        dist_worker(json.loads(args.dist_worker))
+        return
     from repro_torch.api import ControllerSpec, Federation, FederationSpec
     from repro_torch.api.scenarios import PAPER_MLP_FLEET1K
     from repro_torch.kernels import build, launches, reset_launches
@@ -3947,7 +4352,16 @@ def main() -> None:
     train_launches = {k: sum(c[k] for c in train_counts.values())
                       for k in launches}
 
-    # 10. the serving line, the kernels line, then the result line
+    # 10. the cluster-major federation over torch.distributed ranks, and
+    # the unmasked kernel at a rank's Eqn-19 shape (C_loc 8, N)
+    multi = multi_device_phase(dev, smi_line)
+    counts.update(multi.pop("counts"))
+    total = {k: sum(c[k] for c in counts.values()) for k in launches}
+    c_loc = multi["runs"]["paper-mlp-fleet1k"]["mesh_2"]["C_loc"]
+    dense_cm = dense_times(c_loc, N, dev)
+    free_library_memory()
+
+    # 11. the serving line, the kernels line, then the result line
     t, bd, err = kp["t"], kp["bound"], kp["err"]
     lt, lbd = lk["t"], lk["bound"]
     kernels = [
@@ -3979,6 +4393,8 @@ def main() -> None:
          "bound_by": bd["f32"][1],
          "shape": {"C": M, "N": N, "dtype": "float32", "mask": True},
          "bytes": kp["bytes"]["f32"],
+         # the owner's Eqn 6 of a cluster-major round is this (S, N) call
+         "at_cluster_major_shape": "the shape above: S = M member slots",
          # PyTorch's sum of all of x, cold: the same bytes read, not the
          # same function
          "same_bytes_sum_ms": t["read_f32"],
@@ -3995,6 +4411,7 @@ def main() -> None:
          "launches_by_path": {p: c["trust_aggregate_dense"]
                               for p, c in counts.items()},
          "at_eqn19_shape": dense_eqn19,
+         "at_cluster_major_shape": dense_cm,
          "max_abs_err": err["f32"], "tolerance": kp["tol"]["f32"],
          **trust_times(kp, "dense", "library"),
          "plain_ms": t["dense_plain"],
@@ -4190,6 +4607,7 @@ def main() -> None:
     print(json.dumps({"training": {"device": smi_line, **training,
                                    "falcon_mamba_7b": mtraining}}),
           flush=True)
+    print(json.dumps({"multi_device": multi}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

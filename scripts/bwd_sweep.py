@@ -12,11 +12,9 @@ for bit equal), then each DIR's kernels timed in turns with the
 checkout's (old, new, new, old), warm and cold, then the checkout's beside
 its plain version, the library call and the bound.  Then ptxas's
 registers and spills of each source.  A DIR that holds a copy of a source
-with one constant changed times that choice against the checkout's; a
-``selective_scan_bwd.cu`` with the C interface before the chunk states
-(its own forward walk) is timed against the checkout's given the
-forward's chunk states and with the forward writing them.  ``--ssm`` runs
-the selective scan's phase alone.
+with one constant changed times that choice against the checkout's (a
+``selective_scan_bwd.cu`` given the forward's chunk states).  ``--ssm``
+runs the selective scan's phase alone.
 Needs one NVIDIA GPU; prints the card's name and power limit first.
 """
 from __future__ import annotations

@@ -11,6 +11,10 @@ is ported.
   engine      `DeviceScaleEngine`, `FleetState` (and `FleetTree`, its
               checkpoint layout); `DatacenterEngine`, the federated LM
               step's
+  cluster_engine  `ClusterMajorEngine`: the device scale on a 1-D mesh of
+              ``torch.distributed`` ranks (``ShardingSpec(mesh=(G,))``),
+              built by `DeviceScaleEngine.from_spec`; `placement` resolves
+              the mesh into a rank's `Placement`
   records     `RoundRecord` / `FLTrace` (same JSONL format), `tail_jsonl`
   scenarios   the JAX package's ten presets (`SCENARIOS`) and the
               full-width spec dicts the card is driven at

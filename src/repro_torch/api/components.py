@@ -226,7 +226,8 @@ class DQNController:
         """Train a fresh agent on the DT environment (§IV-C, Alg. 1) on
         ``device`` (the card unless the caller asks for another), with the
         whole run on the device (`repro_torch.control.train_on_env`).
-        ``pretrain_aux`` keeps the episodes' returns and lengths."""
+        ``pretrain_aux`` keeps the episodes' returns and lengths (None
+        with ``episodes=0``: the agent as initialized)."""
         dev = resolve_device(device)
         p = envs.EnvParams(horizon=horizon, p_good=p_good,
                            calibrate_dt=calibrate_dt)
@@ -234,8 +235,10 @@ class DQNController:
                                 batch_size=batch_size, lr=lr)
         agent = dqn_lib.init_dqn(rng.generator(seed, rng.DQN_INIT), cfg,
                                  dev)
-        agent, aux = train_on_env(agent, cfg, p, episodes=episodes,
-                                  seed=seed)
+        aux = None
+        if episodes:
+            agent, aux = train_on_env(agent, cfg, p, episodes=episodes,
+                                      seed=seed)
         ctl = cls(agent, cfg)
         ctl.pretrain_aux = aux
         return ctl

@@ -87,8 +87,8 @@ from repro_torch.core.trust import (belief, gradient_diversity,
                                     learning_quality, staleness_weights,
                                     time_weighted_average, trust_weights,
                                     update_reputation)
-from repro_torch.core.twin import (TwinState, calibrate, calibrated_freq,
-                                   draw_twins, member_view,
+from repro_torch.core.twin import (MEMBER_FILLS, TwinState, calibrate,
+                                   calibrated_freq, draw_twins,
                                    observe_round_members, put,
                                    sample_deviation, take)
 from repro_torch.data.federated import (dirichlet_partition,
@@ -108,7 +108,8 @@ from repro_torch.optim import adam
 from .components import ControllerCtx
 from .records import FLTrace, RoundRecord
 from .registry import register_engine
-from .spec import DATACENTER_SCALE, DEVICE_SCALE, FederationSpec
+from .spec import (DATACENTER_SCALE, DEVICE_SCALE, SHARD_MAP_IMPL,
+                   FederationSpec)
 
 
 @dataclasses.dataclass
@@ -147,6 +148,22 @@ class RoundDraws(NamedTuple):
     straggle_u: Optional[torch.Tensor] = None      # (M,) straggler uniforms
     spike_u: Optional[torch.Tensor] = None         # (M,) twin-spike uniforms
     corrupt_normal: Optional[torch.Tensor] = None  # (M, N) gaussian mode
+
+
+class MemberRound(NamedTuple):
+    """What `DeviceScaleEngine._member_round` hands back, all over the (M,)
+    member slots after dropout."""
+    members: torch.Tensor   # (M,) device ids, sentinel where masked
+    mask: torch.Tensor      # (M,) bool
+    mask_f: torch.Tensor    # (M,) f32
+    cnt: torch.Tensor       # 0-d live-member count, at least 1
+    new: torch.Tensor       # (M, N) the members' trained models
+    upd: torch.Tensor       # (M, N) their deltas from the cluster model
+    w: torch.Tensor         # (M,) Eqn-5 trust weights
+    rep_m: torch.Tensor     # (M,) updated reputations
+    losses: torch.Tensor    # (M,) local losses
+    e: torch.Tensor         # (M,) consumed energy, 0 where masked
+    loss: torch.Tensor      # 0-d mean local loss of the live members
 
 
 class FleetTree(NamedTuple):
@@ -349,9 +366,19 @@ class DeviceScaleEngine:
                   device=None, data=None, parts=None, assign=None,
                   state=None) -> "DeviceScaleEngine":
         """Build from a spec; ``data``/``parts``/``assign``/``state``
-        override what the engine would generate from ``spec.seed``."""
+        override what the engine would generate from ``spec.seed``.  A
+        1-D mesh whose resolved impl is ``shard_map`` builds the
+        cluster-major engine (`repro_torch.api.cluster_engine`) on this
+        rank; ``cls is`` keeps the subclasses from re-dispatching."""
         if data is None or parts is None:
             data, parts = default_device_data(spec)
+        if (cls is DeviceScaleEngine and spec.sharding.is_sharded
+                and spec.sharding.resolved_impl() == SHARD_MAP_IMPL):
+            from .cluster_engine import ClusterMajorEngine
+            return ClusterMajorEngine(
+                spec, data, parts, controller=controller,
+                aggregator=aggregator, task=task, device=device,
+                assign=assign, state=state)
         return cls(spec, data, parts, controller=controller,
                    aggregator=aggregator, task=task, device=device,
                    assign=assign, state=state)
@@ -548,58 +575,13 @@ class DeviceScaleEngine:
         (``steps == int(a)``; or, with ``own_steps``, the population's
         largest ``a``, of which this member keeps its own ``a``), trust,
         aggregation, energy, twins and the queue."""
-        spec, task, twins, fm = self.spec, self.task, state.twins, self.faults
-
-        # --- dropped members leave the mask and become the padding
-        # sentinel, so every gather fills neutrally and every scatter drops
-        # them, and they train on the sentinel's batch (dataset row 0, its
-        # one-sample shard: `padded_partition`)
-        sel = draws.sel
-        if fm.may_drop:
-            mask = fm.drop_mask(draws.drop_u, mask)
-            members = torch.where(mask, members, self.spec.fleet.n_devices)
-            sel = torch.where(mask[:, None], sel, 0)
-            mask_f = mask.to(torch.float32)
-        cnt = torch.clamp(mask_f.sum(), min=1.0)
-
-        # --- local batches
-        x = self.data.x[sel]
-        y = self.data.y[sel]
-        if fm.may_poison:
-            x = fm.poison_inputs(x, members)
-        mal_m = take(self._malicious_dev, members, 0.0)
-        y = torch.where(mal_m[:, None] > 0.5, task.corrupt_labels(y), y)
-
-        # --- `steps` local SGD steps on every member, from the cluster model
-        stacked = _row(state.cluster_flat, c).expand(members.shape[0], -1)
-        new = task.local_train(stacked, x, y, spec.lr, steps,
-                               a if own_steps else None)
-        if fm.may_corrupt:
-            # Byzantine members replace their deltas before trust sees them
-            new = fm.corrupt_updates(new, stacked, members, self._segments,
-                                     draws.corrupt_normal)
-
-        # --- trust (Eqns 4-5)
-        upd = new - stacked
-        q = learning_quality(upd, mask)
-        div = gradient_diversity(upd, mask)
-        tw_m = member_view(twins, members)
-        if fm.may_spike:
-            tw_m = fm.spike_twins(draws.spike_u, tw_m, mask)
-        b = belief(tw_m, q, spec.channel.pkt_fail, div)
-        rep_m = update_reputation(take(state.rep, members, 1.0), b,
-                                  spec.channel.pkt_fail, spec.iota)
-        rep = put(state.rep, members, rep_m)
-        w = trust_weights(rep_m, mask)
-
-        # --- losses, energy (Eqns 7-8), twins
-        losses = task.losses(new, x, y)
-        true_freq = take(twins.freq + twins.freq_dev, members, 1.0)
-        ch_m = take(state.channel, members, 0)
-        e = round_energy(a.to(torch.float32), true_freq, ch_m,
-                         draws.noise) * mask_f
-        consumed = e.sum()
-        twins = observe_round_members(twins, members, losses, e,
+        spec, fm = self.spec, self.faults
+        m = self._member_round(state, _row(state.cluster_flat, c), a, steps,
+                               members, mask, mask_f, draws, own_steps)
+        members, mask, mask_f, cnt = m.members, m.mask, m.mask_f, m.cnt
+        rep = put(state.rep, members, m.rep_m)
+        consumed = m.e.sum()
+        twins = observe_round_members(state.twins, members, m.losses, m.e,
                                       self._misbehaving_dev)
         if spec.fleet.calibrate_dt:
             twins = calibrate(twins)
@@ -611,12 +593,12 @@ class DeviceScaleEngine:
         staleness = rnd.to(torch.float32) - ts
         if self._fuse_global:
             gflat = self.aggregator.aggregate_with_global(
-                new, w, mask_f, state.cluster_flat,
+                m.new, m.w, mask_f, state.cluster_flat,
                 staleness_weights(staleness), c)
             cflat = state.cluster_flat
         else:
             cflat = _with_row(state.cluster_flat, c, self._eqn6(
-                state, c, new, upd, w, mask, mask_f, cnt, draws))
+                state, c, m.new, m.upd, m.w, mask, mask_f, cnt, draws))
             gflat, _ = time_weighted_average(cflat, staleness)
         cflat = _with_row(cflat, c, gflat)
 
@@ -649,9 +631,76 @@ class DeviceScaleEngine:
         new_state = FleetState(
             twins=twins, rep=rep, channel=draws.channel, cluster_flat=cflat,
             global_flat=gflat, cluster_ts=ts, queue=queue, round=rnd)
-        metrics = {"a": a, "dur": dur, "consumed": consumed,
-                   "loss": (losses * mask_f).sum() / cnt}
+        metrics = {"a": a, "dur": dur, "consumed": consumed, "loss": m.loss}
         return new_state, metrics
+
+    def _member_round(self, state: FleetState, cluster_flat, a, steps,
+                      members, mask, mask_f, draws: "RoundDraws",
+                      own_steps: bool = False, block=None) -> "MemberRound":
+        """The members' half of a round, shared by every engine: drops,
+        local batches, ``steps`` local SGD steps from the cluster model
+        ``cluster_flat``, faults, trust (Eqns 4-5) and energy (Eqns 7-8).
+        The members' rows of the fleet leaves are read by member id, or,
+        with ``block``, as that slice of a cluster-major layout
+        (`repro_torch.api.cluster_engine`), masked to the same values."""
+        spec, task, twins, fm = self.spec, self.task, state.twins, self.faults
+
+        # --- dropped members leave the mask and become the padding
+        # sentinel, so every gather fills neutrally and every scatter drops
+        # them, and they train on the sentinel's batch (dataset row 0, its
+        # one-sample shard: `padded_partition`)
+        sel = draws.sel
+        if fm.may_drop:
+            mask = fm.drop_mask(draws.drop_u, mask)
+            members = torch.where(mask, members, spec.fleet.n_devices)
+            sel = torch.where(mask[:, None], sel, 0)
+            mask_f = mask.to(torch.float32)
+        cnt = torch.clamp(mask_f.sum(), min=1.0)
+
+        def view(x, fill):
+            if block is None:
+                return take(x, members, fill)
+            return torch.where(mask, x[block], fill)
+
+        # --- local batches
+        x = self.data.x[sel]
+        y = self.data.y[sel]
+        if fm.may_poison:
+            x = fm.poison_inputs(x, members)
+        mal_m = take(self._malicious_dev, members, 0.0)
+        y = torch.where(mal_m[:, None] > 0.5, task.corrupt_labels(y), y)
+
+        # --- `steps` local SGD steps on every member, from the cluster model
+        stacked = cluster_flat.expand(members.shape[0], -1)
+        new = task.local_train(stacked, x, y, spec.lr, steps,
+                               a if own_steps else None)
+        if fm.may_corrupt:
+            # Byzantine members replace their deltas before trust sees them
+            new = fm.corrupt_updates(new, stacked, members, self._segments,
+                                     draws.corrupt_normal)
+
+        # --- trust (Eqns 4-5)
+        upd = new - stacked
+        q = learning_quality(upd, mask)
+        div = gradient_diversity(upd, mask)
+        tw_m = TwinState(**{f: view(getattr(twins, f), v)
+                            for f, v in MEMBER_FILLS.items()})
+        if fm.may_spike:
+            tw_m = fm.spike_twins(draws.spike_u, tw_m, mask)
+        b = belief(tw_m, q, spec.channel.pkt_fail, div)
+        rep_m = update_reputation(view(state.rep, 1.0), b,
+                                  spec.channel.pkt_fail, spec.iota)
+        w = trust_weights(rep_m, mask)
+
+        # --- losses and energy (Eqns 7-8)
+        losses = task.losses(new, x, y)
+        true_freq = view(twins.freq + twins.freq_dev, 1.0)
+        e = round_energy(a.to(torch.float32), true_freq,
+                         view(state.channel, 0), draws.noise) * mask_f
+        return MemberRound(members=members, mask=mask, mask_f=mask_f,
+                           cnt=cnt, new=new, upd=upd, w=w, rep_m=rep_m,
+                           losses=losses, e=e,
+                           loss=(losses * mask_f).sum() / cnt)
 
     def _eqn6(self, state: FleetState, c, new, upd, w, mask, mask_f, cnt,
               draws: RoundDraws) -> torch.Tensor:

@@ -13,6 +13,8 @@ from ``spec.seed`` (the parity tests hand over the JAX package's).
 """
 from __future__ import annotations
 
+import torch.distributed as dist
+
 from repro_torch.device import resolve_device
 
 from . import registry
@@ -33,7 +35,7 @@ class Federation:
         # a controller is built on the federation's device (the DQN
         # pretrains there)
         self.controller = controller or registry.CONTROLLERS.get(
-            spec.controller.kind)(spec.controller.params, device=device)
+            spec.controller.kind)(_controller_params(spec), device=device)
         self.aggregator = aggregator or registry.AGGREGATORS.get(
             spec.aggregator.kind)(spec.aggregator.params)
         self.task = task or registry.TASKS.get(spec.task.kind)(
@@ -60,3 +62,17 @@ class Federation:
         if name == "engine":                 # not yet set: avoid recursion
             raise AttributeError(name)
         return getattr(self.engine, name)
+
+
+def _controller_params(spec: FederationSpec) -> dict:
+    """The controller's parameters on this process.  A sharded DQN
+    federation pretrains on rank 0 alone: the cluster-major engine hands
+    rank 0's net to every rank by one broadcast at build
+    (`ClusterMajorEngine._share_policy`), so the other ranks start from
+    the untrained agent and skip the pretraining."""
+    params = spec.controller.params
+    if (spec.controller.kind == "dqn" and spec.sharding.is_sharded
+            and "agent" not in params and dist.is_initialized()
+            and dist.get_rank() != 0):
+        params = {**params, "episodes": 0}
+    return params

@@ -10,11 +10,17 @@ registered preset returning a `FederationSpec`; flags override the common
 fields, and ``--spec-json`` dumps the resolved spec (the config-file
 round-trip format) instead of running.  ``--device`` picks where it runs:
 the card by default, ``cpu`` for the plain versions of the kernels.  A
-spec the port does not run yet (``--mesh``, the
-``adaptive-scanned-sharded`` preset) exits with code 2, naming its
-ROADMAP item, as does a spec the JAX package's checks reject (a
-datacenter spec with DP or a robust rule).  ``lm-modeA`` trains the tiny
-LM of the datacenter scale (``--rounds`` sets its rounds).
+spec the port does not run yet (``--mesh 4x2``, ``--impl gspmd``) exits
+with code 2, naming its ROADMAP item, as does a spec the JAX package's
+checks reject (a datacenter spec with DP or a robust rule).  ``lm-modeA``
+trains the tiny LM of the datacenter scale (``--rounds`` sets its rounds).
+
+``--mesh G`` (and the ``adaptive-scanned-sharded`` preset, G = 8) runs
+the cluster-major engine over G ranks, one shard a rank: launch the CLI
+G times under the ``REPRO_DIST_*`` env contract
+(`repro_torch.launch.distributed.spawn_local`); rank 0 alone prints the
+trace and writes ``--trace-out``.  Outside such a launch it exits with
+code 2 and the placement's message.
 """
 from __future__ import annotations
 
@@ -22,6 +28,8 @@ import argparse
 import dataclasses
 import json
 import sys
+
+from repro_torch.launch.distributed import initialize_from_env
 
 from . import scenarios  # noqa: F401  (populates SCENARIOS)
 from .federation import Federation
@@ -44,10 +52,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--eval-every", type=float, default=3.0)
     ap.add_argument("--aggregator", default=None)
     ap.add_argument("--mesh", default=None,
-                    help="mesh shape sharding the fleet, e.g. '8' or '4x2' "
-                         "(not ported: ROADMAP.md, queue 1, item 9)")
+                    help="mesh shape sharding the fleet, e.g. '8' (needs "
+                         "that many ranks under the REPRO_DIST_* env; "
+                         "multi-axis meshes are not ported: ROADMAP.md, "
+                         "queue 1, item 9)")
     ap.add_argument("--impl", default=None, choices=["shard_map", "gspmd"],
-                    help="sharded execution implementation for --mesh")
+                    help="sharded execution implementation for --mesh "
+                         "(default: shard_map on 1-D meshes; gspmd is not "
+                         "ported)")
     ap.add_argument("--device", default=None,
                     help="where to run: the card by default, 'cpu' for "
                          "the plain versions of the kernels")
@@ -106,15 +118,22 @@ def main(argv=None) -> int:
         print(json.dumps(spec.to_dict(), indent=2))
         return 0
 
-    print(f"scenario={args.scenario} scale={spec.scale} "
-          f"controller={spec.controller.kind} "
-          f"aggregator={spec.aggregator.kind}")
+    # under the REPRO_DIST_* env every rank joins the job; rank 0 alone
+    # prints and writes
+    lead = (initialize_from_env(device=args.device) or 0) == 0
+    say = print if lead else (lambda *a, **k: None)
+    say(f"scenario={args.scenario} scale={spec.scale} "
+        f"controller={spec.controller.kind} "
+        f"aggregator={spec.aggregator.kind}")
     try:
         fed = Federation.from_spec(spec, device=args.device)
     except (KeyError, ValueError) as e:
-        # component resolution failures are config errors, not tracebacks
+        # component and placement resolution failures (a mesh outside a
+        # launch of as many ranks) are config errors, not tracebacks
         return _config_error(e)
     trace = fed.run(eval_every=args.eval_every)
+    if not lead:
+        return 0
     print("t,round,cluster,a,loss,acc,energy,aggs")
     for r in trace.records:
         acc = f"{r.acc:.3f}" if r.acc is not None else "-"

@@ -4,9 +4,10 @@ card.
 The ten presets of the JAX package's ``repro.api.scenarios``, registered
 under the same names in `SCENARIOS` (the CLI, ``python -m
 repro_torch.api.run``, resolves from it).  ``adaptive-scanned-sharded``
-(a mesh, ROADMAP.md queue 1, item 9) stays registered; building it raises
-`NotImplementedError` naming its item.  ``lm-modeA`` runs the datacenter
-scale's federated LM step.
+(an 8-way fleet mesh) builds the cluster-major engine under an 8-rank
+launch (`repro_torch.launch.distributed`); outside one, building it raises
+the placement's `ValueError`.  ``lm-modeA`` runs the datacenter scale's
+federated LM step.
 
 The full-width spec dicts:
 
@@ -212,8 +213,8 @@ def _adaptive_scanned() -> FederationSpec:
 
 @register_scenario("adaptive-scanned-sharded")
 def _adaptive_scanned_sharded() -> FederationSpec:
-    """Scanned full scheme on an 8-way fleet mesh (not ported: ROADMAP.md,
-    queue 1, item 9)."""
+    """Scanned full scheme on an 8-way fleet mesh: 8 ranks, one shard
+    each (API.md "Placement")."""
     return FederationSpec(
         fleet=FleetSpec(n_devices=16),
         controller=ControllerSpec("dqn", {"episodes": 3, "horizon": 20}),

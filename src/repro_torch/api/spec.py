@@ -4,8 +4,9 @@ A copy of the JAX package's ``repro.api.spec``: every dataclass keeps every
 field and default, and `to_dict` / `from_dict` use the same plain dicts, so
 a spec written by either package builds in the other.  Only `validate`
 differs: it raises `NotImplementedError`, naming the ROADMAP item that will
-port it, for what the port does not run yet (the multi-device scales,
-sharding meshes, and language models with MoE, MLA, qkv-bias / qk-norm or
+port it, for what the port does not run yet (the partitioner-inferred
+placements: ``impl='gspmd'``, the ``device-gspmd`` scale and multi-axis
+meshes; and language models with MoE, MLA, qkv-bias / qk-norm or
 audio-codebook layers), before the JAX package's checks.
 """
 from __future__ import annotations
@@ -22,23 +23,43 @@ from . import registry
 DEVICE_SCALE = "device"          # discrete-event simulator over the MLP task
 DATACENTER_SCALE = "datacenter"  # sharded fl_step modes over the LM task
 
+# default axis names by mesh rank: 1-D meshes shard the fleet's device dim;
+# 2-D meshes put the cluster stack on the leading axis
+_DEFAULT_AXES = {1: ("fleet",), 2: ("cluster", "fleet")}
+
+# sharded execution implementations (`ShardingSpec.impl`)
+SHARD_MAP_IMPL = "shard_map"    # explicit per-shard round, cluster-major
+GSPMD_IMPL = "gspmd"            # inferred collectives (not ported)
+
 _QUEUE = "ROADMAP.md, queue 1"
 
 
 def unported(spec: "FederationSpec") -> Optional[str]:
     """What of ``spec`` the port cannot run yet, with the ROADMAP item that
     ports it; None when the port runs all of it.  The port runs the
-    device scale on one device with every aggregator (trust, fedavg and the
-    robust rules), controller and task, differential privacy and every
-    fault family, and the datacenter scale's LM training for the dense,
-    hybrid and SSM (Mamba) kinds; it does not run the multi-device scales,
-    a sharding mesh, or the training of a model with MoE, MLA, qkv-bias /
-    qk-norm or audio-codebook layers."""
+    device scale with every aggregator (trust, fedavg and the robust
+    rules), controller and task, differential privacy and every fault
+    family, on one device or, on a 1-D mesh with ``impl='shard_map'``, as
+    the cluster-major engine over one ``torch.distributed`` rank a shard;
+    and the datacenter scale's LM training for the dense, hybrid and SSM
+    (Mamba) kinds.  It does not run the partitioner-inferred placements
+    (``impl='gspmd'``, which multi-axis meshes resolve to, and the
+    ``device-gspmd`` scale), or the training of a model with MoE, MLA,
+    qkv-bias / qk-norm or audio-codebook layers.  A sharded datacenter
+    spec is left to `FederationSpec.validate`, which rejects it as the JAX
+    package does."""
     if spec.scale not in (DEVICE_SCALE, DATACENTER_SCALE):
         return (f"scale {spec.scale!r} (multi-device engines, {_QUEUE}, "
                 "item 9)")
-    if spec.sharding.is_sharded:
-        return f"a sharding mesh (multi-device, {_QUEUE}, item 9)"
+    if spec.sharding.is_sharded and spec.scale == DEVICE_SCALE:
+        try:
+            impl = spec.sharding.resolved_impl()
+        except ValueError:          # an unknown impl: validate() says so
+            return None
+        if impl == GSPMD_IMPL:
+            return (f"impl='gspmd' on mesh {spec.sharding.mesh} (the "
+                    "partitioner-inferred placement and multi-axis meshes, "
+                    f"through DTensor; multi-device, {_QUEUE}, item 9)")
     if spec.scale == DATACENTER_SCALE and spec.task.kind == "lm":
         from repro_torch.models.transformer import untrainable
 
@@ -52,17 +73,33 @@ def unported(spec: "FederationSpec") -> Optional[str]:
 
 @dataclasses.dataclass
 class ShardingSpec:
-    """Where the federation runs, as spec data.
+    """Where the federation runs, as spec data (resolved by
+    `repro_torch.api.placement` into a `Placement`: the rank's process
+    group and device).
 
-    ``mesh`` is the mesh shape; ``()`` (the default) is one device, the
-    only placement the port runs so far.  ``axes`` names one mesh axis per
-    entry; ``device_axis`` / ``cluster_axis`` say which axis shards the
-    fleet's device-dim and cluster-dim state; ``impl`` picks the sharded
-    implementation ("shard_map", "gspmd", or None for the default by mesh
-    rank).  The fields are the JAX package's; its ``validate`` and
-    ``resolved_*`` are not ported (`unported()` rejects every sharded spec
-    first) and come with the multi-device engines (ROADMAP.md, queue 1,
-    item 9).
+    ``mesh`` is the mesh shape; ``()`` (the default) is the single-device
+    fallback.  ``axes`` names one mesh axis per entry (defaults: 1-D
+    ``("fleet",)``, 2-D ``("cluster", "fleet")``).  ``device_axis`` shards
+    the `FleetState` device-dim leaf group (twins / rep / channel) and
+    ``cluster_axis`` the cluster-dim group (the cluster models, their
+    update rounds); either may be None to replicate that group.  Scalars
+    (queue, round) and the global model are always replicated.
+
+    ``impl`` picks the sharded execution implementation:
+
+      "shard_map"   the cluster-major engine
+                    (`repro_torch.api.cluster_engine`): the fleet is
+                    re-indexed so each cluster's member slots are
+                    contiguous, every FleetState leaf co-shards over one
+                    mesh axis of ``torch.distributed`` ranks (one shard a
+                    rank), and a round's only collectives are two SUM
+                    all-reduces: one for metrics and one for the Eqn-19
+                    global average.  1-D meshes only.  Arbitrary
+                    (n_devices, n_clusters) run on any shard count: the
+                    engine pads with masked sentinel devices and clusters.
+      "gspmd"       the JAX package's partitioner-inferred placement; not
+                    ported (ROADMAP.md, queue 1, item 9).
+      None          (default) "shard_map" for 1-D meshes, "gspmd" for 2-D.
     """
     mesh: Tuple[int, ...] = ()
     axes: Optional[Tuple[str, ...]] = None
@@ -81,6 +118,92 @@ class ShardingSpec:
     @property
     def is_sharded(self) -> bool:
         return bool(self.mesh)
+
+    def resolved_impl(self) -> Optional[str]:
+        """The sharded implementation this spec runs on (None: unsharded)."""
+        if not self.mesh:
+            return None
+        if self.impl is not None:
+            if self.impl not in (SHARD_MAP_IMPL, GSPMD_IMPL):
+                raise ValueError(
+                    f"sharding: unknown impl {self.impl!r}; valid: "
+                    f"{SHARD_MAP_IMPL!r}, {GSPMD_IMPL!r}")
+            return self.impl
+        return SHARD_MAP_IMPL if len(self.mesh) == 1 else GSPMD_IMPL
+
+    def resolved_axes(self) -> Tuple[str, ...]:
+        if self.axes is not None:
+            return self.axes
+        try:
+            return _DEFAULT_AXES[len(self.mesh)]
+        except KeyError:
+            raise ValueError(
+                f"sharding: no default axis names for a {len(self.mesh)}-D "
+                "mesh; set axes=(...) explicitly") from None
+
+    def resolved_cluster_axis(self, axes: Tuple[str, ...]) -> Optional[str]:
+        """Default cluster placement: the "cluster" axis when the mesh has
+        one, else replicated."""
+        if self.cluster_axis is not None:
+            return self.cluster_axis
+        return "cluster" if "cluster" in axes else None
+
+    def validate(self, n_devices: int, n_clusters: int) -> "ShardingSpec":
+        """The JAX package's checks, with its messages."""
+        if not self.mesh:
+            return self
+        if any(m < 1 for m in self.mesh):
+            raise ValueError(f"sharding: mesh {self.mesh} has a "
+                             "non-positive extent")
+        axes = self.resolved_axes()
+        if len(axes) != len(self.mesh):
+            raise ValueError(
+                f"sharding: mesh {self.mesh} has {len(self.mesh)} axes but "
+                f"axes={axes} names {len(axes)}")
+        if len(set(axes)) != len(axes):
+            raise ValueError(f"sharding: duplicate axis names in {axes}")
+        impl = self.resolved_impl()
+        if impl == SHARD_MAP_IMPL:
+            # the cluster-major engine co-shards every leaf over one axis
+            # and pads indivisible fleets with masked sentinel devices and
+            # clusters itself: no divisibility requirement here
+            if len(self.mesh) != 1:
+                raise ValueError(
+                    f"sharding: impl='shard_map' runs on 1-D meshes (one "
+                    f"cluster-shard axis); got mesh {self.mesh} — use "
+                    "impl='gspmd' for multi-axis placements")
+            if n_devices < n_clusters:
+                raise ValueError("n_devices < n_clusters")
+            for role, name in (("device_axis", self.device_axis),
+                               ("cluster_axis", self.cluster_axis)):
+                if name is not None and name not in axes:
+                    raise ValueError(
+                        f"sharding: {role}={name!r} is not a mesh axis; "
+                        f"axes={axes}")
+            return self
+        cluster_axis = self.resolved_cluster_axis(axes)
+        for role, name, dim, total in (
+                ("device_axis", self.device_axis, "n_devices", n_devices),
+                ("cluster_axis", cluster_axis, "n_clusters", n_clusters)):
+            if name is None:
+                continue
+            if name not in axes:
+                raise ValueError(
+                    f"sharding: {role}={name!r} is not a mesh axis; "
+                    f"axes={axes}")
+            k = self.mesh[axes.index(name)]
+            if total % k:
+                raise ValueError(
+                    f"sharding: mesh axis {name!r} has {k} shards, which "
+                    f"does not divide {dim}={total}; pad the fleet or pick "
+                    f"a mesh shape with {dim} % shards == 0")
+        if (self.device_axis is not None and cluster_axis is not None
+                and self.device_axis == cluster_axis):
+            raise ValueError(
+                f"sharding: device_axis and cluster_axis are both "
+                f"{cluster_axis!r}; the device and cluster dims need "
+                "distinct mesh axes (or replicate one with None)")
+        return self
 
 
 @dataclasses.dataclass
@@ -185,6 +308,12 @@ class FederationSpec:
             raise ValueError(
                 f"task {self.task.kind!r} is {want}-scale but spec has "
                 f"scale={self.scale!r}; use task {fit!r}")
+        if self.sharding.is_sharded and self.scale == DATACENTER_SCALE:
+            raise ValueError(
+                "sharding: mesh placement is not supported at datacenter "
+                "scale (the fl_step modes manage their own sharding)")
+        self.sharding.validate(self.fleet.n_devices,
+                               self.clustering.n_clusters)
         self.faults.validate()
         if self.faults.active and self.scale == DATACENTER_SCALE:
             raise ValueError(

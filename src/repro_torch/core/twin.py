@@ -95,20 +95,19 @@ def observe_round(twins: TwinState, losses, energies, malicious_mask=None
                          beta=twins.beta + mal)
 
 
+# what a sentinel member slot reads of each twin array (alpha = 1 keeps the
+# Eqn-4 interaction ratio finite)
+MEMBER_FILLS = dict(loss=0.0, freq=1.0, freq_dev=0.0, dev_estimate=0.0,
+                    energy=0.0, data_size=1.0, alpha=1.0, beta=0.0,
+                    router_entropy=0.0)
+
+
 def member_view(twins: TwinState, members: torch.Tensor) -> TwinState:
     """The (M,) member slice of every twin array.  Sentinel slots read
-    neutral values (alpha = 1 keeps the Eqn-4 interaction ratio finite) and
-    must be masked by the caller before any reduction."""
-    return TwinState(
-        loss=take(twins.loss, members, 0.0),
-        freq=take(twins.freq, members, 1.0),
-        freq_dev=take(twins.freq_dev, members, 0.0),
-        dev_estimate=take(twins.dev_estimate, members, 0.0),
-        energy=take(twins.energy, members, 0.0),
-        data_size=take(twins.data_size, members, 1.0),
-        alpha=take(twins.alpha, members, 1.0),
-        beta=take(twins.beta, members, 0.0),
-        router_entropy=take(twins.router_entropy, members, 0.0))
+    neutral values (`MEMBER_FILLS`) and must be masked by the caller before
+    any reduction."""
+    return TwinState(**{f: take(getattr(twins, f), members, v)
+                        for f, v in MEMBER_FILLS.items()})
 
 
 def observe_round_members(twins: TwinState, members, losses, energies,

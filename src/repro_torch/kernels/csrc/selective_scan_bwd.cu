@@ -79,9 +79,7 @@
 // ~150 instructions a thread and step it issues ~2 instructions a clock
 // an SM; neither 16 warps an SM (2 states a lane, 128 registers: 1.385)
 // nor two blocks of 4 warps (1.394) was faster, so more warps do not hide
-// what holds it.  Splitting S into time segments over more blocks (an
-// affine carry of g across them) took 1.50 and 1.53 at 2 and 4 segments;
-// no configuration that trains leaves SMs idle, so S is not split.
+// what holds it.
 //
 // Numerics.  Sums run in another order than the plain version's (the
 // warp's channels pairwise, then the warps, then the blocks in order; a

@@ -41,6 +41,15 @@ false mask, so they are never read as members.  Reductions over the wider
 padded rows may round differently from a standalone run's: a member
 agrees with its standalone run in its schedule exactly and in its values
 to float32 rounding (`tests/test_torch_pop.py`).
+
+The population axis shards over a 1-D mesh of ``torch.distributed`` ranks
+(``PopulationSpec.sharding``, one shard a rank): rank r builds and runs
+members ``[r*B/G, (r+1)*B/G)``, and members are independent, so a round
+has no collective.  At build one MAX all-reduce pads every rank's members
+to the population-wide widths M and W, so each member runs the batched
+shapes of the unsharded population; after each `run_scanned`, one SUM
+all-reduce of the zero-padded per-member rows and evaluations gives every
+rank every member's trace, energy and round count.
 """
 from __future__ import annotations
 
@@ -51,6 +60,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.api.components import WeightedAggregator
@@ -165,19 +175,44 @@ class PopulationEngine:
     ``specs`` are the member specs (`PopulationSpec.expand`), all on
     ``device`` (the card unless the caller asks for another);
     ``federations`` overrides the standalone federations built from them
-    (the parity tests hand over ones built on the JAX package's data)."""
+    (the parity tests hand over ones built on the JAX package's data).
+    ``sharding`` (a 1-D `ShardingSpec` over ``torch.distributed`` ranks)
+    makes this rank build and run only its block of members; ``specs``,
+    ``B`` and the per-member rounds, energies and traces stay the whole
+    population's."""
 
     def __init__(self, specs: Sequence[FederationSpec], *, device=None,
-                 federations: Optional[Sequence[Any]] = None):
+                 federations: Optional[Sequence[Any]] = None,
+                 sharding=None):
         from repro_torch.api.federation import Federation
         self.specs = list(specs)
         self.B = len(self.specs)
         _require(self.B >= 1, "need at least one member spec")
         self.device = dev = resolve_device(device)
+        self._group = None
+        self._lo, self._hi = 0, self.B
+        if sharding is not None and sharding.is_sharded:
+            from repro_torch.api import placement
+            _require(len(sharding.mesh) == 1,
+                     "the population shards over a 1-D mesh (one pop axis)")
+            shards = int(sharding.mesh[0])
+            _require(self.B % shards == 0,
+                     f"mesh has {shards} shards, which does not divide the "
+                     f"population size {self.B}")
+            # the members are the rows the one axis shards
+            pl = placement.resolve(dataclasses.replace(
+                sharding, axes=sharding.axes or ("pop",), device_axis=None,
+                cluster_axis=None), n_devices=self.B, n_clusters=1,
+                device=dev)
+            self._group = pl.group
+            per = self.B // shards
+            self._lo, self._hi = pl.rank * per, (pl.rank + 1) * per
+        local = self.specs[self._lo:self._hi]
         if federations is None:
             federations = [Federation.from_spec(s, controller=c, device=dev)
-                           for s, c in zip(self.specs,
-                                           self._build_controllers(dev))]
+                           for s, c in zip(local,
+                                           self._build_controllers(local,
+                                                                   dev))]
         self.federations = list(federations)
         engines = [f.engine for f in self.federations]
         self._check_static(engines)
@@ -191,8 +226,12 @@ class PopulationEngine:
             k: stack(e.state.tensors()[k] for e in engines)
             for k in e0.state.tensors()})
         self._scan_times = stack(e._scan_times for e in engines)
-        M = max(e._member_table.shape[1] for e in engines)
-        W = max(e._part_idx.shape[1] for e in engines)
+        widths = torch.tensor(
+            [max(e._member_table.shape[1] for e in engines),
+             max(e._part_idx.shape[1] for e in engines)], device=dev)
+        if self._group is not None:
+            dist.all_reduce(widths, op=dist.ReduceOp.MAX, group=self._group)
+        M, W = widths.tolist()
         n = int(e0.spec.fleet.n_devices)
 
         def pad(t, width, value):
@@ -219,15 +258,15 @@ class PopulationEngine:
                 [ctl_queue.per_slot_of(f.controller)
                  for f in self.federations], dtype=torch.float32,
                 device=dev),
-            "seed": torch.tensor([int(s.seed) for s in self.specs],
+            "seed": torch.tensor([int(s.seed) for s in local],
                                  dtype=torch.int64, device=dev),
         }
         for key, get in _LIFTED_SPEC:
-            mp[key] = torch.tensor([float(get(s)) for s in self.specs],
+            mp[key] = torch.tensor([float(get(s)) for s in local],
                                    dtype=torch.float32, device=dev)
         if e0.faults.active:
             flt = {k: torch.tensor([float(getattr(s.faults, k))
-                                    for s in self.specs],
+                                    for s in local],
                                    dtype=torch.float32, device=dev)
                    for k in _LIFTED_FAULT}
             flt["corrupt_dev"] = stack(e.faults.corrupt_dev for e in engines)
@@ -240,8 +279,7 @@ class PopulationEngine:
         self._lift_agg = agg_kinds == {"trust", "fedavg"}
         if self._lift_agg:
             mp["agg_uniform"] = torch.tensor(
-                [s.aggregator.kind == "fedavg" for s in self.specs],
-                device=dev)
+                [s.aggregator.kind == "fedavg" for s in local], device=dev)
         self._pol_step, self._pol_needs_obs, pol_mp = self._build_policy()
         if pol_mp:
             mp["pol"] = pol_mp
@@ -260,12 +298,12 @@ class PopulationEngine:
     @classmethod
     def from_population(cls, pspec: PopulationSpec, *, device=None
                         ) -> "PopulationEngine":
-        """The population of ``pspec``'s expanded member specs (a sharded
-        ``pspec`` raises `NotImplementedError` in `PopulationSpec.validate`:
-        one device only)."""
-        return cls(pspec.expand(), device=device)
+        """The population of ``pspec``'s expanded member specs; a sharded
+        ``pspec`` builds this rank's block of members (a mesh of G > 1
+        needs a G-rank launch, `repro_torch.launch.distributed`)."""
+        return cls(pspec.expand(), device=device, sharding=pspec.sharding)
 
-    def _build_controllers(self, device):
+    def _build_controllers(self, specs, device):
         """Member controllers from the registries; identical DQN pretrains
         are built once and shared (the agent is immutable at deploy time;
         fixed and Lyapunov controllers carry per-member queue state and
@@ -273,7 +311,7 @@ class PopulationEngine:
         from repro_torch.api import registry
         cache: Dict[str, Any] = {}
         out = []
-        for s in self.specs:
+        for s in specs:
             factory = registry.CONTROLLERS.get(s.controller.kind)
             if s.controller.kind == "dqn":
                 key = json.dumps(s.controller.params, sort_keys=True,
@@ -486,7 +524,8 @@ class PopulationEngine:
         carry), so segment sequences match one long run: the invariant the
         pool supervisor checkpoints on, as the standalone engine's."""
         K = int(K)
-        energy = torch.tensor([np.float32(e) for e in self._energy_used],
+        energy = torch.tensor([np.float32(e) for e in
+                               self._energy_used[self._lo:self._hi]],
                               dtype=torch.float32, device=self.device)
         state, times, ctl = self.state, self._scan_times, self._ctl_state()
         rows = []
@@ -497,15 +536,26 @@ class PopulationEngine:
         self.state = state
         self._scan_times = times
         ys = torch.stack(rows) if rows else torch.zeros(
-            (0, self.B, len(_ROW_KEYS)), device=self.device)
+            (0, len(self.federations), len(_ROW_KEYS)), device=self.device)
         return self._emit(ys, K, eval_final)
 
     def _emit(self, ys: torch.Tensor, K: int, eval_final: bool
               ) -> List[FLTrace]:
         """Per-member records from the (K, B, 6) rows, read back once; the
         float64 energy of each member adds its float32 consumptions one by
-        one, as the standalone engine does."""
-        ys = ys.cpu().numpy()
+        one, as the standalone engine does.  Sharded, the rows and the
+        final evaluations of the whole population are gathered first."""
+        evals = torch.zeros((ys.shape[1], 2), dtype=torch.float64,
+                            device=self.device)
+        if eval_final and K:
+            for i, f in enumerate(self.federations):
+                ev = self.task.evaluate(self.state.global_flat[i],
+                                        f.engine.data)
+                evals[i] = torch.tensor([ev["loss"], ev["acc"]],
+                                        dtype=torch.float64)
+        if self._group is not None:
+            ys, evals = self._gather_rows(ys, evals)
+        ys, evals = ys.cpu().numpy(), evals.cpu().numpy()
         queue_host = None
         traces = []
         for b in range(self.B):
@@ -515,12 +565,13 @@ class PopulationEngine:
             for ci in ys[:, b, 4]:
                 self._energy_used[b] += float(ci)
                 cum.append(self._energy_used[b])
-            sync_queue = getattr(self.federations[b].controller,
-                                 "sync_queue", None)
-            if sync_queue is not None:
-                if queue_host is None:
-                    queue_host = self.state.queue.cpu()
-                sync_queue(queue_host[b])
+            if self._lo <= b < self._hi:
+                sync_queue = getattr(self._fed(b).controller, "sync_queue",
+                                     None)
+                if sync_queue is not None:
+                    if queue_host is None:
+                        queue_host = self.state.queue.cpu()
+                    sync_queue(queue_host[b - self._lo])
             trace = FLTrace(records=[], sink=self._sinks[b],
                             retain=self._retain[b])
             for i in range(K):
@@ -530,16 +581,39 @@ class PopulationEngine:
                     loss=float(ys[i, b, 5]), acc=None, energy=cum[i],
                     agg_count=base + i + 1))
             if eval_final and K:
-                ev = self.task.evaluate(self.state.global_flat[b],
-                                        self.federations[b].engine.data)
                 trace.append(RoundRecord(
                     t=float(ys[-1, b, 0]) + float(ys[-1, b, 3]),
                     round=self._rounds[b], cluster=int(ys[-1, b, 1]),
-                    a=int(ys[-1, b, 2]), loss=ev["loss"], acc=ev["acc"],
-                    energy=self._energy_used[b],
+                    a=int(ys[-1, b, 2]), loss=float(evals[b, 0]),
+                    acc=float(evals[b, 1]), energy=self._energy_used[b],
                     agg_count=self._rounds[b]))
             traces.append(trace)
         return traces
+
+    def _gather_rows(self, ys: torch.Tensor, evals: torch.Tensor):
+        """The (K, B, 6) rows and (B, 2) evaluations of the whole
+        population from this rank's block: one zero-padded SUM all-reduce
+        in float64 (exact: one contributor a member)."""
+        K = ys.shape[0]
+        full = torch.zeros((K, self.B, ys.shape[2]), dtype=torch.float64,
+                           device=self.device)
+        full[:, self._lo:self._hi] = ys.to(torch.float64)
+        ev = torch.zeros((self.B, 2), dtype=torch.float64,
+                         device=self.device)
+        ev[self._lo:self._hi] = evals
+        vec = torch.cat([full.reshape(-1), ev.reshape(-1)])
+        dist.all_reduce(vec, group=self._group)
+        return (vec[:full.numel()].reshape(full.shape),
+                vec[full.numel():].reshape(ev.shape))
+
+    def _fed(self, b: int):
+        """The standalone federation of member ``b``, built on this rank
+        (a sharded population builds only its block)."""
+        if not self._lo <= b < self._hi:
+            raise ValueError(
+                f"population: member {b} runs on another rank (this rank "
+                f"runs members {self._lo}-{self._hi - 1})")
+        return self.federations[b - self._lo]
 
     # ------------------------------------------------------------------ #
     # per-member serve surface (checkpoint/resume in single-tenant format)
@@ -555,12 +629,18 @@ class PopulationEngine:
 
     def member_state(self, b: int) -> FleetState:
         """Member ``b``'s slice of the batched state, a single-tenant
-        `FleetState` (views, no copy)."""
-        return _state_of({k: v[b] for k, v in self.state.tensors().items()})
+        `FleetState` (views, no copy); on this rank's block only."""
+        i = self._index(b)
+        return _state_of({k: v[i] for k, v in self.state.tensors().items()})
+
+    def _index(self, b: int) -> int:
+        """Member ``b``'s slot in this rank's batched state."""
+        self._fed(b)
+        return b - self._lo
 
     def _member_resumable(self, b: int) -> dict:
         return {"fleet": fleet_tree(self.member_state(b), self.task.layout),
-                "times": self._scan_times[b]}
+                "times": self._scan_times[self._index(b)]}
 
     def _restore_member(self, b: int, tree: dict, *, rounds: int,
                         energy: float) -> None:
@@ -568,10 +648,11 @@ class PopulationEngine:
         if not isinstance(fleet, FleetState):
             fleet = fleet_state_from_numpy(fleet, self.device)
         new = fleet.tensors()
+        i = self._index(b)
 
         def put(L, l):
             L = L.clone()
-            L[b] = l.to(L.dtype)
+            L[i] = l.to(L.dtype)
             return L
         self.state = _state_of({k: put(v, new[k])
                                 for k, v in self.state.tensors().items()})
@@ -579,10 +660,9 @@ class PopulationEngine:
             tree["times"], dtype=torch.float32).to(self.device))
         self._rounds[b] = int(rounds)
         self._energy_used[b] = float(energy)
-        sync_queue = getattr(self.federations[b].controller, "sync_queue",
-                             None)
+        sync_queue = getattr(self._fed(b).controller, "sync_queue", None)
         if sync_queue is not None:
-            sync_queue(self.state.queue[b])
+            sync_queue(self.state.queue[i])
 
 
 class _MemberEngineView:
@@ -623,5 +703,5 @@ class PopulationMember:
 
     def __init__(self, pop: PopulationEngine, b: int):
         self.engine = _MemberEngineView(pop, b)
-        self.controller = pop.federations[b].controller
+        self.controller = pop._fed(b).controller
         self.spec = pop.specs[b]

@@ -24,9 +24,11 @@ the JAX package's (a ``jax.random.fold_in`` of the member index, then a
 directory and its member specs mean the same in both packages.
 ``derive_seeds=False`` keeps the base/grid seed verbatim instead.
 
-``sharding`` would place the population axis on a 1-D mesh; the port runs
-one device, so a sharded population raises `NotImplementedError` naming
-its ROADMAP item.
+``sharding`` places the *population* axis on a 1-D mesh of
+``torch.distributed`` ranks (axis name defaults to "pop"): rank r runs
+members ``[r*B/G, (r+1)*B/G)`` with no collective in a round
+(`repro_torch.pop.engine`).  Member specs themselves are always
+unsharded: the population batch dim is the parallel axis.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ from repro_torch.api.spec import (DEVICE_SCALE, FederationSpec,
 __all__ = ["PopulationSpec", "member_seed"]
 
 POP_AXIS = "pop"                 # default mesh axis name for the batch dim
-SHARDED_ITEM = "ROADMAP.md, queue 1, item 9"
+SHARDED_ITEM = "ROADMAP.md, queue 1, item 9"    # the sharded pool
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -131,9 +133,15 @@ class PopulationSpec:
                 raise ValueError(f"population: grid[{path!r}] must be a "
                                  "non-empty list of values")
         if self.sharding.is_sharded:
-            raise NotImplementedError(
-                f"not ported yet: a sharded population (mesh "
-                f"{self.sharding.mesh}; multi-device, {SHARDED_ITEM})")
+            if len(self.sharding.mesh) != 1:
+                raise ValueError(
+                    f"population: sharding shards the population axis only "
+                    f"(1-D mesh); got mesh {self.sharding.mesh}")
+            shards = self.sharding.mesh[0]
+            if self.size % shards:
+                raise ValueError(
+                    f"population: mesh has {shards} shards, which does not "
+                    f"divide the population size {self.size}")
         if self.base.sharding.is_sharded:
             raise ValueError(
                 "population: the base spec must be unsharded — the "

@@ -476,7 +476,8 @@ def _resolve_pool_spec(args):
         pspec = PopulationSpec(base=base, replicates=args.replicates)
     if args.seed is not None:
         pspec = pspec.replace(base=pspec.base.replace(seed=args.seed))
-    return pspec.validate()
+    from .pool import runnable_pool_spec
+    return runnable_pool_spec(pspec)
 
 
 def _pool_member_dirs(root: str, size: int) -> list:
@@ -488,9 +489,9 @@ def _checked_pool_spec(root: str):
     """The validated ``pool.json`` of ``root`` and 0, or None and the exit
     code: 1 when it is missing, `EXIT_UNPORTED` when the port cannot run
     it (a sharded population names its ROADMAP item)."""
-    from .pool import load_pool_spec
+    from .pool import load_pool_spec, runnable_pool_spec
     try:
-        return load_pool_spec(root).validate(), 0
+        return runnable_pool_spec(load_pool_spec(root)), 0
     except FileNotFoundError as e:
         print(f"error: {e}", file=sys.stderr)
         return None, 1

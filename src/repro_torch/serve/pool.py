@@ -53,6 +53,7 @@ from repro_torch.api.records import JsonlSink, tail_jsonl
 from repro_torch.checkpoint import load_checkpoint, typed_key_leaves
 from repro_torch.obs import EngineObs
 from repro_torch.pop import PopulationEngine, PopulationSpec
+from repro_torch.pop.spec import SHARDED_ITEM
 
 from .runner import (_resumable_tree, list_resumable, save_resumable,
                      truncate_jsonl_trace, verify_checkpoint)
@@ -83,6 +84,19 @@ def load_pool_spec(pool_dir: str) -> PopulationSpec:
             f"{path} missing or unreadable — is {pool_dir!r} a pool run "
             "dir?")
     return PopulationSpec.from_dict(d)
+
+
+def runnable_pool_spec(pspec: PopulationSpec) -> PopulationSpec:
+    """``pspec`` validated, or `NotImplementedError` for what the pool
+    cannot run: a sharded population (the pool's members run in one
+    process; a sharded population runs through
+    `PopulationEngine.from_population` under a G-rank launch)."""
+    pspec = pspec.validate()
+    if pspec.sharding.is_sharded:
+        raise NotImplementedError(
+            f"not ported yet: a sharded pool (mesh {pspec.sharding.mesh}; "
+            f"multi-device, {SHARDED_ITEM})")
+    return pspec
 
 
 def ensure_pool_dir(pool_dir: str) -> RunDir:
@@ -159,7 +173,7 @@ def run_pool(pool_dir: str, *, segment_rounds: int = 25,
     truncates each member's trace back to it.
     """
     rd = ensure_pool_dir(pool_dir)
-    pspec = load_pool_spec(pool_dir).validate()
+    pspec = runnable_pool_spec(load_pool_spec(pool_dir))
     specs = pspec.expand()
     B = len(specs)
 

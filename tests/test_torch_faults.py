@@ -291,12 +291,16 @@ def test_cli_runs_each_runnable_preset(scenario, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--scenario", "adaptive-scanned-sharded"], "item 9"),
+    # a 1-D mesh runs under a launch of as many ranks since the
+    # multi-device slice (tests/test_torch_placement.py); the
+    # partitioner-inferred placement is still item 9
+    (["--scenario", "adaptive-scanned-sharded", "--mesh", "8x1"],
+     "item 9"),
     # lm-modeA runs since the LM training slice; a datacenter spec with a
     # robust rule exits 2 with the JAX package's message
     (["--scenario", "lm-modeA", "--aggregator", "krum"],
      "not supported at datacenter scale"),
-    (["--scenario", "dp", "--mesh", "2"], "item 9"),
+    (["--scenario", "dp", "--mesh", "4x2"], "item 9"),
     (["--scenario", "nope"], "unknown scenario"),
     (["--scenario", "dp", "--aggregator", "nope"], "unknown aggregator"),
     (["--scenario", "faulty-fleet", "--aggregator", "krum"],

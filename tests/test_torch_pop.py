@@ -32,7 +32,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.api import Federation, FederationSpec  # noqa: E402
+from repro_torch.api import (Federation, FederationSpec,  # noqa: E402
+                             ShardingSpec)
 from repro_torch.api.engine import fleet_state_from_numpy  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import launches  # noqa: E402
@@ -154,13 +155,17 @@ def test_population_spec_validation_errors():
         PopulationSpec(base=spec(), grid={"nope": [1]}).expand()
     with pytest.raises(KeyError, match="unknown keys"):
         PopulationSpec.from_dict({"base": spec_dict(), "bogus": 1})
-    # a sharded population is multi-device work (ROADMAP item 9)
+    # a sharded population validates as the JAX package's does, and runs
+    # under a launch of as many ranks (tests/test_torch_placement.py)
     sharded = PopulationSpec.from_dict({"base": spec_dict(), "replicates": 2,
                                         "sharding": {"mesh": [2]}})
     assert sharded.to_dict()["sharding"]["mesh"] == (2,)
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        sharded.validate()
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+    assert sharded.validate() is sharded
+    with pytest.raises(ValueError, match="does not divide the population"):
+        sharded.replace(replicates=3).validate()
+    with pytest.raises(ValueError, match="1-D mesh"):
+        sharded.replace(sharding=ShardingSpec(mesh=(2, 1))).validate()
+    with pytest.raises(ValueError, match="spawn_local"):
         PopulationEngine.from_population(sharded, device="cpu")
 
 
