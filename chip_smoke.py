@@ -119,7 +119,13 @@ Needs one NVIDIA GPU and nvcc.  In order:
    after it (8 flash_attention, 18 rglru_scan) and after the decode loop
    (none); the kernels' outputs on the first LOCAL and first RG-LRU
    layer's own inputs held against their plain versions; and the decode
-   step at position 4096 held against a prefill of all 4097 tokens;
+   step at position 4096 held against a prefill of all 4097 tokens.  The
+   attention kernel is also checked at the shapes phase 7 gives it (MLA's
+   (4, 4096, 128 heads, d 192, dv 128), a ragged d != dv, qwen1.5-32b's
+   40 heads of 128 with Kv = 40, grok-1's 48/8 heads under a cap of 30)
+   against its plain version (over slices of batch and heads where the
+   whole scores would not fit), and timed at MLA's shape beside its bound
+   and ``scaled_dot_product_attention`` (its memory-efficient backend);
 6. serving: falcon-mamba-7b at full width (64 MAMBA layers, d_model 4096,
    d_inner 8192, N 16, 7.0e9 f32 parameters from seed 0), after
    recurrentgemma-2b is freed: first the selective-scan kernel against its
@@ -132,9 +138,28 @@ Needs one NVIDIA GPU and nvcc.  In order:
    traffic (batch 4, 4096-token prompts, 32 greedy tokens) with the counts
    read after the prefill (64 selective_scan) and the decode loop (none),
    the kernel on the first MAMBA layer's own inputs held against its plain
-   version, and the 4096 + 1 consistency check;
-7. frees falcon-mamba-7b and the libraries' workspaces (the training
-   phase needs 64 GiB);
+   version, and the 4096 + 1 consistency check; then frees falcon-mamba-7b
+   and the libraries' workspaces;
+7. serving the JAX package's seven other architectures at full width,
+   one after another, each freed before the next is built, with phase 5's
+   traffic through ``generate``: gemma-7b (28 layers), granite-3-8b (40),
+   musicgen-large (48, four codebooks: (4, 4, 4096) prompts, (4, 4, 32)
+   tokens), and, cut in depth only where the f32 weights do not fit the
+   card, qwen1.5-32b (16 of 64 layers, qkv bias), chameleon-34b (16 of
+   48, qk-norm), grok-1-314b (2 of 64 MoE layers, 8 experts top-2, cap
+   30) and deepseek-v2-236b (3 of 60: the dense layer and two MoE layers,
+   MLA, 160 experts top-6 and 2 shared): each prints its parameters, its
+   prefill seconds, decode tokens/s and peak memory beside the card's
+   name and power limit; the prefill must launch ``flash_attention`` once
+   an attention layer and decode none; the first launch is held against
+   the plain version on its own inputs; token ids in range and logits
+   finite; the dense and audio models' decode at position 4096 within
+   2e-2 of a 4097-token prefill.  The MoE models' capacity depends on the
+   tokens of a call (grok: 5,120 slots an expert in the prefill, 1 at
+   decode), so their prefill and decode drop different assignments: the
+   same gap and the dropped assignments of the prefill, the decode and
+   the 4097-token prefill are reported, not bounded (their routing is held
+   against the JAX package on the CPU, tests/test_torch_lm_moe.py);
 8. training: federated mode A (``fedavg_replica``) of recurrentgemma-2b
    at full width cut to one Griffin period (RG-LRU, RG-LRU, local
    attention; 912,320,000 f32 parameters from seed 0), NC 2 x C 2 clients,
@@ -2440,12 +2465,41 @@ def paper_phase(dev) -> dict:
 # --------------------------------------------------------------------- #
 # the serving path: recurrentgemma-2b
 # --------------------------------------------------------------------- #
-def attn_inputs(B, S, H, Kv, d, dtype, dev, seed):
+def attn_inputs(B, S, H, Kv, d, dtype, dev, seed, dv=None):
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((B, S, H, d), generator=g, device=dev) * 0.3
     k = torch.randn((B, S, Kv, d), generator=g, device=dev) * 0.3
-    v = torch.randn((B, S, Kv, d), generator=g, device=dev)
+    v = torch.randn((B, S, Kv, d if dv is None else dv), generator=g,
+                    device=dev)
     return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+PLAIN_SCORES = 2 ** 30    # floats of scores one plain-attention call holds
+
+
+def plain_attention(q, k, v, *, window=0, softcap=0.0):
+    """`ref.flash_attention_ref`, over slices of the batch and of the K/V
+    heads (with their query heads) where the whole call's scores would
+    pass ``PLAIN_SCORES`` floats (MLA's 128 heads at S = 4096 would need
+    34 GB).  Rows and head groups are independent, so it is the same
+    function."""
+    from repro_torch.kernels import ref
+    B, S, H, _ = q.shape
+    Kv = k.shape[2]
+    g = H // Kv
+    if B * H * S * S <= PLAIN_SCORES:
+        return ref.flash_attention_ref(q, k, v, window=window,
+                                       softcap=softcap)
+    per = max(1, PLAIN_SCORES // (g * S * S))      # K/V heads a slice
+    out = torch.empty(q.shape[:3] + (v.shape[3],), dtype=q.dtype,
+                      device=q.device)
+    for b in range(B):
+        for k0 in range(0, Kv, per):
+            k1 = min(Kv, k0 + per)
+            out[b:b + 1, :, k0 * g:k1 * g] = ref.flash_attention_ref(
+                q[b:b + 1, :, k0 * g:k1 * g], k[b:b + 1, :, k0:k1],
+                v[b:b + 1, :, k0:k1], window=window, softcap=softcap)
+    return out
 
 
 def scan_inputs(B, S, W, dtype, dev, seed, a_range=None):
@@ -2513,6 +2567,31 @@ def lm_kernel_phase(cfg, dev, compare_dirs=()) -> dict:
         err["fa"][name] = max(err["fa"][name], e)
         used[name] = max(used[name], tolerance_used(got, want, FA_TOL[name],
                                                     FA_TOL[name]))
+    # the shapes phase 7's architectures give the kernel (B, S, H, Kv, d,
+    # dv, window, softcap), float32: MLA's prefill (deepseek-v2: d = qk_nope
+    # + qk_rope = 192, dv = v_head_dim = 128, 128 heads), ragged d != dv,
+    # qwen1.5-32b's multi-head 40/40 and grok-1's 48/8 under a cap of 30 at
+    # a ragged S
+    served_cases = [(B, S, 128, 128, 192, 128, 0, 0.0),
+                    (2, 77, 4, 4, 192, 128, 0, 0.0),
+                    (1, 45, 3, 1, 40, 24, 5, 0.0),
+                    (1, S + 1, 40, 40, 128, 128, 0, 0.0),
+                    (1, S + 1, 48, 8, 128, 128, 0, 30.0)]
+    err["fa_served"] = {}
+    for i, (b, s, h, kv, dd, dv, win, cap) in enumerate(served_cases):
+        q, k, v = attn_inputs(b, s, h, kv, dd, f32, dev, 150 + i, dv=dv)
+        got = flash_attention(q, k, v, window=win, softcap=cap)
+        want = plain_attention(q, k, v, window=win, softcap=cap)
+        e, ok = within(got, want, FA_TOL["float32"], FA_TOL["float32"])
+        shape = (b, s, h, kv, dd, dv, win, cap)
+        check(ok and got.shape == (b, s, h, dv),
+              f"flash_attention {shape}: max abs error {e} beyond "
+              f"tolerance {FA_TOL['float32']}")
+        err["fa_served"][str(shape)] = e
+        err["fa"]["float32"] = max(err["fa"]["float32"], e)
+        used["float32"] = max(used["float32"], tolerance_used(
+            got, want, FA_TOL["float32"], FA_TOL["float32"]))
+    del q, k, v, got, want
     # (B, S, W, dtype, range of a): the serving path's layer, the JAX
     # sweep, ragged, and a in [0.9, 0.9999] over S = 4097 (recurrentgemma's
     # regime: a sub-chunk's product of a stays near 1)
@@ -2532,10 +2611,11 @@ def lm_kernel_phase(cfg, dev, compare_dirs=()) -> dict:
                            f"{max(ey, eh)} beyond {SCAN_TOL[name]}")
         err["scan"][name] = max(err["scan"][name], ey, eh)
     torch.cuda.synchronize()
+    n_cases = {"fa": len(fa_cases) + len(served_cases),
+               "scan": len(scan_cases)}
     for k_, tol in (("fa", FA_TOL), ("scan", SCAN_TOL)):
         print(f"kernel check {k_}: max abs error {err[k_]} (tolerance "
-              f"{tol}), {len(fa_cases if k_ == 'fa' else scan_cases)} "
-              f"shapes", flush=True)
+              f"{tol}), {n_cases[k_]} shapes", flush=True)
     print(f"kernel check fa: share of the tolerance used {used}", flush=True)
 
     # times at the serving path's shapes
@@ -2632,13 +2712,68 @@ def lm_kernel_phase(cfg, dev, compare_dirs=()) -> dict:
           f"kernel {t['fa']} ms, SDPA {t['fa_lib']} ms, bf16 kernel "
           f"{t['fa_bf16']} ms, SDPA {t['fa_bf16_lib']} ms; f32 bound by "
           f"route {fa_routes} ms: {fa_route}", flush=True)
+    del q, k, v, qh, kh, vh, qb, kb, vb, qhb, khb, vhb, mask, out
+    mla = mla_attention_times(dev)
     return {"err": err, "t": t, "pairs": pairs, "lib_err": lib_err,
+            "mla": mla,
             "bound": {"fa": fa_routes[fa_route],
                       "fa_bf16": bound_ms(b_fa / 2, flops, BF16_FLOPS_PER_S),
                       "scan": bound_ms(b_scan, 2 * B * S * W),
                       "scan_bf16": bound_ms(b_scan_bf16, 2 * B * S * W)},
             "fa_routes": fa_routes, "fa_route": fa_route,
             "bytes": {"fa": b_fa, "scan": b_scan, "scan_bf16": b_scan_bf16}}
+
+
+def mla_attention_times(dev) -> dict:
+    """The attention kernel at deepseek-v2's prefill (batch 4, 4096
+    tokens, 128 heads, d = 192, dv = 128, causal), float32: its time, the
+    plain version's (over slices), SDPA's through its memory-efficient
+    backend (the math backend would hold 34 GB of scores), and the bound
+    of its reachable pairs' operations and its bytes."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import flash_attention
+    B, S, H, d, dv = SERVE_BATCH, SERVE_PROMPT, 128, 192, 128
+    q, k, v = attn_inputs(B, S, H, H, d, torch.float32, dev, 97, dv=dv)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def lib():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+
+    want = plain_attention(q, k, v)
+    e_fa, ok = within(flash_attention(q, k, v), want, FA_TOL["float32"],
+                      FA_TOL["float32"])
+    check(ok, f"flash_attention at MLA's shape: max abs error {e_fa}")
+    t = {"ms": time_ms(lambda: flash_attention(q, k, v), reps=3, windows=5,
+                       warmup=2),
+         "plain_ms": time_ms(lambda: plain_attention(q, k, v), reps=1,
+                             windows=3, warmup=1)}
+    try:
+        t["library_max_abs_err"] = (lib().transpose(1, 2) - want
+                                    ).abs().max().item()
+        t["library_ms"] = time_ms(lib, reps=3, windows=5, warmup=2)
+    except RuntimeError as e:          # no memory-efficient kernel here
+        t["library_ms"], t["library_error"] = None, str(e)[:300]
+    pairs = reachable_pairs(B, S, H, 0)
+    flops = pairs * (2 * d + 2 * dv)
+    n_bytes = (2 * B * S * H * d + 2 * B * S * H * dv) * 4
+    routes = {"cuda cores": bound_ms(n_bytes, flops),
+              "tensor cores, 3xTF32": bound_ms(n_bytes, 3 * flops,
+                                               TF32_FLOPS_PER_S)}
+    route = min(routes, key=lambda r: routes[r][0])
+    out = {**t, "max_abs_err": e_fa, "tolerance": FA_TOL["float32"],
+           "bound_ms": routes[route][0], "bound_by": routes[route][1],
+           "bound_route": route,
+           "bound_ms_by_route": {r: b[0] for r, b in routes.items()},
+           "reachable_pairs": pairs, "flops": flops, "bytes": n_bytes,
+           "shape": {"B": B, "S": S, "H": H, "Kv": H, "d": d, "dv": dv,
+                     "window": 0, "dtype": "float32"}}
+    print(f"flash_attention at MLA's prefill {(B, S, H, H, d, dv)}: kernel "
+          f"{out['ms']} ms, plain {out['plain_ms']} ms, SDPA "
+          f"(memory-efficient) {out['library_ms']} ms, bound {routes} ms "
+          f"({route}); max abs error {e_fa}", flush=True)
+    return out
 
 
 def serving_phase(cfg, dev, expect: dict, entries: dict) -> dict:
@@ -2698,24 +2833,36 @@ def serving_phase(cfg, dev, expect: dict, entries: dict) -> dict:
     check(all(pre[k] == expect.get(k, 0) for k in pre),
           f"the prefill launched {pre}, expected {expect}")
     check(not any(dec.values()), f"the decode loop launched kernels: {dec}")
-    check(res.tokens.shape == (SERVE_BATCH, SERVE_GEN)
+    # an audio model's K codebooks follow the batch dim; logits span the
+    # padded vocabulary, its pad entries masked to -1e9
+    books = (cfg.num_codebooks,) if cfg.num_codebooks > 1 else ()
+    check(res.tokens.shape == (SERVE_BATCH,) + books + (SERVE_GEN,)
           and int(res.tokens.min()) >= 0
           and int(res.tokens.max()) < cfg.vocab_size, "bad token ids")
     for lg in [res.prefill_logits] + res.decode_logits:
-        check(lg.shape == (SERVE_BATCH, cfg.vocab_size)
+        check(lg.shape == (SERVE_BATCH,) + books + (cfg.padded_vocab,)
               and bool(torch.isfinite(lg).all()), "bad logits")
-    return {"res": res, "counts": counts, "seen": seen, "peak": peak}
+    return {"res": res, "counts": counts, "seen": seen, "peak": peak,
+            "parameters": n_params}
 
 
 def live_lm_check(seen) -> dict:
-    """The kernels' outputs on the first LOCAL and first RG-LRU layer of
-    the prefill against their plain versions on the same inputs."""
+    """The kernels' outputs on the first attention (LOCAL for
+    recurrentgemma-2b) and the first RG-LRU layer of the prefill against
+    their plain versions on the same inputs (attention alone for a model
+    without RG-LRU layers)."""
     from repro_torch.kernels import ref
     (q, k, v), kw, out = seen["flash_attention"]
-    want = ref.flash_attention_ref(q, k, v, **kw)
+    want = plain_attention(q, k, v, **kw)
     e_fa, ok = within(out, want, FA_TOL["float32"], FA_TOL["float32"])
     used_fa = tolerance_used(out, want, FA_TOL["float32"], FA_TOL["float32"])
     check(ok, f"flash_attention on the prefill's inputs: {e_fa}")
+    if "rglru_scan" not in seen:
+        print(f"flash_attention on the prefill's own inputs (first "
+              f"attention layer, q {tuple(q.shape)}, v {tuple(v.shape)}, "
+              f"{kw}): max abs error {e_fa} (share of the tolerance used "
+              f"{used_fa})", flush=True)
+        return {"fa": e_fa, "fa_tolerance_used": used_fa}
     (a, bx), _, (y, h) = seen["rglru_scan"]
     yr, hr = ref.rglru_scan_ref(a, bx)
     ey, oky = within(y, yr, SCAN_TOL["float32"], 0.05)
@@ -2730,20 +2877,24 @@ def live_lm_check(seen) -> dict:
     return {"fa": e_fa, "fa_tolerance_used": used_fa, "scan": max(ey, eh)}
 
 
-def consistency_check(res) -> float:
+def consistency_check(res, bounded: bool = True) -> float:
     """Decode of token 4096 after a 4096-token prefill against a prefill of
-    all 4097 tokens (last position)."""
-    full = torch.cat([res.prompts, res.tokens[:, :1]], dim=1)
+    all 4097 tokens (last position).  ``bounded=False`` (MoE: capacity
+    depends on a call's tokens, so the two drop different assignments)
+    reports the gap without holding it to the tolerance."""
+    full = torch.cat([res.prompts, res.tokens[..., :1]], dim=-1)
     with torch.inference_mode():
-        logits, _ = res.model.prefill(full, cache_len=full.shape[1])
+        logits, _ = res.model.prefill(full, cache_len=full.shape[-1])
     want = res.decode_logits[0]
     e = (logits - want).abs().max().item()
+    bound = (f"tolerance {CONSISTENCY_TOL}" if bounded
+             else "reported, not bounded")
     print(f"consistency ({res.model.cfg.name}): decode at position "
-          f"{SERVE_PROMPT} against a "
-          f"{full.shape[1]}-token prefill: max abs error {e} (tolerance "
-          f"{CONSISTENCY_TOL}), max |logit| {want.abs().max().item()}",
-          flush=True)
-    check(e < CONSISTENCY_TOL, f"prefill/decode disagree by {e}")
+          f"{SERVE_PROMPT} against a {full.shape[-1]}-token prefill: max "
+          f"abs error {e} ({bound}), max |logit| "
+          f"{want.abs().max().item()}", flush=True)
+    check(not bounded or e < CONSISTENCY_TOL,
+          f"prefill/decode disagree by {e}")
     return e
 
 
@@ -2888,6 +3039,97 @@ def serving_record(cfg, sv, cons) -> dict:
             "decode_tokens_per_s": res.decode_tokens_per_s,
             "peak_gib": sv["peak"], "consistency_max_abs_err": cons,
             "launches": sv["counts"]}
+
+
+# --------------------------------------------------------------------- #
+# serving the JAX package's seven other architectures (phase 7)
+# --------------------------------------------------------------------- #
+# (architecture, layers run): full width, depth cut only where the f32
+# weights do not fit the card (qwen1.5-32b's 64 layers would be ~141 GB,
+# chameleon-34b's 48 ~137 GB, one grok-1 MoE layer is ~19.7 GB and one
+# deepseek-v2 MoE layer ~15.9 GB)
+SERVED_ARCHS = (("gemma-7b", None), ("granite-3-8b", None),
+                ("musicgen-large", None), ("qwen1.5-32b", 16),
+                ("chameleon-34b", 16), ("grok-1-314b", 2),
+                ("deepseek-v2-236b", 3))
+
+
+def arch_serving_phase(dev, smi_line: str) -> dict:
+    """7. each architecture of `SERVED_ARCHS` through `serving_phase`
+    (flash_attention once an attention layer in the prefill, none in
+    decode), its first launch against the plain version, and the 4096 + 1
+    consistency check (bounded for the dense and audio models, reported
+    for the MoE ones with the assignments each phase dropped).  Each model
+    is freed before the next is built."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches
+    from repro_torch.models import moe
+    t_phase = time.perf_counter()
+    records, counts = [], {}
+    for arch, layers in SERVED_ARCHS:
+        full = get_config(arch)
+        cfg = full if layers is None else dataclasses.replace(
+            full, num_layers=layers)
+        n_moe = sum(1 for i in range(cfg.num_layers)
+                    if cfg.num_experts and i >= cfg.first_dense_layers)
+        drops = []           # (dropped, assignments, capacity) a call
+        dispatch = moe.dispatch
+
+        def counted(xt, e_flat, E, cap, dispatch=dispatch, drops=drops):
+            buf, slot, keep = dispatch(xt, e_flat, E, cap)
+            drops.append(((~keep).sum(), keep.numel(), cap))
+            return buf, slot, keep
+
+        moe.dispatch = counted
+        try:
+            sv = serving_phase(cfg, dev, {"flash_attention": cfg.num_layers},
+                               {"flash_attention": "attention"})
+            live = live_lm_check(sv["seen"])
+            sv["seen"].clear()
+            torch.cuda.empty_cache()
+            cons = consistency_check(sv["res"], bounded=not n_moe)
+        finally:
+            moe.dispatch = dispatch
+        rec = serving_record(cfg, sv, cons)
+        rec.update({"layers_run": cfg.num_layers,
+                    "layers_of": full.num_layers,
+                    "parameters": sv["parameters"],
+                    "live_fa_max_abs_err": live["fa"],
+                    "live_fa_tolerance_used": live["fa_tolerance_used"],
+                    "device": smi_line})
+        if n_moe:
+            # calls in order: the prefill's n_moe, the decode steps', the
+            # 4097-token prefill's n_moe
+            seen = [(int(d), n, c) for d, n, c in drops]
+            parts = {"prefill": seen[:n_moe],
+                     "decode": seen[n_moe:-n_moe],
+                     "prefill_4097": seen[-n_moe:]}
+            check(len(parts["decode"]) == n_moe * (SERVE_GEN - 1),
+                  f"{arch}: {len(seen)} MoE dispatches")
+            rec["moe"] = {
+                "layers": n_moe, "consistency_bounded": False,
+                **{f"{k}_capacity": v[0][2] for k, v in parts.items()},
+                **{f"{k}_dropped": sum(d for d, _, _ in v)
+                   for k, v in parts.items()},
+                **{f"{k}_assignments": sum(n for _, n, _ in v)
+                   for k, v in parts.items()}}
+            print(f"{arch} MoE routing (reported, not bounded): "
+                  f"{json.dumps(rec['moe'])}", flush=True)
+        print(f"served {arch} ({cfg.num_layers} of {full.num_layers} "
+              f"layers, {sv['parameters']} f32 parameters) on {smi_line}: "
+              f"prefill {rec['prefill_s']:.4f} s, decode "
+              f"{rec['decode_tokens_per_s']:.2f} tokens/s, peak "
+              f"{rec['peak_gib']:.3f} GiB", flush=True)
+        counts[f"serving_{arch}"] = {
+            k: sv["counts"]["prefill"][k] + sv["counts"]["decode"][k]
+            for k in launches}
+        records.append(rec)
+        del sv
+        gc.collect()
+        free_library_memory()
+    wall = time.perf_counter() - t_phase
+    print(f"phase 7 (seven architectures served): {wall:.2f} s", flush=True)
+    return {"records": records, "counts": counts, "phase_s": wall}
 
 
 def rel_to_max(got, want) -> float:
@@ -4331,9 +4573,14 @@ def main() -> None:
     for k in launches:
         serve_launches[k] += (msv["counts"]["prefill"][k]
                               + msv["counts"]["decode"][k])
-    # 7. free falcon-mamba-7b
     del msv
     free_library_memory()
+
+    # 7. serving: the JAX package's seven other architectures
+    archs = arch_serving_phase(dev, smi_line)
+    serving += archs["records"]
+    for k in launches:
+        serve_launches[k] += sum(c[k] for c in archs["counts"].values())
 
     # 8. training: recurrentgemma-2b at full width, one Griffin period
     tk = train_kernel_phase(cfg, dev, args.compare_with)
@@ -4422,9 +4669,13 @@ def main() -> None:
          "replaces": "src/repro/kernels/flash_attention.py:26",
          "launches": serve_launches["flash_attention"]
          + train_launches["flash_attention"],
-         "launches_by_path": {"serving": serve_launches["flash_attention"],
-                              **{p: c["flash_attention"]
-                                 for p, c in train_counts.items()}},
+         "launches_by_path": {
+             "serving": serve_launches["flash_attention"],
+             **{p: c["flash_attention"]
+                for p, c in archs["counts"].items()},
+             **{p: c["flash_attention"] for p, c in train_counts.items()}},
+         "at_mla_prefill_shape": lk["mla"],
+         "served_shapes_max_abs_err": lk["err"]["fa_served"],
          "lse_variant": {"ms": tk["t"]["fa_lse"],
                          "null_lse_ms": tk["t"]["fa_null"],
                          "max_abs_err_out": tk["err"]["out"],

@@ -6,7 +6,7 @@ a spec written by either package builds in the other.  Only `validate`
 differs: it raises `NotImplementedError`, naming the ROADMAP item that will
 port it, for what the port does not run yet (the partitioner-inferred
 placements: ``impl='gspmd'``, the ``device-gspmd`` scale and multi-axis
-meshes; and language models with MoE, MLA, qkv-bias / qk-norm or
+meshes; and the training of language models with MoE, MLA or
 audio-codebook layers), before the JAX package's checks.
 """
 from __future__ import annotations
@@ -44,8 +44,8 @@ def unported(spec: "FederationSpec") -> Optional[str]:
     and the datacenter scale's LM training for the dense, hybrid and SSM
     (Mamba) kinds.  It does not run the partitioner-inferred placements
     (``impl='gspmd'``, which multi-axis meshes resolve to, and the
-    ``device-gspmd`` scale), or the training of a model with MoE, MLA,
-    qkv-bias / qk-norm or audio-codebook layers.  A sharded datacenter
+    ``device-gspmd`` scale), or the training of a model with MoE, MLA or
+    audio-codebook layers.  A sharded datacenter
     spec is left to `FederationSpec.validate`, which rejects it as the JAX
     package does."""
     if spec.scale not in (DEVICE_SCALE, DATACENTER_SCALE):

@@ -32,10 +32,12 @@
 // a.b = hi_a.hi_b + (hi_a.lo_b + lo_a.hi_b) with f32 accumulation (the
 // 3xTF32 split; lo_a.lo_b and lo's own rounding, ~2^-22 |a b| each, are
 // dropped).  In Q K^T the two small products go to an accumulator of their
-// own, added to the big one after the last d-step; in P V they accumulate
-// into the output first and the big product after them.  bf16 operands go
-// straight to m16n8k16 bf16 products with f32 accumulation; P is rounded to
-// bf16 for P V.  The softmax is online and in f32, with expf on the scores.
+// own, added to the big one after the last d-step; in P V a key tile's
+// three products are summed from zero (the small ones first) and then
+// added to the output in f32, so the output never rides the tensor core's
+// accumulate from tile to tile (see pv).  bf16 operands go straight to
+// m16n8k16 bf16 products with f32 accumulation; P is rounded to bf16 for
+// P V.  The softmax is online and in f32, with expf on the scores.
 //
 // Design.  The TPU kernel walks KV blocks as the sequential last grid
 // dimension, with the running max, sum and accumulator in VMEM scratch. Here
@@ -287,29 +289,42 @@ __device__ __forceinline__ void scores(float (&s)[4][4],
 }
 
 // o += P V for this warp's 16 rows; p[j] holds the probabilities of keys
-// 8 j .. 8 j + 7 in the accumulator layout.
+// 8 j .. 8 j + 7 in the accumulator layout.  Each n-tile's product over
+// the tile's 32 keys is summed from zero in the mma's accumulator and then
+// added to o by an f32 add, which rounds to nearest.  Carrying o itself as
+// the mma's C operand over every key tile let it drift: the tensor core's
+// accumulate does not round to nearest, so o lost ~2^-24 of itself in one
+// direction at each of the 12 accumulations a tile, ~4.5e-5 relative after
+// 4096 keys where the values average to a large output (gemma-7b's first
+// layer on its own inputs, scripts/fa_accuracy.py).
 template <int NT>
 __device__ __forceinline__ void pv(float (&o)[NT][4], const float (&p)[4][4],
                                    const float* sv, int v_pitch, int lane) {
   const int g = lane >> 2, t = lane & 3;
+  // k-step j: mma k = t <-> key 8 j + 2 t, k = t + 4 <-> key 8 j + 2 t + 1
+  uint32_t ah[4][4], al[4][4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    // k-step j: mma k = t <-> key 8 j + 2 t, k = t + 4 <-> key 8 j + 2 t + 1
-    uint32_t ah[4], al[4];
-    split(p[j][0], ah[0], al[0]);
-    split(p[j][2], ah[1], al[1]);
-    split(p[j][1], ah[2], al[2]);
-    split(p[j][3], ah[3], al[3]);
-    const float* v0 = sv + (8 * j + 2 * t) * v_pitch + g;
+    split(p[j][0], ah[j][0], al[j][0]);
+    split(p[j][2], ah[j][1], al[j][1]);
+    split(p[j][1], ah[j][2], al[j][2]);
+    split(p[j][3], ah[j][3], al[j][3]);
+  }
+  const float* v0 = sv + 2 * t * v_pitch + g;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+  for (int n = 0; n < NT; ++n) {
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
       uint32_t bh0, bl0, bh1, bl1;
-      split(v0[8 * n], bh0, bl0);
-      split(v0[v_pitch + 8 * n], bh1, bl1);
-      mma_tf32(o[n], ah, bl0, bl1);
-      mma_tf32(o[n], al, bh0, bh1);
-      mma_tf32(o[n], ah, bh0, bh1);
+      split(v0[8 * j * v_pitch + 8 * n], bh0, bl0);
+      split(v0[(8 * j + 1) * v_pitch + 8 * n], bh1, bl1);
+      mma_tf32(c, ah[j], bl0, bl1);
+      mma_tf32(c, al[j], bh0, bh1);
+      mma_tf32(c, ah[j], bh0, bh1);
     }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] += c[e];
   }
 }
 
@@ -362,9 +377,16 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b,
 }
 
 // NT: 8-column tiles of the output, dv <= 8 NT; each warp of a split group
-// holds NT / kSplit of them.
+// holds NT / kSplit of them.  The second launch bound is the blocks an SM
+// the registers must leave room for.  An f32 block of dv > 64 takes 124 KB
+// of shared memory at d = dv = 128 (157 KB at MLA's d = 192), so it runs
+// one an SM and its registers need no cap: left to its own choice, ptxas
+// gave the dv <= 128 instance 138 registers and it took 97.1 ms at MLA's
+// prefill; bounded to one block, 185 and 86.0 ms (scripts/fa_accuracy.py).
+// Narrower f32 blocks and the bf16 ones run two an SM.
 template <typename T, int NT>
-__global__ void __launch_bounds__(Layout<T>::kThreads)
+__global__ void __launch_bounds__(Layout<T>::kThreads,
+                                  Layout<T>::kSplit == 2 && NT >= 16 ? 1 : 2)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
                        float* __restrict__ lse, int seq, int heads,

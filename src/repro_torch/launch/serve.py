@@ -8,11 +8,14 @@ The flags are those of the JAX package's ``repro.launch.serve``, whose
 ``--smoke`` is always on (``store_true`` with ``default=True``), so the CLI
 serves the smoke config; `generate` takes any config, the full-width one
 included.  ``--device`` defaults to the card.  Parameters are drawn from
-the seed; prompts are Zipf token ids drawn from it.
+the seed; prompts are Zipf token ids drawn from it.  An audio model
+(musicgen-large: K = 4 codebooks) takes (B, K, prompt_len) prompts and
+samples each codebook, so its tokens are (B, K, gen).
 """
 from __future__ import annotations
 
 import argparse
+import math
 import time
 from typing import Callable, List, NamedTuple, Optional
 
@@ -27,6 +30,8 @@ from ..models.transformer import LM
 
 
 class Generation(NamedTuple):
+    """Prompts, tokens and logits gain a codebook dim K after the batch
+    dim for an audio model."""
     model: LM
     prompts: torch.Tensor         # (B, prompt_len) int64
     tokens: torch.Tensor          # (B, gen) int64, the first from prefill
@@ -37,6 +42,8 @@ class Generation(NamedTuple):
 
     @property
     def decode_tokens_per_s(self) -> float:
+        """Decoded positions per second over the batch (an audio model's K
+        codebook tokens of a position count once)."""
         n = len(self.decode_logits) * self.tokens.shape[0]
         return n / max(self.decode_s, 1e-9)
 
@@ -50,7 +57,9 @@ def _sample(logits, temperature: float, generator: torch.Generator):
     if temperature == 0:
         return torch.argmax(logits, dim=-1)
     probs = torch.softmax(logits.to(torch.float32) / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    flat = probs.reshape(-1, probs.shape[-1])
+    return torch.multinomial(flat, 1, generator=generator).reshape(
+        probs.shape[:-1])
 
 
 @torch.inference_mode()
@@ -61,7 +70,9 @@ def generate(cfg: ArchConfig, batch: int = 4, prompt_len: int = 32,
     """Prefill ``batch`` Zipf prompts of ``prompt_len`` tokens, then decode
     ``gen - 1`` steps: ``gen`` new tokens per prompt, the first from the
     prefill's logits (as the JAX package's serve loop does).  Greedy when
-    ``temperature == 0``, else sampled from the port's generator.
+    ``temperature == 0``, else sampled from the port's generator.  An
+    audio model's prompts are (batch, K, prompt_len), and each of its K
+    codebooks is sampled.
 
     Parameters are drawn from ``seed`` on the device.  ``on_phase`` is
     called with "prefill", "decode" and "end" at the phase boundaries,
@@ -70,8 +81,11 @@ def generate(cfg: ArchConfig, batch: int = 4, prompt_len: int = 32,
     dev = resolve_device(device)
     model = LM(cfg, device=dev, seed=seed)
     g = torch.Generator().manual_seed(seed)
-    prompts = token_stream(g, batch * prompt_len, cfg.vocab_size
-                           ).reshape(batch, prompt_len).to(dev)
+    shape = (batch, prompt_len)
+    if cfg.num_codebooks > 1:
+        shape = (batch, cfg.num_codebooks, prompt_len)
+    prompts = token_stream(g, math.prod(shape), cfg.vocab_size
+                           ).reshape(shape).to(dev)
     sampler = torch.Generator(device=dev).manual_seed(seed + 1)
     phase = on_phase or (lambda name: None)
 

@@ -1,14 +1,20 @@
-"""Attention blocks: GQA/MQA/MHA with optional logit softcap and sliding
-window.  (The JAX package's MLA, qkv bias and qk-norm are not ported: the
-model raises for configs that use them.)
+"""Attention blocks: GQA/MQA/MHA (optional qkv bias, qk-norm, logit
+softcap and sliding window) and DeepSeek-style MLA (multi-head latent
+attention).
 
 Two paths per block, as in the JAX package's ``models/attention.py``:
-  * `attn_forward` — full-sequence causal attention (prefill), through the
-    flash-attention kernel (`kernels.ops.attention`), which takes the K/V
-    heads as they are (no repeat) and never writes the scores out;
-  * `attn_decode`  — one query against the (ring-buffer) KV cache with
-    plain PyTorch ops, as the JAX package's decode does (there is no
-    kernel for it).
+  * `attn_forward` / `mla_forward` — full-sequence causal attention
+    (prefill), through the flash-attention kernel (`kernels.ops.attention`),
+    which takes the K/V heads as they are (no repeat) and never writes the
+    scores out.  MLA expands its latent into per-head keys of width
+    qk_nope + qk_rope and values of width v_head_dim, so the kernel runs
+    with d != dv; its scale d ** -0.5 is MLA's (qk_nope + qk_rope) ** -0.5;
+  * `attn_decode` / `mla_decode` — one query against the (ring-buffer)
+    cache with plain PyTorch ops, as the JAX package's decode does (there
+    is no kernel for it).  MLA caches the normalised latent and the roped
+    shared key (``{"ckv", "krope", "pos"}``) and decodes either with the
+    absorbed matrices (``cfg.mla_absorbed``: attention in the latent
+    space) or by expanding K/V from the latent at every step.
 
 The KV cache of a LOCAL (sliding-window) layer is a ring buffer of width
 ``window``; stored absolute positions (init -1) drive the validity mask,
@@ -24,7 +30,7 @@ import torch
 
 from ..kernels import ops
 from .config import LOCAL, ArchConfig
-from .modules import apply_rope, dense_init, softcap
+from .modules import apply_rope, dense_init, rmsnorm, softcap
 
 NEG_INF = -2.0e38
 CACHE_DTYPE = torch.bfloat16    # K/V cache entries, as in the JAX package
@@ -32,15 +38,43 @@ CACHE_DTYPE = torch.bfloat16    # K/V cache entries, as in the JAX package
 
 def init_attn(cfg: ArchConfig, generator: Optional[torch.Generator], *,
               device=None) -> Dict[str, torch.Tensor]:
+    if cfg.use_mla:
+        return _init_mla(cfg, generator, device)
     hd, D = cfg.head_dim, cfg.d_model
-    return {
-        "wq": dense_init((D, cfg.num_heads * hd), generator, device=device),
-        "wk": dense_init((D, cfg.num_kv_heads * hd), generator,
-                         device=device),
-        "wv": dense_init((D, cfg.num_kv_heads * hd), generator,
-                         device=device),
-        "wo": dense_init((cfg.num_heads * hd, D), generator, device=device),
-    }
+    H, Kv = cfg.num_heads, cfg.num_kv_heads
+    p = {"wq": dense_init((D, H * hd), generator, device=device),
+         "wk": dense_init((D, Kv * hd), generator, device=device),
+         "wv": dense_init((D, Kv * hd), generator, device=device),
+         "wo": dense_init((H * hd, D), generator, device=device)}
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((H * hd,), device=device)
+        p["bk"] = torch.zeros((Kv * hd,), device=device)
+        p["bv"] = torch.zeros((Kv * hd,), device=device)
+    if cfg.qk_norm:
+        p["qnorm"] = torch.ones((hd,), device=device)
+        p["knorm"] = torch.ones((hd,), device=device)
+    return p
+
+
+def _init_mla(cfg: ArchConfig, generator, device):
+    D, H = cfg.d_model, cfg.num_heads
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    p = {}
+    if cfg.q_lora_rank:
+        p["wq_a"] = dense_init((D, cfg.q_lora_rank), generator, device=device)
+        p["q_norm"] = torch.ones((cfg.q_lora_rank,), device=device)
+        p["wq_b"] = dense_init((cfg.q_lora_rank, H * qk), generator,
+                               device=device)
+    else:
+        p["wq"] = dense_init((D, H * qk), generator, device=device)
+    p["wkv_a"] = dense_init((D, cfg.kv_lora_rank + cfg.qk_rope_dim),
+                            generator, device=device)
+    p["kv_norm"] = torch.ones((cfg.kv_lora_rank,), device=device)
+    p["wkv_b"] = dense_init(
+        (cfg.kv_lora_rank, H * (cfg.qk_nope_dim + cfg.v_head_dim)),
+        generator, device=device)
+    p["wo"] = dense_init((H * cfg.v_head_dim, D), generator, device=device)
+    return p
 
 
 def sdpa(q, k, v, mask, scale: float, cap: float):
@@ -61,29 +95,40 @@ def sdpa(q, k, v, mask, scale: float, cap: float):
 
 
 def _project_qkv(p: Mapping[str, torch.Tensor], cfg: ArchConfig, x):
+    """q, k, v of (B,S,heads,head_dim): the bias added before the heads
+    split, qk-norm (RMSNorm over head_dim, per head) after it; RoPE comes
+    later, after the norm."""
     B, S = x.shape[:2]
-    q = (x @ p["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = (x @ p["wk"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = (x @ p["wv"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q, k = rmsnorm(p["qnorm"], q), rmsnorm(p["knorm"], k)
     return q, k, v
 
 
-def _ring_cache(k, v, Wc: int) -> Dict[str, torch.Tensor]:
-    """Pack the last Wc (roped) keys/values into ring-buffer slot order so
-    decode can continue: slot = position % Wc."""
-    B, S = k.shape[:2]
+def _ring_cache(Wc: int, **entries: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Pack the last Wc positions of each (B,S,...) entry (roped keys,
+    values, MLA latents) into ring-buffer slot order so decode can
+    continue: slot = position % Wc."""
+    first = next(iter(entries.values()))
+    B, S, dev = first.shape[0], first.shape[1], first.device
     take = min(S, Wc)
-    tail_pos = torch.arange(S - take, S, device=k.device)
+    tail_pos = torch.arange(S - take, S, device=dev)
     slots = tail_pos % Wc
-    ck = torch.zeros((B, Wc) + tuple(k.shape[2:]), dtype=CACHE_DTYPE,
-                     device=k.device)
-    cv = torch.zeros((B, Wc) + tuple(v.shape[2:]), dtype=CACHE_DTYPE,
-                     device=v.device)
-    ck[:, slots] = k[:, S - take:].to(CACHE_DTYPE)
-    cv[:, slots] = v[:, S - take:].to(CACHE_DTYPE)
-    cpos = torch.full((Wc,), -1, dtype=torch.int32, device=k.device)
+    out = {}
+    for name, t in entries.items():
+        c = torch.zeros((B, Wc) + tuple(t.shape[2:]), dtype=CACHE_DTYPE,
+                        device=dev)
+        c[:, slots] = t[:, S - take:].to(CACHE_DTYPE)
+        out[name] = c
+    cpos = torch.full((Wc,), -1, dtype=torch.int32, device=dev)
     cpos[slots] = tail_pos.to(torch.int32)
-    return {"k": ck, "v": cv, "pos": cpos}
+    out["pos"] = cpos
+    return out
 
 
 def cache_width(cfg: ArchConfig, kind: str, max_len: int) -> int:
@@ -108,16 +153,23 @@ def attn_forward(p, cfg: ArchConfig, x, kind: str,
     y = out.reshape(B, S, -1) @ p["wo"]
     if not return_cache:
         return y
-    return y, _ring_cache(k, v, cache_width(cfg, kind, cache_len))
+    return y, _ring_cache(cache_width(cfg, kind, cache_len), k=k, v=v)
 
 
 def init_attn_cache(cfg: ArchConfig, batch: int, max_len: int, kind: str,
                     device=None):
     Wc = cache_width(cfg, kind, max_len)
+    pos = torch.full((Wc,), -1, dtype=torch.int32, device=device)
+    if cfg.use_mla:
+        return {"ckv": torch.zeros((batch, Wc, cfg.kv_lora_rank),
+                                   dtype=CACHE_DTYPE, device=device),
+                "krope": torch.zeros((batch, Wc, cfg.qk_rope_dim),
+                                     dtype=CACHE_DTYPE, device=device),
+                "pos": pos}
     shape = (batch, Wc, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=CACHE_DTYPE, device=device),
             "v": torch.zeros(shape, dtype=CACHE_DTYPE, device=device),
-            "pos": torch.full((Wc,), -1, dtype=torch.int32, device=device)}
+            "pos": pos}
 
 
 def attn_decode(p, cfg: ArchConfig, x, cache, step: int, kind: str):
@@ -139,3 +191,114 @@ def attn_decode(p, cfg: ArchConfig, x, cache, step: int, kind: str):
     out = sdpa(q, ck, cv, valid, cfg.head_dim ** -0.5, cfg.attn_softcap)
     y = out.reshape(B, 1, -1).to(p["wo"].dtype) @ p["wo"]
     return y, cache
+
+
+# --------------------------------------------------------------------- #
+# MLA
+# --------------------------------------------------------------------- #
+def _mla_q(p, cfg: ArchConfig, x):
+    """-> (q_nope, q_rope), (B,S,H,qk_nope) and (B,S,H,qk_rope), unroped."""
+    B, S = x.shape[:2]
+    if cfg.q_lora_rank:
+        q = rmsnorm(p["q_norm"], x @ p["wq_a"]) @ p["wq_b"]
+    else:
+        q = x @ p["wq"]
+    q = q.reshape(B, S, cfg.num_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
+    return q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
+
+
+def _mla_latent(p, cfg: ArchConfig, x, pos):
+    """-> (c_kv (B,S,r) normalised, k_rope (B,S,1,qk_rope) roped at
+    ``pos``): what the cache keeps of each position."""
+    ckv = x @ p["wkv_a"]
+    r = cfg.kv_lora_rank
+    c_kv = rmsnorm(p["kv_norm"], ckv[..., :r])
+    k_rope = apply_rope(ckv[..., None, r:], pos, cfg.rope_theta)
+    return c_kv, k_rope
+
+
+def _mla_scale(cfg: ArchConfig) -> float:
+    return (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+
+
+def mla_forward(p, cfg: ArchConfig, x, kind: str,
+                return_cache: bool = False, cache_len: int = 0):
+    """x: (B,S,D) -> (B,S,D) [, the latent cache of the last positions].
+
+    K and V are expanded from the latent for every head; one launch of
+    the flash-attention kernel with d = qk_nope + qk_rope and dv =
+    v_head_dim.  MLA layers attend globally whatever ``kind``, as in the
+    JAX package."""
+    B, S, _ = x.shape
+    H, nope = cfg.num_heads, cfg.qk_nope_dim
+    pos = torch.arange(S, device=x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x)
+    q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
+    c_kv, k_rope = _mla_latent(p, cfg, x, pos)
+    kv = (c_kv @ p["wkv_b"]).reshape(B, S, H, nope + cfg.v_head_dim)
+    k = torch.cat([kv[..., :nope],
+                   k_rope.expand(B, S, H, cfg.qk_rope_dim)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = ops.attention(q, k, kv[..., nope:], softcap=cfg.attn_softcap)
+    y = out.reshape(B, S, -1) @ p["wo"]
+    if not return_cache:
+        return y
+    return y, _ring_cache(cache_len, ckv=c_kv, krope=k_rope[:, :, 0])
+
+
+def _mla_step(p, cfg: ArchConfig, x, cache, step: int):
+    """The part both decodes share: this position's query, and its latent
+    and roped key written into the cache's slot (in place).  -> (q_nope,
+    q_rope, the cache's valid positions)."""
+    at = torch.tensor([step], device=x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x)
+    q_rope = apply_rope(q_rope, at, cfg.rope_theta)
+    c_kv, k_rope = _mla_latent(p, cfg, x, at)
+    cc, cr, cpos = cache["ckv"], cache["krope"], cache["pos"]
+    slot = step % cc.shape[1]
+    cc[:, slot] = c_kv[:, 0].to(cc.dtype)
+    cr[:, slot] = k_rope[:, 0, 0].to(cr.dtype)
+    cpos[slot] = step
+    return q_nope, q_rope, (cpos >= 0) & (cpos <= step)
+
+
+def mla_decode_absorbed(p, cfg: ArchConfig, x, cache, step: int):
+    """Absorbed-matrix decode: W_UK folds into the query and W_UV into the
+    output, so attention runs in the latent space (H * Wc * r products a
+    token, not Wc * r * H * (nope + v) to expand K/V)."""
+    B, H, r = x.shape[0], cfg.num_heads, cfg.kv_lora_rank
+    q_nope, q_rope, valid = _mla_step(p, cfg, x, cache, step)
+    wkv_b = p["wkv_b"].reshape(r, H, cfg.qk_nope_dim + cfg.v_head_dim)
+    w_uk, w_uv = wkv_b[..., :cfg.qk_nope_dim], wkv_b[..., cfg.qk_nope_dim:]
+    q_eff = torch.einsum("bhn,rhn->bhr", q_nope[:, 0], w_uk)
+    c = cache["ckv"].to(x.dtype)                              # (B,Wc,r)
+    s = (torch.einsum("bhr,btr->bht", q_eff, c)
+         + torch.einsum("bhd,btd->bht", q_rope[:, 0],
+                        cache["krope"].to(x.dtype)))
+    s = softcap(s.to(torch.float32) * _mla_scale(cfg), cfg.attn_softcap)
+    s = torch.where(valid[None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1).to(x.dtype)                  # (B,H,Wc)
+    ctx = torch.einsum("bht,btr->bhr", w, c)
+    out = torch.einsum("bhr,rhv->bhv", ctx, w_uv)
+    return out.reshape(B, 1, -1) @ p["wo"], cache
+
+
+def mla_decode(p, cfg: ArchConfig, x, cache, step: int, kind: str):
+    """x: (B,1,D); step: the absolute position.  Returns (y, cache), the
+    cache updated in place: the absorbed form when ``cfg.mla_absorbed``,
+    else K/V expanded from every cached latent (the JAX package's
+    reference form)."""
+    if cfg.mla_absorbed:
+        return mla_decode_absorbed(p, cfg, x, cache, step)
+    B, H, nope = x.shape[0], cfg.num_heads, cfg.qk_nope_dim
+    q_nope, q_rope, valid = _mla_step(p, cfg, x, cache, step)
+    Wc = cache["ckv"].shape[1]
+    kv = (cache["ckv"].to(x.dtype) @ p["wkv_b"]).reshape(
+        B, Wc, H, nope + cfg.v_head_dim)
+    k = torch.cat([kv[..., :nope],
+                   cache["krope"].to(x.dtype)[:, :, None, :].expand(
+                       B, Wc, H, cfg.qk_rope_dim)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = sdpa(q, k, kv[..., nope:], valid, _mla_scale(cfg),
+               cfg.attn_softcap)
+    return out.reshape(B, 1, -1) @ p["wo"], cache

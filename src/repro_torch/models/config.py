@@ -3,8 +3,8 @@
 One frozen dataclass describes every architecture of the JAX package
 (dense / MoE / SSM / hybrid / VLM / audio), field for field, so a config
 compares with the JAX package's by ``dataclasses.asdict``.  The port's
-language model (transformer.py) runs the dense and hybrid kinds; the
-others raise.  configs/<id>.py instantiate it.
+language model (transformer.py) runs every kind.  configs/<id>.py
+instantiate it.
 """
 from __future__ import annotations
 

@@ -3,8 +3,9 @@
 
 ``lm_loss`` and ``weighted_lm_loss`` take the `LM` and, optionally, a
 ``params`` dict in place of its own parameters (`LM.forward`), so the
-federated step computes every client's loss on one model.  MoE's
-auxiliary term has no counterpart: MoE configs raise in `LM`.
+federated step computes every client's loss on one model.  A model with
+MoE layers adds ``MOE_AUX_WEIGHT`` times their Switch loss, as the JAX
+package does (`LM.forward_aux`).
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ from typing import Mapping, Optional
 import torch
 
 from .transformer import LM
+
+MOE_AUX_WEIGHT = 0.01
 
 
 def xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -26,9 +29,15 @@ def xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def lm_loss(model: LM, batch: Mapping[str, torch.Tensor], *,
             params: Optional[Mapping[str, torch.Tensor]] = None,
             remat: bool = True) -> torch.Tensor:
-    """batch = {"tokens": (B,S), "labels": (B,S)} -> the scalar loss."""
-    logits = model(batch["tokens"], params=params, remat=remat)
-    return xent(logits, batch["labels"])
+    """batch = {"tokens": (B,S) or (B,K,S), "labels": the same shape} ->
+    the scalar loss."""
+    logits, aux = model.forward_aux(batch["tokens"], params, remat)
+    return _with_aux(model, xent(logits, batch["labels"]), aux)
+
+
+def _with_aux(model: LM, loss: torch.Tensor, aux: torch.Tensor
+              ) -> torch.Tensor:
+    return loss + MOE_AUX_WEIGHT * aux if model.cfg.num_experts else loss
 
 
 def weighted_lm_loss(model: LM, batch: Mapping[str, torch.Tensor],
@@ -38,7 +47,7 @@ def weighted_lm_loss(model: LM, batch: Mapping[str, torch.Tensor],
     """Trust-weighted loss (federated mode B): per-example weights make the
     gradient the trust-weighted aggregate.  example_weights: (B,)
     normalized trust weights of each example's client."""
-    logits = model(batch["tokens"], params=params, remat=remat)
+    logits, aux = model.forward_aux(batch["tokens"], params, remat)
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,
@@ -47,4 +56,5 @@ def weighted_lm_loss(model: LM, batch: Mapping[str, torch.Tensor],
     w = example_weights.to(torch.float32)
     while w.dim() < per_tok.dim():
         w = w[..., None]
-    return (per_tok * w).sum() / (w.expand_as(per_tok).sum() + 1e-9)
+    return _with_aux(model, (per_tok * w).sum()
+                     / (w.expand_as(per_tok).sum() + 1e-9), aux)

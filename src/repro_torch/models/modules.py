@@ -10,7 +10,7 @@ applied as ``x @ w``, the JAX package's layout.
 from __future__ import annotations
 
 import math
-from typing import Mapping, Optional, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -69,6 +69,15 @@ def mlp(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     gate = F.silu(gate) if activation == "silu" else F.gelu(
         gate, approximate="tanh")
     return (gate * (x @ p["wu"])) @ p["wd"]
+
+
+def sub_params(params: Mapping[str, torch.Tensor], prefix: str
+               ) -> Dict[str, torch.Tensor]:
+    """The entries of a flat parameter dict under ``prefix.``, without it
+    (``layers.3.attn.wq`` -> ``attn.wq`` -> ``wq``)."""
+    n = len(prefix) + 1
+    return {k[n:]: v for k, v in params.items()
+            if k.startswith(prefix + ".")}
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

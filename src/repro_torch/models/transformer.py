@@ -1,18 +1,25 @@
-"""Decoder-only language model: dense (global attention), hybrid
-(RG-LRU + local attention) and SSM (Mamba-1) architectures, for serving
-and training.
+"""Decoder-only language model over every architecture of the JAX
+package: dense / GQA / MQA / MHA attention (with qkv bias or qk-norm),
+MLA, sliding-window attention, MoE MLPs (after ``first_dense_layers``
+dense ones), Mamba-1 SSM blocks, RG-LRU recurrent blocks and
+multi-codebook audio heads, for serving and training.
 
 The JAX package's ``models/transformer.py`` keeps its layers as an
 unrolled prefix, a ``lax.scan`` over stacked groups of ``block_pattern``
 and an unrolled suffix.  The port holds every layer in one ``ModuleList``
 (26 for recurrentgemma-2b, 64 for falcon-mamba-7b); `params_from_numpy`
 unstacks the JAX package's parameter tree into it, and `unstack_layers`
-does the same for caches.  MoE, MLA, qkv-bias or qk-norm and
-multi-codebook audio models raise `NotImplementedError`.
+does the same for caches.
+
+Audio (``num_codebooks`` K > 1): the embedding is (K, V, D) and the head
+(K, D, V); tokens are (B, K, S), the K codebook embeddings of a position
+are summed, and logits are (B, K, S, V) ((B, K, V) from prefill and
+decode, whose tokens are (B, K)).
 
 A decode cache is a list with one dict per layer: ``{"k", "v", "pos"}``
-for attention (a ring buffer for LOCAL layers), ``{"h", "conv"}`` for
-RG-LRU and Mamba.  `LM.decode_step` updates it in place.
+for attention (a ring buffer for LOCAL layers), ``{"ckv", "krope",
+"pos"}`` for MLA, ``{"h", "conv"}`` for RG-LRU and Mamba.
+`LM.decode_step` updates it in place.
 
 Training: `LM.forward` takes an optional ``params`` dict, keyed by the
 model's parameter names (``embed``, ``layers.3.attn.wq``, ...), in place
@@ -24,8 +31,13 @@ holding no weights) computes the loss of many clients' parameters
 layer's kernels run twice forward (`remat_contexts`: only the recompute
 writes the selective scan's chunk states).  `named_from_tree` /
 `tree_from_named` carry parameter trees between the JAX package's layout
-and these names, with leading dims (the federation's clients) or
-without.
+and these names (``layers.5.moe.shared.wg``: a nested dict of the JAX
+tree is a dotted name), with leading dims (the federation's clients) or
+without.  `LM.forward_aux` also returns the MoE layers' summed Switch
+loss, the JAX package's ``forward(...)[1]``.
+
+Training runs the dense, hybrid and SSM kinds, qkv bias and qk-norm
+included; MoE, MLA and audio models serve only (`untrainable`).
 """
 from __future__ import annotations
 
@@ -38,29 +50,18 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import without_chunk_states
-from .attention import attn_decode, attn_forward, init_attn, init_attn_cache
+from .attention import (attn_decode, attn_forward, init_attn,
+                        init_attn_cache, mla_decode, mla_forward)
 from .config import ATTN, LOCAL, MAMBA, RGLRU, ArchConfig
 from .mamba import init_mamba, init_mamba_cache, mamba_decode, mamba_forward
-from .modules import init_mlp, mlp, rmsnorm
+from .modules import init_mlp, mlp, rmsnorm, sub_params
+from .moe import init_moe, moe_forward
 from .rglru import init_rglru, init_rglru_cache, rglru_decode, rglru_forward
 
 Cache = List[Dict[str, torch.Tensor]]
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    item = "ROADMAP.md, queue 1, item 10"
-    if cfg.use_mla:
-        raise NotImplementedError(f"{cfg.name}: MLA attention is not ported "
-                                  f"yet ({item})")
-    if cfg.qkv_bias or cfg.qk_norm:
-        raise NotImplementedError(f"{cfg.name}: qkv bias and qk-norm are not "
-                                  f"ported yet ({item})")
-    if cfg.num_experts:
-        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported "
-                                  f"yet ({item})")
-    if cfg.num_codebooks > 1:
-        raise NotImplementedError(f"{cfg.name}: multi-codebook audio heads "
-                                  f"are not ported yet ({item})")
     for kind in cfg.layer_kinds():
         if kind not in (ATTN, LOCAL, RGLRU, MAMBA):
             raise ValueError(f"unknown layer kind {kind!r}")
@@ -68,39 +69,41 @@ def _check_supported(cfg: ArchConfig) -> None:
 
 def untrainable(cfg: ArchConfig) -> Optional[str]:
     """Why the port cannot train ``cfg`` yet (None: it can), naming the
-    ROADMAP item.  Training runs every kind the port serves: dense, hybrid
-    (RG-LRU and local attention) and SSM (Mamba) layers.  MoE, MLA, qkv
-    bias / qk-norm and audio codebooks are not ported."""
-    try:
-        _check_supported(cfg)
-    except NotImplementedError as e:
-        return str(e)
-    return None
+    ROADMAP item.  Training runs dense (qkv bias and qk-norm included),
+    hybrid (RG-LRU and local attention) and SSM (Mamba) layers; MoE, MLA
+    and audio-codebook models serve only."""
+    missing = [what for what, uses in (
+        ("MoE layers", bool(cfg.num_experts)),
+        ("MLA attention", cfg.use_mla),
+        ("multi-codebook audio heads", cfg.num_codebooks > 1)) if uses]
+    if not missing:
+        return None
+    return (f"{cfg.name}: training with {' and '.join(missing)} is not "
+            f"ported yet (ROADMAP.md, queue 1, item 10)")
 
 
-def _params(tree: Mapping[str, torch.Tensor], trainable: bool
-            ) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=trainable)
-                             for k, v in tree.items()})
-
-
-def _sub(params: Mapping[str, torch.Tensor], prefix: str
-         ) -> Dict[str, torch.Tensor]:
-    """The entries of ``params`` under ``prefix.``, without it."""
-    n = len(prefix) + 1
-    return {k[n:]: v for k, v in params.items()
-            if k.startswith(prefix + ".")}
+def _params(tree: Mapping[str, Any], trainable: bool) -> nn.ParameterDict:
+    """A (nested) dict of tensors -> parameters; a sub-dict becomes a
+    nested ``ParameterDict``, so its names are dotted (``moe.shared.wg``)."""
+    return nn.ParameterDict({
+        k: _params(v, trainable) if isinstance(v, Mapping)
+        else nn.Parameter(v, requires_grad=trainable)
+        for k, v in tree.items()})
 
 
 class Layer(nn.Module):
-    """One residual layer: RMSNorm -> attention or RG-LRU -> residual ->
-    RMSNorm -> gated MLP -> residual; a MAMBA layer is RMSNorm -> Mamba
-    block -> residual, with no second norm and no MLP."""
+    """One residual layer: RMSNorm -> attention (MLA when ``cfg.use_mla``)
+    or RG-LRU -> residual -> RMSNorm -> gated MLP, or the MoE block in an
+    attention layer past ``first_dense_layers`` -> residual; a MAMBA layer
+    is RMSNorm -> Mamba block -> residual, with no second norm and no
+    MLP."""
 
-    def __init__(self, cfg: ArchConfig, kind: str, generator, device,
-                 trainable: bool = False):
+    def __init__(self, cfg: ArchConfig, kind: str, index: int, generator,
+                 device, trainable: bool = False):
         super().__init__()
         self.cfg, self.kind = cfg, kind
+        self.is_moe = (bool(cfg.num_experts) and kind in (ATTN, LOCAL)
+                       and index >= cfg.first_dense_layers)
         ones = lambda: nn.Parameter(torch.ones((cfg.d_model,), device=device),
                                     requires_grad=trainable)
         self.ln1 = ones()
@@ -115,39 +118,53 @@ class Layer(nn.Module):
         else:
             self.attn = _params(init_attn(cfg, generator, device=device),
                                 trainable)
-        self.mlp = _params(init_mlp(cfg.d_model, cfg.d_ff, generator,
-                                    device=device), trainable)
+        if self.is_moe:
+            self.moe = _params(init_moe(cfg, generator, device=device),
+                               trainable)
+        else:
+            self.mlp = _params(init_mlp(cfg.d_model, cfg.d_ff, generator,
+                                        device=device), trainable)
 
     @property
     def block(self) -> str:
         """The name of this layer's mixing block's parameters."""
         return {MAMBA: "mamba", RGLRU: "rglru"}.get(self.kind, "attn")
 
+    def _ffn(self, p, h):
+        """The MLP or MoE block on ``h`` with its parameters ``p`` -> (its
+        output, its aux loss or None)."""
+        if self.is_moe:
+            return moe_forward(p, self.cfg, h)
+        return mlp(p, h, self.cfg.activation), None
+
     def forward(self, x, cache_len: int = 0,
                 params: Optional[Mapping[str, torch.Tensor]] = None):
-        """cache_len > 0 (prefill) also returns this layer's decode cache.
-        ``params`` (keys as this layer's parameter names: ``ln1``,
-        ``rglru.w_x``, ...) replaces the layer's own parameters."""
-        cfg, lcache = self.cfg, None
+        """-> (x, aux, lcache): ``aux`` the MoE block's Switch loss (None
+        without one), ``lcache`` this layer's decode cache when cache_len
+        > 0 (prefill), else None.  ``params`` (keys as this layer's
+        parameter names: ``ln1``, ``rglru.w_x``, ...) replaces the layer's
+        own parameters."""
+        cfg, aux, lcache = self.cfg, None, None
         if params is None:
             params = dict(self.named_parameters())
-        blk = _sub(params, self.block)
+        blk = sub_params(params, self.block)
         h = rmsnorm(params["ln1"], x)
         if self.kind == MAMBA:
             y = mamba_forward(blk, cfg, h, return_state=bool(cache_len))
         elif self.kind == RGLRU:
             y = rglru_forward(blk, cfg, h, return_state=bool(cache_len))
         else:
-            y = attn_forward(blk, cfg, h, self.kind,
-                             return_cache=bool(cache_len),
-                             cache_len=cache_len)
+            fwd = mla_forward if cfg.use_mla else attn_forward
+            y = fwd(blk, cfg, h, self.kind, return_cache=bool(cache_len),
+                    cache_len=cache_len)
         if cache_len:
             y, lcache = y
         x = x + y
         if self.kind != MAMBA:
-            x = x + mlp(_sub(params, "mlp"), rmsnorm(params["ln2"], x),
-                        cfg.activation)
-        return (x, lcache) if cache_len else x
+            ffn = sub_params(params, "moe" if self.is_moe else "mlp")
+            y, aux = self._ffn(ffn, rmsnorm(params["ln2"], x))
+            x = x + y
+        return x, aux, lcache
 
     def decode(self, x, lcache, step: int):
         cfg = self.cfg
@@ -157,11 +174,14 @@ class Layer(nn.Module):
         elif self.kind == RGLRU:
             y, lcache = rglru_decode(self.rglru, cfg, h, lcache, step)
         else:
-            y, lcache = attn_decode(self.attn, cfg, h, lcache, step,
-                                    self.kind)
+            dec = mla_decode if cfg.use_mla else attn_decode
+            y, lcache = dec(self.attn, cfg, h, lcache, step, self.kind)
         x = x + y
         if self.kind != MAMBA:
-            x = x + mlp(self.mlp, rmsnorm(self.ln2, x), cfg.activation)
+            p = (dict(self.moe.named_parameters()) if self.is_moe
+                 else self.mlp)
+            y, _ = self._ffn(p, rmsnorm(self.ln2, x))
+            x = x + y
         return x, lcache
 
     def init_cache(self, batch: int, max_len: int):
@@ -196,18 +216,20 @@ class LM(nn.Module):
         g = None
         if seed is not None:
             g = torch.Generator(device=device or "cpu").manual_seed(seed)
-        emb = torch.empty((cfg.padded_vocab, cfg.d_model), device=device)
+        books = (cfg.num_codebooks,) if cfg.num_codebooks > 1 else ()
+        emb = torch.empty(books + (cfg.padded_vocab, cfg.d_model),
+                          device=device)
         if g is not None:
             emb.normal_(0.0, 0.02, generator=g)
         self.embed = nn.Parameter(emb, requires_grad=trainable)
         self.layers = nn.ModuleList(
-            Layer(cfg, kind, g, device, trainable)
-            for kind in cfg.layer_kinds())
+            Layer(cfg, kind, i, g, device, trainable)
+            for i, kind in enumerate(cfg.layer_kinds()))
         self.final_norm = nn.Parameter(
             torch.ones((cfg.d_model,), device=device),
             requires_grad=trainable)
         if not cfg.tie_embeddings:
-            head = torch.empty((cfg.d_model, cfg.padded_vocab),
+            head = torch.empty(books + (cfg.d_model, cfg.padded_vocab),
                                device=device)
             if g is not None:
                 head.normal_(0.0, 0.02, generator=g)
@@ -215,19 +237,32 @@ class LM(nn.Module):
 
     # -- embeddings ---------------------------------------------------- #
     def embed_tokens(self, tokens: torch.Tensor, embed=None) -> torch.Tensor:
-        x = (self.embed if embed is None else embed)[tokens]
+        """(B,S) ids, or (B,K,S) for K codebooks (their embeddings summed)
+        -> (B,S,D)."""
+        embed = self.embed if embed is None else embed
+        if self.cfg.num_codebooks > 1:
+            books = torch.arange(embed.shape[0], device=tokens.device)
+            x = embed[books[None, :, None], tokens].sum(dim=1)
+        else:
+            x = embed[tokens]
         if self.cfg.emb_scale:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
         return x
 
     def unembed(self, x: torch.Tensor, params=None) -> torch.Tensor:
+        """(B,S,D) -> logits (B,S,V), or (B,K,S,V) for K codebooks."""
         cfg = self.cfg
         if params is None:
-            head = self.embed.T if cfg.tie_embeddings else self.lm_head
+            params = {"embed": self.embed}
+            if not cfg.tie_embeddings:
+                params["lm_head"] = self.lm_head
+        if cfg.num_codebooks > 1:
+            logits = (torch.einsum("bsd,kvd->bksv", x, params["embed"])
+                      if cfg.tie_embeddings else
+                      torch.einsum("bsd,kdv->bksv", x, params["lm_head"]))
         else:
-            head = (params["embed"].T if cfg.tie_embeddings
-                    else params["lm_head"])
-        logits = x @ head
+            logits = x @ (params["embed"].T if cfg.tie_embeddings
+                          else params["lm_head"])
         if cfg.padded_vocab != cfg.vocab_size:
             ids = torch.arange(cfg.padded_vocab, device=logits.device)
             logits = torch.where(ids < cfg.vocab_size, logits,
@@ -239,27 +274,37 @@ class LM(nn.Module):
     def forward(self, tokens: torch.Tensor,
                 params: Optional[Mapping[str, torch.Tensor]] = None,
                 remat: bool = False) -> torch.Tensor:
-        """tokens (B,S) -> logits (B,S,V) at every position, with the
-        model's own parameters or ``params`` (all of them, keyed by the
-        model's parameter names).  ``remat`` recomputes each layer's
-        activations in the backward.  (The JAX package's MoE auxiliary
-        loss has no counterpart: no MoE here.)"""
+        """tokens (B,S) (or (B,K,S)) -> logits (B,S,V) (or (B,K,S,V)) at
+        every position, with the model's own parameters or ``params`` (all
+        of them, keyed by the model's parameter names).  ``remat``
+        recomputes each layer's activations in the backward."""
+        return self.forward_aux(tokens, params, remat)[0]
+
+    def forward_aux(self, tokens: torch.Tensor,
+                    params: Optional[Mapping[str, torch.Tensor]] = None,
+                    remat: bool = False):
+        """`forward` -> (logits, aux): aux the MoE layers' summed Switch
+        load-balance loss, float32 (0 without MoE layers), as the JAX
+        package's ``forward``."""
         if params is None:
             params = dict(self.named_parameters())
         x = self.embed_tokens(tokens, params["embed"])
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, layer in enumerate(self.layers):
-            lp = _sub(params, f"layers.{i}")
+            lp = sub_params(params, f"layers.{i}")
             if remat:
-                x = checkpoint(layer, x, 0, lp, use_reentrant=False,
-                               context_fn=remat_contexts)
+                x, a, _ = checkpoint(layer, x, 0, lp, use_reentrant=False,
+                                     context_fn=remat_contexts)
             else:
-                x = layer(x, params=lp)
-        return self.unembed(rmsnorm(params["final_norm"], x), params)
+                x, a, _ = layer(x, params=lp)
+            if a is not None:
+                aux = aux + a
+        return self.unembed(rmsnorm(params["final_norm"], x), params), aux
 
     def prefill(self, tokens: torch.Tensor, cache_len: int):
         """Serving prefill: run the whole prompt, return the last position's
-        logits (B,V) and a decode-ready cache (ring-buffer KV of the last
-        positions, recurrent states).
+        logits (B,V) (or (B,K,V)) and a decode-ready cache (ring-buffer KV
+        or MLA latents of the last positions, recurrent states).
 
         The JAX package's ``q_chunk`` (query chunking that bounds the score
         tensor in device memory) has no counterpart: the flash-attention
@@ -267,25 +312,31 @@ class LM(nn.Module):
         x = self.embed_tokens(tokens)
         cache: Cache = []
         for layer in self.layers:
-            x, lc = layer(x, cache_len=cache_len)
+            x, _, lc = layer(x, cache_len=cache_len)
             cache.append(lc)
-        x = rmsnorm(self.final_norm, x[:, -1:])
-        return self.unembed(x)[:, 0], cache
+        return self._last_logits(rmsnorm(self.final_norm, x[:, -1:])), cache
+
+    def _last_logits(self, x):
+        """(B,1,D) -> (B,V) or (B,K,V)."""
+        logits = self.unembed(x)
+        return logits[:, :, 0] if self.cfg.num_codebooks > 1 else \
+            logits[:, 0]
 
     # -- decode ---------------------------------------------------------- #
     def init_cache(self, batch: int, max_len: int) -> Cache:
-        """An empty decode cache: K/V in bfloat16 (ring buffers of the
-        window for LOCAL layers), RG-LRU and Mamba states in float32."""
+        """An empty decode cache: K/V and MLA latents in bfloat16 (ring
+        buffers of the window for LOCAL layers), RG-LRU and Mamba states
+        in float32."""
         return [layer.init_cache(batch, max_len) for layer in self.layers]
 
     def decode_step(self, cache: Cache, tokens: torch.Tensor, step: int):
-        """One-token decode.  tokens: (B,); step: the absolute position.
-        Returns (logits (B,V), cache), the cache updated in place."""
-        x = self.embed_tokens(tokens[:, None])
+        """One-token decode.  tokens: (B,), or (B,K) for K codebooks; step:
+        the absolute position.  Returns (logits (B,V) or (B,K,V), cache),
+        the cache updated in place."""
+        x = self.embed_tokens(tokens[..., None])
         for layer, lc in zip(self.layers, cache):
             x, _ = layer.decode(x, lc, step)
-        x = rmsnorm(self.final_norm, x)
-        return self.unembed(x)[:, 0], cache
+        return self._last_logits(rmsnorm(self.final_norm, x)), cache
 
 
 # --------------------------------------------------------------------- #
@@ -331,22 +382,26 @@ def unstack_layers(tree: Mapping[str, Any], cfg: ArchConfig,
     return layers
 
 
+def _flatten(tree: Mapping[str, Any], prefix: str, out: Dict[str, Any]):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            _flatten(v, f"{prefix}{k}.", out)
+        else:
+            out[f"{prefix}{k}"] = v
+
+
 def named_from_tree(tree: Mapping[str, Any], cfg: ArchConfig,
                     lead: int = 0) -> Dict[str, Any]:
     """The JAX package's parameter tree (``init_params``' layout; ``lead``
     leading dims on every leaf, as a federation's (NC, C) or (NC,)) -> a
     flat dict keyed by the port's parameter names (``embed``,
-    ``layers.0.ln1``, ``layers.2.attn.wq``, ...), leaves untouched."""
+    ``layers.0.ln1``, ``layers.2.attn.wq``, ``layers.1.moe.shared.wg``,
+    ...), leaves untouched."""
     out = {"embed": tree["embed"], "final_norm": tree["final_norm"]}
     if not cfg.tie_embeddings:
         out["lm_head"] = tree["lm_head"]
     for i, lp in enumerate(unstack_layers(tree, cfg, lead)):
-        for k, v in lp.items():
-            if isinstance(v, Mapping):
-                out.update({f"layers.{i}.{k}.{kk}": vv
-                            for kk, vv in v.items()})
-            else:
-                out[f"layers.{i}.{k}"] = v
+        _flatten(lp, f"layers.{i}.", out)
     return out
 
 
@@ -361,13 +416,11 @@ def tree_from_named(named: Mapping[str, Any], cfg: ArchConfig,
     for k, v in arr.items():
         if not k.startswith("layers."):
             continue
-        _, i, rest = k.split(".", 2)
+        _, i, *path, leaf = k.split(".")
         node = layers[int(i)]
-        if "." in rest:
-            sub, leaf = rest.split(".", 1)
-            node.setdefault(sub, {})[leaf] = v
-        else:
-            node[rest] = v
+        for sub in path:
+            node = node.setdefault(sub, {})
+        node[leaf] = v
     pre, groups, suf = _split_depth(cfg)
     pat = len(cfg.block_pattern)
     stack = lambda *xs: np.stack(xs, axis=lead)

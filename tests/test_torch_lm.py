@@ -30,7 +30,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import (LM, LOCAL, RGLRU,  # noqa: E402
-                                params_from_numpy, unstack_layers)
+                                params_from_numpy, unstack_layers,
+                                untrainable)
 from repro_torch.models.attention import attn_decode, attn_forward  # noqa
 from repro_torch.models.rglru import rglru_decode, rglru_forward  # noqa
 
@@ -158,11 +159,27 @@ def test_configs_match_the_jax_package(needs_jax):
         (26, 8, 18)
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-32b", "grok-1-314b",
-                                  "deepseek-v2-236b", "musicgen-large"])
-def test_unported_architectures_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("arch", ["gpt-2", "gemma_3b", "paper-cifar"])
+def test_unknown_architectures_raise_key_error(arch):
+    with pytest.raises(KeyError, match="unknown architecture"):
         get_config(arch)
+    with pytest.raises(KeyError, match="unknown architecture"):
+        get_smoke_config(arch)
+
+
+@pytest.mark.parametrize("arch,what", [("grok-1-314b", "MoE"),
+                                       ("deepseek-v2-236b", "MoE"),
+                                       ("deepseek-v2-236b", "MLA"),
+                                       ("musicgen-large", "audio")])
+def test_untrainable_names_the_roadmap_item(arch, what):
+    """The MoE, MLA and audio models serve; their training is ROADMAP
+    queue 1, item 10's next work.  The dense configs train."""
+    why = untrainable(get_smoke_config(arch))
+    assert why is not None and "queue 1, item 10" in why
+    assert what in why
+    for dense in ("gemma-7b", "granite-3-8b", "qwen1.5-32b",
+                  "chameleon-34b"):
+        assert untrainable(get_smoke_config(dense)) is None
 
 
 def test_attn_forward_and_decode_match_jax(rgemma):

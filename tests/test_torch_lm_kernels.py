@@ -445,6 +445,78 @@ def test_cuda_kernels_match_plain_versions():
     assert launches["rglru_scan"] == len(scans)
 
 
+# (B, S, H, Kv, d, dv, window, softcap): the shapes the served
+# architectures give the kernel, at a short S: MLA's (deepseek-v2: 128
+# heads, d = qk_nope + qk_rope = 192, dv = v_head_dim = 128), a ragged
+# d != dv, multi-head attention with Kv = H = 40 (qwen1.5-32b), and GQA
+# 48/8 under a logit cap of 30 (grok-1)
+SERVED_SHAPES = [(1, 200, 128, 128, 192, 128, 0, 0.0),
+                 (2, 77, 4, 4, 192, 128, 0, 0.0),
+                 (1, 45, 3, 1, 40, 24, 0, 0.0),
+                 (1, 257, 40, 40, 128, 128, 0, 0.0),
+                 (1, 130, 48, 8, 128, 128, 0, 30.0)]
+
+
+def _mla_inputs(B, S, H, Kv, d, dv, seed):
+    g = np.random.default_rng(seed)
+    q = (g.standard_normal((B, S, H, d)) * 0.3).astype(np.float32)
+    k = (g.standard_normal((B, S, Kv, d)) * 0.3).astype(np.float32)
+    v = g.standard_normal((B, S, Kv, dv)).astype(np.float32)
+    return q, k, v
+
+
+def test_plain_attention_with_wider_keys_matches_jax_ref(needs_jax):
+    """d != dv (MLA's keys are wider than its values): the plain version
+    the CPU runs against the JAX package's reference."""
+    q, k, v = _mla_inputs(2, 77, 4, 4, 192, 128, seed=1)
+    got = flash_attention(*(torch.from_numpy(x) for x in (q, k, v)))
+    want = jax_ref.flash_attention_ref(*(jnp.asarray(x) for x in (q, k, v)))
+    assert got.shape == (2, 77, 4, 128)
+    np.testing.assert_allclose(_f32(got), np.asarray(want), atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Kv,d,dv,window,softcap", SERVED_SHAPES)
+def test_cuda_flash_attention_at_the_served_shapes(B, S, H, Kv, d, dv,
+                                                   window, softcap):
+    """The forward kernel at the served architectures' head shapes against
+    its plain version on the card, float32 at 2e-5, one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (runs on the card, see README.md)")
+    dev = torch.device("cuda")
+    q, k, v = (torch.from_numpy(x).to(dev)
+               for x in _mla_inputs(B, S, H, Kv, d, dv, seed=S))
+    reset_launches()
+    got = flash_attention(q, k, v, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert launches["flash_attention"] == 1
+    want = ref.flash_attention_ref(q, k, v, window=window, softcap=softcap)
+    assert got.shape == (B, S, H, dv) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 2048])
+def test_cuda_flash_attention_holds_along_the_key_loop(window):
+    """Values that share one large vector (as a prompt's repeated tokens
+    do), so the output is large, over 4096 keys at head_dim 256: the
+    output must not drift along the key loop.  When the output rode the
+    tensor core's accumulate from tile to tile it lost ~4.5e-5 of itself
+    after 4096 keys, beyond the 2e-5 relative tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (runs on the card, see README.md)")
+    dev = torch.device("cuda")
+    g = np.random.default_rng(11)
+    q = g.standard_normal((1, 4096, 2, 256)).astype(np.float32)
+    k = g.standard_normal((1, 4096, 2, 256)).astype(np.float32)
+    v = (5.0 + 0.1 * g.standard_normal((1, 4096, 2, 256))).astype(
+        np.float32)
+    q, k, v = (torch.from_numpy(x).to(dev) for x in (q, k, v))
+    got = flash_attention(q, k, v, window=window)
+    want = ref.flash_attention_ref(q, k, v, window=window)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
 # (B, S, W, a close to 1, dtype, storage offset in elements): S = 1, S
 # below a sub-chunk (4 steps) and below a tile (128), ragged W (not a
 # multiple of 4 or 8, or of a block's 32 channels: the plain-load path), a
