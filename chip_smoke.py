@@ -210,6 +210,35 @@ Needs one NVIDIA GPU and nvcc.  In order:
    entry, the loss 1e-5 relative); and ``python -m
    repro_torch.launch.train --arch falcon-mamba-7b --steps 3`` on the card
    (its smoke config), which must exit 0;
+9b. training the MoE, MLA and audio models, after phase 9's memory is
+   freed: first the forward's lse output and ``flash_attention_bwd``
+   against their plain versions (over head slices) at ragged shapes with
+   d != dv (d 24 / dv 16, 192 / 64, 72 / 40; S = 1, 33, 4097; H / Kv =
+   1, 2, 4) and at the training shapes of deepseek-v2's MLA (1, 4096, 128
+   heads, d 192, dv 128) and musicgen-large (1, 4096, 32 heads, d 64),
+   each gradient within 1e-4 of its largest entry, two calls bit for bit
+   equal, both kernels timed warm and cold at the training shapes beside
+   their bounds (3xTF32 operations), the plain backward and
+   ``torch.autograd.grad`` through ``scaled_dot_product_attention`` (the
+   first fused backend that takes the head dims; the others' refusals
+   printed); then three rounds each of ``DEEPSEEK_V2_236B_TRAIN``
+   (mode B, NC 2; full width cut to the dense layer 0 and one MoE layer
+   of 16 routed experts, 1,960,555,520 f32 parameters) and
+   ``MUSICGEN_LARGE_TRAIN`` (mode A, NC 2 x C 2; full width cut to 4
+   layers) through ``Federation.from_spec(spec).run(max_rounds=3)``, each
+   freed before the next is built: the launches exactly their schedule
+   (16 ``flash_attention_bwd`` and 32 forwards a deepseek round, 64 and
+   128 a musicgen round), each round's seconds, the peak memory (< 80 GB),
+   finite losses falling from the first round to the third, deepseek's
+   dropped assignments a round; one client's gradients on the last
+   round's microbatch through the kernels against the plain versions
+   (1e-2 of each parameter's largest entry, the loss 1e-5 relative; the
+   plain pass replays the kernel pass's MoE routing, and the assignments
+   its own router would move are counted; two kernel passes bit for bit
+   equal); and ``python -m repro_torch.launch.train --arch A --steps 3``
+   for grok-1-314b, deepseek-v2-236b and musicgen-large side by side on
+   the card (their smoke configs, mode A; grok's only training run on the
+   card), each of which must exit 0;
 10. the cluster-major federation over ``torch.distributed`` ranks
    (``repro_torch.api.cluster_engine``), its ranks started by
    ``repro_torch.launch.distributed.spawn_local`` on this script's hidden
@@ -245,8 +274,8 @@ Needs one NVIDIA GPU and nvcc.  In order:
    each figure's metrics, seconds and launches, the JAX bands, the grid's
    recovery and its population against sequential seconds, the
    secure-aggregation cells, beside the card's name and power limit), the
-   training line (8 and 9: seconds a round, losses, launches, peak
-   memory), the multi-device line (10, beside the card's name and power
+   training line (8, 9 and 9b: seconds a round, losses, launches,
+   peak memory), the multi-device line (10, beside the card's name and power
    limit), the kernels line, then the result line.
 
 The trust kernels are timed back to back through their wrappers (the
@@ -2478,8 +2507,8 @@ PLAIN_SCORES = 2 ** 30    # floats of scores one plain-attention call holds
 
 
 def plain_attention(q, k, v, *, window=0, softcap=0.0):
-    """`ref.flash_attention_ref`, over slices of the batch and of the K/V
-    heads (with their query heads) where the whole call's scores would
+    """`ref.flash_attention_ref`, over `head_slices` of the batch and of the
+    K/V heads (with their query heads) where the whole call's scores would
     pass ``PLAIN_SCORES`` floats (MLA's 128 heads at S = 4096 would need
     34 GB).  Rows and head groups are independent, so it is the same
     function."""
@@ -2487,19 +2516,69 @@ def plain_attention(q, k, v, *, window=0, softcap=0.0):
     B, S, H, _ = q.shape
     Kv = k.shape[2]
     g = H // Kv
-    if B * H * S * S <= PLAIN_SCORES:
+    slices = head_slices(B, S, H, Kv)
+    if len(slices) == 1:
         return ref.flash_attention_ref(q, k, v, window=window,
                                        softcap=softcap)
-    per = max(1, PLAIN_SCORES // (g * S * S))      # K/V heads a slice
     out = torch.empty(q.shape[:3] + (v.shape[3],), dtype=q.dtype,
                       device=q.device)
-    for b in range(B):
-        for k0 in range(0, Kv, per):
-            k1 = min(Kv, k0 + per)
-            out[b:b + 1, :, k0 * g:k1 * g] = ref.flash_attention_ref(
-                q[b:b + 1, :, k0 * g:k1 * g], k[b:b + 1, :, k0:k1],
-                v[b:b + 1, :, k0:k1], window=window, softcap=softcap)
+    for bs, k0, k1 in slices:
+        out[bs, :, k0 * g:k1 * g] = ref.flash_attention_ref(
+            q[bs, :, k0 * g:k1 * g], k[bs, :, k0:k1], v[bs, :, k0:k1],
+            window=window, softcap=softcap)
     return out
+
+
+def head_slices(B, S, H, Kv, budget: int = PLAIN_SCORES) -> list:
+    """(batch slice, first K/V head, end K/V head) slices of an attention
+    call whose scores stay within ``budget`` floats a slice: the whole call
+    when they fit."""
+    g = H // Kv
+    if B * H * S * S <= budget:
+        return [(slice(None), 0, Kv)]
+    per = max(1, budget // (g * S * S))
+    return [(slice(b, b + 1), k0, min(Kv, k0 + per)) for b in range(B)
+            for k0 in range(0, Kv, per)]
+
+
+def plain_lse(q, k, v, *, window=0, softcap=0.0):
+    """`ref.flash_attention_lse_ref` over `head_slices`: the same function
+    (rows and head groups are independent)."""
+    from repro_torch.kernels import ref
+    B, S, H, _ = q.shape
+    Kv = k.shape[2]
+    g = H // Kv
+    out = torch.empty(q.shape[:3] + (v.shape[3],), dtype=q.dtype,
+                      device=q.device)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    for bs, k0, k1 in head_slices(B, S, H, Kv):
+        o_, l_ = ref.flash_attention_lse_ref(
+            q[bs, :, k0 * g:k1 * g], k[bs, :, k0:k1], v[bs, :, k0:k1],
+            window=window, softcap=softcap)
+        out[bs, :, k0 * g:k1 * g] = o_
+        lse[bs, k0 * g:k1 * g] = l_
+    return out, lse
+
+
+def plain_bwd(q, k, v, o, lse, do, *, window=0, softcap=0.0):
+    """`ref.flash_attention_bwd_ref` over `head_slices` of a quarter of
+    PLAIN_SCORES floats (the backward holds four score-sized tensors)."""
+    from repro_torch.kernels import ref
+    B, S, H, _ = q.shape
+    Kv = k.shape[2]
+    g = H // Kv
+    slices = head_slices(B, S, H, Kv, PLAIN_SCORES // 4)
+    if len(slices) == 1:
+        return ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                           window=window, softcap=softcap)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    for bs, k0, k1 in slices:
+        hs = slice(k0 * g, k1 * g)
+        dq[bs, :, hs], dk[bs, :, k0:k1], dv[bs, :, k0:k1] = \
+            ref.flash_attention_bwd_ref(
+                q[bs, :, hs], k[bs, :, k0:k1], v[bs, :, k0:k1], o[bs, :, hs],
+                lse[bs, hs], do[bs, :, hs], window=window, softcap=softcap)
+    return dq, dk, dv
 
 
 def scan_inputs(B, S, W, dtype, dev, seed, a_range=None):
@@ -3425,19 +3504,15 @@ class _PlainAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, window, softcap):
-        from repro_torch.kernels import ref
-        out, lse = ref.flash_attention_lse_ref(q, k, v, window=window,
-                                               softcap=softcap)
+        out, lse = plain_lse(q, k, v, window=window, softcap=softcap)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.window, ctx.softcap = window, softcap
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        from repro_torch.kernels import ref
-        return (*ref.flash_attention_bwd_ref(
-            *ctx.saved_tensors, dout, window=ctx.window,
-            softcap=ctx.softcap), None, None)
+        return (*plain_bwd(*ctx.saved_tensors, dout, window=ctx.window,
+                           softcap=ctx.softcap), None, None)
 
 
 class _PlainScan(torch.autograd.Function):
@@ -3473,33 +3548,93 @@ class _PlainSSM(torch.autograd.Function):
 
 
 def live_train_check(eng, batch, tol: float = LIVE_GRAD_TOL) -> dict:
-    """Client (0, 0)'s gradients on the first microbatch of the last
-    round's batch, through the kernels and then through the plain versions
-    (forward and backward), each parameter's within ``tol`` of its
-    largest entry."""
+    """Client (0, 0)'s (mode B: cluster 0's) gradients on the first
+    microbatch of the last round's batch, through the kernels and then
+    through the plain versions: `live_grads`."""
+    from repro_torch.core import fl_step
+    lead = (0,) * fl_step.lead_dims(eng.task.mode)
+    params = {k: v[lead] for k, v in eng.state.params.items()}
+    mb = {k: v[lead + (0,)] for k, v in batch.items()}
+    return live_grads(eng.task.cfg, eng.task.mode, params, mb, tol)
+
+
+def live_grads(cfg, mode: str, params, mb, tol: float = LIVE_GRAD_TOL
+               ) -> dict:
+    """The gradients of one client's loss (its mode's: the trust-weighted
+    loss in mode B) on one microbatch, through the kernels and then through
+    the plain versions (forward and backward), each parameter's within
+    ``tol`` of its largest entry and the loss within LIVE_LOSS_TOL.  An
+    MoE model's plain pass replays the kernel pass's routing through
+    `moe_forward`'s ``routing`` keyword, so that both differentiate one
+    dispatch; the assignments its own router would have routed otherwise
+    are counted.  Its kernel pass runs twice, the gradients bit for bit
+    equal (the MoE gather's backward adds only exact zeros onto the
+    dropped assignments' slot)."""
+    from repro_torch.core import fl_step
     from repro_torch.kernels import ops
-    from repro_torch.models import LM, lm_loss, xent
-    model = LM(eng.task.cfg, device="meta", seed=None)
-    params = {k: v[0, 0].detach().requires_grad_()
-              for k, v in eng.state.params.items()}
-    mb = {k: v[0, 0, 0] for k, v in batch.items()}
+    from repro_torch.models import LM, lm_loss, weighted_lm_loss, xent
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tr
+    model = LM(cfg, device="meta", seed=None)
+    params = {k: v.detach().requires_grad_() for k, v in params.items()}
 
     def grads():
-        loss = lm_loss(model, mb, params=params, remat=True)
+        if mode == fl_step.MODE_B:
+            loss = weighted_lm_loss(model, mb, mb["weights"], params=params,
+                                    remat=True)
+        else:
+            loss = lm_loss(model, mb, params=params, remat=True)
         return (float(loss.detach()),
                 torch.autograd.grad(loss, list(params.values())))
 
-    l_k, g_k = grads()
+    # the kernel pass records each MoE call's routing (the checkpoint's
+    # recompute routes again: every layer twice, in the backward's order)
+    routes, replay, moved = [], [], {"assignments": 0, "moved": 0}
+    inner = tr.moe_forward
+
+    def recording(p, cfg_, x, **kw):
+        r = moe_mod.route(p, cfg_, x.reshape(-1, x.shape[-1]))[2]
+        routes.append(r)
+        return inner(p, cfg_, x, routing=r)
+
+    def replaying(p, cfg_, x, **kw):
+        given = replay.pop(0)
+        own = moe_mod.route(p, cfg_, x.reshape(-1, x.shape[-1]))[2]
+        hot = lambda r: torch.zeros((r.shape[0], cfg_.num_experts),
+                                    device=r.device).scatter_(1, r, 1.0)
+        moved["moved"] += int((hot(own) - hot(given)).clamp_min(0).sum())
+        moved["assignments"] += given.numel()
+        return inner(p, cfg_, x, routing=given)
+
+    moe = bool(cfg.num_experts)
+    tr.moe_forward = recording if moe else inner
+    try:
+        l_k, g_k = grads()
+    finally:
+        tr.moe_forward = inner
+    same = None
+    if moe:
+        l_2, g_2 = grads()
+        differ = [k for k, a_, b_ in zip(params, g_k, g_2)
+                  if not torch.equal(a_, b_)]
+        same = not differ and l_2 == l_k
+        check(same, f"live: two kernel passes' gradients differ at "
+              f"{differ[:5]} ({len(differ)} parameters), losses {l_k}, "
+              f"{l_2}")
+        del g_2
     # where a microbatch's time goes: the whole loss and gradient, against
     # the unembedding and cross-entropy alone on the same shapes
-    x = torch.randn(mb["tokens"].shape + (eng.task.cfg.d_model,),
-                    device=mb["tokens"].device, requires_grad=True)
-    emb = params["embed"]
+    tok = mb["tokens"]
+    x = torch.randn(tok.shape[:1] + tok.shape[-1:] + (cfg.d_model,),
+                    device=tok.device, requires_grad=True)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
 
-    def head():
-        return torch.autograd.grad(xent(x @ emb.T, mb["labels"]), (x, emb))
+    def head_grads():
+        return torch.autograd.grad(
+            xent(model.unembed(x, params), mb["labels"]), (x, head))
     split = {"microbatch_ms": time_ms(grads, reps=1, windows=3, warmup=1),
-             "unembed_xent_ms": time_ms(head, reps=1, windows=3, warmup=1)}
+             "unembed_xent_ms": time_ms(head_grads, reps=1, windows=3,
+                                        warmup=1)}
     split["unembed_share"] = split["unembed_xent_ms"] / split["microbatch_ms"]
     del x
     print(f"a microbatch's loss and gradient (remat): {json.dumps(split)}",
@@ -3510,27 +3645,41 @@ def live_train_check(eng, batch, tol: float = LIVE_GRAD_TOL) -> dict:
     ops.lru_scan = lambda a, bx: _PlainScan.apply(a, bx)
     ops.mamba_scan = lambda xc, dt, Bc, Cc, A: _PlainSSM.apply(
         xc, dt, Bc, Cc, A)
+    replay[:] = routes
+    tr.moe_forward = replaying if moe else inner
     try:
         l_p, g_p = grads()
     finally:
         ops.attention, ops.lru_scan, ops.mamba_scan = saved
+        tr.moe_forward = inner
+    check(not replay, f"live: {len(replay)} recorded routings not replayed")
     rel = {k: rel_to_max(a_, b_) for k, a_, b_ in zip(params, g_k, g_p)}
     worst = max(rel, key=rel.get)
     top = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
-    print(f"live: client (0, 0)'s gradients on the last round's microbatch "
+    print(f"live: client 0's gradients on the last round's microbatch "
           f"through the kernels against the plain versions: loss {l_k} "
           f"against {l_p}; the worst parameters, error over their largest "
           f"entry: {top} (tolerance {tol}), median "
-          f"{statistics.median(rel.values())}", flush=True)
+          f"{statistics.median(rel.values())}"
+          + (f"; the plain pass replayed the kernel pass's routing "
+             f"({len(routes)} MoE calls), its own router would have moved "
+             f"{moved['moved']} of {moved['assignments']} assignments; two "
+             f"kernel passes bit for bit equal" if moe else ""), flush=True)
     check(abs(l_k - l_p) <= LIVE_LOSS_TOL * abs(l_p),
           f"live loss {l_k} against {l_p}")
     check(rel[worst] <= tol,
           f"live gradients: {worst} off by {rel[worst]} of its largest "
           f"entry")
-    return {"loss_kernels": l_k, "loss_plain": l_p,
-            "max_rel_err": rel[worst], "worst": worst,
-            "median_rel_err": statistics.median(rel.values()),
-            "tolerance": tol, "time_split": split}
+    out = {"loss_kernels": l_k, "loss_plain": l_p,
+           "max_rel_err": rel[worst], "worst": worst,
+           "median_rel_err": statistics.median(rel.values()),
+           "tolerance": tol, "time_split": split}
+    if moe:
+        out.update({"moe_calls": len(routes),
+                    "routing_moved": moved["moved"],
+                    "routing_assignments": moved["assignments"],
+                    "two_passes_bit_equal": same})
+    return out
 
 
 def expected_train_launches(cfg, records, clients: int, n_micro: int
@@ -3560,10 +3709,12 @@ def train_run(spec, rounds: int, what: str, keep_batch: bool = False,
     The forwards that write the selective scan's chunk states must be as
     many as its backwards (under each layer's checkpoint only the
     recompute writes them).  A round's seconds run from its batch's draw
-    to the next's (each round ends reading its loss on the host)."""
+    to the next's (each round ends reading its loss on the host).  An MoE
+    model's dropped assignments are counted a round (`moe_drops`)."""
     from repro_torch.api import Federation
     from repro_torch.core import fl_step
     from repro_torch.kernels import launches, reset_launches, state_launches
+    from repro_torch.models import transformer as tr
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3575,17 +3726,26 @@ def train_run(spec, rounds: int, what: str, keep_batch: bool = False,
     kept, marks = [], []
     make = eng.task.make_batch
 
+    drops = []                  # each round's [dropped, assignments]
+
     def marking(*a, **kw):
         marks.append(time.perf_counter())
+        drops.append([0, 0])
         batch = make(*a, **kw)
         if keep_batch:
             kept[:] = [batch]
         return batch
     eng.task.make_batch = marking
+    inner = tr.moe_forward
+    if eng.task.cfg.num_experts:
+        tr.moe_forward = moe_drops(inner, drops)
     reset_launches()
     state_launches["selective_scan"] = 0
     t0 = time.perf_counter()
-    trace = fed.run(max_rounds=rounds)
+    try:
+        trace = fed.run(max_rounds=rounds)
+    finally:
+        tr.moe_forward = inner
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     t_run = t_end - t0
@@ -3631,7 +3791,29 @@ def train_run(spec, rounds: int, what: str, keep_batch: bool = False,
                        "a": [r.a for r in recs], "losses": losses,
                        "peak_gib": peak, "launches": counts,
                        "state_launches": with_states,
-                       "params_a_client": n_params}}
+                       "params_a_client": n_params,
+                       **({"moe_dropped_a_round": [
+                           [int(n) // 2, m // 2] for n, m in drops]}
+                          if eng.task.cfg.num_experts else {})}}
+
+
+def moe_drops(inner, drops: list):
+    """`moe_forward` counting into ``drops[-1]`` the assignments past their
+    expert's capacity and all assignments, of every call: the first passes
+    and the checkpoint's recomputes, which route the same tokens alike, so
+    each count is twice a round's (an expert keeps its first ``cap``
+    assignments: it drops max(0, n_e - cap))."""
+    from repro_torch.models import moe as moe_mod
+
+    def counting(p, cfg, x, **kw):
+        T = x.shape[0] * x.shape[1]
+        idx = moe_mod.route(p, cfg, x.reshape(T, -1))[2]
+        n_e = torch.bincount(idx.reshape(-1), minlength=cfg.num_experts)
+        cap = moe_mod.capacity(T, cfg)
+        drops[-1][0] += (n_e - cap).clamp_min(0).sum()   # no host sync
+        drops[-1][1] += idx.numel()
+        return inner(p, cfg, x, **kw)
+    return counting
 
 
 def train_phase(dev) -> dict:
@@ -3946,6 +4128,256 @@ def mamba_train_phase(dev) -> dict:
     print(f"phase 9 (falcon-mamba-7b training) took {wall:.2f} s",
           flush=True)
     return {"mode_a": rec, "live": live, "cli_s": t_cli, "phase_s": wall}
+
+
+# --------------------------------------------------------------------- #
+# 9b. training the MoE, MLA and audio models
+# --------------------------------------------------------------------- #
+TRAIN_ROUNDS_9B = 3
+# the attention at the training shapes these models give it, (B, S, H, Kv,
+# d, dv): deepseek-v2's MLA (d = qk_nope + qk_rope) and musicgen-large's
+ATTN_TRAIN_SHAPES = {"mla": (1, 4096, 128, 128, 192, 128),
+                     "musicgen": (1, 4096, 32, 32, 64, 64)}
+# ragged shapes with d != dv: S = 1, 33 and 4097 across the tiles of 32, d
+# 72 not a multiple of 16 (plain loads), H / Kv = 1, 2 and 4
+RAGGED_DV_SHAPES = [(1, 33, 4, 4, 24, 16), (2, 1, 4, 1, 24, 16),
+                    (1, 4097, 4, 4, 24, 16), (1, 33, 8, 2, 192, 64),
+                    (1, 1, 4, 4, 192, 64), (1, 4097, 4, 1, 192, 64),
+                    (2, 33, 4, 1, 72, 40), (1, 1, 2, 2, 72, 40),
+                    (1, 4097, 8, 2, 72, 40)]
+TRAIN_9B_CLI_ARCHS = ("grok-1-314b", "deepseek-v2-236b", "musicgen-large")
+
+
+def sdpa_backward(q, k, v, do) -> dict:
+    """``torch.autograd.grad`` through ``scaled_dot_product_attention``
+    (causal), the backward alone, timed through the first of its fused
+    backends that takes these head dims, with each backend's refusal."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    doh = do.transpose(1, 2).contiguous()
+    out = {"library_ms": None, "library_backend": None, "refused": {}}
+    for backend in (SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION):
+        try:
+            with sdpa_kernel(backend):
+                o = F.scaled_dot_product_attention(qh, kh, vh,
+                                                   is_causal=True)
+                lib = lambda: torch.autograd.grad(o, (qh, kh, vh), doh,
+                                                  retain_graph=True)
+                lib()
+                out["library_ms"] = time_ms(lib, reps=3, windows=5,
+                                            warmup=1)
+            out["library_backend"] = backend.name
+            del o
+            break
+        except RuntimeError as e:     # this backend does not take them
+            out["refused"][backend.name] = str(e).splitlines()[0][:200]
+    return out
+
+
+def attn_shape_check(name, shape, dev, flush) -> dict:
+    """The forward's lse output and the backward kernel against their
+    plain versions (over head slices) at one training shape, two backward
+    calls bit for bit equal; both timed warm and cold beside their bounds,
+    the plain backward, and SDPA's backward where a backend takes the
+    shape."""
+    from repro_torch.kernels.flash_attention import (_forward,
+                                                     flash_attention_bwd)
+    B, S, H, Kv, d, dv = shape
+    q, k, v = attn_inputs(B, S, H, Kv, d, torch.float32, dev, 810, dv=dv)
+    g = torch.Generator(device=dev).manual_seed(811)
+    do = torch.randn((B, S, H, dv), generator=g, device=dev)
+    out, lse = _forward(q, k, v, 0, 0.0, True)
+    ro, rl = plain_lse(q, k, v)
+    e_o, ok_o = within(out, ro, FA_TOL["float32"], FA_TOL["float32"])
+    e_l, ok_l = within(lse, rl, FA_TOL["float32"], FA_TOL["float32"])
+    check(ok_o and ok_l, f"flash_attention {name} {shape} with lse: max abs "
+          f"error {e_o} (out), {e_l} (lse)")
+    del ro, rl
+    got = flash_attention_bwd(q, k, v, out, lse, do)
+    again = flash_attention_bwd(q, k, v, out, lse, do)
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"flash_attention_bwd {name} {shape}: two calls differ")
+    del again
+    want = plain_bwd(q, k, v, out, lse, do)
+    err = bwd_rel(got, want)
+    err_abs = max((a_ - b_).abs().max().item() for a_, b_ in zip(got, want))
+    check(err <= BWD_TOL, f"flash_attention_bwd {name} {shape}: error "
+          f"{err} of the largest entry, beyond {BWD_TOL}")
+    del got, want
+    bwd = lambda: flash_attention_bwd(q, k, v, out, lse, do)
+    fwd = lambda: _forward(q, k, v, 0, 0.0, True)
+    cold = lambda fn: statistics.median(window_times(
+        fn, reps=3, windows=3, warmup=1, flush=flush))
+    t = {"bwd_ms": time_ms(bwd, reps=3, windows=5, warmup=1),
+         "bwd_cold_ms": cold(bwd),
+         "fwd_lse_ms": time_ms(fwd, reps=3, windows=5, warmup=1),
+         "fwd_lse_cold_ms": cold(fwd),
+         "bwd_plain_ms": time_ms(lambda: plain_bwd(q, k, v, out, lse, do),
+                                 reps=1, windows=2, warmup=1)}
+    lib = sdpa_backward(q, k, v, do)
+    pairs = reachable_pairs(B, S, H, 0)
+    flops = {"bwd": pairs * 2 * (3 * d + 2 * dv),
+             "fwd_lse": pairs * 2 * (d + dv)}
+    # q, k, v, o, dO and lse read once, dq, dk, dv written once; the
+    # forward reads q, k, v and writes o and lse
+    n_bytes = {"bwd": 4 * (2 * B * S * H * (d + dv) + 2 * B * S * Kv
+                           * (d + dv) + B * H * S),
+               "fwd_lse": 4 * (B * S * H * d + B * S * Kv * (d + dv)
+                               + B * S * H * dv + B * H * S)}
+    bounds = {}
+    for key in flops:
+        routes = {"cuda cores": bound_ms(n_bytes[key], flops[key]),
+                  "tensor cores, 3xTF32": bound_ms(
+                      n_bytes[key], 3 * flops[key], TF32_FLOPS_PER_S)}
+        route = min(routes, key=lambda r_: routes[r_][0])
+        bounds[key] = {"bound_ms": routes[route][0],
+                       "bound_by": routes[route][1], "bound_route": route,
+                       "bound_ms_by_route": {r_: b_[0] for r_, b_ in
+                                             routes.items()}}
+    res = {"shape": dict(zip(("B", "S", "H", "Kv", "d", "dv"), shape)),
+           "max_rel_err": err, "max_abs_err": err_abs,
+           "out_max_abs_err": e_o, "lse_max_abs_err": e_l, **t, **lib,
+           "bounds": bounds, "reachable_pairs": pairs, "flops": flops,
+           "bytes": n_bytes}
+    print(f"flash_attention_bwd at {name}'s training shape {shape}: warm "
+          f"{t['bwd_ms']} ms, cold {t['bwd_cold_ms']} ms, bound "
+          f"{bounds['bwd']['bound_ms']} ms; plain {t['bwd_plain_ms']} ms; "
+          f"SDPA's backward {lib['library_ms']} ms ({lib['library_backend']}"
+          f", refused by {lib['refused']}); the forward with lse warm "
+          f"{t['fwd_lse_ms']} ms, cold {t['fwd_lse_cold_ms']} ms, bound "
+          f"{bounds['fwd_lse']['bound_ms']} ms; error {err} of the largest "
+          f"entry, two calls bit for bit equal", flush=True)
+    return res
+
+
+def attn_train_shapes_phase(dev) -> dict:
+    """9b (a): the forward's lse and the backward kernel at the ragged
+    d != dv shapes, then at MLA's and musicgen's training shapes."""
+    from repro_torch.kernels.flash_attention import (_forward,
+                                                     flash_attention_bwd)
+    t0 = time.perf_counter()
+    worst = {"out": 0.0, "lse": 0.0, "bwd": 0.0}
+    for i, shape in enumerate(RAGGED_DV_SHAPES):
+        B, S, H, Kv, d, dv = shape
+        q, k, v = attn_inputs(B, S, H, Kv, d, torch.float32, dev, 820 + i,
+                              dv=dv)
+        g = torch.Generator(device=dev).manual_seed(840 + i)
+        do = torch.randn((B, S, H, dv), generator=g, device=dev)
+        out, lse = _forward(q, k, v, 0, 0.0, True)
+        ro, rl = plain_lse(q, k, v)
+        e_o, ok_o = within(out, ro, FA_TOL["float32"], FA_TOL["float32"])
+        e_l, ok_l = within(lse, rl, FA_TOL["float32"], FA_TOL["float32"])
+        check(ok_o and ok_l, f"flash_attention {shape} with lse: max abs "
+              f"error {e_o} (out), {e_l} (lse)")
+        got = flash_attention_bwd(q, k, v, out, lse, do)
+        again = flash_attention_bwd(q, k, v, out, lse, do)
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"flash_attention_bwd {shape}: two calls differ")
+        r = bwd_rel(got, plain_bwd(q, k, v, out, lse, do))
+        check(r <= BWD_TOL, f"flash_attention_bwd {shape}: error {r} of the "
+              f"largest entry, beyond {BWD_TOL}")
+        worst = {"out": max(worst["out"], e_o), "lse": max(worst["lse"], e_l),
+                 "bwd": max(worst["bwd"], r)}
+    print(f"flash_attention with lse and flash_attention_bwd at "
+          f"{len(RAGGED_DV_SHAPES)} ragged shapes with d != dv: worst "
+          f"{json.dumps(worst)} (out and lse atol = rtol {FA_TOL['float32']}"
+          f", the backward {BWD_TOL} of the largest entry); two calls bit "
+          "for bit equal", flush=True)
+    flush = L2Flush(dev)
+    res = {"ragged": {"shapes": RAGGED_DV_SHAPES, "worst": worst}}
+    for name, shape in ATTN_TRAIN_SHAPES.items():
+        res[name] = attn_shape_check(name, shape, dev, flush)
+        free_library_memory()
+    res["phase_s"] = time.perf_counter() - t0
+    return res
+
+
+def moe_audio_train_phase(dev, smi_line: str) -> dict:
+    """9b (b), (c): three rounds of ``DEEPSEEK_V2_236B_TRAIN`` (mode B)
+    and of ``MUSICGEN_LARGE_TRAIN`` (mode A), each freed before the next
+    is built: launches exactly their schedule, each round's seconds, peak
+    memory under 80 GB, losses falling, deepseek's dropped assignments a
+    round, one client's live gradients (its engine freed first, the state
+    but that client's parameters); then the training CLI on the three
+    models, side by side."""
+    from repro_torch.api import FederationSpec
+    from repro_torch.api.scenarios import (DEEPSEEK_V2_236B_TRAIN,
+                                           MUSICGEN_LARGE_TRAIN)
+    from repro_torch.core import fl_step
+    t0 = time.perf_counter()
+    runs, counts = {}, {}
+    for key, spec_dict in (("deepseek_v2_236b", DEEPSEEK_V2_236B_TRAIN),
+                           ("musicgen_large", MUSICGEN_LARGE_TRAIN)):
+        spec = FederationSpec.from_dict(spec_dict)
+        mode = spec.task.params.get("mode", fl_step.MODE_A)
+        run = train_run(spec, TRAIN_ROUNDS_9B, f"{key} {mode}",
+                        keep_batch=True, must_fall=True)
+        rec, eng = run["record"], run["eng"]
+        cfg = eng.task.cfg
+        clients = eng.n_clusters * (eng.clients if mode == fl_step.MODE_A
+                                    else 1)
+        per_round = clients * 2 * eng.task.n_micro * cfg.num_layers
+        check(all(a == 2 for a in rec["a"]), f"{key}: a {rec['a']}")
+        check(rec["launches"]["flash_attention_bwd"]
+              == per_round * TRAIN_ROUNDS_9B
+              and rec["launches"]["flash_attention"]
+              == 2 * per_round * TRAIN_ROUNDS_9B,
+              f"{key}: launches {rec['launches']}, {per_round} backwards "
+              f"and {2 * per_round} forwards a round expected")
+        check(rec["peak_gib"] * 2 ** 30 < 80e9,
+              f"{key} training peaked at {rec['peak_gib']} GiB")
+        lead = (0,) * fl_step.lead_dims(mode)
+        params = {k: v[lead].clone() for k, v in eng.state.params.items()}
+        mb = {k: v[lead + (0,)].clone() for k, v in run["batch"].items()}
+        del run, eng
+        gc.collect()
+        free_library_memory()
+        live = live_grads(cfg, mode, params, mb, LIVE_GRAD_TOL)
+        del params, mb
+        gc.collect()
+        free_library_memory()
+        rec.update({"live": live, "per_round": {
+            "flash_attention_bwd": per_round,
+            "flash_attention": 2 * per_round}, "mode": mode,
+            "device": smi_line})
+        runs[key] = rec
+        counts[key] = rec["launches"]
+        print(f"{key}: {TRAIN_ROUNDS_9B} rounds of {rec['round_s_each']} s, "
+              f"peak {rec['peak_gib']:.3f} GiB, losses {rec['losses']}, "
+              f"launches {rec['launches']} ({per_round} backwards and "
+              f"{2 * per_round} forwards a round), dropped assignments a "
+              f"round {rec.get('moe_dropped_a_round')}; {smi_line}",
+              flush=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.join(HERE, "src"), env.get("PYTHONPATH")) if p)
+    t1 = time.perf_counter()
+    procs = {arch: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+         "--steps", "3"], cwd=HERE, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for arch in TRAIN_9B_CLI_ARCHS}
+    cli = {}
+    for arch, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            for p_ in procs.values():
+                p_.kill()
+            fail(f"the training CLI on {arch} did not end in 600 s")
+        cli[arch] = {"exit": proc.returncode,
+                     "s": time.perf_counter() - t1}
+        print(f"python -m repro_torch.launch.train --arch {arch} --steps 3: "
+              f"exit {proc.returncode} after {cli[arch]['s']:.2f} s (the "
+              f"three side by side):\n{out[-1500:]}", flush=True)
+        check(proc.returncode == 0, f"the training CLI failed on {arch}: "
+              f"{err[-4000:]}")
+    wall = time.perf_counter() - t0
+    print(f"phase 9b (MoE, MLA and audio training) took {wall:.2f} s",
+          flush=True)
+    return {"runs": runs, "counts": counts, "cli": cli, "phase_s": wall}
 
 
 # --------------------------------------------------------------------- #
@@ -4593,9 +5025,19 @@ def main() -> None:
     free_library_memory()
     mtraining = mamba_train_phase(dev)
     free_library_memory()
+
+    # 9b. training the MoE, MLA and audio models at full width, cut
+    ak = attn_train_shapes_phase(dev)
+    free_library_memory()
+    moe_training = moe_audio_train_phase(dev, smi_line)
+    free_library_memory()
     train_counts = {"mode_a": training["mode_a"]["launches"],
                     "mode_b": training["mode_b"]["launches"],
-                    "falcon_mamba_mode_a": mtraining["mode_a"]["launches"]}
+                    "falcon_mamba_mode_a": mtraining["mode_a"]["launches"],
+                    "deepseek_v2_mode_b":
+                        moe_training["counts"]["deepseek_v2_236b"],
+                    "musicgen_mode_a":
+                        moe_training["counts"]["musicgen_large"]}
     train_launches = {k: sum(c[k] for c in train_counts.values())
                       for k in launches}
 
@@ -4675,6 +5117,14 @@ def main() -> None:
                 for p, c in archs["counts"].items()},
              **{p: c["flash_attention"] for p, c in train_counts.items()}},
          "at_mla_prefill_shape": lk["mla"],
+         "lse_variant_at_training_shapes": {
+             name: {"ms": ak[name]["fwd_lse_ms"],
+                    "cold_ms": ak[name]["fwd_lse_cold_ms"],
+                    "max_abs_err_out": ak[name]["out_max_abs_err"],
+                    "max_abs_err_lse": ak[name]["lse_max_abs_err"],
+                    **ak[name]["bounds"]["fwd_lse"],
+                    "shape": ak[name]["shape"]}
+             for name in ATTN_TRAIN_SHAPES},
          "served_shapes_max_abs_err": lk["err"]["fa_served"],
          "lse_variant": {"ms": tk["t"]["fa_lse"],
                          "null_lse_ms": tk["t"]["fa_null"],
@@ -4789,7 +5239,16 @@ def main() -> None:
          "ptxas": build.ptxas_report(os.path.basename(FA_BWD_SOURCE))
          or "not built in this run",
          "reachable_pairs": tk["pairs"], "flops": tk["flops"],
-         "bytes": tk["bytes"]["fa_bwd"]},
+         "bytes": tk["bytes"]["fa_bwd"],
+         "at_training_shapes_9b": {
+             name: {k_: v_ for k_, v_ in ak[name].items()
+                    if k_ not in ("out_max_abs_err", "lse_max_abs_err",
+                                  "fwd_lse_ms", "fwd_lse_cold_ms")}
+             for name in ATTN_TRAIN_SHAPES},
+         "at_ragged_d_unlike_dv": ak["ragged"],
+         "live_max_rel_err_9b": {
+             k_: r_["live"]["max_rel_err"]
+             for k_, r_ in moe_training["runs"].items()}},
         {"name": "rglru_scan_bwd", "route": "cuda",
          "source": SCAN_BWD_SOURCE,
          "replaces": "src/repro/models/rglru.py:67",
@@ -4855,9 +5314,11 @@ def main() -> None:
           flush=True)
     print(json.dumps({"paper": {"device": smi_line,
                                 **plain_json(paper["paper"])}}), flush=True)
-    print(json.dumps({"training": {"device": smi_line, **training,
-                                   "falcon_mamba_7b": mtraining}}),
-          flush=True)
+    print(json.dumps({"training": {
+        "device": smi_line, **training, "falcon_mamba_7b": mtraining,
+        **moe_training["runs"], "cli_9b": moe_training["cli"],
+        "phase_9b_s": moe_training["phase_s"] + ak["phase_s"]}}),
+        flush=True)
     print(json.dumps({"multi_device": multi}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -476,13 +476,16 @@ class LMTask:
                    clients: int, device=None) -> Dict[str, torch.Tensor]:
         """Zipf token batches drawn from ``generator`` (on the CPU):
         tokens and labels (NC, C, n_micro, Bm, S) in mode A, (NC, n_micro,
-        Bm, S) with per-example weights in mode B."""
+        Bm, S) with per-example weights (NC, n_micro, Bm) in mode B; an
+        audio model's K codebooks put (K, S) in place of S."""
         if self.mode == MODE_B:
             shape = (n_clusters, self.n_micro, self.micro_batch,
                      self.seq + 1)
         else:
             shape = (n_clusters, clients, self.n_micro, self.micro_batch,
                      self.seq + 1)
+        if self.cfg.num_codebooks > 1:
+            shape = shape[:-1] + (self.cfg.num_codebooks, self.seq + 1)
         toks = token_stream(generator, math.prod(shape),
                             self.cfg.vocab_size).reshape(shape).to(device)
         batch = {"tokens": toks[..., :-1].contiguous(),

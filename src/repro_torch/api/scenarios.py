@@ -56,6 +56,31 @@ N 16, dt_rank 256, conv 4, vocabulary 65,024, tied embeddings; its own
 before it: 476,966,912 parameters (266,338,304 of embedding, 105,312,256 a
 layer, the final norm).  Four clients' parameters and Adam moments are
 21.3 GiB in float32; the full 64 layers would be ~313 GiB.
+
+``DEEPSEEK_V2_236B_TRAIN``: federated mode-B training (its own ``fl_mode``,
+``trust_fsdp``: trust as per-example loss weights, NC 2 cluster models) of
+deepseek-v2-236b at full width (`repro_torch/configs/deepseek_v2_236b.py`:
+d_model 5120, 128 heads, MLA with q_lora 1536, kv_lora 512, qk_nope 128,
+qk_rope 64, v 128, dense d_ff 12288, moe_d_ff 1536, top-6, 2 shared
+experts, vocabulary 102,400), with the same traffic (4096-token
+sequences, 2 microbatches of 1, a fixed a = 2, Adam at 3e-4, seed 0).
+Cut from 60 layers to 2 (the dense layer 0, then one MoE layer) and from
+160 routed experts to 16, so that capacity is int(4096 * 6 * 1.25 // 16)
+= 1920 slots an expert: 1,960,555,520 parameters (1,048,576,000 of
+embedding and head, 149.2M of MLA a layer, the dense MLP 188.7M, 16
+experts 377.5M, the shared experts 47.2M), 7.84 GB in float32.  Two
+cluster models with Adam's m and v are six copies, 47.0 GB; with all 160
+experts the two layers would be 5.4e9 parameters, ~129 GB in mode B.
+
+``MUSICGEN_LARGE_TRAIN``: federated mode-A training (its own ``fl_mode``,
+``fedavg_replica``) of musicgen-large at full width
+(`repro_torch/configs/musicgen_large.py`: d_model 2048, 32 heads of 64
+over 32 K/V heads, d_ff 8192, vocabulary 2048, 4 codebooks) with
+``RECURRENTGEMMA_2B_TRAIN``'s clients and traffic (NC 2 x C 2, 4096
+positions x 4 codebooks, 2 microbatches of 1, a fixed a = 2).  Cut from
+48 layers to 4: 302,008,320 parameters (67.1M a layer, 33.6M of codebook
+embeddings and heads); four clients' parameters and Adam moments are
+14.5 GB in float32.
 """
 from __future__ import annotations
 
@@ -136,6 +161,37 @@ FALCON_MAMBA_7B_TRAIN = {
     **RECURRENTGEMMA_2B_TRAIN,
     "task": {"kind": "lm",
              "params": {**_FM7B, "seq": 4096, "micro_batch": 1,
+                        "n_micro": 2, "lr": 3e-4}},
+}
+
+_DSV2 = {"num_layers": 2, "name": "deepseek-v2-236b-train",
+         "arch_type": "moe", "d_model": 5120, "vocab_size": 102400,
+         "num_heads": 128, "num_kv_heads": 128, "d_ff": 12288,
+         "num_experts": 16, "num_shared_experts": 2, "topk": 6,
+         "moe_d_ff": 1536, "first_dense_layers": 1, "use_mla": True,
+         "q_lora_rank": 1536, "kv_lora_rank": 512, "qk_nope_dim": 128,
+         "qk_rope_dim": 64, "v_head_dim": 128, "mla_absorbed": True,
+         "activation": "silu", "tie_embeddings": False,
+         "fl_mode": "trust_fsdp", "shard_scheme": "ep_tp",
+         "scan_indexed": True}
+
+DEEPSEEK_V2_236B_TRAIN = {
+    **RECURRENTGEMMA_2B_TRAIN,
+    "task": {"kind": "lm",
+             "params": {**_DSV2, "mode": "trust_fsdp", "seq": 4096,
+                        "micro_batch": 1, "n_micro": 2, "lr": 3e-4}},
+}
+
+_MUSICGEN = {"num_layers": 4, "name": "musicgen-large-train",
+             "arch_type": "audio", "d_model": 2048, "vocab_size": 2048,
+             "num_heads": 32, "num_kv_heads": 32, "head_dim": 64,
+             "d_ff": 8192, "activation": "gelu", "num_codebooks": 4,
+             "tie_embeddings": False, "fl_mode": "fedavg_replica"}
+
+MUSICGEN_LARGE_TRAIN = {
+    **RECURRENTGEMMA_2B_TRAIN,
+    "task": {"kind": "lm",
+             "params": {**_MUSICGEN, "seq": 4096, "micro_batch": 1,
                         "n_micro": 2, "lr": 3e-4}},
 }
 

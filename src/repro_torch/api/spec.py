@@ -6,8 +6,7 @@ a spec written by either package builds in the other.  Only `validate`
 differs: it raises `NotImplementedError`, naming the ROADMAP item that will
 port it, for what the port does not run yet (the partitioner-inferred
 placements: ``impl='gspmd'``, the ``device-gspmd`` scale and multi-axis
-meshes; and the training of language models with MoE, MLA or
-audio-codebook layers), before the JAX package's checks.
+meshes), before the JAX package's checks.
 """
 from __future__ import annotations
 
@@ -41,13 +40,12 @@ def unported(spec: "FederationSpec") -> Optional[str]:
     rules), controller and task, differential privacy and every fault
     family, on one device or, on a 1-D mesh with ``impl='shard_map'``, as
     the cluster-major engine over one ``torch.distributed`` rank a shard;
-    and the datacenter scale's LM training for the dense, hybrid and SSM
-    (Mamba) kinds.  It does not run the partitioner-inferred placements
-    (``impl='gspmd'``, which multi-axis meshes resolve to, and the
-    ``device-gspmd`` scale), or the training of a model with MoE, MLA or
-    audio-codebook layers.  A sharded datacenter
-    spec is left to `FederationSpec.validate`, which rejects it as the JAX
-    package does."""
+    and the datacenter scale's LM training of every kind of model (dense,
+    hybrid, SSM, MoE, MLA and audio).  It does not run the
+    partitioner-inferred placements (``impl='gspmd'``, which multi-axis
+    meshes resolve to, and the ``device-gspmd`` scale).  A sharded
+    datacenter spec is left to `FederationSpec.validate`, which rejects it
+    as the JAX package does."""
     if spec.scale not in (DEVICE_SCALE, DATACENTER_SCALE):
         return (f"scale {spec.scale!r} (multi-device engines, {_QUEUE}, "
                 "item 9)")
@@ -60,14 +58,6 @@ def unported(spec: "FederationSpec") -> Optional[str]:
             return (f"impl='gspmd' on mesh {spec.sharding.mesh} (the "
                     "partitioner-inferred placement and multi-axis meshes, "
                     f"through DTensor; multi-device, {_QUEUE}, item 9)")
-    if spec.scale == DATACENTER_SCALE and spec.task.kind == "lm":
-        from repro_torch.models.transformer import untrainable
-
-        from .components import lm_task_config
-        try:
-            return untrainable(lm_task_config(**spec.task.params))
-        except NotImplementedError as e:       # an unported architecture
-            return str(e)
     return None
 
 

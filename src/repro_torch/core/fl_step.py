@@ -137,40 +137,74 @@ def _assign_(dst, src) -> None:
         dst.copy_(src)
 
 
+def _leaf_state(state, keys, k: str):
+    """The optimizer state as one leaf's update reads it: a dict keyed by
+    the parameters (Adam's ``m``, ``v``; Adafactor's ``acc``) narrows to
+    ``{k: ...}``; other entries (the step count ``t``) stay whole."""
+    if isinstance(state, Mapping):
+        if set(state) == keys:
+            return {k: state[k]}
+        return {n: _leaf_state(v, keys, k) for n, v in state.items()}
+    return state
+
+
+def _assign_part_(dst, src, keys, keyed: bool) -> None:
+    """Copy into the views ``dst`` (a whole state) the entries of ``src``
+    (a `_leaf_state`-shaped one) under the parameter-keyed dicts
+    (``keyed``) or the others (the step count)."""
+    if isinstance(src, Mapping):
+        if isinstance(dst, Mapping) and set(dst) == keys:
+            if keyed:
+                _assign_({k: dst[k] for k in src}, src)
+            return
+        for n in src:
+            _assign_part_(dst[n], src[n], keys, keyed)
+    elif isinstance(src, torch.Tensor) and not keyed:
+        dst.copy_(src)
+
+
 def _local_update(loss_fn: Callable, opt: Optimizer, local_steps: int,
                   params: Tree, opt_state, batch: Tree) -> torch.Tensor:
     """``local_steps`` optimizer steps of one client, each averaging the
     gradients of the microbatches of ``batch`` (leaves (n_micro, Bm, ...)).
     ``params`` and ``opt_state`` are views into the stacked state and are
-    updated in place.  -> the last step's mean microbatch loss."""
+    updated in place.  -> the last step's mean microbatch loss.
+
+    The microbatches' gradients add into the leaves' ``.grad`` as autograd
+    reaches each leaf (microbatch 1's gradient, then + microbatch 2's: the
+    JAX package's order), and the optimizer updates one leaf at a time, its
+    new moments written into the state before the next leaf's are made.
+    So one copy of the gradients is alive at a time and no full copy of
+    the moments or updates: deepseek-v2's two full-width layers (7.8 GB of
+    parameters a cluster) train in mode B on one card.  The optimizer is
+    pure, so each leaf's update is the one a whole-tree call would make."""
     n_micro = next(iter(batch.values())).shape[0]
     keys = list(params)
+    key_set = set(keys)
     loss = None
     for _ in range(local_steps):
         leaves = {k: params[k].detach().requires_grad_() for k in keys}
-        g_sum, loss_sum = None, torch.zeros((), device=params[keys[0]].device)
+        loss_sum = torch.zeros((), device=params[keys[0]].device)
         for i in range(n_micro):
             mb = {k: v[i] for k, v in batch.items()}
             mb_loss = loss_fn(leaves, mb)
-            grads = torch.autograd.grad(mb_loss, [leaves[k] for k in keys])
-            if g_sum is None:
-                g_sum = dict(zip(keys, grads))
-            else:
-                for k, g in zip(keys, grads):
-                    g_sum[k].add_(g)
+            mb_loss.backward()
             loss_sum = loss_sum + mb_loss.detach()
-            del mb_loss, grads
-        del leaves
+            del mb_loss
         with torch.no_grad():
-            for g in g_sum.values():
-                g.div_(n_micro)
-            updates, new_state = opt.update(g_sum, opt_state, params)
-            del g_sum
-            _assign_(opt_state, new_state)
-            del new_state
+            new = None
             for k in keys:
+                g = leaves[k].grad.div_(n_micro)
+                leaves[k].grad = None
+                updates, new = opt.update(
+                    {k: g}, _leaf_state(opt_state, key_set, k),
+                    {k: params[k]})
+                _assign_part_(opt_state, new, key_set, keyed=True)
                 params[k].add_(updates[k].to(params[k].dtype))
-            del updates
+                del g, updates
+            # the entries every leaf shares (the step count), once
+            _assign_part_(opt_state, new, key_set, keyed=False)
+        del leaves, new
         loss = loss_sum / n_micro
     return loss
 

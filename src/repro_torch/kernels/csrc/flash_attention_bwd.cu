@@ -36,8 +36,8 @@
 // from zero, and a.b = hi_a.hi_b + (hi_a.lo_b + lo_a.hi_b) with f32
 // accumulation.  In S and dP the two small products go to an accumulator
 // of their own, added to the big one after the last d-step; in dV, dK and
-// dQ they accumulate into the output first and the big product after
-// them.  D = rowsum(dO o), the softmax rebuilt from lse and dS = p (dP - D)
+// dQ a streamed tile's products are summed from zero, the small ones
+// first, and added to the output in f32 (see outer_tiles).  D = rowsum(dO o), the softmax rebuilt from lse and dS = p (dP - D)
 // stay in f32 on the CUDA cores.  Masked pairs get p = dS = 0 exactly.
 //
 // Design.  Three steps, no atomics (two calls on the same inputs give the
@@ -88,7 +88,12 @@
 // version, ms warm / cold): 7.37-7.65 / 7.37-7.58, against the FMA kernel
 // before it 26.9-27.6 / 26.9-27.6, SDPA's backward 12.96-13.08,
 // the plain version 13.30-13.34: ~18 % of the two-pass 3xTF32 bound, each
-// mma m16n8k8 taking ~6.5 SM cycles, as in the forward.  What lost:
+// mma m16n8k8 taking ~6.5 SM cycles, as in the forward.  Summing each
+// streamed tile from zero (outer_tiles) cost nothing measurable there:
+// 7.33-7.37 against 7.40-7.52 in turns; at MLA's (1, 4096, 128 heads, d
+// 192, dv 128) 106.1-106.7 against 106.4-107.0 (bound 10.83), at
+// musicgen's (1, 4096, 32 heads, d 64) 16.60-16.61 against 16.39-16.47
+// (scripts/fa_bwd_accuracy.py).  What lost:
 //   - a thread-block cluster a (key tile, K/V head) in place of the
 //     per-head partials, its blocks walking the group's heads in turn and
 //     rank 0 adding their dK and dV through distributed shared memory:
@@ -263,36 +268,49 @@ __device__ __forceinline__ void scores(float (&s)[4][4], const float* a_row,
 // rows, for this warp's 16 rows.  w[j] holds the 16 x 8 block of streamed
 // rows 8 j .. 8 j + 7 in the accumulator layout of `scores` (columns 2t,
 // 2t + 1 stand for rows perm(2t) = t, perm(2t + 1) = t ^ 6); x: the
-// streamed tile at this warp's first column, pitch px.  kAll: all NT
-// n-tiles are live, so the unrolled loop has no branch and the scheduler
-// can interleave the n-tiles' products; otherwise n-tiles at or past
-// `cols` columns are skipped.
+// streamed tile at this warp's first column, pitch px.  Each n-tile's
+// product over the tile's 32 rows is summed from zero in the mma's
+// accumulator (the small products first) and then added to o by an f32
+// add, which rounds to nearest.  Carrying o itself as the mma's C operand
+// over every tile let dK, dV and dQ drift, as the forward's output did:
+// the tensor core's accumulate does not round to nearest, so a sum over
+// 4096 rows lost ~5e-5 of itself in one direction (MLA's and musicgen's
+// first layers on their own inputs, scripts/fa_bwd_accuracy.py; the
+// plain f32 version ~3e-6).  kAll: all NT n-tiles are live, so the
+// unrolled loop has no branch; otherwise n-tiles at or past `cols`
+// columns are skipped.
 template <int NT, bool kAll>
 __device__ __forceinline__ void outer_tiles(float (&o)[NT][4],
                                             const float (&w)[4][4],
                                             const float* x, int px, int cols,
                                             int lane) {
   const int g = lane >> 2, t = lane & 3;
+  // k-step j: mma k = t <-> row 8 j + t, k = t + 4 <-> row 8 j + (t ^ 6)
+  uint32_t ah[4][4], al[4][4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    // k-step j: mma k = t <-> row 8 j + t, k = t + 4 <-> row 8 j + (t ^ 6)
-    uint32_t ah[4], al[4];
-    split(w[j][0], ah[0], al[0]);
-    split(w[j][2], ah[1], al[1]);
-    split(w[j][1], ah[2], al[2]);
-    split(w[j][3], ah[3], al[3]);
-    const float* x0 = x + (8 * j + t) * px + g;
-    const float* x1 = x + (8 * j + (t ^ 6)) * px + g;
+    split(w[j][0], ah[j][0], al[j][0]);
+    split(w[j][2], ah[j][1], al[j][1]);
+    split(w[j][1], ah[j][2], al[j][2]);
+    split(w[j][3], ah[j][3], al[j][3]);
+  }
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      if (kAll || 8 * n < cols) {
+  for (int n = 0; n < NT; ++n) {
+    if (kAll || 8 * n < cols) {
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float* x0 = x + (8 * j + t) * px + g + 8 * n;
+        const float* x1 = x + (8 * j + (t ^ 6)) * px + g + 8 * n;
         uint32_t bh0, bl0, bh1, bl1;
-        split(x0[8 * n], bh0, bl0);
-        split(x1[8 * n], bh1, bl1);
-        mma_tf32(o[n], ah, bl0, bl1);
-        mma_tf32(o[n], al, bh0, bh1);
-        mma_tf32(o[n], ah, bh0, bh1);
+        split(*x0, bh0, bl0);
+        split(*x1, bh1, bl1);
+        mma_tf32(c, ah[j], bl0, bl1);
+        mma_tf32(c, al[j], bh0, bh1);
+        mma_tf32(c, ah[j], bh0, bh1);
       }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] += c[e];
     }
   }
 }

@@ -23,6 +23,24 @@ per-client learning-quality signal of the digital twin.  The JAX
 package's expert-parallel ``shard_map`` branch (a ``data`` x ``model``
 mesh) is not ported: the port's MoE runs on one device.
 
+Gradients flow through the renormalised top-k gate values (into the
+router), the ``index_add_`` scatter, the expert products, the gather of
+each assignment's output and the shared experts.  The Switch loss carries
+gradient only through the mean router probabilities: the fraction routed
+to an expert is a count, as in the JAX package.  The gather's backward
+scatters each assignment's output gradient onto its slot; a dropped
+assignment gathers slot E * cap - 1 masked to zero, so it adds an exact
+zero there.  Adding exact zeros to the one real gradient of a slot gives
+the same bits in any order, so a card's atomics in that backward leave
+the result independent of their order.
+
+The routing is a function of the block's input alone (float32 router
+logits, ``torch.topk``, a cumsum), computed by deterministic ops, so the
+per-layer checkpoint's recompute routes every token exactly as the first
+pass did.  ``routing`` lets a caller hand in the expert choices of another
+pass (the card's live check compares two passes that must dispatch
+alike); the model never passes it.
+
 Parameters are a flat mapping: ``router`` (D, E) float32, ``wg`` / ``wu``
 (E, D, F), ``wd`` (E, F, D), and ``shared.wg`` / ``shared.wu`` /
 ``shared.wd`` for the shared experts' gated MLP.
@@ -76,17 +94,32 @@ def dispatch(xt: torch.Tensor, e_flat: torch.Tensor, E: int, cap: int
     return buf[:-1].reshape(E, cap, -1), slot, keep
 
 
+def route(p: Mapping[str, torch.Tensor], cfg: ArchConfig, xt: torch.Tensor,
+          routing: Optional[torch.Tensor] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """xt: (T, D) -> (router probabilities (T, E) float32, gate values
+    (T, K) renormalised, expert ids (T, K)): the top-k in descending
+    probability, or the ids ``routing`` (T, K) with their probabilities."""
+    probs = torch.softmax(xt.to(torch.float32) @ p["router"], dim=-1)
+    if routing is None:
+        gate_vals, gate_idx = torch.topk(probs, cfg.topk, dim=-1)
+    else:
+        gate_idx = routing.to(device=xt.device, dtype=torch.int64)
+        gate_vals = torch.gather(probs, -1, gate_idx)
+    gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
+    return probs, gate_vals, gate_idx
+
+
 def moe_forward(p: Mapping[str, torch.Tensor], cfg: ArchConfig,
-                x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                x: torch.Tensor, *, routing: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (y (B, S, D), the Switch aux loss, a float32
-    scalar)."""
+    scalar).  ``routing`` (B * S, K) expert ids replace the router's own
+    top-k (see the module notes)."""
     B, S, D = x.shape
     T, E, K = B * S, cfg.num_experts, cfg.topk
     xt = x.reshape(T, D)
-    # f32 router; top-k in descending probability, renormalised
-    probs = torch.softmax(xt.to(torch.float32) @ p["router"], dim=-1)
-    gate_vals, gate_idx = torch.topk(probs, K, dim=-1)
-    gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
+    probs, gate_vals, gate_idx = route(p, cfg, xt, routing)
     # E * <fraction routed to e> . <mean router probability of e>
     routed = torch.bincount(gate_idx.reshape(-1), minlength=E)
     aux = E * torch.sum(probs.mean(0) * routed.to(torch.float32) / (T * K))

@@ -36,8 +36,13 @@ tree is a dotted name), with leading dims (the federation's clients) or
 without.  `LM.forward_aux` also returns the MoE layers' summed Switch
 loss, the JAX package's ``forward(...)[1]``.
 
-Training runs the dense, hybrid and SSM kinds, qkv bias and qk-norm
-included; MoE, MLA and audio models serve only (`untrainable`).
+Every kind trains: dense (qkv bias and qk-norm included), hybrid, SSM,
+MoE, MLA and audio.  Under the checkpoint an MoE layer's recompute must
+route every token as its first pass did, or the backward would
+differentiate another dispatch than the forward ran: it does, because the
+routing depends only on the layer's input and every op on the way
+(attention kernel, router product, top-k, cumsum) is deterministic
+(`repro_torch.models.moe`).
 """
 from __future__ import annotations
 
@@ -65,21 +70,6 @@ def _check_supported(cfg: ArchConfig) -> None:
     for kind in cfg.layer_kinds():
         if kind not in (ATTN, LOCAL, RGLRU, MAMBA):
             raise ValueError(f"unknown layer kind {kind!r}")
-
-
-def untrainable(cfg: ArchConfig) -> Optional[str]:
-    """Why the port cannot train ``cfg`` yet (None: it can), naming the
-    ROADMAP item.  Training runs dense (qkv bias and qk-norm included),
-    hybrid (RG-LRU and local attention) and SSM (Mamba) layers; MoE, MLA
-    and audio-codebook models serve only."""
-    missing = [what for what, uses in (
-        ("MoE layers", bool(cfg.num_experts)),
-        ("MLA attention", cfg.use_mla),
-        ("multi-codebook audio heads", cfg.num_codebooks > 1)) if uses]
-    if not missing:
-        return None
-    return (f"{cfg.name}: training with {' and '.join(missing)} is not "
-            f"ported yet (ROADMAP.md, queue 1, item 10)")
 
 
 def _params(tree: Mapping[str, Any], trainable: bool) -> nn.ParameterDict:
@@ -293,6 +283,8 @@ class LM(nn.Module):
         for i, layer in enumerate(self.layers):
             lp = sub_params(params, f"layers.{i}")
             if remat:
+                # the recompute routes an MoE layer's tokens as the first
+                # pass did: same input, deterministic ops (module notes)
                 x, a, _ = checkpoint(layer, x, 0, lp, use_reentrant=False,
                                      context_fn=remat_contexts)
             else:

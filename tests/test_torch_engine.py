@@ -272,11 +272,9 @@ def test_spec_dict_and_trace_jsonl_roundtrip_across_packages(needs_jax,
     # a 1-D shard_map mesh runs since the multi-device slice; the
     # partitioner-inferred placement is not ported
     {"sharding": {"mesh": [2], "impl": "gspmd"}},
-    # the datacenter scale trains the dense, hybrid and MAMBA kinds; an
-    # MoE model is not ported
-    {"scale": "datacenter",
-     "task": {"kind": "lm", "params": {"num_experts": 4, "topk": 2,
-                                       "moe_d_ff": 16}}},
+    # nor its scale (the datacenter scale trains every kind of model, MoE,
+    # MLA and audio included)
+    {"scale": "device-gspmd"},
 ])
 def test_unported_features_raise(change):
     d = spec_dict(FIXED)

@@ -29,9 +29,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.configs import ARCH_IDS  # noqa: E402
 from repro_torch.models import (LM, LOCAL, RGLRU,  # noqa: E402
-                                params_from_numpy, unstack_layers,
-                                untrainable)
+                                lm_loss, params_from_numpy, unstack_layers)
 from repro_torch.models.attention import attn_decode, attn_forward  # noqa
 from repro_torch.models.rglru import rglru_decode, rglru_forward  # noqa
 
@@ -167,19 +167,24 @@ def test_unknown_architectures_raise_key_error(arch):
         get_smoke_config(arch)
 
 
-@pytest.mark.parametrize("arch,what", [("grok-1-314b", "MoE"),
-                                       ("deepseek-v2-236b", "MoE"),
-                                       ("deepseek-v2-236b", "MLA"),
-                                       ("musicgen-large", "audio")])
-def test_untrainable_names_the_roadmap_item(arch, what):
-    """The MoE, MLA and audio models serve; their training is ROADMAP
-    queue 1, item 10's next work.  The dense configs train."""
-    why = untrainable(get_smoke_config(arch))
-    assert why is not None and "queue 1, item 10" in why
-    assert what in why
-    for dense in ("gemma-7b", "granite-3-8b", "qwen1.5-32b",
-                  "chameleon-34b"):
-        assert untrainable(get_smoke_config(dense)) is None
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_architecture_back_propagates(arch):
+    """Every architecture trains (the MoE, MLA and audio models too): the
+    loss of a smoke model under the per-layer checkpoint is finite and
+    gives every parameter a finite, nonzero gradient."""
+    cfg = get_smoke_config(arch)
+    model = LM(cfg, seed=0, trainable=True)
+    g = torch.Generator().manual_seed(1)
+    books = (cfg.num_codebooks,) if cfg.num_codebooks > 1 else ()
+    toks = torch.randint(0, cfg.vocab_size, (2,) + books + (17,),
+                         generator=g)
+    loss = lm_loss(model, {"tokens": toks[..., :-1],
+                           "labels": toks[..., 1:]}, remat=True)
+    loss.backward()
+    assert torch.isfinite(loss)
+    for name, p in model.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+        assert p.grad.abs().max() > 0, name
 
 
 def test_attn_forward_and_decode_match_jax(rgemma):

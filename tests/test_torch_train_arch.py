@@ -4,8 +4,7 @@ chameleon-34b's (qk-norm) against the JAX package's ``build_train_step``
 on carried-over state and the same tokens, at tests/test_torch_train.py's
 tolerances (1e-5 relative to each leaf's largest entry; the loss and the
 divergence 1e-5 relative, the trust weights 1e-6).  The bias and norm
-weights are perturbed with the rest, so their gradients count.  This is
-what lets `untrainable` pass both configs.
+weights are perturbed with the rest, so their gradients count.
 """
 import numpy as np
 import pytest
@@ -17,7 +16,6 @@ from test_torch_train import (C, NC, _max_rel,  # noqa: E402
 from repro_torch import optim as topt  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core import fl_step as tfl  # noqa: E402
-from repro_torch.models import untrainable  # noqa: E402
 
 try:            # the card's machine has no JAX
     import jax
@@ -34,7 +32,7 @@ LOCAL_STEPS = 2
 @pytest.mark.parametrize("arch", ["qwen1.5-32b", "chameleon-34b"])
 def test_mode_a_step_matches_the_jax_package(needs_jax, arch):  # noqa: F811
     cfg = get_smoke_config(arch)
-    assert untrainable(cfg) is None and (cfg.qkv_bias or cfg.qk_norm)
+    assert cfg.qkv_bias or cfg.qk_norm
     jcfg = jax_smoke_config(arch)
     opt = jopt.adam(3e-4)
     fresh = jfl.build_init_fn(jcfg, opt, mode=jfl.MODE_A, n_clusters=NC,
