@@ -265,6 +265,21 @@ Needs one NVIDIA GPU and nvcc.  In order:
    round, each rank's backend, device and
    peak memory, the kernel library each rank loaded; then the unmasked
    kernel timed at a rank's Eqn-19 shape (C_loc 8, N 159,010);
+10b. the partitioner-inferred placement (``impl='gspmd'``:
+   `DeviceScaleEngine` on DTensors over a ``DeviceMesh`` of ranks),
+   started by ``spawn_local`` on the hidden ``--gspmd-worker`` flag: at
+   meshes (1,) and (1, 1) (one NCCL rank: DTensor's all-gather of CUDA
+   tensors over gloo, which ranks that share the card would need, ends the
+   process with a segfault, so those meshes are all this card runs)
+   ``paper-mlp-fleet1k`` ``run_scanned(10)`` then ``run(max_rounds=5)``,
+   ``dp-fleet1k`` and ``paper-adaptive-fleet1k`` ``run_scanned(10)``,
+   each bit for bit the unsharded engine of the same process (the DQN's
+   under the same net); the trust kernels' launches a round equal to the
+   unsharded engine's; DTensor's collectives a round by kind and bytes;
+   the steady rounds/s of each mesh beside the unsharded engine's (three
+   interleaved windows of 10 rounds); each rank's peak memory; then two
+   gloo ranks sharing the card, whose mesh (2,) must refuse with the
+   placement's `RuntimeError` naming the all-gather;
 11. prints the federations line (4b, 4c and 4d), the serving line, the
    service line (4e: each segment's ``service_rounds_per_sec``, its
    checkpoint's seconds and bytes, the chaos children's start-up seconds,
@@ -276,7 +291,8 @@ Needs one NVIDIA GPU and nvcc.  In order:
    secure-aggregation cells, beside the card's name and power limit), the
    training line (8, 9 and 9b: seconds a round, losses, launches,
    peak memory), the multi-device line (10, beside the card's name and power
-   limit), the kernels line, then the result line.
+   limit), the gspmd line (10b, likewise), the kernels line, then the
+   result line.
 
 The trust kernels are timed back to back through their wrappers (the
 kernels line's ``ms`` and ``library_ms``) and by device time, warm (ten
@@ -302,6 +318,7 @@ without the repository's ``src/`` beside it, it exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import gc
@@ -4799,6 +4816,242 @@ def multi_device_phase(dev, smi_line: str) -> dict:
     return res
 
 
+GSPMD_MESHES = ((1,), (1, 1))   # what the card runs (the probe: no gloo
+                                # all-gather of CUDA tensors through DTensor)
+GSPMD_SPECS = ("paper-mlp-fleet1k", "dp-fleet1k", "paper-adaptive-fleet1k")
+GSPMD_K = 10            # run_scanned(10) on every spec
+GSPMD_E = 5             # then run(max_rounds=5) on paper-mlp-fleet1k
+GSPMD_STEADY = 10       # steady rounds/s: windows of run_scanned(10),
+GSPMD_WINDOWS = 3       # ... three of each engine, interleaved
+
+
+# the functional collectives DTensor's redistributions lower to, by kind
+COLLECTIVE_KINDS = {"all_gather_into_tensor": "all_gather",
+                    "all_reduce": "all_reduce",
+                    "reduce_scatter_tensor": "reduce_scatter",
+                    "all_to_all_single": "all_to_all"}
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Count the collectives DTensor runs on this rank while inside, by
+    kind: a dict ``{kind: {"calls": n, "bytes": b}}``, ``b`` the bytes of
+    this rank's input to each call.  A dispatch mode (as torch's
+    ``CommDebugMode``) that lets DTensor lower its ops first and sees the
+    ``_c10d_functional`` operators they dispatch; the results are the
+    same."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    counts = {}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if DTensor in types:        # DTensor first: its collectives
+                return NotImplemented   # come back through this mode
+            kind = COLLECTIVE_KINDS.get(func._overloadpacket.__name__)
+            if kind is not None and func.namespace == "_c10d_functional":
+                c = counts.setdefault(kind, {"calls": 0, "bytes": 0})
+                c["calls"] += 1
+                c["bytes"] += args[0].numel() * args[0].element_size()
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        yield counts
+
+
+def gspmd_worker(cfg: dict) -> None:
+    """One rank of a phase-10b job (``--gspmd-worker``): each spec at each
+    mesh of ``cfg`` on the card against the unsharded engine of this
+    process, its launches, DTensor's collectives and figures; or, with
+    ``refuse``, the placement's refusal of ranks that share the card.  One
+    JSON line."""
+    import torch.distributed as dist
+    from repro_torch.api import Federation, FederationSpec, placement
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch.distributed import initialize_from_env
+    rank = initialize_from_env()
+    if cfg.get("stacks"):       # should the job hang: where each rank is
+        import faulthandler
+        faulthandler.dump_traceback_later(cfg["stacks"]["after_s"], file=open(
+            os.path.join(cfg["stacks"]["dir"], f"rank{rank}.txt"), "w"))
+    G = dist.get_world_size()
+    out = {"rank": rank, "world": G, "backend": dist.get_backend(),
+           "device": str(torch.device("cuda", torch.cuda.current_device())),
+           "runs": {}}
+    specs = dist_spec_dicts()
+    if cfg.get("refuse"):
+        spec = FederationSpec.from_dict({
+            **specs[GSPMD_SPECS[0]],
+            "sharding": {"mesh": [G], "impl": "gspmd"}})
+        try:
+            Federation.from_spec(spec)
+            out["refused"] = None
+        except RuntimeError as e:       # the refusal this job checks
+            out["refused"] = str(e)
+        print("GSPMDRESULT" + json.dumps(out), flush=True)
+        dist.destroy_process_group()
+        return
+    torch.cuda.reset_peak_memory_stats()
+    for mesh in cfg["meshes"]:
+        tag = "x".join(map(str, mesh))
+        for name in cfg["specs"]:
+            # where a rank is, should the job outlive its timeout
+            print(f"rank {rank}: {name} at mesh {tag}", file=sys.stderr,
+                  flush=True)
+            spec = FederationSpec.from_dict({
+                **specs[name], "sharding": {"mesh": list(mesh),
+                                            "impl": "gspmd"}})
+            t0 = time.perf_counter()
+            fed = Federation.from_spec(spec)
+            eng = fed.engine
+            run = {"build_s": time.perf_counter() - t0,
+                   "engine": type(eng).__name__,
+                   "gspmd": eng.placement.is_gspmd,
+                   "mesh": str(eng.placement.mesh),
+                   "pretrained": getattr(fed.controller, "pretrain_aux",
+                                         None) is not None,
+                   "off_card": [k for k, v in eng.state.tensors().items()
+                                if not placement.is_dtensor(v)
+                                or v.to_local().device.type != "cuda"]}
+            reset_launches()
+            with count_collectives() as cs:
+                tr, run["scanned_s"] = timed(
+                    lambda: eng.run_scanned(GSPMD_K))
+            run.update(scanned=trace_rows(tr), scanned_launches=dict(
+                launches), scanned_collectives=cs)
+            # the unsharded engine, the DQN federation's under the same net
+            pfed = Federation.from_spec(
+                spec.replace(sharding=type(spec.sharding)()),
+                controller=fed.controller if name == DIST_DQN else None)
+            plain = pfed.engine
+            reset_launches()
+            run["plain_scanned"] = trace_rows(plain.run_scanned(GSPMD_K))
+            run["plain_scanned_launches"] = dict(launches)
+            if name == GSPMD_SPECS[0]:
+                reset_launches()
+                with count_collectives() as ce:
+                    ev, run["event_s"] = timed(
+                        lambda: fed.run(max_rounds=GSPMD_E))
+                run.update(event=trace_rows(ev), event_launches=dict(
+                    launches), event_collectives=ce)
+                reset_launches()
+                run["plain_event"] = trace_rows(pfed.run(
+                    max_rounds=GSPMD_E))
+                run["plain_event_launches"] = dict(launches)
+                win = {"gspmd": [], "unsharded": []}
+                for _ in range(GSPMD_WINDOWS):
+                    for key, e in (("gspmd", eng), ("unsharded", plain)):
+                        _, sec = timed(lambda: e.run_scanned(
+                            GSPMD_STEADY, eval_final=False))
+                        win[key].append(GSPMD_STEADY / sec)
+                run["steady_rounds_per_s"] = {k: spread(v)
+                                              for k, v in win.items()}
+            out["runs"][f"{name}@{tag}"] = run
+            del fed, eng, pfed, plain, tr
+            torch.cuda.empty_cache()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print("GSPMDRESULT" + json.dumps(out), flush=True)
+    dist.destroy_process_group()
+
+
+def gspmd_job(G: int, cfg: dict) -> list:
+    """``G`` ranks of this script's phase-10b worker on the card; their
+    results in rank order, and the job's wall seconds."""
+    from repro_torch.launch.distributed import spawn_local
+    t0 = time.perf_counter()
+    res = spawn_local([os.path.abspath(__file__), "--gspmd-worker",
+                       json.dumps(cfg)], n_procs=G, timeout=DIST_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for r in res:
+        check(r.returncode == 0, f"gspmd job of {G} ranks: a rank failed "
+              f"({r.returncode}): {r.stderr[-4000:]}")
+    out = [json.loads(r.stdout.split("GSPMDRESULT", 1)[1]) for r in res]
+    check([o["rank"] for o in out] == list(range(G)),
+          f"gspmd job: ranks {[o['rank'] for o in out]}")
+    return out, wall
+
+
+def per_round(counts: dict, rounds: int) -> dict:
+    return {k: {"calls": v["calls"] / rounds, "bytes": v["bytes"] / rounds}
+            for k, v in counts.items()}
+
+
+def gspmd_phase(dev, smi_line: str) -> dict:
+    """10b. The partitioner-inferred placement on the card (module
+    docstring): meshes (1,) and (1, 1) bit for bit against the unsharded
+    engine, the kernels' launches, DTensor's collectives, rounds/s and
+    peak memory; then the refusal of two ranks sharing the card."""
+    t_phase = time.perf_counter()
+    free_library_memory()
+    one, wall = gspmd_job(1, {"meshes": [list(m) for m in GSPMD_MESHES],
+                              "specs": list(GSPMD_SPECS)})
+    r0 = one[0]
+    check(r0["backend"] == "nccl", f"gspmd mesh ranks ran on "
+          f"{r0['backend']}")
+    counts, runs = {}, {}
+    for key, run in r0["runs"].items():
+        name, tag = key.split("@")
+        what = f"gspmd {name} at mesh ({tag.replace('x', ', ')},)"
+        check(run["engine"] == "DeviceScaleEngine" and run["gspmd"],
+              f"{what}: engine {run['engine']}, gspmd {run['gspmd']}")
+        check(not run["off_card"], f"{what}: off the card or not DTensors: "
+              f"{run['off_card']}")
+        if name == DIST_DQN:
+            check(run["pretrained"], f"{what}: rank 0 did not pretrain")
+        entry = {"build_s": run["build_s"],
+                 "rounds_per_s_incl_eval": GSPMD_K / run["scanned_s"],
+                 "final_acc": run["scanned"][-1][6]}
+        for path in ("scanned", "event"):
+            if path not in run:
+                continue
+            rounds = GSPMD_K if path == "scanned" else GSPMD_E
+            # bit for bit: the same records as the unsharded engine's
+            check(json.dumps(run[path]) == json.dumps(run[f"plain_{path}"]),
+                  f"{what}: {path} records depart from the unsharded "
+                  f"engine's: {run[path][:2]} vs {run['plain_' + path][:2]}")
+            got, want = run[f"{path}_launches"], run[f"plain_{path}_launches"]
+            trust = ("trust_aggregate", "trust_aggregate_dense",
+                     "trust_aggregate_global")
+            check(all(got[k] == want[k] for k in trust)
+                  and sum(got[k] for k in trust) >= rounds,
+                  f"{what}: {path} launches {got}, unsharded {want}")
+            counts[f"gspmd_{tag}_{name}_{path}"] = got
+            entry[f"{path}_launches_a_round"] = {
+                k: got[k] / rounds for k in trust if got[k]}
+            entry[f"{path}_collectives_a_round"] = per_round(
+                run[f"{path}_collectives"], rounds)
+        if "steady_rounds_per_s" in run:
+            entry["steady_rounds_per_s"] = run["steady_rounds_per_s"]
+            st = run["steady_rounds_per_s"]
+            print(f"gspmd {name} mesh ({tag.replace('x', ', ')},) steady "
+                  f"rounds/s, {GSPMD_WINDOWS} windows of {GSPMD_STEADY} "
+                  "rounds, median [min, max]: " + "; ".join(
+                      f"{k} {v['median']} [{v['min']}, {v['max']}]"
+                      for k, v in st.items()) + f" ({smi_line})",
+                  flush=True)
+        if name != "dp-fleet1k":
+            acc = run["scanned"][-1][6]
+            check(acc is not None and acc == acc, f"{what}: accuracy {acc}")
+        runs.setdefault(name, {})[f"mesh_{tag}"] = entry
+
+    # two ranks sharing the card: the placement refuses, naming the
+    # all-gather the probe found missing
+    two, wall2 = gspmd_job(2, {"refuse": True})
+    for r in two:
+        check(r["backend"] == "gloo" and r["refused"] is not None
+              and "all_gather_into_tensor" in r["refused"]
+              and "segfault" in r["refused"],
+              f"gspmd mesh (2,) on one card: {r['refused']}")
+    res = {"device": smi_line, "meshes": [list(m) for m in GSPMD_MESHES],
+           "runs": runs, "backend": r0["backend"],
+           "rank_device": r0["device"], "peak_gib": [r0["peak_gib"]],
+           "refused_mesh_2": two[0]["refused"],
+           "job_wall_s": {"meshes": wall, "refusal": wall2},
+           "phase_s": time.perf_counter() - t_phase, "counts": counts}
+    print(f"phase 10b (gspmd): {res['phase_s']:.2f} s", flush=True)
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare-with", metavar="DIR", nargs="+", default=[],
@@ -4809,6 +5062,8 @@ def main() -> None:
                          "against this checkout's")
     ap.add_argument("--dist-worker", metavar="JSON",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--gspmd-worker", metavar="JSON",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4816,6 +5071,9 @@ def main() -> None:
         sys.exit(2)
     if args.dist_worker:
         dist_worker(json.loads(args.dist_worker))
+        return
+    if args.gspmd_worker:
+        gspmd_worker(json.loads(args.gspmd_worker))
         return
     from repro_torch.api import ControllerSpec, Federation, FederationSpec
     from repro_torch.api.scenarios import PAPER_MLP_FLEET1K
@@ -5049,6 +5307,11 @@ def main() -> None:
     c_loc = multi["runs"]["paper-mlp-fleet1k"]["mesh_2"]["C_loc"]
     dense_cm = dense_times(c_loc, N, dev)
     free_library_memory()
+
+    # 10b. the partitioner-inferred placement through DTensor
+    gspmd = gspmd_phase(dev, smi_line)
+    counts.update(gspmd.pop("counts"))
+    total = {k: sum(c[k] for c in counts.values()) for k in launches}
 
     # 11. the serving line, the kernels line, then the result line
     t, bd, err = kp["t"], kp["bound"], kp["err"]
@@ -5320,6 +5583,7 @@ def main() -> None:
         "phase_9b_s": moe_training["phase_s"] + ak["phase_s"]}}),
         flush=True)
     print(json.dumps({"multi_device": multi}), flush=True)
+    print(json.dumps({"gspmd": gspmd}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -253,25 +253,6 @@ class ClusterMajorEngine(DeviceScaleEngine):
             feats=vec[C_pad:4 * C_pad].reshape(C_pad, 3),
             tau=vec[4 * C_pad:5 * C_pad], ch3=vec[5 * C_pad:] / self._n)
 
-    def _share_policy(self) -> None:
-        """A DQN controller's deployed net from rank 0 to every rank (one
-        broadcast at build), so that every rank picks the same actions
-        whatever its own pretraining computed."""
-        agent = getattr(self.controller, "agent", None)
-        params = getattr(agent, "eval_params", None)
-        if self._G == 1 or not isinstance(params, dict):
-            return
-        keys = sorted(params)
-        flat = torch.cat([params[k].reshape(-1).to(torch.float32)
-                          for k in keys])
-        dist.broadcast(flat, src=0, group=self._group)
-        out, off = {}, 0
-        for k in keys:
-            v = params[k]
-            out[k] = flat[off:off + v.numel()].reshape(v.shape).to(v.dtype)
-            off += v.numel()
-        self.controller.restore_policy_state(out)
-
     def _gather(self) -> FleetState:
         """The whole state in original device order (real clusters), on
         every rank: one zero-padded SUM all-reduce."""

@@ -51,7 +51,7 @@ from repro_torch.core.mlp import (accuracy, classifier_losses,
 from repro_torch.core.robust import AGGREGATORS as ROBUST_RULES
 from repro_torch.core.robust import MASKED_AGGREGATORS as MASKED_RULES
 from repro_torch.data.synthetic import token_stream
-from repro_torch.device import resolve_device
+from repro_torch.device import is_dtensor, resolve_device
 from repro_torch.kernels.ops import flatten_rows, layout_of, leaf_views
 from repro_torch.kernels.trust_aggregate import (trust_aggregate,
                                                  trust_aggregate_global)
@@ -342,7 +342,28 @@ class _FlatTask:
         they were, so the result is exactly the ``a``-step one: a
         population runs its members' largest ``a`` and each member keeps
         its own (`torch.func.grad`, unlike ``torch.autograd.grad``, runs
-        under ``torch.func.vmap``)."""
+        under ``torch.func.vmap``).
+
+        Given DTensors (the partitioner-inferred placement), every rank
+        trains the replicated members on its local tensors under
+        ``local_map``, since ``torch.func.grad`` takes no DTensor; the
+        result is replicated."""
+        if is_dtensor(flat):
+            from torch.distributed.tensor import Replicate
+            from torch.distributed.tensor.experimental import local_map
+            rep = tuple(Replicate() for _ in flat.placements)
+            tensors = (flat, x, y) + ((a,) if torch.is_tensor(a) else ())
+            args = [t if is_dtensor(t) else None for t in tensors]
+            return local_map(
+                lambda f, xx, yy, *aa: self._local_train(
+                    f, xx, yy, lr, steps, aa[0] if aa else a),
+                out_placements=(rep,),
+                in_placements=tuple(None if t is None else rep
+                                    for t in args),
+                redistribute_inputs=True)(*tensors)
+        return self._local_train(flat, x, y, lr, steps, a)
+
+    def _local_train(self, flat, x, y, lr, steps: int, a=None):
         grad = torch.func.grad(
             lambda q: self._losses(self.params(q), x, y).sum())
         p = flat.contiguous()

@@ -57,6 +57,21 @@ stream, device id, index) from `repro_torch.rng`, through the ``draws``
 attribute; the parity tests replace it with the JAX package's draws.
 Init-time draws come from CPU generators seeded from ``spec.seed``.
 
+Placement: a sharded spec that resolves to ``impl='gspmd'`` (every
+multi-axis mesh, ``impl='gspmd'`` on a 1-D mesh, and the ``device-gspmd``
+scale, `DeviceScaleGspmdEngine`) runs this engine on one
+``torch.distributed`` rank a shard, the JAX package's partitioner-inferred
+path: the `FleetState` leaves are DTensors committed to their leaf
+groups' placements (`repro_torch.api.placement`), the same round code runs
+on them, DTensor's sharding propagation supplies the collectives (the
+all-gathers of membership gathers that do not line up with the shards),
+the trust kernels launch on every rank's local tensors through their
+DTensor sharding rules, and the round's outputs go back to the at-rest
+placements.  Reads to the host (``a``, the records, the evaluation) take
+replicated values; checkpoints hold whole tensors and re-shard on
+restore.  A 1-D ``shard_map`` spec builds the cluster-major engine
+instead (`from_spec`).
+
 `DatacenterEngine` (``scale="datacenter"``) drives the federated LM step
 of `repro_torch.core.fl_step` instead: one round a step over every
 client, the controller choosing ``a`` from a one-cluster context.
@@ -67,10 +82,12 @@ import contextlib
 import dataclasses
 import heapq
 import math
+import types
 from typing import Dict, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch import rng
@@ -98,18 +115,20 @@ from repro_torch.data.synthetic import (SyntheticClassification,
                                         SyntheticTelemetry,
                                         make_classification,
                                         make_iot_telemetry)
-from repro_torch.device import resolve_device
+from repro_torch.device import is_dtensor, resolve_device
 from repro_torch.faults.model import FaultModel
 from repro_torch.kernels import build as kernel_build
 from repro_torch.kernels.ops import leaf_views
 from repro_torch.obs.spans import fence
 from repro_torch.optim import adam
 
+from . import placement as placement_lib
 from .components import ControllerCtx
+from .placement import whole
 from .records import FLTrace, RoundRecord
 from .registry import register_engine
-from .spec import (DATACENTER_SCALE, DEVICE_SCALE, SHARD_MAP_IMPL,
-                   FederationSpec)
+from .spec import (DATACENTER_SCALE, DEVICE_SCALE, GSPMD_DEVICE_SCALE,
+                   GSPMD_IMPL, SHARD_MAP_IMPL, FederationSpec)
 
 
 @dataclasses.dataclass
@@ -230,7 +249,18 @@ def _row(t: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 def _with_row(t: torch.Tensor, c: torch.Tensor, v) -> torch.Tensor:
     """A copy of ``t`` with ``t[c] = v``, ``c`` a 0-d index tensor on the
-    device (``t`` is left as it was)."""
+    device (``t`` is left as it was).  A DTensor ``t`` takes the same
+    values by a select against its row ids, which keeps its rows where
+    they are (DTensor has no sharding strategy for ``index_copy`` in every
+    PyTorch version the port runs on).  A plain ``t`` keeps the
+    ``index_copy``: with the select forms here and in `core.twin.put` as
+    the only path, the unsharded ``paper-mlp-fleet1k`` round dispatched 30
+    more device ops and ran 47.3-55.1 scanned rounds/s against 66.1-73.4
+    (H100, ``scripts/port_profile.py``, two runs of each in one call)."""
+    if is_dtensor(t):
+        rows = torch.arange(t.shape[0], device=t.device) == c
+        return torch.where(rows.reshape((-1,) + (1,) * (t.dim() - 1)),
+                           v.reshape(tuple(t.shape[1:])), t)
     return t.index_copy(0, c.reshape(1),
                         v.reshape((1,) + tuple(t.shape[1:])))
 
@@ -257,11 +287,19 @@ class DeviceScaleEngine:
 
     def __init__(self, spec: FederationSpec, data, parts, *, controller,
                  aggregator, task, device=None, assign=None, state=None):
-        if spec.scale != DEVICE_SCALE:
+        if spec.scale not in (DEVICE_SCALE, GSPMD_DEVICE_SCALE):
             raise ValueError(f"DeviceScaleEngine runs scale={DEVICE_SCALE!r}"
-                             f", got {spec.scale!r}")
+                             f" or {GSPMD_DEVICE_SCALE!r}, got {spec.scale!r}")
         dev = resolve_device(device)
         self.device = dev
+        # where the fleet lives: this engine is the partitioner-inferred
+        # path, so a sharded spec resolves under impl='gspmd''s strict
+        # rules even where it defaults to shard_map (the JAX package's
+        # DeviceScaleEngine does the same); unsharded: SINGLE_DEVICE
+        self.placement = placement_lib.resolve(
+            spec.sharding, n_devices=spec.fleet.n_devices,
+            n_clusters=spec.clustering.n_clusters, device=dev,
+            impl=GSPMD_IMPL)
         self.spec = spec
         self.data = _as_data(data, dev)
         self.parts = parts
@@ -360,6 +398,54 @@ class DeviceScaleEngine:
         self.trace_retain = True
         self.obs = None
         self._on_library_load = None
+        if self.placement.is_gspmd:
+            self._commit_placement()
+
+    def _commit_placement(self) -> None:
+        """Commit the state to its leaf groups' placements (the JAX
+        package's ``shard_state``), the membership tables replicated, the
+        device ids with the device group and the scanned path's event
+        times with the cluster group; every rank's DQN net becomes rank
+        0's.  The other tables of the round stay plain tensors, which the
+        round treats as replicated (`placement.replicated_constants`)."""
+        pl = self.placement
+        self.state = pl.shard_state(self.state)
+        self._member_table = pl.distribute(self._member_table)
+        self._member_mask = pl.distribute(self._member_mask)
+        self._member_mask_f = pl.distribute(self._member_mask_f)
+        self._dev_ids = pl.distribute(self._dev_ids, pl.device_axis)
+        self._misbehaving_dev = pl.distribute(self._misbehaving_dev,
+                                              pl.device_axis)
+        self._scan_times = pl.distribute(self._scan_times, pl.cluster_axis)
+        self._share_policy()
+
+    def _share_policy(self) -> None:
+        """A DQN controller's deployed net from rank 0 to every rank (one
+        broadcast at build), so that every rank picks the same actions
+        whatever its own pretraining computed (a sharded DQN federation
+        pretrains on rank 0 alone: `api.federation._controller_params`)."""
+        agent = getattr(self.controller, "agent", None)
+        params = getattr(agent, "eval_params", None)
+        if self.placement.world_size == 1 or not isinstance(params, dict):
+            return
+        keys = sorted(params)
+        flat = torch.cat([params[k].reshape(-1).to(torch.float32)
+                          for k in keys])
+        dist.broadcast(flat, src=0, group=self.placement.group)
+        out, off = {}, 0
+        for k in keys:
+            v = params[k]
+            out[k] = flat[off:off + v.numel()].reshape(v.shape).to(v.dtype)
+            off += v.numel()
+        self.controller.restore_policy_state(out)
+
+    def _spmd(self):
+        """The context a round of the partitioner-inferred placement runs
+        in (plain tensors mixed with its DTensors are replicated); nothing
+        on one device."""
+        if self.placement.is_gspmd:
+            return placement_lib.replicated_constants()
+        return contextlib.nullcontext()
 
     @classmethod
     def from_spec(cls, spec: FederationSpec, *, controller, aggregator, task,
@@ -369,7 +455,9 @@ class DeviceScaleEngine:
         override what the engine would generate from ``spec.seed``.  A
         1-D mesh whose resolved impl is ``shard_map`` builds the
         cluster-major engine (`repro_torch.api.cluster_engine`) on this
-        rank; ``cls is`` keeps the subclasses from re-dispatching."""
+        rank; ``impl='gspmd'``, a multi-axis mesh and the ``device-gspmd``
+        scale build this engine on the partitioner-inferred placement.
+        ``cls is`` keeps the subclasses from re-dispatching."""
         if data is None or parts is None:
             data, parts = default_device_data(spec)
         if (cls is DeviceScaleEngine and spec.sharding.is_sharded
@@ -422,11 +510,12 @@ class DeviceScaleEngine:
         """Host scalars for the telemetry gauges: Eqn-12 deficit-queue
         level, Eqn-4 trust-weight (reputation) summary stats, and the
         fleet's total β (negative-interaction) tally.  One read of a small
-        reduction over `FleetState`, never part of the round."""
+        reduction over `FleetState`, never part of the round (sharded: a
+        collective, which every rank calls)."""
         st = self.state
-        vals = torch.stack([st.queue, st.rep.min(),
-                            st.rep.mean(), st.rep.max(),
-                            st.twins.beta.sum()]).tolist()
+        vals = torch.stack([whole(v) for v in (
+            st.queue, st.rep.min(), st.rep.mean(), st.rep.max(),
+            st.twins.beta.sum())]).tolist()
         return dict(zip(("queue_deficit", "reputation_min",
                          "reputation_mean", "reputation_max",
                          "twin_beta_sum"), vals))
@@ -434,16 +523,19 @@ class DeviceScaleEngine:
     @property
     def scan_times(self) -> torch.Tensor:
         """The carried per-cluster next-event times of the scanned path."""
-        return self._scan_times
+        return whole(self._scan_times)
 
     def resumable_state(self) -> dict:
         """Everything on the device a resumed run needs, as one
         checkpointable tree: the full `FleetState` (as a `FleetTree`, the
         JAX package's leaf names; the port's draws need no key) plus the
         carried per-cluster event times.  The host scalars (round counter,
-        f64 energy tally) ride in the checkpoint manifest instead."""
-        return {"fleet": fleet_tree(self.state, self.task.layout),
-                "times": self._scan_times}
+        f64 energy tally) ride in the checkpoint manifest instead.  Sharded
+        leaves are gathered whole (a collective, which every rank calls),
+        so a checkpoint moves between placements."""
+        return {"fleet": fleet_tree(self.placement.full_state(self.state),
+                                    self.task.layout),
+                "times": whole(self._scan_times)}
 
     def restore_resumable(self, tree: dict, *, rounds: int,
                           energy: float) -> None:
@@ -458,11 +550,16 @@ class DeviceScaleEngine:
         self.state = fleet
         self._scan_times = torch.as_tensor(
             tree["times"], dtype=torch.float32).to(self.device)
+        if self.placement.is_gspmd:     # re-shard (the JAX package's
+            pl = self.placement         # shard_state on restore)
+            self.state = pl.shard_state(self.state)
+            self._scan_times = pl.distribute(self._scan_times,
+                                             pl.cluster_axis)
         self._rounds = int(rounds)
         self._energy_used = float(energy)
         sync_queue = getattr(self.controller, "sync_queue", None)
         if sync_queue is not None:      # host controller adopts the
-            sync_queue(self.state.queue)  # restored Eqn-12 backlog
+            sync_queue(whole(self.state.queue))  # restored Eqn-12 backlog
 
     @property
     def round(self) -> int:
@@ -479,7 +576,8 @@ class DeviceScaleEngine:
 
     @property
     def rep(self) -> torch.Tensor:
-        return self.state.rep
+        """The reputations, whole (sharded: a collective)."""
+        return whole(self.state.rep)
 
     # ------------------------------------------------------------------ #
     # randomness
@@ -534,13 +632,38 @@ class DeviceScaleEngine:
 
         It is `_round_choice`, the one read of ``a`` back to the host, the
         draws and `_round_apply`; a population runs the two halves over
-        all its members and reads the largest ``a`` in between."""
-        members, mask, mask_f = self._round_members(c, members, mask)
-        a = self._round_choice(state, c, a_raw)
-        steps = int(a)              # the round's one read back to the host
-        draws = self.draws(state, members)
-        return self._round_apply(state, c, a, steps, members, mask, mask_f,
-                                 draws)
+        all its members and reads the largest ``a`` in between.
+
+        On the partitioner-inferred placement the same code runs on the
+        state's DTensors: DTensor's propagation gathers what a step needs
+        (the members' rows of the device group, the cluster model), and
+        the new state and the metrics go back to their at-rest placements
+        (the JAX package's ``out_shardings``)."""
+        with self._spmd():
+            members, mask, mask_f = self._round_members(c, members, mask)
+            a = self._round_choice(state, c, a_raw)
+            steps = int(whole(a))   # the round's one read back to the host
+            draws = self._round_draws(state, members)
+            new_state, metrics = self._round_apply(
+                state, c, a, steps, members, mask, mask_f, draws)
+            if self.placement.is_gspmd:
+                pl = self.placement
+                new_state = pl.pin_state(new_state)
+                metrics = {k: pl.pin(v) for k, v in metrics.items()}
+        return new_state, metrics
+
+    def _round_draws(self, state: FleetState, members) -> "RoundDraws":
+        """The round's draws.  Injected draws (the parity tests' JAX draws)
+        read whole tensors: on the partitioner-inferred placement they get
+        the round, the channel and the model width of the whole state and
+        the members' ids, and return plain tensors, which the round treats
+        as replicated."""
+        if not self.placement.is_gspmd or self.draws == self._own_draws:
+            return self.draws(state, members)
+        view = types.SimpleNamespace(round=whole(state.round),
+                                     channel=whole(state.channel),
+                                     global_flat=whole(state.global_flat))
+        return self.draws(view, whole(members))
 
     def _round_members(self, c, members=None, mask=None):
         """(member ids, bool mask, float mask) of cluster ``c``'s round:
@@ -764,16 +887,19 @@ class DeviceScaleEngine:
 
     def _lazy_obs(self, state: FleetState, c: torch.Tensor, feats=None):
         def obs():
-            f = feats if feats is not None else self._ctl_features(state, c)
-            return self._scan_obs(state, c, f)
+            with self._spmd():
+                f = (feats if feats is not None
+                     else self._ctl_features(state, c))
+                return whole(self._scan_obs(state, c, f))
         return obs
 
     def _ctx(self, c: int) -> ControllerCtx:
         cidx = self._cidx[c]
-        f = self._ctl_features(self.state, cidx)
-        loss, freq, mean_freq, good = torch.stack(
-            [f["cluster_loss"], f["cluster_freq"], f["mean_freq"],
-             f["channel_good_frac"]]).tolist()
+        with self._spmd():
+            f = self._ctl_features(self.state, cidx)
+            loss, freq, mean_freq, good = whole(torch.stack(
+                [f["cluster_loss"], f["cluster_freq"], f["mean_freq"],
+                 f["channel_good_frac"]])).tolist()
         return ControllerCtx(round=self._rounds, cluster=c,
                              obs=self._lazy_obs(self.state, cidx, f),
                              cluster_loss=loss, cluster_freq=freq,
@@ -817,7 +943,8 @@ class DeviceScaleEngine:
         no_obs = torch.zeros((OBS_DIM,), device=self.device)
         rows = []
         # the round span fences on the rows the segment reads back anyway
-        with self._obs_span("round", mode="scanned", rounds=int(K)) as sp:
+        with self._obs_span("round", mode="scanned", rounds=int(K)) as sp, \
+                self._spmd():
             for _ in range(int(K)):
                 c = torch.argmin(times)
                 t = _row(times, c)
@@ -831,14 +958,19 @@ class DeviceScaleEngine:
                     energy_used=energy,
                     dqn_obs=(self._scan_obs(state, c, feats)
                              if pol.needs_obs else no_obs))
-                a_raw, ctl = pol.step(ctl, cobs)
+                # the controller runs on every rank's whole copy of its
+                # (replicated) inputs
+                a_raw, ctl = pol.step(ctl, cobs._make(map(whole, cobs)))
                 state, m = self._fleet_round(state, c, a_raw)
                 times = _with_row(times, c, t + m["dur"])
                 energy = energy + m["consumed"]
                 rows.append(torch.stack([t, c.to(torch.float32),
                                          m["a"].to(torch.float32), m["dur"],
                                          m["consumed"], m["loss"]]))
-            ys = torch.stack(rows)
+            ys = whole(torch.stack(rows))
+            if self.placement.is_gspmd:     # the carry's at-rest placement
+                times = self.placement.pin(times,
+                                           self.placement.cluster_axis)
             if sp is not None:
                 sp.mark("dispatch")
                 fence(ys)
@@ -862,8 +994,8 @@ class DeviceScaleEngine:
             self._energy_used += float(ci)
             cum.append(self._energy_used)
         sync_queue = getattr(self.controller, "sync_queue", None)
-        if sync_queue is not None:          # host controller adopts the
-            sync_queue(self.state.queue)    # device-resident backlog
+        if sync_queue is not None:            # host controller adopts the
+            sync_queue(whole(self.state.queue))  # device-resident backlog
         if self.obs is not None:
             self.obs.on_segment(ys, K, engine=self)
         trace = self._new_trace()
@@ -875,7 +1007,8 @@ class DeviceScaleEngine:
                 agg_count=base + i + 1))
         if eval_final and K:
             with self._obs_span("eval"):
-                ev = self.task.evaluate(self.state.global_flat, self.data)
+                ev = self.task.evaluate(whole(self.state.global_flat),
+                                        self.data)
             if self.obs is not None:
                 self.obs.on_eval(ev["loss"], ev["acc"])
             trace.append(RoundRecord(
@@ -914,9 +1047,9 @@ class DeviceScaleEngine:
                                               a_raw, *exact)
             self._rounds += 1
             done += 1
-            a, dur, consumed, loss = torch.stack(
+            a, dur, consumed, loss = whole(torch.stack(
                 [m["a"].to(torch.float32), m["dur"], m["consumed"],
-                 m["loss"]]).tolist()
+                 m["loss"]])).tolist()
             self._energy_used += consumed
             self.controller.observe(None, consumed, loss)
             if self.obs is not None:
@@ -925,7 +1058,7 @@ class DeviceScaleEngine:
             heapq.heappush(events, (t + dur, c))
             if t >= next_eval:
                 with self._obs_span("eval"):
-                    ev = self.task.evaluate(self.state.global_flat,
+                    ev = self.task.evaluate(whole(self.state.global_flat),
                                             self.data)
                 if self.obs is not None:
                     self.obs.on_eval(ev["loss"], ev["acc"])
@@ -1057,5 +1190,13 @@ class DatacenterEngine:
             "is already a fixed-shape jit step per round); use run()")
 
 
+class DeviceScaleGspmdEngine(DeviceScaleEngine):
+    """The partitioner-inferred path, pinned: ``scale='device-gspmd'`` runs
+    `DeviceScaleEngine` itself even where a 1-D mesh would resolve to the
+    cluster-major engine (the JAX package's ``DeviceScaleGspmdEngine``;
+    the per-spec equivalent is ``ShardingSpec.impl='gspmd'``)."""
+
+
 register_engine(DEVICE_SCALE)(DeviceScaleEngine)
+register_engine(GSPMD_DEVICE_SCALE)(DeviceScaleGspmdEngine)
 register_engine(DATACENTER_SCALE)(DatacenterEngine)

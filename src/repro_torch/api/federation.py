@@ -66,9 +66,9 @@ class Federation:
 
 def _controller_params(spec: FederationSpec) -> dict:
     """The controller's parameters on this process.  A sharded DQN
-    federation pretrains on rank 0 alone: the cluster-major engine hands
-    rank 0's net to every rank by one broadcast at build
-    (`ClusterMajorEngine._share_policy`), so the other ranks start from
+    federation pretrains on rank 0 alone: both sharded engines hand rank
+    0's net to every rank by one broadcast at build
+    (`DeviceScaleEngine._share_policy`), so the other ranks start from
     the untrained agent and skip the pretraining."""
     params = spec.controller.params
     if (spec.controller.kind == "dqn" and spec.sharding.is_sharded

@@ -10,17 +10,19 @@ registered preset returning a `FederationSpec`; flags override the common
 fields, and ``--spec-json`` dumps the resolved spec (the config-file
 round-trip format) instead of running.  ``--device`` picks where it runs:
 the card by default, ``cpu`` for the plain versions of the kernels.  A
-spec the port does not run yet (``--mesh 4x2``, ``--impl gspmd``) exits
-with code 2, naming its ROADMAP item, as does a spec the JAX package's
-checks reject (a datacenter spec with DP or a robust rule).  ``lm-modeA``
-trains the tiny LM of the datacenter scale (``--rounds`` sets its rounds).
+spec the JAX package's checks reject (a datacenter spec with DP or a
+robust rule) exits with code 2.  ``lm-modeA`` trains the tiny LM of the
+datacenter scale (``--rounds`` sets its rounds).
 
 ``--mesh G`` (and the ``adaptive-scanned-sharded`` preset, G = 8) runs
-the cluster-major engine over G ranks, one shard a rank: launch the CLI
-G times under the ``REPRO_DIST_*`` env contract
+the cluster-major engine over G ranks, one shard a rank; ``--mesh 2x2``
+(any multi-axis mesh) and ``--impl gspmd`` run the partitioner-inferred
+placement through DTensor over as many ranks as the mesh has shards.
+Launch the CLI that many times under the ``REPRO_DIST_*`` env contract
 (`repro_torch.launch.distributed.spawn_local`); rank 0 alone prints the
 trace and writes ``--trace-out``.  Outside such a launch it exits with
-code 2 and the placement's message.
+code 2 and the placement's message, as it does for a gspmd mesh whose
+ranks share a card.
 """
 from __future__ import annotations
 
@@ -52,14 +54,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--eval-every", type=float, default=3.0)
     ap.add_argument("--aggregator", default=None)
     ap.add_argument("--mesh", default=None,
-                    help="mesh shape sharding the fleet, e.g. '8' (needs "
-                         "that many ranks under the REPRO_DIST_* env; "
-                         "multi-axis meshes are not ported: ROADMAP.md, "
-                         "queue 1, item 9)")
+                    help="mesh shape sharding the fleet, e.g. '8' or '2x2' "
+                         "(needs as many ranks as shards under the "
+                         "REPRO_DIST_* env)")
     ap.add_argument("--impl", default=None, choices=["shard_map", "gspmd"],
                     help="sharded execution implementation for --mesh "
-                         "(default: shard_map on 1-D meshes; gspmd is not "
-                         "ported)")
+                         "(default: shard_map on 1-D meshes, gspmd on "
+                         "multi-axis meshes)")
     ap.add_argument("--device", default=None,
                     help="where to run: the card by default, 'cpu' for "
                          "the plain versions of the kernels")
@@ -127,9 +128,10 @@ def main(argv=None) -> int:
         f"aggregator={spec.aggregator.kind}")
     try:
         fed = Federation.from_spec(spec, device=args.device)
-    except (KeyError, ValueError) as e:
+    except (KeyError, ValueError, RuntimeError) as e:
         # component and placement resolution failures (a mesh outside a
-        # launch of as many ranks) are config errors, not tracebacks
+        # launch of as many ranks, a gspmd mesh whose ranks share a card)
+        # are config errors, not tracebacks
         return _config_error(e)
     trace = fed.run(eval_every=args.eval_every)
     if not lead:

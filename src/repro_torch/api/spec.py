@@ -4,9 +4,8 @@ A copy of the JAX package's ``repro.api.spec``: every dataclass keeps every
 field and default, and `to_dict` / `from_dict` use the same plain dicts, so
 a spec written by either package builds in the other.  Only `validate`
 differs: it raises `NotImplementedError`, naming the ROADMAP item that will
-port it, for what the port does not run yet (the partitioner-inferred
-placements: ``impl='gspmd'``, the ``device-gspmd`` scale and multi-axis
-meshes), before the JAX package's checks.
+port it, for what the port does not run yet (a scale without an engine),
+before the JAX package's checks.
 """
 from __future__ import annotations
 
@@ -21,6 +20,9 @@ from . import registry
 
 DEVICE_SCALE = "device"          # discrete-event simulator over the MLP task
 DATACENTER_SCALE = "datacenter"  # sharded fl_step modes over the LM task
+# the partitioner-inferred device-scale engine, pinned: a 1-D mesh runs
+# `DeviceScaleEngine` itself instead of the cluster-major engine
+GSPMD_DEVICE_SCALE = "device-gspmd"
 
 # default axis names by mesh rank: 1-D meshes shard the fleet's device dim;
 # 2-D meshes put the cluster stack on the leading axis
@@ -28,7 +30,7 @@ _DEFAULT_AXES = {1: ("fleet",), 2: ("cluster", "fleet")}
 
 # sharded execution implementations (`ShardingSpec.impl`)
 SHARD_MAP_IMPL = "shard_map"    # explicit per-shard round, cluster-major
-GSPMD_IMPL = "gspmd"            # inferred collectives (not ported)
+GSPMD_IMPL = "gspmd"            # DTensor placements, inferred collectives
 
 _QUEUE = "ROADMAP.md, queue 1"
 
@@ -38,26 +40,19 @@ def unported(spec: "FederationSpec") -> Optional[str]:
     ports it; None when the port runs all of it.  The port runs the
     device scale with every aggregator (trust, fedavg and the robust
     rules), controller and task, differential privacy and every fault
-    family, on one device or, on a 1-D mesh with ``impl='shard_map'``, as
-    the cluster-major engine over one ``torch.distributed`` rank a shard;
-    and the datacenter scale's LM training of every kind of model (dense,
-    hybrid, SSM, MoE, MLA and audio).  It does not run the
-    partitioner-inferred placements (``impl='gspmd'``, which multi-axis
-    meshes resolve to, and the ``device-gspmd`` scale).  A sharded
-    datacenter spec is left to `FederationSpec.validate`, which rejects it
-    as the JAX package does."""
-    if spec.scale not in (DEVICE_SCALE, DATACENTER_SCALE):
-        return (f"scale {spec.scale!r} (multi-device engines, {_QUEUE}, "
-                "item 9)")
-    if spec.sharding.is_sharded and spec.scale == DEVICE_SCALE:
-        try:
-            impl = spec.sharding.resolved_impl()
-        except ValueError:          # an unknown impl: validate() says so
-            return None
-        if impl == GSPMD_IMPL:
-            return (f"impl='gspmd' on mesh {spec.sharding.mesh} (the "
-                    "partitioner-inferred placement and multi-axis meshes, "
-                    f"through DTensor; multi-device, {_QUEUE}, item 9)")
+    family, on one device or on a mesh of ``torch.distributed`` ranks, one
+    shard a rank: the cluster-major engine (``impl='shard_map'``, 1-D
+    meshes) or the partitioner-inferred placement through DTensor
+    (``impl='gspmd'``, every multi-axis mesh, and the ``device-gspmd``
+    scale); and the datacenter scale's LM training of every kind of model
+    (dense, hybrid, SSM, MoE, MLA and audio).  A sharded datacenter spec
+    is left to `FederationSpec.validate`, which rejects it as the JAX
+    package does."""
+    if spec.scale not in (DEVICE_SCALE, GSPMD_DEVICE_SCALE,
+                          DATACENTER_SCALE):
+        return (f"scale {spec.scale!r} (the port has engines for the JAX "
+                f"package's {DEVICE_SCALE!r}, {GSPMD_DEVICE_SCALE!r} and "
+                f"{DATACENTER_SCALE!r} scales; {_QUEUE})")
     return None
 
 
@@ -87,8 +82,14 @@ class ShardingSpec:
                     global average.  1-D meshes only.  Arbitrary
                     (n_devices, n_clusters) run on any shard count: the
                     engine pads with masked sentinel devices and clusters.
-      "gspmd"       the JAX package's partitioner-inferred placement; not
-                    ported (ROADMAP.md, queue 1, item 9).
+      "gspmd"       the JAX package's partitioner-inferred placement,
+                    `DeviceScaleEngine` itself: the FleetState leaves are
+                    DTensors on a ``DeviceMesh`` of the mesh's shape and
+                    axis names (``Shard(0)`` of each leaf group on its
+                    axis, ``Replicate()`` elsewhere), DTensor's sharding
+                    propagation infers a round's collectives, and the
+                    round's outputs go back to those placements.  Any
+                    mesh rank; each group's axis must divide its dim.
       None          (default) "shard_map" for 1-D meshes, "gspmd" for 2-D.
     """
     mesh: Tuple[int, ...] = ()
@@ -293,7 +294,8 @@ class FederationSpec:
                     "autoencoder-anomaly": DEVICE_SCALE,
                     "lm": DATACENTER_SCALE}
         want = scale_of.get(self.task.kind)
-        if want is not None and want != self.scale:
+        if (want is not None and want != self.scale
+                and self.scale in (DEVICE_SCALE, DATACENTER_SCALE)):
             fit = "lm" if self.scale == DATACENTER_SCALE else "mlp"
             raise ValueError(
                 f"task {self.task.kind!r} is {want}-scale but spec has "

@@ -83,3 +83,25 @@ def _per_member(single, batched):
 
 gram.register_vmap(_per_member(gram, gram_pop))
 row_sq_sum.register_vmap(_per_member(row_sq_sum, row_sq_sum_pop))
+
+
+# DTensor sharding rule: under the partitioner-inferred placement
+# (`repro_torch.api.placement`, ``impl='gspmd'``) the members' rows are
+# replicated and each rank computes the whole product on its local tensor.
+# Registered on first use of that placement.
+_dtensor_rules = []
+
+
+def register_dtensor_rules() -> None:
+    """Register `gram`'s and `row_sq_sum`'s DTensor sharding rule (once)."""
+    if _dtensor_rules:
+        return
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding([torch.ops.repro_torch.gram.default,
+                        torch.ops.repro_torch.row_sq_sum.default])
+    def _replicated(x):
+        return [([Replicate()], [Replicate()])]
+
+    _dtensor_rules.append(_replicated)

@@ -74,8 +74,10 @@ def _middle_mean(s: torch.Tensor, n) -> torch.Tensor:
     """The mean of ranks (n-1)//2 and n//2 of the sorted (C, N) ``s``:
     the median of its first n rows (``n`` an int or a 0-d int64 tensor)."""
     n = torch.as_tensor(n, dtype=torch.int64, device=s.device).reshape(1)
-    lo = s.index_select(0, (n - 1) // 2)[0]
-    hi = s.index_select(0, n // 2)[0]
+    # halved by a shift (n >= 1), which DTensor takes in every PyTorch
+    # version the port runs on (``//`` it does not)
+    lo = s.index_select(0, torch.bitwise_right_shift(n - 1, 1))[0]
+    hi = s.index_select(0, torch.bitwise_right_shift(n, 1))[0]
     return 0.5 * (lo + hi)
 
 

@@ -15,6 +15,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.device import is_dtensor
+
 
 @dataclasses.dataclass
 class TwinState:
@@ -44,7 +46,25 @@ def take(x: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
 def put(x: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor
         ) -> torch.Tensor:
     """A copy of ``x`` with ``x[idx] = vals``; writes to the sentinel
-    ``len(x)`` are dropped."""
+    ``len(x)`` are dropped.  The ids in ``idx`` other than the sentinel are
+    distinct.
+
+    A DTensor ``x`` (the partitioner-inferred placement) takes the same
+    values by a comparison, a gather and a select, which keep its rows
+    where they are (DTensor has no sharding strategy for an in-place
+    ``index_put_`` in every PyTorch version the port runs on).  A plain
+    ``x`` keeps the ``index_put_``, which dispatches fewer ops to the card
+    in a host-bound round (the select forms cost the unsharded round 17-36 %
+    of its rounds/s: `repro_torch.api.engine._with_row`)."""
+    if is_dtensor(x):
+        n, m = x.shape[0], idx.shape[0]
+        hit = torch.arange(n, device=x.device)[:, None] == idx[None, :]
+        slot = torch.where(hit, torch.arange(m, device=x.device)[None, :],
+                           m).min(dim=1).values        # m: no write
+        pad = x.new_zeros((1,) + tuple(x.shape[1:]))
+        got = torch.cat([vals.to(x.dtype), pad])[slot]
+        keep = (slot < m).reshape((n,) + (1,) * (x.dim() - 1))
+        return torch.where(keep, got, x)
     buf = torch.cat([x, x[:1]])
     buf[idx] = vals.to(x.dtype)
     return buf[:-1]

@@ -1,7 +1,17 @@
 """The device an entry point of the port runs on."""
 from __future__ import annotations
 
+import sys
+
 import torch
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor, the partitioner-inferred placement's
+    tensors (nothing is before DTensor's module is loaded, so this costs
+    no import)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -321,6 +321,35 @@ def _aggregate_global_vmap(info, in_dims, *args):
                                       c.reshape(size)), 0
 
 
+# DTensor sharding rules: under the partitioner-inferred placement
+# (`repro_torch.api.placement`, ``impl='gspmd'``) each operator takes its
+# inputs replicated and launches its kernel on every rank's local tensors,
+# whose result is the replicated output.  (Eqns 6 and 19 sum over rows, so
+# a column-sharded strategy would be exact too; no round produces such
+# inputs.)  Registered on first use of that placement, so that importing
+# this module does not load DTensor.
+_dtensor_rules = []
+
+
+def register_dtensor_rules() -> None:
+    """Register the operators' DTensor sharding rules (once)."""
+    if _dtensor_rules:
+        return
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.trust_aggregate.default)
+    def _aggregate_sharding(params_flat, weights, mask):
+        return [([Replicate()], [Replicate(), Replicate(),
+                                 None if mask is None else Replicate()])]
+
+    @register_sharding(torch.ops.repro_torch.trust_aggregate_global.default)
+    def _aggregate_global_sharding(*args):
+        return [([Replicate()], [Replicate()] * len(args))]
+
+    _dtensor_rules.extend([_aggregate_sharding, _aggregate_global_sharding])
+
+
 def trust_aggregate(params_flat: torch.Tensor, weights: torch.Tensor,
                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(C, N) x (C,) -> (N,): sum over c of w_c * m_c * x[c, :].

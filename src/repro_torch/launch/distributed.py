@@ -1,9 +1,11 @@
 """`torch.distributed` bring-up: one process a shard.
 
-Every rank runs the *same* program and owns exactly one shard of a 1-D
+Every rank runs the *same* program and owns exactly one shard of the
 mesh, so the mesh's extent is the world size.  The cluster-major round's
-two SUM all-reduces (`repro_torch.api.cluster_engine`) run as real
-cross-process collectives.
+two SUM all-reduces (`repro_torch.api.cluster_engine`) and the
+collectives DTensor infers for the partitioner-inferred placement (over
+the `device_mesh` of the job's ranks) run as real cross-process
+collectives.
 
     # parent: spawn 2 ranks of this very script
     from repro_torch.launch.distributed import spawn_local
@@ -22,8 +24,10 @@ The backend follows one rule, logged at start: ``nccl`` when every rank
 has a card of its own (CUDA and at least as many cards as ranks; rank r
 takes card r), ``gloo`` on the CPU and when ranks share a card (gloo
 carries ``all_reduce`` and ``broadcast`` of CUDA tensors; NCCL refuses
-two ranks on one card).  A failed start raises; nothing falls back to
-another backend.
+two ranks on one card; DTensor's all-gather of CUDA tensors over gloo
+ends the process with a segfault, so the partitioner-inferred placement
+refuses ranks that share a card: `repro_torch.api.placement`).  A failed
+start raises; nothing falls back to another backend.
 """
 from __future__ import annotations
 
@@ -63,11 +67,12 @@ def initialize_from_env(device=None,
     """Join the process group described by the ``REPRO_DIST_*`` env.
 
     No-op (returns None) when ``REPRO_DIST_COORD`` is unset, so an entry
-    point can call it unconditionally and still run as one process.
-    Otherwise returns the rank after ``init_process_group`` with the
-    backend of `backend_for` on ``device`` (the card unless the caller asks
-    for the CPU), the given collective timeout, and, under ``nccl``, card
-    ``rank`` as the current device."""
+    point can call it unconditionally and still run as one process, and
+    (returns the rank) when this process has joined its group already, so
+    a rank can run several entry points.  Otherwise returns the rank after
+    ``init_process_group`` with the backend of `backend_for` on ``device``
+    (the card unless the caller asks for the CPU), the given collective
+    timeout, and, under ``nccl``, card ``rank`` as the current device."""
     coord = os.environ.get(ENV_COORD)
     if coord is None:
         return None
@@ -82,6 +87,8 @@ def initialize_from_env(device=None,
             f"{ENV_LOCAL}={local}: a rank of the port owns exactly one "
             f"shard, so the mesh's extent is the world size; launch "
             f"{nproc * local} ranks with {ENV_LOCAL}=1 instead")
+    if dist.is_initialized():
+        return dist.get_rank()
     dev = torch.device("cuda" if device is None else device)
     backend = backend_for(dev, nproc)
     if backend == "nccl":
@@ -93,6 +100,27 @@ def initialize_from_env(device=None,
         backend, init_method=f"tcp://{coord}", world_size=nproc, rank=pid,
         timeout=datetime.timedelta(seconds=float(timeout)))
     return pid
+
+
+def device_mesh(shape: Sequence[int], axes: Sequence[str], device):
+    """The ``torch.distributed`` `DeviceMesh` of ``shape`` over the job's
+    process group (which must exist and hold ``prod(shape)`` ranks), its
+    dims named ``axes``; rank ``r`` sits at the row-major position ``r``.
+    It is built on ``device`` itself: a CUDA device is made current first,
+    so the mesh does not guess a card from the rank (ranks that share a
+    card all stay on it).  Each mesh dim's group takes the job's backend
+    (`backend_for`'s rule)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(torch.cuda.current_device()
+                              if dev.index is None else dev.index)
+    ranks = torch.arange(dist.get_world_size(), dtype=torch.int)
+    return DeviceMesh(dev.type, ranks.reshape(tuple(shape)),
+                      mesh_dim_names=tuple(axes))
 
 
 def free_port() -> int:
@@ -117,7 +145,8 @@ def spawn_local(argv: Sequence[str], n_procs: int = 2,
     caller asserts on the return codes and parses what the ranks printed.
     The first rank to exit non-zero ends the job: the others, which would
     wait in a collective, are killed at once.  Past ``timeout`` seconds
-    every rank is killed and `subprocess.TimeoutExpired` raised."""
+    every rank is killed and `subprocess.TimeoutExpired` raised, its
+    ``stderr`` the end of each rank's standard error."""
     coord = coordinator or f"127.0.0.1:{free_port()}"
     base = dict(os.environ if env is None else env)
     with tempfile.TemporaryDirectory(prefix="repro_dist_") as tmp:
@@ -141,8 +170,15 @@ def spawn_local(argv: Sequence[str], n_procs: int = 2,
                 if any(c not in (None, 0) for c in codes):
                     break                   # a rank failed: end the job
                 if time.monotonic() > deadline:
+                    # each rank's last words, to show where it waited
+                    tails = []
+                    for pid, (_, err) in enumerate(files):
+                        err.flush()
+                        err.seek(0)
+                        tails.append(f"rank {pid}: {err.read()[-2000:]}")
                     raise subprocess.TimeoutExpired(
-                        [sys.executable, *argv], timeout)
+                        [sys.executable, *argv], timeout,
+                        stderr="\n".join(tails))
                 time.sleep(0.05)
         finally:
             for p in procs:

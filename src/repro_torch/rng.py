@@ -38,20 +38,26 @@ ROLLOUT = 15
 
 _M32 = 0xFFFFFFFF
 
+# the shifts are the named functions, not ``>>`` / ``<<``: DTensor (the
+# partitioner-inferred placement) returns its input unchanged for the
+# operators' ``aten.__rshift__.Scalar``; the functions give the same bits
+_shr = torch.bitwise_right_shift
+_shl = torch.bitwise_left_shift
+
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     """(x * c) mod 2^32 for x in [0, 2^32) without int64 overflow."""
     lo = x & 0xFFFF
-    hi = x >> 16
-    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _M32
+    hi = _shr(x, 16)
+    return (lo * c + _shl((hi * c) & 0xFFFF, 16)) & _M32
 
 
 def _fmix32(h: torch.Tensor) -> torch.Tensor:
-    h = h ^ (h >> 16)
+    h = h ^ _shr(h, 16)
     h = _mul32(h, 0x85EBCA6B)
-    h = h ^ (h >> 13)
+    h = h ^ _shr(h, 13)
     h = _mul32(h, 0xC2B2AE35)
-    return h ^ (h >> 16)
+    return h ^ _shr(h, 16)
 
 
 def _combine(h: torch.Tensor, v) -> torch.Tensor:
@@ -82,7 +88,7 @@ def hash32(seed, round_, stream: int, dev, index) -> torch.Tensor:
 
 def uniform(seed, round_, stream: int, dev, index) -> torch.Tensor:
     """Float32 uniforms in [0, 1) with 24 random bits each."""
-    return (hash32(seed, round_, stream, dev, index) >> 8).to(
+    return _shr(hash32(seed, round_, stream, dev, index), 8).to(
         torch.float32) * (1.0 / (1 << 24))
 
 

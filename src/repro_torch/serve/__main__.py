@@ -14,8 +14,8 @@ codes and run dirs, plus ``--device``).
 ``--device`` (``start``, ``resume``, ``chaos``) picks where the federation
 runs: ``cuda`` by default, ``cpu`` for the plain versions of the kernels;
 without a card, only ``--device cpu`` runs.  A scenario or spec the port
-does not run yet (a sharded population among them) exits with code 2
-naming its ROADMAP item.
+does not run yet (a sharded spec or population among them) exits with
+code 2 naming its ROADMAP item.
 
 ``pool start|resume|status|stop`` drive a population of federations in
 one process (`pool.run_pool`) into per-member run dirs, with the same
@@ -211,7 +211,8 @@ def build_parser() -> argparse.ArgumentParser:
 def _resolve_spec(args):
     from repro_torch.api import scenarios  # noqa: F401  (SCENARIOS)
     from repro_torch.api.registry import SCENARIOS
-    from repro_torch.api.spec import DEVICE_SCALE, FederationSpec
+    from repro_torch.api.spec import (DEVICE_SCALE, GSPMD_DEVICE_SCALE,
+                                      FederationSpec)
     if args.spec_file:
         with open(args.spec_file) as f:
             spec = FederationSpec.from_dict(json.load(f))
@@ -220,7 +221,12 @@ def _resolve_spec(args):
     if args.seed is not None:
         spec = spec.replace(seed=args.seed)
     spec.validate()
-    if spec.scale != DEVICE_SCALE:
+    if spec.sharding.is_sharded:
+        # a segment's checkpoint would be every rank's shard of it
+        raise NotImplementedError(
+            f"not ported yet: a sharded service (mesh {spec.sharding.mesh}; "
+            "multi-device, ROADMAP.md, queue 1, item 9)")
+    if spec.scale not in (DEVICE_SCALE, GSPMD_DEVICE_SCALE):
         # a segment is run_scanned(K), which only the device scale has
         raise NotImplementedError(
             f"not ported yet: the service mode of the {spec.scale!r} scale "

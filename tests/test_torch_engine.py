@@ -269,18 +269,24 @@ def test_spec_dict_and_trace_jsonl_roundtrip_across_packages(needs_jax,
 
 
 @pytest.mark.parametrize("change", [
-    # a 1-D shard_map mesh runs since the multi-device slice; the
-    # partitioner-inferred placement is not ported
-    {"sharding": {"mesh": [2], "impl": "gspmd"}},
-    # nor its scale (the datacenter scale trains every kind of model, MoE,
-    # MLA and audio included)
+    # the partitioner-inferred placement runs since its slice: mesh (2,)
+    # under a 2-rank launch (tests/test_torch_gspmd.py), mesh (1,) here
+    {"sharding": {"mesh": [1], "impl": "gspmd"}},
+    # and its scale
     {"scale": "device-gspmd"},
 ])
-def test_unported_features_raise(change):
+def test_gspmd_specs_build_and_run(change):
+    """Both specs the port refused before its partitioner-inferred
+    placement build and run to the unsharded engine's records."""
     d = spec_dict(FIXED)
     d.update(change)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tapi.Federation.from_dict(d, device="cpu")
+    fed = tapi.Federation.from_dict(d, device="cpu")
+    assert type(fed.engine).__name__ == (
+        "DeviceScaleGspmdEngine" if "scale" in change
+        else "DeviceScaleEngine")
+    ref = tapi.Federation.from_dict(spec_dict(FIXED), device="cpu")
+    assert fed.run(eval_every=0.0, max_rounds=3).to_dicts() == \
+        ref.run(eval_every=0.0, max_rounds=3).to_dicts()
 
 
 @pytest.mark.parametrize("change", [

@@ -292,15 +292,18 @@ def test_cli_runs_each_runnable_preset(scenario, capsys):
 
 @pytest.mark.parametrize("argv,item", [
     # a 1-D mesh runs under a launch of as many ranks since the
-    # multi-device slice (tests/test_torch_placement.py); the
-    # partitioner-inferred placement is still item 9
+    # multi-device slice (tests/test_torch_placement.py), a multi-axis mesh
+    # since the partitioner-inferred placement was ported
+    # (tests/test_torch_gspmd.py): one that does not divide the clusters
+    # exits 2 with the JAX package's message, one outside a launch with
+    # the placement's
     (["--scenario", "adaptive-scanned-sharded", "--mesh", "8x1"],
-     "item 9"),
+     "does not divide"),
     # lm-modeA runs since the LM training slice; a datacenter spec with a
     # robust rule exits 2 with the JAX package's message
     (["--scenario", "lm-modeA", "--aggregator", "krum"],
      "not supported at datacenter scale"),
-    (["--scenario", "dp", "--mesh", "4x2"], "item 9"),
+    (["--scenario", "dp", "--mesh", "4x2"], "spawn_local"),
     (["--scenario", "nope"], "unknown scenario"),
     (["--scenario", "dp", "--aggregator", "nope"], "unknown aggregator"),
     (["--scenario", "faulty-fleet", "--aggregator", "krum"],

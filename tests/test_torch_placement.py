@@ -98,13 +98,7 @@ def test_sharding_spec_dict_roundtrip(needs_jax):
      ValueError, "not a mesh axis"),
     ({"sharding": {"mesh": [4, 2], "impl": "shard_map"}}, ValueError,
      "runs on 1-D meshes"),
-    # what the port does not run yet names its item
-    ({"sharding": {"mesh": [2], "impl": "gspmd"}}, NotImplementedError,
-     "queue 1, item 9"),
-    ({"sharding": {"mesh": [4, 2]}}, NotImplementedError, "queue 1, item 9"),
-    ({"scale": "device-gspmd"}, NotImplementedError, "queue 1, item 9"),
-], ids=["datacenter", "device-axis", "shard-map-2d", "gspmd", "two-axes",
-        "gspmd-scale"])
+], ids=["datacenter", "device-axis", "shard-map-2d"])
 def test_federation_spec_sharding_checks(change, error, match):
     d = FederationSpec().to_dict()
     d.update(change)
@@ -113,6 +107,43 @@ def test_federation_spec_sharding_checks(change, error, match):
     if jspec is not None and error is ValueError:
         with pytest.raises(ValueError, match=match):
             jspec.FederationSpec.from_dict(d).validate()
+
+
+@pytest.mark.parametrize("change,ranks", [
+    # refused (NotImplementedError) before the partitioner-inferred
+    # placement was ported; now each validates as the JAX package's does
+    # and builds: outside a launch of as many ranks as the mesh has shards
+    # with the placement's message, a one-shard one here, and mesh (2,) /
+    # (2, 2) under launches in tests/test_torch_gspmd.py
+    ({"sharding": {"mesh": [2], "impl": "gspmd"}}, 2),
+    ({"sharding": {"mesh": [4, 2]}}, 8),
+    ({"scale": "device-gspmd"}, 0),
+], ids=["gspmd", "two-axes", "gspmd-scale"])
+def test_gspmd_specs_validate_and_build(change, ranks):
+    d = FederationSpec(controller=tapi_fixed()).to_dict()
+    d.update(change)
+    d["fleet"]["n_devices"] = 8
+    d["task"]["params"] = {"n_samples": 256, "dim": 16, "hidden": 8}
+    spec = FederationSpec.from_dict(d).validate()
+    if jspec is not None:
+        jspec.FederationSpec.from_dict(d).validate()
+    from repro_torch.api import Federation
+    if ranks > 1:
+        if not torch.distributed.is_initialized():
+            with pytest.raises(ValueError, match=f"needs {ranks} ranks"):
+                Federation.from_spec(spec, device="cpu")
+        one = {**d, "sharding": {**d["sharding"],
+                                 "mesh": [1] * len(d["sharding"]["mesh"])}}
+        spec = FederationSpec.from_dict(one).validate()
+    fed = Federation.from_spec(spec, device="cpu")
+    assert type(fed.engine).__name__ in ("DeviceScaleEngine",
+                                         "DeviceScaleGspmdEngine")
+    assert len(fed.run(eval_every=0.0, max_rounds=2).records) == 2
+
+
+def tapi_fixed():
+    from repro_torch.api import ControllerSpec
+    return ControllerSpec("fixed", {"a": 2})
 
 
 def test_one_dimensional_mesh_validates():
@@ -143,9 +174,11 @@ def test_resolve_placement():
     with pytest.raises(ValueError, match="rank 0 of 1.*spawn_local"):
         placement.resolve(ShardingSpec(mesh=(2,)), n_devices=16,
                           n_clusters=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        placement.resolve(ShardingSpec(mesh=(1,), impl="gspmd"),
-                          n_devices=16, n_clusters=4, device="cpu")
+    # impl='gspmd' resolves to a DeviceMesh of the spec's axes
+    pl = placement.resolve(ShardingSpec(mesh=(1,), impl="gspmd"),
+                           n_devices=16, n_clusters=4, device="cpu")
+    assert pl.is_gspmd and pl.mesh.mesh_dim_names == ("fleet",)
+    assert (pl.device_axis, pl.cluster_axis) == ("fleet", None)
     with pytest.raises(ValueError, match="does not divide"):
         placement.resolve(ShardingSpec(mesh=(3,), impl="gspmd"),
                           n_devices=16, n_clusters=4, device="cpu")
