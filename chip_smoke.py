@@ -280,7 +280,24 @@ Needs one NVIDIA GPU and nvcc.  In order:
    interleaved windows of 10 rounds); each rank's peak memory; then two
    gloo ranks sharing the card, whose mesh (2,) must refuse with the
    placement's `RuntimeError` naming the all-gather;
-11. prints the federations line (4b, 4c and 4d), the serving line, the
+11. the sharded federated LM step (`repro_torch.core.sharding`, the JAX
+   package's partition specs as DTensor placements), started by
+   ``spawn_local`` on the hidden ``--train-sharded-worker`` flag as one
+   NCCL rank at mesh (1, 1): recurrentgemma-2b at full width cut to 3
+   layers, mode A, NC 1 x C 2, and deepseek-v2-236b at full width with 2
+   layers of 16 routed experts, mode B, NC 1, each two rounds of the
+   sharded step from seed 0 under Adafactor and two of the unsharded step
+   from the same seed on the same card: the parameters after round 1 and
+   every round's losses bit for bit, each kernel's launches a round equal
+   (and every kernel of the path launched), seconds a round both ways,
+   peak memory, and the collectives a round by kind and bytes (the step's
+   own and DTensor's: none at one rank); then recurrentgemma-2b (C 1, one
+   microbatch, one round) at mesh (1, 2) on two gloo ranks sharing the
+   card, the heads, channels and vocab split: within 1e-5 of the
+   unsharded step, every kernel of the path launched on each rank, as
+   often as the unsharded step; ``scripts/train_cards.py``
+   runs the same worker on four cards;
+12. prints the federations line (4b, 4c and 4d), the serving line, the
    service line (4e: each segment's ``service_rounds_per_sec``, its
    checkpoint's seconds and bytes, the chaos children's start-up seconds,
    kills and restarts, beside the card's name and power limit), the
@@ -291,8 +308,8 @@ Needs one NVIDIA GPU and nvcc.  In order:
    secure-aggregation cells, beside the card's name and power limit), the
    training line (8, 9 and 9b: seconds a round, losses, launches,
    peak memory), the multi-device line (10, beside the card's name and power
-   limit), the gspmd line (10b, likewise), the kernels line, then the
-   result line.
+   limit), the gspmd line (10b, likewise), the sharded-training line
+   (11, likewise), the kernels line, then the result line.
 
 The trust kernels are timed back to back through their wrappers (the
 kernels line's ``ms`` and ``library_ms``) and by device time, warm (ten
@@ -5052,6 +5069,394 @@ def gspmd_phase(dev, smi_line: str) -> dict:
     return res
 
 
+# --------------------------------------------------------------------- #
+# 11. the sharded federated LM training step
+# --------------------------------------------------------------------- #
+# phase 11 at mesh (1, 1): recurrentgemma-2b's three layers in mode A
+# (NC 1 x C 2: half phase 8's state) and deepseek-v2-236b's two layers of
+# 16 experts in mode B (NC 1), full width, one NCCL rank
+SHARDED_RUNS = (
+    {"tag": "recurrentgemma_2b_mode_a@1x1", "scenario":
+     "RECURRENTGEMMA_2B_TRAIN", "mesh": [1, 1], "NC": 1, "C": 2},
+    {"tag": "deepseek_v2_236b_mode_b@1x1", "scenario":
+     "DEEPSEEK_V2_236B_TRAIN", "mesh": [1, 1], "NC": 1})
+SHARDED_ROUNDS = 2      # round 1 compared, round 2 timed warm
+SHARDED_TOL = 1e-5      # across ranks: float32 reassociation
+SHARDED_TIMEOUT = 600   # seconds, the phase's job
+# then recurrentgemma-2b on two gloo ranks sharing the card, mesh (1, 2):
+# the heads, channels and vocab split over `model`, one round of one client
+# and one microbatch (gloo moves every collective through host memory:
+# 16.9 s a round at C 1 with 2 microbatches)
+SHARDED_TP_RUN = {"tag": "recurrentgemma_2b_mode_a@1x2", "scenario":
+                  "RECURRENTGEMMA_2B_TRAIN", "mesh": [1, 2], "NC": 1, "C": 1,
+                  "task": {"n_micro": 1}, "rounds": 1}
+SHARDED_TP_TIMEOUT = 300
+
+
+def _host(tree):
+    """A sharded state's parameters, whole, on the host (a collective)."""
+    from repro_torch.core import sharding as shd
+    return {k: shd.full(v).detach().to("cpu", copy=True)
+            for k, v in tree.items()}
+
+
+def _compare(got: dict, want: dict) -> dict:
+    """Leaf by leaf on the card (a leaf at a time; the difference of two
+    float32 values this close is exact in float32): bit for bit, and the
+    largest error relative to the leaf's largest entry; of the worst leaf,
+    where they differ, its worst element (index, both values) and how
+    many of its elements are off by more than SHARDED_TOL of that
+    entry."""
+    dev = torch.device("cuda") if torch.cuda.is_available() else None
+    rel, equal = {}, True
+
+    def diff(k):
+        w = want[k].to(dev or want[k].device)
+        g = got[k].to(w.device)
+        return g, w, (g - w).abs(), max(float(w.abs().max()), 1e-30)
+    for k in want:
+        g, w, d, scale = diff(k)
+        equal = equal and torch.equal(g, w)
+        rel[k] = float(d.max()) / scale
+        del g, w, d
+    worst = max(rel, key=rel.get)
+    out = {"bit_equal": equal, "max_rel": rel[worst], "worst": worst}
+    if rel[worst] > 0:
+        g, w, d, scale = diff(worst)
+        at = tuple(int(i) for i in torch.unravel_index(d.argmax(), d.shape))
+        out.update(worst_at=list(at), worst_got=float(g[at]),
+                   worst_want=float(w[at]),
+                   over_tol=int((d > SHARDED_TOL * scale).sum()),
+                   elements=w.numel())
+    return out
+
+
+@contextlib.contextmanager
+def moe_routing(record=None, replay=None, flips=None):
+    """Inside, every routing of an MoE block (`moe.route`) appends its
+    expert ids to ``record``, or takes routing i's ids from ``replay``
+    (counting into ``flips`` the assignments its own router would have
+    chosen otherwise): a sharded MoE step's router reads inputs
+    reassociated by the collectives, so a near tie can pick another
+    expert, which the unsharded step then replays."""
+    from repro_torch.models import moe as moe_mod
+    inner = moe_mod.route
+
+    def wrapped(p, cfg, xt, routing=None):
+        if record is not None:
+            out = inner(p, cfg, xt, routing)
+            record.append(out[2])
+            return out
+        ids = replay[flips["calls"]]
+        own = inner(p, cfg, xt)[2]
+        flips["calls"] += 1
+        flips["flipped"] += int((own != ids).sum())
+        flips["assignments"] += ids.numel()
+        return inner(p, cfg, xt, ids)
+    moe_mod.route = wrapped
+    try:
+        yield
+    finally:
+        moe_mod.route = inner
+
+
+def sharded_round(step, state, batch, rep, stale, dev):
+    """One step with the launch and collective counts set to 0 before it
+    and read after: -> (state, metrics, record)."""
+    from repro_torch.core import sharding as shd
+    from repro_torch.kernels import launches, reset_launches
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    reset_launches()
+    shd.reset_collectives()
+    sync()
+    t0 = time.perf_counter()
+    with count_collectives() as dtensor:
+        state, m = step(state, batch, rep, stale)
+    sync()
+    sec = time.perf_counter() - t0
+    own = {k: dict(v) for k, v in shd.collectives.items()}
+    return state, m, {"s": sec, "loss": m["loss"].tolist(),
+                      "launches": {k: v for k, v in launches.items() if v},
+                      "collectives": {"own": own, "dtensor": dtensor}}
+
+
+def sharded_train_run(run: dict, dev, rank: int, refs: dict,
+                      snaps: dict) -> dict:
+    """One model at one mesh: the sharded step from a seeded state, rounds
+    timed; on rank 0, the unsharded step from the same seed (``refs``
+    keeps its rounds a configuration) or, with ``compare_with``, an earlier
+    run's parameters (``snaps``)."""
+    import dataclasses as dc
+    import torch.distributed as dist
+    from repro_torch import optim
+    from repro_torch.api import scenarios
+    from repro_torch.api.components import LMTask
+    from repro_torch.core import fl_step as fl
+    from repro_torch.core import sharding as shd
+    from repro_torch.launch.mesh import axis_size, host_mesh_for
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    params = {**getattr(scenarios, run["scenario"])["task"]["params"],
+              **run.get("task", {})}
+    task = LMTask(**params)
+    cfg = task.cfg
+    if "cf" in run:
+        cfg = dc.replace(cfg, capacity_factor=run["cf"])
+    mode, NC, C = task.mode, run["NC"], run.get("C", 1)
+    mesh = host_mesh_for(run["mesh"], device=dev.type)
+    opt_name = run.get("opt", "adafactor")
+    opt = optim.REGISTRY[opt_name](task.lr)
+    init = fl.build_init_fn(cfg, opt, mode=mode, n_clusters=NC,
+                            clients_per_cluster=C, device=dev)
+    key = json.dumps([run["scenario"], run.get("task", {}), run.get("cf"),
+                      NC, C, opt_name, run.get("rounds", SHARDED_ROUNDS)])
+    t0 = time.perf_counter()
+    state = init(0)
+    pod_axis = "pod" if axis_size(mesh, "pod") > 1 else None
+    specs = fl.train_state_specs(cfg, state, mode=mode, opt_name=opt_name,
+                                 pod_axis=pod_axis,
+                                 tp_size=axis_size(mesh, "model"))
+    placed = shd.distribute_state(state, specs, mesh)
+    del state                    # the replicated leaves live on in placed
+    batch = task.make_batch(torch.Generator().manual_seed(0), NC, C,
+                            device=dev)
+    pbatch = shd.distribute_batch(batch, fl.batch_specs(
+        cfg, batch, mode=mode, pod_axis=pod_axis), mesh)
+    rep = torch.ones((NC, C), device=dev)
+    stale = torch.arange(NC, dtype=torch.float32, device=dev)
+    step = fl.build_train_step(cfg, opt, mode=mode, ep=run.get("ep", False))
+    build_s = time.perf_counter() - t0
+    n_rounds = run.get("rounds", SHARDED_ROUNDS)
+    out = {"mesh": run["mesh"], "build_s": build_s, "rounds": []}
+    snap = None
+    # across ranks the unsharded round 1 replays the sharded MoE routing
+    replay = ([] if cfg.num_experts and dist.get_world_size() > 1
+              and not run.get("compare_with") and not run.get("ep")
+              else None)
+    for r in range(n_rounds):
+        with moe_routing(record=replay) if (replay is not None and r == 0) \
+                else contextlib.nullcontext():
+            placed, m, rec = sharded_round(step, placed, pbatch, rep, stale,
+                                           dev)
+        out["rounds"].append(rec)
+        if r == 0:
+            snap = _host(placed.params)
+    out["layout"] = all(
+        tuple(v.placements) == shd.placements(specs.params[k], mesh)
+        for k, v in placed.params.items())
+    out["off_card"] = [k for k, v in placed.params.items()
+                       if v.to_local().device.type != dev.type]
+    if dev.type == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del placed, pbatch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    snaps[run["tag"]] = (snap, [x["loss"] for x in out["rounds"]])
+    if rank == 0:
+        if run.get("compare_with"):
+            other, losses = snaps[run["compare_with"]]
+            out["against"] = run["compare_with"]
+            out["compare"] = _compare(snap, other)
+            out["loss_vs"] = losses[0]
+        else:
+            if replay is not None:
+                key += f"@{run['tag']}"     # this run's routing replayed
+            if key not in refs:
+                state = init(0)
+                plain = fl.build_train_step(cfg, opt, mode=mode)
+                rounds, first = [], None
+                flips = {"calls": 0, "flipped": 0, "assignments": 0}
+                for r in range(n_rounds):
+                    with moe_routing(replay=replay, flips=flips) if (
+                            replay is not None and r == 0) \
+                            else contextlib.nullcontext():
+                        state, _, rec = sharded_round(plain, state, batch,
+                                                      rep, stale, dev)
+                    rounds.append(rec)
+                    if r == 0:
+                        first = {k: v.detach().to("cpu", copy=True)
+                                 for k, v in state.params.items()}
+                if replay is not None:
+                    check(flips["calls"] == len(replay), f"{run['tag']}: "
+                          f"{flips['calls']} MoE calls replayed "
+                          f"{len(replay)} recorded")
+                    rounds[0]["routing_replayed"] = flips
+                refs[key] = (first, rounds)
+                del state
+            first, rounds = refs[key]
+            out["against"] = "unsharded"
+            out["plain_rounds"] = rounds
+            out["compare"] = _compare(snap, first)
+            out["loss_vs"] = rounds[0]["loss"]
+    dist.barrier()
+    return out
+
+
+def sharded_train_worker(cfg: dict) -> None:
+    """One rank of a sharded-training job (``--train-sharded-worker``):
+    each run of ``cfg`` in order, one JSON line at the end."""
+    import torch.distributed as dist
+    from repro_torch.launch.distributed import initialize_from_env
+    dev = torch.device(cfg.get("device", "cuda"))
+    rank = initialize_from_env(dev)
+    if cfg.get("stacks"):       # should the job hang: where each rank is
+        import faulthandler
+        faulthandler.dump_traceback_later(cfg["stacks"]["after_s"], file=open(
+            os.path.join(cfg["stacks"]["dir"], f"rank{rank}.txt"), "w"))
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"rank": rank, "world": dist.get_world_size(),
+           "backend": dist.get_backend(), "device": str(dev), "runs": {}}
+    refs, snaps = {}, {}
+    for run in cfg["runs"]:
+        print(f"rank {rank}: {run['tag']}", file=sys.stderr, flush=True)
+        out["runs"][run["tag"]] = sharded_train_run(run, dev, rank, refs,
+                                                    snaps)
+    print("TRAINSHARDED" + json.dumps(out), flush=True)
+    dist.destroy_process_group()
+
+
+def sharded_train_job(G: int, cfg: dict, timeout: float) -> tuple:
+    """``G`` ranks of this script's sharded-training worker; their results
+    in rank order, and the job's wall seconds."""
+    from repro_torch.launch.distributed import spawn_local
+    t0 = time.perf_counter()
+    res = spawn_local([os.path.abspath(__file__), "--train-sharded-worker",
+                       json.dumps(cfg)], n_procs=G, timeout=timeout)
+    wall = time.perf_counter() - t0
+    for r in res:
+        check(r.returncode == 0, f"sharded training job of {G} ranks: a "
+              f"rank failed ({r.returncode}): {r.stderr[-4000:]}")
+    out = [json.loads(r.stdout.split("TRAINSHARDED", 1)[1]) for r in res]
+    return out, wall
+
+
+def flat_losses(x) -> list:
+    """Mode A's (NC, C) losses or mode B's (NC,) as one list."""
+    return [v for row in x for v in (row if isinstance(row, list)
+                                     else [row])]
+
+
+def per_round_collectives(rec: dict) -> dict:
+    """A round's collectives by kind: the step's own and DTensor's."""
+    out = {}
+    for src in rec["collectives"].values():
+        for k, v in src.items():
+            c = out.setdefault(k, {"calls": 0, "bytes": 0})
+            c["calls"] += v["calls"]
+            c["bytes"] += v["bytes"]
+    return out
+
+
+def train_sharded_phase(dev, smi_line: str) -> dict:
+    """11. The sharded federated LM step (`repro_torch.core.sharding`) at
+    mesh (1, 1) over one NCCL rank: recurrentgemma-2b mode A and
+    deepseek-v2-236b mode B at full width, each against the unsharded step
+    from the same seed on the same card, bit for bit, with the kernels'
+    launches a round equal; then recurrentgemma-2b at mesh (1, 2) on two
+    gloo ranks sharing the card, within SHARDED_TOL of the unsharded
+    step, every kernel of the path launched on each rank's shards."""
+    from repro_torch.kernels import launches
+    t_phase = time.perf_counter()
+    free_library_memory()
+    ranks, wall = sharded_train_job(1, {"runs": list(SHARDED_RUNS)},
+                                    SHARDED_TIMEOUT)
+    r0 = ranks[0]
+    check(r0["backend"] == "nccl", f"sharded training ran on "
+          f"{r0['backend']}")
+    runs, counts = {}, {}
+    want = {"recurrentgemma": ("flash_attention", "flash_attention_bwd",
+                               "rglru_scan", "rglru_scan_bwd"),
+            "deepseek": ("flash_attention", "flash_attention_bwd")}
+    for tag, run in r0["runs"].items():
+        what = f"sharded training {tag}"
+        check(run["layout"] and not run["off_card"],
+              f"{what}: placements {run['layout']}, off the card "
+              f"{run['off_card']}")
+        check(run["compare"]["bit_equal"], f"{what}: departs from the "
+              f"unsharded step: {run['compare']}")
+        for r, p in zip(run["rounds"], run["plain_rounds"]):
+            check(r["launches"] == p["launches"], f"{what}: launches "
+                  f"{r['launches']}, unsharded {p['launches']}")
+            check(r["loss"] == p["loss"] and all(
+                math.isfinite(x) for x in flat_losses(r["loss"])),
+                f"{what}: losses {r['loss']}, unsharded {p['loss']}")
+        kernels = want[tag.split("_")[0]]
+        got = run["rounds"][0]["launches"]
+        check(all(got.get(k, 0) > 0 for k in kernels),
+              f"{what}: a kernel of the path did not launch: {got}")
+        counts[f"sharded_{tag.split('@')[0]}"] = {
+            k: sum(r["launches"].get(k, 0) for r in run["rounds"])
+            for k in launches}
+        runs[tag] = {
+            "round_s": [r["s"] for r in run["rounds"]],
+            "plain_round_s": [r["s"] for r in run["plain_rounds"]],
+            "launches_a_round": run["rounds"][0]["launches"],
+            "losses": [r["loss"] for r in run["rounds"]],
+            "bit_equal": run["compare"]["bit_equal"],
+            "peak_gib": run["peak_gib"], "build_s": run["build_s"],
+            "collectives_a_round": per_round_collectives(run["rounds"][-1])}
+        print(f"{what}: round s sharded {runs[tag]['round_s']}, unsharded "
+              f"{runs[tag]['plain_round_s']}, launches a round "
+              f"{runs[tag]['launches_a_round']}, peak "
+              f"{run['peak_gib']:.2f} GiB, collectives a round "
+              f"{runs[tag]['collectives_a_round']}, bit for bit "
+              f"({smi_line})", flush=True)
+    # the sharding at work on the card: two gloo ranks, mesh (1, 2)
+    tag = SHARDED_TP_RUN["tag"]
+    what = f"sharded training {tag}"
+    two, wall2 = sharded_train_job(2, {"runs": [SHARDED_TP_RUN]},
+                                   SHARDED_TP_TIMEOUT)
+    tr = [r["runs"][tag] for r in two]
+    check(all(r["backend"] == "gloo" for r in two),
+          f"{what}: backends {[r['backend'] for r in two]}")
+    check(all(r["layout"] and not r["off_card"] for r in tr),
+          f"{what}: placements {[r['layout'] for r in tr]}, off the card "
+          f"{[r['off_card'] for r in tr]}")
+    cmp_, plain = tr[0]["compare"], tr[0]["plain_rounds"]
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(
+        flat_losses(tr[0]["rounds"][0]["loss"]),
+        flat_losses(plain[0]["loss"])))
+    check(cmp_["max_rel"] <= SHARDED_TOL and loss_rel <= SHARDED_TOL,
+          f"{what}: departs from the unsharded step: {cmp_}, losses "
+          f"{loss_rel}")
+    for i, r in enumerate(tr):
+        got = r["rounds"][0]["launches"]
+        check(all(got.get(k, 0) > 0 for k in want["recurrentgemma"])
+              and got == plain[0]["launches"],
+              f"{what}: rank {i}: launches {got}, unsharded "
+              f"{plain[0]['launches']}")
+    counts["sharded_recurrentgemma_2b_mode_a_1x2"] = {
+        k: sum(r["rounds"][0]["launches"].get(k, 0) for r in tr)
+        for k in launches}
+    runs[tag] = {
+        "round_s": [r["rounds"][0]["s"] for r in tr],
+        "plain_round_s": [x["s"] for x in plain],
+        "launches_a_round": [r["rounds"][0]["launches"] for r in tr],
+        "plain_launches_a_round": plain[0]["launches"],
+        "losses": tr[0]["rounds"][0]["loss"], "loss_rel": loss_rel,
+        "compare": cmp_, "peak_gib": [r["peak_gib"] for r in tr],
+        "build_s": [r["build_s"] for r in tr],
+        "collectives_a_round": [per_round_collectives(r["rounds"][0])
+                                for r in tr]}
+    print(f"{what}: within {cmp_['max_rel']:.3g} of the unsharded step "
+          f"({cmp_['worst']}), losses {loss_rel:.3g}; round s "
+          f"{runs[tag]['round_s']} against {runs[tag]['plain_round_s']}, "
+          f"launches a round {runs[tag]['launches_a_round']} against "
+          f"{plain[0]['launches']}, peak {runs[tag]['peak_gib']} GiB, "
+          f"collectives a round {runs[tag]['collectives_a_round']} "
+          f"({smi_line})", flush=True)
+    res = {"device": smi_line, "runs": runs, "backend": r0["backend"],
+           "job_wall_s": {"mesh_1x1": wall, "mesh_1x2": wall2},
+           "phase_s": time.perf_counter() - t_phase, "counts": counts}
+    print(f"phase 11 (sharded training): {res['phase_s']:.2f} s",
+          flush=True)
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare-with", metavar="DIR", nargs="+", default=[],
@@ -5064,6 +5469,8 @@ def main() -> None:
                     help=argparse.SUPPRESS)
     ap.add_argument("--gspmd-worker", metavar="JSON",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--train-sharded-worker", metavar="JSON",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -5074,6 +5481,9 @@ def main() -> None:
         return
     if args.gspmd_worker:
         gspmd_worker(json.loads(args.gspmd_worker))
+        return
+    if args.train_sharded_worker:
+        sharded_train_worker(json.loads(args.train_sharded_worker))
         return
     from repro_torch.api import ControllerSpec, Federation, FederationSpec
     from repro_torch.api.scenarios import PAPER_MLP_FLEET1K
@@ -5313,7 +5723,13 @@ def main() -> None:
     counts.update(gspmd.pop("counts"))
     total = {k: sum(c[k] for c in counts.values()) for k in launches}
 
-    # 11. the serving line, the kernels line, then the result line
+    # 11. the sharded federated LM step at mesh (1, 1)
+    sharded = train_sharded_phase(dev, smi_line)
+    train_counts.update(sharded.pop("counts"))
+    train_launches = {k: sum(c[k] for c in train_counts.values())
+                      for k in launches}
+
+    # 12. the serving line, the kernels line, then the result line
     t, bd, err = kp["t"], kp["bound"], kp["err"]
     lt, lbd = lk["t"], lk["bound"]
     kernels = [
@@ -5584,6 +6000,7 @@ def main() -> None:
         flush=True)
     print(json.dumps({"multi_device": multi}), flush=True)
     print(json.dumps({"gspmd": gspmd}), flush=True)
+    print(json.dumps({"train_sharded": sharded}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -42,8 +42,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import datetime
-import math
 import warnings
 from typing import Any, Optional, Tuple
 
@@ -51,9 +49,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import is_dtensor, resolve_device
-from repro_torch.launch.distributed import (DEFAULT_TIMEOUT_S, ENV_COORD,
-                                            ENV_NPROC, ENV_PID, device_mesh,
-                                            free_port)
+from repro_torch.launch.distributed import device_mesh, job_group
 
 from .spec import GSPMD_IMPL, ShardingSpec
 
@@ -190,33 +186,9 @@ SINGLE_DEVICE = Placement()
 
 
 def _process_group(mesh_shape) -> Any:
-    """The process group backing a mesh of one shard a rank, or a readable
-    error.  A one-shard mesh in a process outside any job gets a one-rank
-    gloo group on a free localhost port."""
-    need = math.prod(mesh_shape)
-    if dist.is_initialized():
-        have = dist.get_world_size()
-        if have != need:
-            raise ValueError(
-                f"sharding: mesh {tuple(mesh_shape)} needs {need} ranks, one "
-                f"shard a rank, but this process is rank "
-                f"{dist.get_rank()} of {have}; launch {need} ranks with "
-                "repro_torch.launch.distributed.spawn_local, or export "
-                f"{ENV_COORD} / {ENV_NPROC} / {ENV_PID} to each rank and "
-                "call initialize_from_env()")
-        return dist.group.WORLD
-    if need == 1:
-        dist.init_process_group(
-            "gloo", init_method=f"tcp://127.0.0.1:{free_port()}",
-            world_size=1, rank=0,
-            timeout=datetime.timedelta(seconds=DEFAULT_TIMEOUT_S))
-        return dist.group.WORLD
-    raise ValueError(
-        f"sharding: mesh {tuple(mesh_shape)} needs {need} ranks, one shard "
-        "a rank, but this process is not part of a torch.distributed job; "
-        f"launch {need} ranks with repro_torch.launch.distributed."
-        f"spawn_local, or export {ENV_COORD} / {ENV_NPROC} / {ENV_PID} to "
-        "each rank and call initialize_from_env()")
+    """The process group backing a mesh of one shard a rank
+    (`repro_torch.launch.distributed.job_group`)."""
+    return job_group(mesh_shape)
 
 
 def resolve(sharding: ShardingSpec, *, n_devices: int, n_clusters: int,

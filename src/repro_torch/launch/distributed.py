@@ -123,6 +123,39 @@ def device_mesh(shape: Sequence[int], axes: Sequence[str], device):
                       mesh_dim_names=tuple(axes))
 
 
+def job_group(mesh_shape: Sequence[int]):
+    """The process group backing a mesh of one shard a rank, or a readable
+    error.  A one-shard mesh in a process outside any job gets a one-rank
+    gloo group on a free localhost port."""
+    import math
+
+    import torch.distributed as dist
+    need = math.prod(mesh_shape)
+    if dist.is_initialized():
+        have = dist.get_world_size()
+        if have != need:
+            raise ValueError(
+                f"sharding: mesh {tuple(mesh_shape)} needs {need} ranks, one "
+                f"shard a rank, but this process is rank "
+                f"{dist.get_rank()} of {have}; launch {need} ranks with "
+                "repro_torch.launch.distributed.spawn_local, or export "
+                f"{ENV_COORD} / {ENV_NPROC} / {ENV_PID} to each rank and "
+                "call initialize_from_env()")
+        return dist.group.WORLD
+    if need == 1:
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://127.0.0.1:{free_port()}",
+            world_size=1, rank=0,
+            timeout=datetime.timedelta(seconds=DEFAULT_TIMEOUT_S))
+        return dist.group.WORLD
+    raise ValueError(
+        f"sharding: mesh {tuple(mesh_shape)} needs {need} ranks, one shard "
+        "a rank, but this process is not part of a torch.distributed job; "
+        f"launch {need} ranks with repro_torch.launch.distributed."
+        f"spawn_local, or export {ENV_COORD} / {ENV_NPROC} / {ENV_PID} to "
+        "each rank and call initialize_from_env()")
+
+
 def free_port() -> int:
     """An OS-assigned free TCP port (release-then-reuse: fine for a
     localhost coordinator started immediately after)."""

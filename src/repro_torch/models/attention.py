@@ -16,6 +16,17 @@ Two paths per block, as in the JAX package's ``models/attention.py``:
     absorbed matrices (``cfg.mla_absorbed``: attention in the latent
     space) or by expanding K/V from the latent at every step.
 
+Sharded training (``shards``, `repro_torch.core.sharding.Shards`): the
+projections hold this rank's columns of the flat heads x head_dim dims, so
+the kernel runs on the rank's own query heads and the K/V heads they read,
+and ``wo``'s rows give a partial output summed over the tensor-parallel
+axes.  Where the query heads do not split whole over those axes (10 heads
+over 4 ranks), the projections are gathered and the kernel runs every
+head, then each rank keeps its columns of the output; where the K/V heads
+do not (one K/V head), they are gathered and each rank takes those its
+query heads read.  Unsharded (no ``shards``) the same body runs, every
+collective the identity.
+
 The KV cache of a LOCAL (sliding-window) layer is a ring buffer of width
 ``window``; stored absolute positions (init -1) drive the validity mask,
 and RoPE is applied at write time with absolute positions, so relative
@@ -30,7 +41,7 @@ import torch
 
 from ..kernels import ops
 from .config import LOCAL, ArchConfig
-from .modules import apply_rope, dense_init, rmsnorm, softcap
+from .modules import apply_rope, dense_init, rmsnorm, share, softcap
 
 NEG_INF = -2.0e38
 CACHE_DTYPE = torch.bfloat16    # K/V cache entries, as in the JAX package
@@ -94,17 +105,25 @@ def sdpa(q, k, v, mask, scale: float, cap: float):
     return out.reshape(B, S, H, v.shape[-1])
 
 
-def _project_qkv(p: Mapping[str, torch.Tensor], cfg: ArchConfig, x):
+def _project_qkv(p: Mapping[str, torch.Tensor], cfg: ArchConfig, x,
+                 sh=None, ax=(), whole=(True, True)):
     """q, k, v of (B,S,heads,head_dim): the bias added before the heads
     split, qk-norm (RMSNorm over head_dim, per head) after it; RoPE comes
-    later, after the norm."""
+    later, after the norm.  In a sharded step (``sh``) the projections
+    hold this rank's columns over ``ax``; those whose heads do not split
+    whole (``whole``: the query's, the K/V's) are gathered to all of
+    them."""
     B, S = x.shape[:2]
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    if not whole[0]:
+        q = sh.gather(q, -1, ax)
+    if not whole[1]:
+        k, v = sh.gather(k, -1, ax), sh.gather(v, -1, ax)
+    q = q.reshape(B, S, -1, cfg.head_dim)
+    k = k.reshape(B, S, -1, cfg.head_dim)
+    v = v.reshape(B, S, -1, cfg.head_dim)
     if cfg.qk_norm:
         q, k = rmsnorm(p["qnorm"], q), rmsnorm(p["knorm"], k)
     return q, k, v
@@ -136,21 +155,52 @@ def cache_width(cfg: ArchConfig, kind: str, max_len: int) -> int:
         else max_len
 
 
+def _kv_for(k, v, H: int, Kv: int, h0: int, Hl: int):
+    """Whole K/V heads (B,S,Kv,d) -> those the query heads [h0, h0 + Hl)
+    read, in the kernel's grouping (local query head i reads K/V head
+    i // (Hl / Kl)); a repeat per query head where no grouping fits."""
+    g = H // Kv
+    lo, hi = h0 // g, (h0 + Hl - 1) // g + 1
+    kl = hi - lo
+    if Hl % kl == 0 and all((h0 + i) // g - lo == i // (Hl // kl)
+                            for i in range(Hl)):
+        return k[:, :, lo:hi], v[:, :, lo:hi]
+    idx = torch.tensor([(h0 + i) // g for i in range(Hl)], device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def attn_forward(p, cfg: ArchConfig, x, kind: str,
-                 return_cache: bool = False, cache_len: int = 0):
+                 return_cache: bool = False, cache_len: int = 0,
+                 shards=None):
     """x: (B,S,D) -> (B,S,D) [, the decode cache of the last positions].
 
     One launch of the flash-attention kernel on a card.  The JAX package's
     ``q_chunk`` has no counterpart: the kernel never holds more than one
-    tile of scores."""
+    tile of scores.  ``shards``: this rank's share of a sharded training
+    step (module notes)."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(p, cfg, x)
+    H, Kv = cfg.num_heads, cfg.num_kv_heads
+    sh = share(shards)
+    ax = sh.axes("wq", 1)
+    n = sh.size(ax)
+    if return_cache and n > 1:
+        raise ValueError("a sharded attention returns no cache: the "
+                         "serving plans are not ported (ROADMAP.md)")
+    whole_q = H % n == 0
+    whole_kv = whole_q and Kv % n == 0
+    q, k, v = _project_qkv(p, cfg, x, sh, ax, (whole_q, whole_kv))
+    Hl = q.shape[2]                     # the query heads this rank runs
+    h0 = sh.index(ax) * Hl if whole_q else 0
     pos = torch.arange(S, device=x.device)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
+    kr, vr = (k, v) if whole_kv else _kv_for(k, v, H, Kv, h0, Hl)
     window = cfg.window if kind == LOCAL else 0
-    out = ops.attention(q, k, v, window=window, softcap=cfg.attn_softcap)
-    y = out.reshape(B, S, -1) @ p["wo"]
+    out = ops.attention(q, kr, vr, window=window, softcap=cfg.attn_softcap)
+    out = out.reshape(B, S, -1)
+    if not whole_q:
+        out = sh.chunk(out, -1, ax)     # this rank's rows of wo
+    y = sh.reduce(out @ p["wo"], ax)
     if not return_cache:
         return y
     return y, _ring_cache(cache_width(cfg, kind, cache_len), k=k, v=v)
@@ -196,14 +246,17 @@ def attn_decode(p, cfg: ArchConfig, x, cache, step: int, kind: str):
 # --------------------------------------------------------------------- #
 # MLA
 # --------------------------------------------------------------------- #
-def _mla_q(p, cfg: ArchConfig, x):
-    """-> (q_nope, q_rope), (B,S,H,qk_nope) and (B,S,H,qk_rope), unroped."""
+def _mla_q(p, cfg: ArchConfig, x, regroup=None):
+    """-> (q_nope, q_rope), (B,S,H,qk_nope) and (B,S,H,qk_rope), unroped;
+    ``regroup`` (a sharded step's) maps the flat heads x dims first."""
     B, S = x.shape[:2]
     if cfg.q_lora_rank:
         q = rmsnorm(p["q_norm"], x @ p["wq_a"]) @ p["wq_b"]
     else:
         q = x @ p["wq"]
-    q = q.reshape(B, S, cfg.num_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
+    if regroup is not None:
+        q = regroup(q)
+    q = q.reshape(B, S, -1, cfg.qk_nope_dim + cfg.qk_rope_dim)
     return q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
 
 
@@ -222,25 +275,44 @@ def _mla_scale(cfg: ArchConfig) -> float:
 
 
 def mla_forward(p, cfg: ArchConfig, x, kind: str,
-                return_cache: bool = False, cache_len: int = 0):
+                return_cache: bool = False, cache_len: int = 0,
+                shards=None):
     """x: (B,S,D) -> (B,S,D) [, the latent cache of the last positions].
 
     K and V are expanded from the latent for every head; one launch of
     the flash-attention kernel with d = qk_nope + qk_rope and dv =
     v_head_dim.  MLA layers attend globally whatever ``kind``, as in the
-    JAX package."""
+    JAX package.  ``shards``: this rank's share of a sharded training
+    step: the latent and the low-rank query are replicated, ``wq_b`` (or
+    ``wq``) and ``wkv_b`` hold this rank's heads, gathered to all of them
+    where the heads do not split whole (module notes)."""
     B, S, _ = x.shape
-    H, nope = cfg.num_heads, cfg.qk_nope_dim
+    nope = cfg.qk_nope_dim
+    sh = share(shards)
+    ax = sh.axes("wq_b" if cfg.q_lora_rank else "wq", 1)
+    n = sh.size(ax)
+    if return_cache and n > 1:
+        raise ValueError("a sharded attention returns no cache: the "
+                         "serving plans are not ported (ROADMAP.md)")
+    whole = cfg.num_heads % n == 0
+    regroup = None if whole else (lambda t: sh.gather(t, -1, ax))
     pos = torch.arange(S, device=x.device)
-    q_nope, q_rope = _mla_q(p, cfg, x)
+    q_nope, q_rope = _mla_q(p, cfg, x, regroup)
     q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
     c_kv, k_rope = _mla_latent(p, cfg, x, pos)
-    kv = (c_kv @ p["wkv_b"]).reshape(B, S, H, nope + cfg.v_head_dim)
+    kv = c_kv @ p["wkv_b"]
+    if not whole:
+        kv = regroup(kv)
+    Hl = q_nope.shape[2]
+    kv = kv.reshape(B, S, Hl, nope + cfg.v_head_dim)
     k = torch.cat([kv[..., :nope],
-                   k_rope.expand(B, S, H, cfg.qk_rope_dim)], dim=-1)
+                   k_rope.expand(B, S, Hl, cfg.qk_rope_dim)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     out = ops.attention(q, k, kv[..., nope:], softcap=cfg.attn_softcap)
-    y = out.reshape(B, S, -1) @ p["wo"]
+    out = out.reshape(B, S, -1)
+    if not whole:
+        out = sh.chunk(out, -1, ax)
+    y = sh.reduce(out @ p["wo"], ax)
     if not return_cache:
         return y
     return y, _ring_cache(cache_len, ckv=c_kv, krope=k_rope[:, :, 0])

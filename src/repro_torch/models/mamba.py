@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from .config import ArchConfig
-from .modules import causal_conv, dense_init
+from .modules import causal_conv, dense_init, share
 
 
 def init_mamba(cfg: ArchConfig, generator: Optional[torch.Generator], *,
@@ -47,27 +47,39 @@ def init_mamba(cfg: ArchConfig, generator: Optional[torch.Generator], *,
     }
 
 
-def _ssm_params(p, cfg: ArchConfig, xc):
+def _ssm_params(p, cfg: ArchConfig, xc, shards=None):
     """xc: (..., Di) conv output -> (dt, B, C) selective parameters; dt in
-    the activation dtype."""
-    dbc = xc @ p["x_proj"]
+    the activation dtype.  ``shards``: ``x_proj`` holds this rank's rows,
+    so its partial product is summed first."""
+    sh = share(shards)
+    dbc = sh.reduce(xc @ p["x_proj"], sh.axes("x_proj", 0))
     dt_r, Bc, Cc = torch.split(dbc, [cfg.dt_rank, cfg.ssm_state,
                                      cfg.ssm_state], dim=-1)
     dt = F.softplus(dt_r @ p["dt_proj"] + p["dt_bias"]).to(xc.dtype)
     return dt, Bc, Cc
 
 
-def mamba_forward(p, cfg: ArchConfig, x, return_state: bool = False):
-    """x: (B,S,D) -> (B,S,D) [, decode cache {"h", "conv"}]."""
+def mamba_forward(p, cfg: ArchConfig, x, return_state: bool = False,
+                  shards=None):
+    """x: (B,S,D) -> (B,S,D) [, decode cache {"h", "conv"}].
+
+    ``shards`` (a sharded training step): ``in_proj``'s columns split the
+    concatenated (x, z) dims, so its output is gathered and each rank
+    keeps its channels of both halves; the convolution, ``dt_proj``,
+    ``A_log``, ``D`` and the scan run on those channels, and ``x_proj``'s
+    and ``out_proj``'s partial products are summed."""
     S = x.shape[1]
-    xin, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    sh = share(shards)
+    ax = sh.axes("in_proj", 1)
+    xin, z = sh.gather(x @ p["in_proj"], -1, ax).chunk(2, dim=-1)
+    xin, z = sh.chunk(xin, -1, ax), sh.chunk(z, -1, ax)
     xc = F.silu(causal_conv(xin, p["conv_w"], p["conv_b"]))
-    dt, Bc, Cc = _ssm_params(p, cfg, xc)               # (B,S,Di) (B,S,N) x2
+    dt, Bc, Cc = _ssm_params(p, cfg, xc, sh)           # (B,S,Di) (B,S,N) x2
     A = -torch.exp(p["A_log"])                          # (Di,N)
     ys, h_last = ops.mamba_scan(xc, dt, Bc, Cc, A)
     y = ys + xc * p["D"].to(x.dtype)
     y = (y * F.silu(z)).to(x.dtype)
-    out = y @ p["out_proj"]
+    out = sh.reduce(y @ p["out_proj"], sh.axes("out_proj", 0))
     if not return_state:
         return out
     K = cfg.ssm_conv

@@ -63,12 +63,27 @@ def init_mlp(d_model: int, d_ff: int, generator: Optional[torch.Generator],
 
 
 def mlp(p: Mapping[str, torch.Tensor], x: torch.Tensor,
-        activation: str = "silu") -> torch.Tensor:
-    """Gated MLP: SwiGLU (``silu``) or GeGLU (``gelu``, tanh form)."""
+        activation: str = "silu", shards=None) -> torch.Tensor:
+    """Gated MLP: SwiGLU (``silu``) or GeGLU (``gelu``, tanh form).
+    ``shards`` (a sharded training step): ``wg`` / ``wu`` hold this rank's
+    d_ff columns and ``wd`` its rows, so the partial outputs are summed
+    over the tensor-parallel axes."""
     gate = x @ p["wg"]
     gate = F.silu(gate) if activation == "silu" else F.gelu(
         gate, approximate="tanh")
-    return (gate * (x @ p["wu"])) @ p["wd"]
+    sh = share(shards)
+    return sh.reduce((gate * (x @ p["wu"])) @ p["wd"], sh.axes("wd", 0))
+
+
+def share(shards):
+    """A block's share of a sharded training step
+    (`repro_torch.core.sharding.Shards`), or, for None, the unsharded
+    forward's (``NO_SHARDS``: every collective, chunk and relayout the
+    identity), so one body serves both."""
+    if shards is not None:
+        return shards
+    from ..core.sharding import NO_SHARDS   # core imports the models
+    return NO_SHARDS
 
 
 def sub_params(params: Mapping[str, torch.Tensor], prefix: str

@@ -19,9 +19,30 @@ rows of a batch lose theirs first.
 
 The Switch load-balance loss, E * <fraction routed to e> . <mean router
 probability of e>, is returned beside the output: it doubles as the
-per-client learning-quality signal of the digital twin.  The JAX
-package's expert-parallel ``shard_map`` branch (a ``data`` x ``model``
-mesh) is not ported: the port's MoE runs on one device.
+per-client learning-quality signal of the digital twin.
+
+Sharded training (``shards``, `repro_torch.core.sharding.Shards`), the
+JAX package's two paths:
+
+  * the plain dispatch, which the JAX package's training plan runs: the
+    tokens of the microbatch, split over ``data``, are gathered, so the
+    routing, the capacity (of all T tokens) and the dispatch are the
+    unsharded ones on every rank; the expert products run on the rank's
+    shards of the expert weights at their specs' placements (experts,
+    d_ff or the output dim split), whose partial or split outputs are
+    summed or gathered back to the whole (E, cap, D) buffer; each rank
+    keeps its own tokens' outputs.  `_constrain_ep`'s pins in the JAX
+    package are layout hints to its partitioner with no effect on values;
+    here the layouts are the ones written out.  Unsharded (no ``shards``)
+    this body runs with every gather, chunk and sum the identity;
+  * the expert-parallel branch (``shards.ep``, the JAX package's
+    ``shard_map`` under ``jax.sharding.set_mesh``; ``ep_tp`` models whose
+    expert count the ``data`` axis divides): each rank routes and
+    dispatches its own tokens with capacity ``(T // n_data) * K *
+    capacity_factor // E`` a token shard, an all-to-all over ``data``
+    sends each expert's slots to the rank that holds it (experts over
+    ``data``, d_ff over ``model``), and the reverse all-to-all brings the
+    outputs back to combine.  The Switch loss is the global one.
 
 Gradients flow through the renormalised top-k gate values (into the
 router), the ``index_add_`` scatter, the expert products, the gather of
@@ -53,7 +74,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ArchConfig
-from .modules import dense_init, init_mlp, mlp, sub_params
+from .modules import dense_init, init_mlp, mlp, share, sub_params
 
 
 def init_moe(cfg: ArchConfig, generator: Optional[torch.Generator], *,
@@ -110,30 +131,90 @@ def route(p: Mapping[str, torch.Tensor], cfg: ArchConfig, xt: torch.Tensor,
     return probs, gate_vals, gate_idx
 
 
+def _act(cfg: ArchConfig, g: torch.Tensor) -> torch.Tensor:
+    return F.silu(g) if cfg.activation == "silu" else F.gelu(
+        g, approximate="tanh")
+
+
+def _experts(p, cfg: ArchConfig, buf: torch.Tensor, sh) -> torch.Tensor:
+    """The expert products of the whole (E, cap, D) buffer on this rank's
+    shards of ``wg`` / ``wu`` / ``wd`` -> the whole (E, cap, D) output."""
+    e_ax, f_ax = sh.axes("wg", 0), sh.axes("wg", 2)
+    fd_ax, dd_ax = sh.axes("wd", 1), sh.axes("wd", 2)
+    buf = sh.chunk(buf, 0, e_ax)                     # this rank's experts
+    h = _act(cfg, torch.bmm(buf, p["wg"])) * torch.bmm(buf, p["wu"])
+    if fd_ax != f_ax:                                # wd's d_ff layout
+        h = sh.relayout(h, (None, None, f_ax), (None, None, fd_ax))
+    y = sh.reduce(torch.bmm(h, p["wd"]), fd_ax)      # partial over d_ff
+    return sh.gather(sh.gather(y, 2, dd_ax), 0, e_ax)
+
+
+def _combine(y_e, slot, keep, gate_vals, dtype) -> torch.Tensor:
+    """The experts' (E, cap, D) outputs -> each token's gate-weighted sum
+    (T, D); a dropped assignment gathers a real slot and is masked."""
+    E, cap, D = y_e.shape
+    T, K = gate_vals.shape
+    y_tok = y_e.reshape(E * cap, D)[slot.clamp(max=E * cap - 1)]
+    y_tok = y_tok * keep[:, None].to(dtype)
+    return (y_tok.reshape(T, K, D) * gate_vals[..., None].to(dtype)).sum(1)
+
+
+def _moe_ep(p, cfg: ArchConfig, x: torch.Tensor, sh, routing):
+    """The expert-parallel branch (module notes) on this rank's tokens."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.topk
+    tok, tp = sh.tokens, sh.tp
+    nd = sh.size(tok)
+    Tl = B * S
+    T = Tl * nd
+    xt = x.reshape(Tl, D)
+    probs, gate_vals, gate_idx = route(p, cfg, xt, routing)
+    routed = torch.bincount(gate_idx.reshape(-1), minlength=E)
+    from ..core.sharding import all_reduce_
+    all_reduce_(routed, sh.group(tok))
+    me = sh.reduce(probs.sum(0), tok) / T      # the mean over all tokens
+    aux = E * torch.sum(me * routed.to(torch.float32) / (T * K))
+    cap = int(max(1, (T // nd) * K * cfg.capacity_factor // E))
+    buf, slot, keep = dispatch(xt, gate_idx.reshape(-1), E, cap)
+    buf = sh.all_to_all(buf, 0, 1, tok)          # (E/nd, cap * nd, D)
+    ep = (tok[0], None, tp[0] if tp else None)
+    w = {k: sh.relayout(p[k], sh.spec(k), ep) for k in ("wg", "wu", "wd")}
+    h = _act(cfg, torch.bmm(buf, w["wg"])) * torch.bmm(buf, w["wu"])
+    y_e = torch.bmm(sh.gather(h, 2, tp), w["wd"])   # d_ff whole, D split
+    y_e = sh.all_to_all(sh.gather(y_e, 2, tp), 1, 0, tok)   # (E, cap, D)
+    y = _combine(y_e, slot, keep, gate_vals, x.dtype)
+    if cfg.num_shared_experts:
+        y = y + mlp(sub_params(p, "shared"), xt, cfg.activation,
+                    sh.sub("shared"))
+    return y.reshape(B, S, D), aux
+
+
 def moe_forward(p: Mapping[str, torch.Tensor], cfg: ArchConfig,
-                x: torch.Tensor, *, routing: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                x: torch.Tensor, *, routing: Optional[torch.Tensor] = None,
+                shards=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (y (B, S, D), the Switch aux loss, a float32
     scalar).  ``routing`` (B * S, K) expert ids replace the router's own
-    top-k (see the module notes)."""
-    B, S, D = x.shape
-    T, E, K = B * S, cfg.num_experts, cfg.topk
-    xt = x.reshape(T, D)
+    top-k (see the module notes).  ``shards``: this rank's share of a
+    sharded training step (module notes): the plain dispatch on the
+    rank's shards, or the expert-parallel branch when asked for."""
+    sh = share(shards)
+    tok = sh.tokens
+    if (sh.ep and cfg.shard_scheme == "ep_tp" and tok
+            and cfg.num_experts % sh.size(tok) == 0):
+        return _moe_ep(p, cfg, x, sh, routing)
+    Bl, S, D = x.shape
+    E, K = cfg.num_experts, cfg.topk
+    xa = sh.gather(x, 0, tok)                    # every token of the batch
+    T = xa.shape[0] * S
+    xt = xa.reshape(T, D)
     probs, gate_vals, gate_idx = route(p, cfg, xt, routing)
     # E * <fraction routed to e> . <mean router probability of e>
     routed = torch.bincount(gate_idx.reshape(-1), minlength=E)
     aux = E * torch.sum(probs.mean(0) * routed.to(torch.float32) / (T * K))
-
-    cap = capacity(T, cfg)
-    buf, slot, keep = dispatch(xt, gate_idx.reshape(-1), E, cap)
-    g = torch.bmm(buf, p["wg"])
-    g = F.silu(g) if cfg.activation == "silu" else F.gelu(
-        g, approximate="tanh")
-    y_e = torch.bmm(g * torch.bmm(buf, p["wu"]), p["wd"])    # (E, cap, D)
-    # a dropped assignment gathers a real slot and is masked
-    y_tok = y_e.reshape(E * cap, D)[slot.clamp(max=E * cap - 1)]
-    y_tok = y_tok * keep[:, None].to(x.dtype)
-    y = (y_tok.reshape(T, K, D) * gate_vals[..., None].to(x.dtype)).sum(1)
+    buf, slot, keep = dispatch(xt, gate_idx.reshape(-1), E, capacity(T, cfg))
+    y = _combine(_experts(p, cfg, buf, sh), slot, keep, gate_vals, x.dtype)
+    y = sh.chunk(y.reshape(-1, S, D), 0, tok).reshape(Bl * S, D)
     if cfg.num_shared_experts:
-        y = y + mlp(sub_params(p, "shared"), xt, cfg.activation)
-    return y.reshape(B, S, D), aux
+        y = y + mlp(sub_params(p, "shared"), x.reshape(Bl * S, D),
+                    cfg.activation, sh.sub("shared"))
+    return y.reshape(Bl, S, D), aux

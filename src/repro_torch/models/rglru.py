@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from .config import ArchConfig
-from .modules import causal_conv, dense_init
+from .modules import causal_conv, dense_init, share
 
 _C = 8.0
 
@@ -53,16 +53,25 @@ def _gates(p, xc):
     return a, beta * i
 
 
-def rglru_forward(p, cfg: ArchConfig, x, return_state: bool = False):
-    """x: (B,S,D) -> (B,S,D) [, decode cache {"h", "conv"}]."""
+def rglru_forward(p, cfg: ArchConfig, x, return_state: bool = False,
+                  shards=None):
+    """x: (B,S,D) -> (B,S,D) [, decode cache {"h", "conv"}].
+
+    ``shards`` (a sharded training step): the rank holds its channels of
+    ``w_x``, ``w_gate``, the convolution, the gates' columns and Lambda,
+    and its rows of ``w_out``; the gates read every channel (one
+    all-gather of the convolution's output), the scan runs on the rank's
+    own, and the partial outputs are summed."""
     B, S, _ = x.shape
     gate = F.gelu(x @ p["w_gate"], approximate="tanh")
     xin = x @ p["w_x"]
     xr = causal_conv(xin, p["conv_w"], p["conv_b"])
-    a, bi = _gates(p, xr)                                  # (B,S,W) f32
+    sh = share(shards)
+    ax = sh.axes("w_x", 1)
+    a, bi = _gates(p, sh.gather(xr, -1, ax))               # (B,S,W) f32
     hs, h_last = ops.lru_scan(a, bi * xr.to(torch.float32))
     y = hs.to(x.dtype) * gate
-    out = y @ p["w_out"]
+    out = sh.reduce(y @ p["w_out"], ax)
     if not return_state:
         return out
     K = cfg.ssm_conv

@@ -36,6 +36,15 @@ tree is a dotted name), with leading dims (the federation's clients) or
 without.  `LM.forward_aux` also returns the MoE layers' summed Switch
 loss, the JAX package's ``forward(...)[1]``.
 
+Sharding: `param_specs` is the JAX package's rule book for a device mesh
+(tensor parallelism on ``model``, FSDP or expert parallelism on
+``data``), one spec a leaf: a tuple with one entry a dim, each a mesh axis
+name, None or a tuple of axis names (the counterpart of a
+``PartitionSpec``).  ``LM.forward(..., shards=...)`` runs the model on a
+rank's shards of those parameters (`repro_torch.core.sharding`): the
+kernels see the rank's own heads or channels, and the collectives between
+blocks are written out.
+
 Every kind trains: dense (qkv bias and qk-norm included), hybrid, SSM,
 MoE, MLA and audio.  Under the checkpoint an MoE layer's recompute must
 route every token as its first pass did, or the backward would
@@ -59,7 +68,7 @@ from .attention import (attn_decode, attn_forward, init_attn,
                         init_attn_cache, mla_decode, mla_forward)
 from .config import ATTN, LOCAL, MAMBA, RGLRU, ArchConfig
 from .mamba import init_mamba, init_mamba_cache, mamba_decode, mamba_forward
-from .modules import init_mlp, mlp, rmsnorm, sub_params
+from .modules import init_mlp, mlp, rmsnorm, share, sub_params
 from .moe import init_moe, moe_forward
 from .rglru import init_rglru, init_rglru_cache, rglru_decode, rglru_forward
 
@@ -120,39 +129,47 @@ class Layer(nn.Module):
         """The name of this layer's mixing block's parameters."""
         return {MAMBA: "mamba", RGLRU: "rglru"}.get(self.kind, "attn")
 
-    def _ffn(self, p, h):
+    def _ffn(self, p, h, shards=None):
         """The MLP or MoE block on ``h`` with its parameters ``p`` -> (its
         output, its aux loss or None)."""
         if self.is_moe:
-            return moe_forward(p, self.cfg, h)
-        return mlp(p, h, self.cfg.activation), None
+            return moe_forward(p, self.cfg, h, shards=shards)
+        return mlp(p, h, self.cfg.activation, shards), None
 
     def forward(self, x, cache_len: int = 0,
-                params: Optional[Mapping[str, torch.Tensor]] = None):
+                params: Optional[Mapping[str, torch.Tensor]] = None,
+                shards=None):
         """-> (x, aux, lcache): ``aux`` the MoE block's Switch loss (None
         without one), ``lcache`` this layer's decode cache when cache_len
         > 0 (prefill), else None.  ``params`` (keys as this layer's
         parameter names: ``ln1``, ``rglru.w_x``, ...) replaces the layer's
-        own parameters."""
+        own parameters; ``shards`` (this layer's view) makes them this
+        rank's shards of a sharded training step."""
         cfg, aux, lcache = self.cfg, None, None
         if params is None:
             params = dict(self.named_parameters())
         blk = sub_params(params, self.block)
+        sh = share(shards)
+        bsh = sh.sub(self.block)
         h = rmsnorm(params["ln1"], x)
         if self.kind == MAMBA:
-            y = mamba_forward(blk, cfg, h, return_state=bool(cache_len))
+            y = mamba_forward(blk, cfg, h, return_state=bool(cache_len),
+                              shards=bsh)
         elif self.kind == RGLRU:
-            y = rglru_forward(blk, cfg, h, return_state=bool(cache_len))
+            y = rglru_forward(blk, cfg, h, return_state=bool(cache_len),
+                              shards=bsh)
         else:
             fwd = mla_forward if cfg.use_mla else attn_forward
             y = fwd(blk, cfg, h, self.kind, return_cache=bool(cache_len),
-                    cache_len=cache_len)
+                    cache_len=cache_len, shards=bsh)
         if cache_len:
             y, lcache = y
         x = x + y
         if self.kind != MAMBA:
-            ffn = sub_params(params, "moe" if self.is_moe else "mlp")
-            y, aux = self._ffn(ffn, rmsnorm(params["ln2"], x))
+            name = "moe" if self.is_moe else "mlp"
+            y, aux = self._ffn(sub_params(params, name),
+                               rmsnorm(params["ln2"], x),
+                               sh.sub(name))
             x = x + y
         return x, aux, lcache
 
@@ -226,21 +243,44 @@ class LM(nn.Module):
             self.lm_head = nn.Parameter(head, requires_grad=trainable)
 
     # -- embeddings ---------------------------------------------------- #
-    def embed_tokens(self, tokens: torch.Tensor, embed=None) -> torch.Tensor:
+    def _vocab_axes(self, shards) -> tuple:
+        """The mesh axes the vocab of the embedding splits over."""
+        return share(shards).axes("embed",
+                                  1 if self.cfg.num_codebooks > 1 else 0)
+
+    def embed_tokens(self, tokens: torch.Tensor, embed=None,
+                     shards=None) -> torch.Tensor:
         """(B,S) ids, or (B,K,S) for K codebooks (their embeddings summed)
-        -> (B,S,D)."""
+        -> (B,S,D).  ``shards``: ``embed`` holds this rank's vocab rows;
+        each rank looks up the ids it holds (zeros elsewhere) and the
+        lookups are summed."""
         embed = self.embed if embed is None else embed
+        sh = share(shards)
+        ax = self._vocab_axes(sh)
+        if ax:
+            n = embed.shape[-2]
+            ids = tokens - sh.index(ax) * n
+            inside = (ids >= 0) & (ids < n)
+            tokens = torch.where(inside, ids, torch.zeros_like(ids))
         if self.cfg.num_codebooks > 1:
             books = torch.arange(embed.shape[0], device=tokens.device)
-            x = embed[books[None, :, None], tokens].sum(dim=1)
+            x = embed[books[None, :, None], tokens]
+            if ax:
+                x = x * inside[..., None].to(x.dtype)
+            x = x.sum(dim=1)
         else:
             x = embed[tokens]
+            if ax:
+                x = x * inside[..., None].to(x.dtype)
+        x = sh.reduce(x, ax)
         if self.cfg.emb_scale:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
         return x
 
-    def unembed(self, x: torch.Tensor, params=None) -> torch.Tensor:
-        """(B,S,D) -> logits (B,S,V), or (B,K,S,V) for K codebooks."""
+    def unembed(self, x: torch.Tensor, params=None,
+                shards=None) -> torch.Tensor:
+        """(B,S,D) -> logits (B,S,V), or (B,K,S,V) for K codebooks;
+        ``shards``: this rank's vocab columns of them (`vocab_offset`)."""
         cfg = self.cfg
         if params is None:
             params = {"embed": self.embed}
@@ -254,11 +294,17 @@ class LM(nn.Module):
             logits = x @ (params["embed"].T if cfg.tie_embeddings
                           else params["lm_head"])
         if cfg.padded_vocab != cfg.vocab_size:
-            ids = torch.arange(cfg.padded_vocab, device=logits.device)
+            ids = torch.arange(logits.shape[-1], device=logits.device) + \
+                self.vocab_offset(logits.shape[-1], shards)
             logits = torch.where(ids < cfg.vocab_size, logits,
                                  torch.tensor(-1e9, dtype=logits.dtype,
                                               device=logits.device))
         return logits
+
+    def vocab_offset(self, n_local: int, shards=None) -> int:
+        """The first vocab id of this rank's ``n_local`` logits."""
+        sh = share(shards)
+        return sh.index(self._vocab_axes(sh)) * n_local
 
     # -- full sequence --------------------------------------------------- #
     def forward(self, tokens: torch.Tensor,
@@ -272,26 +318,32 @@ class LM(nn.Module):
 
     def forward_aux(self, tokens: torch.Tensor,
                     params: Optional[Mapping[str, torch.Tensor]] = None,
-                    remat: bool = False):
+                    remat: bool = False, shards=None):
         """`forward` -> (logits, aux): aux the MoE layers' summed Switch
         load-balance loss, float32 (0 without MoE layers), as the JAX
-        package's ``forward``."""
+        package's ``forward``.  ``shards``
+        (`repro_torch.core.sharding.Shards`): ``params`` are this rank's
+        shards of a sharded training step, the logits its vocab columns."""
         if params is None:
             params = dict(self.named_parameters())
-        x = self.embed_tokens(tokens, params["embed"])
+        sh = share(shards)
+        x = self.embed_tokens(tokens, params["embed"], sh)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, layer in enumerate(self.layers):
             lp = sub_params(params, f"layers.{i}")
+            lsh = sh.sub(f"layers.{i}")
             if remat:
                 # the recompute routes an MoE layer's tokens as the first
                 # pass did: same input, deterministic ops (module notes)
-                x, a, _ = checkpoint(layer, x, 0, lp, use_reentrant=False,
+                x, a, _ = checkpoint(layer, x, 0, lp, shards=lsh,
+                                     use_reentrant=False,
                                      context_fn=remat_contexts)
             else:
-                x, a, _ = layer(x, params=lp)
+                x, a, _ = layer(x, params=lp, shards=lsh)
             if a is not None:
                 aux = aux + a
-        return self.unembed(rmsnorm(params["final_norm"], x), params), aux
+        return self.unembed(rmsnorm(params["final_norm"], x), params,
+                            sh), aux
 
     def prefill(self, tokens: torch.Tensor, cache_len: int):
         """Serving prefill: run the whole prompt, return the last position's
@@ -425,6 +477,124 @@ def tree_from_named(named: Mapping[str, Any], cfg: ArchConfig,
     if not cfg.tie_embeddings:
         tree["lm_head"] = arr["lm_head"]
     return tree
+
+
+# --------------------------------------------------------------------- #
+# sharding specs
+# --------------------------------------------------------------------- #
+_COL = {"wq", "wk", "wv", "wg", "wu", "in_proj", "w_x", "w_gate"}  # (D, out)
+_ROW = {"wo", "wd", "out_proj", "w_out"}                           # (in, D)
+_VEC_TP = {"bq", "bk", "bv", "conv_b", "b_a", "b_i", "dt_bias", "D", "lam"}
+
+
+def _base_spec(keys, name, audio, tp, fsdp, ep, shard_experts) -> tuple:
+    """The JAX package's ``_base_spec``: the trailing dims' spec of the
+    leaf ``name`` at path ``keys``.
+
+    tp   -- tensor-parallel axis: heads / d_ff / vocab / channels
+    fsdp -- contracting-dim (ZeRO-style) axis of dense weights (fsdp_tp)
+    ep   -- expert-parallel axis of the MoE expert weights (ep_tp)"""
+    # the shared experts' MLP under moe/shared is a plain 2-D MLP
+    in_moe = "moe" in keys and "shared" not in keys
+    if name == "embed":
+        return (None, tp, fsdp) if audio else (tp, fsdp)
+    if name == "lm_head":
+        return (None, fsdp, tp) if audio else (fsdp, tp)
+    if in_moe and name in ("wg", "wu"):
+        if ep and shard_experts:
+            return (ep, None, tp)
+        if ep:                      # E not divisible by ep: d_ff 2-D
+            return (None, None, (ep, tp))
+        if fsdp:
+            return (None, fsdp, tp)
+        return (tp, None, None) if shard_experts else (None, None, tp)
+    if in_moe and name == "wd":
+        if ep and shard_experts:
+            return (ep, None, tp)
+        if ep:
+            return (None, (ep, tp), None)
+        if fsdp:
+            return (None, tp, fsdp)
+        return (tp, None, None) if shard_experts else (None, tp, None)
+    if name == "router":
+        return (None, None)
+    if name in _COL:
+        return (fsdp, tp)
+    if name in _ROW:
+        return (tp, fsdp)
+    if name in ("wq_a", "wkv_a"):
+        return (fsdp, None)
+    if name in ("wq_b", "wkv_b", "dt_proj", "w_a", "w_i"):
+        return (None, tp)
+    if name in ("x_proj", "A_log"):
+        return (tp, None)
+    if name == "conv_w":
+        return (None, tp)
+    if name in _VEC_TP:
+        return (tp,)
+    return (None,)
+
+
+def _ndim(leaf) -> int:
+    return len(tuple(leaf.shape))
+
+
+def _map_with_keys(tree, fn, keys=()):
+    """``fn(keys, leaf)`` over a (nested) dict or list; a dotted key of a
+    flat dict (``layers.3.moe.wg``) counts as its parts."""
+    if isinstance(tree, Mapping):
+        return {k: _map_with_keys(v, fn, keys + tuple(str(k).split(".")))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_with_keys(v, fn, keys + (i,))
+                for i, v in enumerate(tree)]
+    return fn(keys, tree)
+
+
+def param_specs(params, cfg: ArchConfig, *, tp="model", fsdp=None,
+                stack_axis=None, leading=(), tp_size=16, ep_size=16):
+    """The JAX package's ``param_specs``: one spec (a tuple, an entry a
+    dim) a leaf of ``params``, the port's named parameters (``embed``,
+    ``layers.3.attn.wq``, ...; any leaf with a ``shape``: meta tensors
+    do) or `tree_from_named`'s tree, whose structure it keeps.
+
+    tp      -- mesh axis of tensor parallelism (heads / d_ff / vocab)
+    fsdp    -- the ``data``-like axis: FSDP of dense weights under
+               ``fsdp_tp``, experts under ``ep_tp``
+    stack_axis -- shards the layer-stack dim of a ``groups`` leaf of the
+               JAX tree (the named parameters have one leaf a layer, and
+               no stack dim to shard)
+    leading -- mesh axes of the first len(leading) dims: mode A's
+               (cluster, client) dims ``('pod', 'data')``, mode B's
+               ``('pod',)``
+    tp_size, ep_size -- the axes' sizes: whether the experts divide them
+               decides between sharding experts and d_ff"""
+    ep = fsdp if cfg.shard_scheme == "ep_tp" else None
+    dense_fsdp = fsdp if cfg.shard_scheme == "fsdp_tp" else None
+    shard_experts = bool(cfg.num_experts) and bool(
+        (ep and ep_size and cfg.num_experts % ep_size == 0)
+        or (not ep and not dense_fsdp and tp_size
+            and cfg.num_experts % tp_size == 0))
+
+    def spec(keys, leaf):
+        name = next((k for k in reversed(keys) if isinstance(k, str)
+                     and not k.isdigit()), None)
+        nd = _ndim(leaf)
+        base = list(_base_spec(keys, name, cfg.num_codebooks > 1, tp,
+                               dense_fsdp, ep, shard_experts))
+        while len(base) < nd:
+            base.insert(0, None)
+        base = base[:nd]
+        if stack_axis and keys and keys[0] == "groups":
+            g = len(leading)
+            if g < nd and base[g] is None:
+                base[g] = stack_axis
+        for i, ax in enumerate(leading):
+            if i < nd and base[i] is None:
+                base[i] = ax
+        return tuple(base)
+
+    return _map_with_keys(params, spec)
 
 
 def _zip_map(trees: List[Any], fn):

@@ -106,12 +106,15 @@ def adamw(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01) -> Optimizer:
 
 # --------------------------------------------------------------------- #
 def adafactor(lr, decay: float = 0.8, eps: float = 1e-30,
-              clip_threshold: float = 1.0) -> Optimizer:
+              clip_threshold: float = 1.0, compute_dtype=None) -> Optimizer:
     """Factored second-moment optimizer (Shazeer & Stern 2018).  Leaves
     with two or more dims keep row and column accumulators of their last
-    two dims; smaller leaves keep a full one.  (The JAX package's
-    ``sequential`` and ``compute_dtype`` bound XLA's temporaries; eager
-    PyTorch updates leaf by leaf already, and computes in float32.)"""
+    two dims; smaller leaves keep a full one.  ``compute_dtype`` (the JAX
+    package's: bfloat16 for the 30B+ training plans) is the dtype of the
+    update math; the accumulators stay float32.  (The JAX package's
+    ``sequential`` bounds XLA's temporaries; eager PyTorch updates leaf by
+    leaf already.)"""
+    cdt = compute_dtype or torch.float32
 
     def init(params):
         def leaf(p):
@@ -130,13 +133,15 @@ def adafactor(lr, decay: float = 0.8, eps: float = 1e-30,
         beta = 1.0 - (t.to(torch.float32) + 1.0) ** -decay
 
         def leaf(g, acc):
-            g = g.to(torch.float32)
+            g = g.to(cdt)
             g2 = torch.square(g) + eps
             if "r" in acc:
-                r = beta * acc["r"] + (1 - beta) * g2.mean(dim=-1)
-                c = beta * acc["c"] + (1 - beta) * g2.mean(dim=-2)
+                r = beta * acc["r"] + (1 - beta) * g2.mean(dim=-1).to(
+                    torch.float32)
+                c = beta * acc["c"] + (1 - beta) * g2.mean(dim=-2).to(
+                    torch.float32)
                 rc = r / torch.clamp(r.mean(dim=-1, keepdim=True), min=eps)
-                vhat = rc[..., None] * c[..., None, :]
+                vhat = (rc[..., None] * c[..., None, :]).to(g.dtype)
                 new = {"r": r, "c": c}
             else:
                 vhat = beta * acc["v"] + (1 - beta) * g2
