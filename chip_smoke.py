@@ -142,12 +142,13 @@ Needs one NVIDIA GPU and nvcc.  In order:
    and the libraries' workspaces;
 7. serving the JAX package's seven other architectures at full width,
    one after another, each freed before the next is built, with phase 5's
-   traffic through ``generate``: gemma-7b (28 layers), granite-3-8b (40),
-   musicgen-large (48, four codebooks: (4, 4, 4096) prompts, (4, 4, 32)
-   tokens), and, cut in depth only where the f32 weights do not fit the
-   card, qwen1.5-32b (16 of 64 layers, qkv bias), chameleon-34b (16 of
-   48, qk-norm), grok-1-314b (2 of 64 MoE layers, 8 experts top-2, cap
-   30) and deepseek-v2-236b (3 of 60: the dense layer and two MoE layers,
+   traffic through ``generate``, cut in depth to keep the script inside
+   its time limit: gemma-7b (14 of 28 layers), granite-3-8b (20 of
+   40), musicgen-large (24 of 48, four codebooks: (4, 4, 4096) prompts,
+   (4, 4, 32) tokens), qwen1.5-32b (8 of 64 layers, qkv bias),
+   chameleon-34b (8 of 48, qk-norm), grok-1-314b (2 of 64 MoE layers, 8
+   experts top-2, cap 30) and deepseek-v2-236b (3 of 60: the dense layer
+   and two MoE layers,
    MLA, 160 experts top-6 and 2 shared): each prints its parameters, its
    prefill seconds, decode tokens/s and peak memory beside the card's
    name and power limit; the prefill must launch ``flash_attention`` once
@@ -183,9 +184,9 @@ Needs one NVIDIA GPU and nvcc.  In order:
    below the first's, the state on the card, the peak memory; one client's
    gradients on the last round's own microbatch through the kernels
    against the plain versions (forward and backward); mode B
-   (``trust_fsdp``, NC 2) for two rounds, its counts checked the same way;
-   and ``python -m repro_torch.launch.train --steps 3`` on the card (its
-   smoke config), which must exit 0;
+   (``trust_fsdp``, NC 2) for one round, its counts
+   checked the same way
+   (its training CLI runs in phase 9b);
 9. training falcon-mamba-7b: federated mode A at full width (d_model 4096,
    d_inner 8192, N 16, vocabulary 65,024) cut to two MAMBA layers
    (476,966,912 f32 parameters from seed 0) with phase 8's clients,
@@ -207,9 +208,7 @@ Needs one NVIDIA GPU and nvcc.  In order:
    each round's seconds, the peak memory (< 80 GB), finite losses falling
    from the first round to the third, one client's gradients through the
    kernels against the plain versions (1e-3 of each parameter's largest
-   entry, the loss 1e-5 relative); and ``python -m
-   repro_torch.launch.train --arch falcon-mamba-7b --steps 3`` on the card
-   (its smoke config), which must exit 0;
+   entry, the loss 1e-5 relative) (its training CLI runs in phase 9b);
 9b. training the MoE, MLA and audio models, after phase 9's memory is
    freed: first the forward's lse output and ``flash_attention_bwd``
    against their plain versions (over head slices) at ragged shapes with
@@ -235,16 +234,17 @@ Needs one NVIDIA GPU and nvcc.  In order:
    (1e-2 of each parameter's largest entry, the loss 1e-5 relative; the
    plain pass replays the kernel pass's MoE routing, and the assignments
    its own router would move are counted; two kernel passes bit for bit
-   equal); and ``python -m repro_torch.launch.train --arch A --steps 3``
-   for grok-1-314b, deepseek-v2-236b and musicgen-large side by side on
-   the card (their smoke configs, mode A; grok's only training run on the
-   card), each of which must exit 0;
+   equal); and ``python -m repro_torch.launch.train [--arch A] --steps
+   3`` for the default recurrentgemma-2b, falcon-mamba-7b, grok-1-314b,
+   deepseek-v2-236b and musicgen-large side by side on the card (their
+   smoke configs; grok's only training run on the card), each of which
+   must exit 0;
 10. the cluster-major federation over ``torch.distributed`` ranks
    (``repro_torch.api.cluster_engine``), its ranks started by
    ``repro_torch.launch.distributed.spawn_local`` on this script's hidden
    ``--dist-worker`` flag: ``paper-mlp-fleet1k`` at full width at mesh
    (1,) (NCCL, one rank) and at mesh (2,) (gloo, two ranks sharing
-   cuda:0), each ``run_scanned(30)`` then ``run(max_rounds=20)``, and
+   cuda:0), each ``run_scanned(30)`` then ``run(max_rounds=10)``, and
    ``faulty-fleet1k`` and ``dp-fleet1k`` at mesh (2,), ``run_scanned(30)``,
    and ``paper-adaptive-fleet1k`` (its DQN pretrained on rank 0 alone and
    broadcast at build) at mesh (2,), ``run_scanned(30)`` then
@@ -260,9 +260,10 @@ Needs one NVIDIA GPU and nvcc.  In order:
    ``paper-mlp-fleet1k`` as a population over the two ranks against the
    unsharded population (schedule equal, values bit for bit or within
    1e-6); the steady rounds/s of each mesh beside the unsharded engine's
-   of the same process (rank 0: three interleaved windows of 100 scanned
-   rounds each, their median and spread), the all-reduce milliseconds a
-   round, each rank's backend, device and
+   of the same process (rank 0: three interleaved windows of 20 scanned
+   rounds each, their median and spread), the
+   all-reduce milliseconds a round (over 5 rounds, as the population's
+   rounds), each rank's backend, device and
    peak memory, the kernel library each rank loaded; then the unmasked
    kernel timed at a rank's Eqn-19 shape (C_loc 8, N 159,010);
 10b. the partitioner-inferred placement (``impl='gspmd'``:
@@ -285,10 +286,10 @@ Needs one NVIDIA GPU and nvcc.  In order:
    ``spawn_local`` on the hidden ``--train-sharded-worker`` flag as one
    NCCL rank at mesh (1, 1): recurrentgemma-2b at full width cut to 3
    layers, mode A, NC 1 x C 2, and deepseek-v2-236b at full width with 2
-   layers of 16 routed experts, mode B, NC 1, each two rounds of the
-   sharded step from seed 0 under Adafactor and two of the unsharded step
-   from the same seed on the same card: the parameters after round 1 and
-   every round's losses bit for bit, each kernel's launches a round equal
+   layers of 16 routed experts, mode B, NC 1, each one round of the
+   sharded step from seed 0 under Adafactor and one of the unsharded step
+   from the same seed on the same card: the
+   parameters after the round and its losses bit for bit, each kernel's launches a round equal
    (and every kernel of the path launched), seconds a round both ways,
    peak memory, and the collectives a round by kind and bytes (the step's
    own and DTensor's: none at one rank); then recurrentgemma-2b (C 1, one
@@ -297,7 +298,27 @@ Needs one NVIDIA GPU and nvcc.  In order:
    unsharded step, every kernel of the path launched on each rank, as
    often as the unsharded step; ``scripts/train_cards.py``
    runs the same worker on four cards;
-12. prints the federations line (4b, 4c and 4d), the serving line, the
+12. sharded serving, in phase 11's two jobs: the serving plans'
+   (`launch.plans.prefill_plan` / ``decode_plan``) step_fn on placed f32
+   weights, each rank's shards drawn on the card from seed 0 a layer at a
+   time, batch 4 x 4096-token prompts: at mesh (1, 1) recurrentgemma-2b,
+   falcon-mamba-7b and deepseek-v2-236b (3 of 60 layers), a prefill and
+   32 greedy steps, every logit and cache bit for bit `LM.prefill` /
+   ``decode_step`` on the same weights and the launches a prefill equal
+   (8 ``flash_attention`` + 18 ``rglru_scan``; 64 ``selective_scan``; 3
+   ``flash_attention``), none in decode; at mesh (1, 2), two gloo ranks
+   sharing the card, deepseek-v2 (its latent cache split on its slots,
+   64 heads a rank: the context-parallel decode) and recurrentgemma-2b
+   (5 heads and 1280 RG-LRU channels a rank), the prefill and 8 steps fed
+   the (1, 1) run's tokens, its MoE routing replayed: the prefill within
+   1e-5 of the (1, 1) run's largest logit, each step (its attention's
+   bfloat16 casts of weights and output left out on both sides) within
+   1e-5 of the unsharded ``decode_step`` on the cache and new entries the
+   sharded step read (`sharded_serve_run`), every kernel of the path
+   launched on each rank;
+   seconds, each rank's peak memory and a decode step's collectives by
+   kind and bytes;
+13. prints the federations line (4b, 4c and 4d), the serving line, the
    service line (4e: each segment's ``service_rounds_per_sec``, its
    checkpoint's seconds and bytes, the chaos children's start-up seconds,
    kills and restarts, beside the card's name and power limit), the
@@ -309,7 +330,8 @@ Needs one NVIDIA GPU and nvcc.  In order:
    training line (8, 9 and 9b: seconds a round, losses, launches,
    peak memory), the multi-device line (10, beside the card's name and power
    limit), the gspmd line (10b, likewise), the sharded-training line
-   (11, likewise), the kernels line, then the result line.
+   (11, likewise), the sharded-serving line (12, likewise), the kernels
+   line, then the result line.
 
 The trust kernels are timed back to back through their wrappers (the
 kernels line's ``ms`` and ``library_ms``) and by device time, warm (ten
@@ -343,6 +365,7 @@ import importlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -382,7 +405,7 @@ SCAN_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 
 # training (phase 8): recurrentgemma-2b at full width cut to one Griffin
 # period, `repro_torch.api.scenarios.RECURRENTGEMMA_2B_TRAIN`
-TRAIN_ROUNDS_A, TRAIN_ROUNDS_B = 3, 2
+TRAIN_ROUNDS_A, TRAIN_ROUNDS_B = 3, 1
 # the backward kernels against their plain versions (the gradient formulas
 # in cuBLAS products and a serial loop): every gradient within BWD_TOL of
 # its largest entry.  The kernels sum over keys, queries and chunks in
@@ -3161,9 +3184,14 @@ def serving_record(cfg, sv, cons) -> dict:
 # weights do not fit the card (qwen1.5-32b's 64 layers would be ~141 GB,
 # chameleon-34b's 48 ~137 GB, one grok-1 MoE layer is ~19.7 GB and one
 # deepseek-v2 MoE layer ~15.9 GB)
-SERVED_ARCHS = (("gemma-7b", None), ("granite-3-8b", None),
-                ("musicgen-large", None), ("qwen1.5-32b", 16),
-                ("chameleon-34b", 16), ("grok-1-314b", 2),
+# the first five at half the depths they were once served at (gemma-7b,
+# granite-3-8b and musicgen-large whole, qwen1.5-32b and chameleon-34b at
+# 16 layers), to keep the script inside its time limit (a quarter put
+# chameleon-34b's 4097-token check at 0.020151, past its 2e-2); grok-1 and
+# deepseek-v2 at the depths one card holds
+SERVED_ARCHS = (("gemma-7b", 14), ("granite-3-8b", 20),
+                ("musicgen-large", 24), ("qwen1.5-32b", 8),
+                ("chameleon-34b", 8), ("grok-1-314b", 2),
                 ("deepseek-v2-236b", 3))
 
 
@@ -3851,9 +3879,9 @@ def moe_drops(inner, drops: list):
 
 
 def train_phase(dev) -> dict:
-    """Mode A (three rounds) and mode B (two rounds) of the federated LM
-    step at recurrentgemma-2b's full width, the live gradient check, and
-    the training CLI."""
+    """Mode A (three rounds) and mode B (one round) of the federated LM
+    step at recurrentgemma-2b's full width and the live gradient check
+    (its training CLI runs in phase 9b)."""
     from repro_torch.api import FederationSpec
     from repro_torch.api.scenarios import RECURRENTGEMMA_2B_TRAIN
     spec = FederationSpec.from_dict(RECURRENTGEMMA_2B_TRAIN)
@@ -3873,23 +3901,10 @@ def train_phase(dev) -> dict:
     del b
     gc.collect()
     torch.cuda.empty_cache()
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        p for p in (os.path.join(HERE, "src"), env.get("PYTHONPATH")) if p)
-    t1 = time.perf_counter()
-    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
-                          "--steps", "3"], cwd=HERE, env=env,
-                         capture_output=True, text=True, timeout=600)
-    t_cli = time.perf_counter() - t1
-    print(f"python -m repro_torch.launch.train --steps 3: exit "
-          f"{cli.returncode} in {t_cli:.2f} s:\n{cli.stdout[-2000:]}",
-          flush=True)
-    check(cli.returncode == 0, f"the training CLI failed: "
-          f"{cli.stderr[-4000:]}")
     wall = time.perf_counter() - t0
     print(f"phase 8 (training) took {wall:.2f} s", flush=True)
     return {"mode_a": rec_a, "mode_b": rec_b, "live": live,
-            "cli_s": t_cli, "phase_s": wall}
+            "phase_s": wall}
 
 
 # --------------------------------------------------------------------- #
@@ -4129,7 +4144,7 @@ def ssm_bwd_phase(cfg, dev, compare_dirs=()) -> dict:
 def mamba_train_phase(dev) -> dict:
     """Mode A (three rounds) of the federated LM step at falcon-mamba-7b's
     full width cut to two MAMBA layers, its peak memory, the live gradient
-    check, and the training CLI on ``--arch falcon-mamba-7b``."""
+    check (its training CLI runs in phase 9b)."""
     from repro_torch.api import FederationSpec
     from repro_torch.api.scenarios import FALCON_MAMBA_7B_TRAIN
     spec = FederationSpec.from_dict(FALCON_MAMBA_7B_TRAIN)
@@ -4144,24 +4159,10 @@ def mamba_train_phase(dev) -> dict:
     del a
     gc.collect()
     torch.cuda.empty_cache()
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        p for p in (os.path.join(HERE, "src"), env.get("PYTHONPATH")) if p)
-    t1 = time.perf_counter()
-    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
-                          "--arch", MAMBA_ARCH, "--steps", "3"], cwd=HERE,
-                         env=env, capture_output=True, text=True,
-                         timeout=600)
-    t_cli = time.perf_counter() - t1
-    print(f"python -m repro_torch.launch.train --arch {MAMBA_ARCH} --steps "
-          f"3: exit {cli.returncode} in {t_cli:.2f} s:\n"
-          f"{cli.stdout[-2000:]}", flush=True)
-    check(cli.returncode == 0, f"the training CLI failed on {MAMBA_ARCH}: "
-          f"{cli.stderr[-4000:]}")
     wall = time.perf_counter() - t0
     print(f"phase 9 (falcon-mamba-7b training) took {wall:.2f} s",
           flush=True)
-    return {"mode_a": rec, "live": live, "cli_s": t_cli, "phase_s": wall}
+    return {"mode_a": rec, "live": live, "phase_s": wall}
 
 
 # --------------------------------------------------------------------- #
@@ -4179,7 +4180,11 @@ RAGGED_DV_SHAPES = [(1, 33, 4, 4, 24, 16), (2, 1, 4, 1, 24, 16),
                     (1, 1, 4, 4, 192, 64), (1, 4097, 4, 1, 192, 64),
                     (2, 33, 4, 1, 72, 40), (1, 1, 2, 2, 72, 40),
                     (1, 4097, 8, 2, 72, 40)]
-TRAIN_9B_CLI_ARCHS = ("grok-1-314b", "deepseek-v2-236b", "musicgen-large")
+# the training CLI on each trained architecture, side by side in phase 9b:
+# None is the CLI's default
+# (recurrentgemma-2b)
+TRAIN_CLI_ARCHS = (None, "falcon-mamba-7b", "grok-1-314b",
+                   "deepseek-v2-236b", "musicgen-large")
 
 
 def sdpa_backward(q, k, v, do) -> dict:
@@ -4335,8 +4340,8 @@ def moe_audio_train_phase(dev, smi_line: str) -> dict:
     is built: launches exactly their schedule, each round's seconds, peak
     memory under 80 GB, losses falling, deepseek's dropped assignments a
     round, one client's live gradients (its engine freed first, the state
-    but that client's parameters); then the training CLI on the three
-    models, side by side."""
+    but that client's parameters); then the training CLI on the five
+    trained architectures (phases 8's and 9's too), side by side."""
     from repro_torch.api import FederationSpec
     from repro_torch.api.scenarios import (DEEPSEEK_V2_236B_TRAIN,
                                            MUSICGEN_LARGE_TRAIN)
@@ -4389,10 +4394,11 @@ def moe_audio_train_phase(dev, smi_line: str) -> dict:
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (os.path.join(HERE, "src"), env.get("PYTHONPATH")) if p)
     t1 = time.perf_counter()
-    procs = {arch: subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
-         "--steps", "3"], cwd=HERE, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for arch in TRAIN_9B_CLI_ARCHS}
+    procs = {arch or "default": subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train"]
+        + (["--arch", arch] if arch else []) + ["--steps", "3"], cwd=HERE,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for arch in TRAIN_CLI_ARCHS}
     cli = {}
     for arch, proc in procs.items():
         try:
@@ -4405,7 +4411,7 @@ def moe_audio_train_phase(dev, smi_line: str) -> dict:
                      "s": time.perf_counter() - t1}
         print(f"python -m repro_torch.launch.train --arch {arch} --steps 3: "
               f"exit {proc.returncode} after {cli[arch]['s']:.2f} s (the "
-              f"three side by side):\n{out[-1500:]}", flush=True)
+              f"{len(procs)} side by side):\n{out[-1500:]}", flush=True)
         check(proc.returncode == 0, f"the training CLI failed on {arch}: "
               f"{err[-4000:]}")
     wall = time.perf_counter() - t0
@@ -4418,14 +4424,14 @@ def moe_audio_train_phase(dev, smi_line: str) -> dict:
 # 10. the cluster-major federation over torch.distributed ranks
 # --------------------------------------------------------------------- #
 DIST_K = 30             # run_scanned(30) on every spec
-DIST_E = 20             # then run(max_rounds=20) on paper-mlp-fleet1k
+DIST_E = 10             # then run(max_rounds=10) on paper-mlp-fleet1k
 DIST_E_DQN = 10         # and run(max_rounds=10) on paper-adaptive-fleet1k
-DIST_STEADY = 100       # the steady rounds/s: windows of run_scanned(100),
+DIST_STEADY = 20        # the steady rounds/s: windows of run_scanned(20),
 DIST_WINDOWS = 3        # ... three of each engine, interleaved
-DIST_AR_ROUNDS = 10     # rounds with every all-reduce timed
+DIST_AR_ROUNDS = 5      # rounds with every all-reduce timed
 DIST_LIVE = 3           # rounds with the kernels held against plain ones
 DIST_POP_B = 8          # replicates of paper-mlp-fleet1k over the ranks
-DIST_POP_K = 10
+DIST_POP_K = 5
 DIST_RTOL = 1e-5        # the cross-shard contract of repro.api.cluster_engine
 DIST_TIMEOUT = 300      # seconds, a spawn_local job
 DIST_SPECS = ("paper-mlp-fleet1k", "faulty-fleet1k", "dp-fleet1k")
@@ -4659,7 +4665,7 @@ def multi_device_phase(dev, smi_line: str) -> dict:
     card, against the unsharded port engine of this process on the same
     seed: ``paper-mlp-fleet1k`` at mesh (1,) (NCCL, one rank) and (2,)
     (gloo, two ranks sharing cuda:0), ``run_scanned(30)`` then
-    ``run(max_rounds=20)``; ``faulty-fleet1k`` and ``dp-fleet1k`` at mesh
+    ``run(max_rounds=DIST_E)``; ``faulty-fleet1k`` and ``dp-fleet1k`` at mesh
     (2,), ``run_scanned(30)``; ``paper-adaptive-fleet1k`` at mesh (2,)
     against rank 0's unsharded engine under the same DQN net; the
     collectives and trust-kernel launches a round; three more rounds with every kernel call held against its
@@ -5080,7 +5086,7 @@ SHARDED_RUNS = (
      "RECURRENTGEMMA_2B_TRAIN", "mesh": [1, 1], "NC": 1, "C": 2},
     {"tag": "deepseek_v2_236b_mode_b@1x1", "scenario":
      "DEEPSEEK_V2_236B_TRAIN", "mesh": [1, 1], "NC": 1})
-SHARDED_ROUNDS = 2      # round 1 compared, round 2 timed warm
+SHARDED_ROUNDS = 1      # compared
 SHARDED_TOL = 1e-5      # across ranks: float32 reassociation
 SHARDED_TIMEOUT = 600   # seconds, the phase's job
 # then recurrentgemma-2b on two gloo ranks sharing the card, mesh (1, 2):
@@ -5295,6 +5301,384 @@ def sharded_train_run(run: dict, dev, rank: int, refs: dict,
     return out
 
 
+# --------------------------------------------------------------------- #
+# 12. sharded serving: the serving plans' steps on placed arguments
+# --------------------------------------------------------------------- #
+# on phase 11's NCCL rank, mesh (1, 1): each model's prefill of batch 4 x
+# 4096 tokens and 32 greedy decode steps through `prefill_plan` /
+# `decode_plan`'s step_fn on placed f32 weights, bit for bit
+# `LM.prefill` / `decode_step` on the same weights, launches equal; then on
+# phase 11's two gloo ranks sharing the card, mesh (1, 2), the prefill and
+# 8 decode steps fed the (1, 1) run's tokens (its MoE routing replayed)
+SERVE_SHARDED_RUNS = (
+    {"tag": "recurrentgemma_2b@1x1", "arch": "recurrentgemma-2b",
+     "mesh": [1, 1], "steps": SERVE_GEN,
+     "expect": {"flash_attention": 8, "rglru_scan": 18}},
+    {"tag": "falcon_mamba_7b@1x1", "arch": "falcon-mamba-7b",
+     "mesh": [1, 1], "steps": SERVE_GEN, "expect": {"selective_scan": 64}},
+    {"tag": "deepseek_v2_236b@1x1", "arch": "deepseek-v2-236b",
+     "layers": 3, "mesh": [1, 1], "steps": SERVE_GEN,
+     "expect": {"flash_attention": 3}})
+SERVE_SHARDED_TP_RUNS = (
+    {"tag": "deepseek_v2_236b@1x2", "arch": "deepseek-v2-236b", "layers": 3,
+     "mesh": [1, 2], "steps": 8, "against": "deepseek_v2_236b@1x1",
+     "expect": {"flash_attention": 3}},
+    {"tag": "recurrentgemma_2b@1x2", "arch": "recurrentgemma-2b",
+     "mesh": [1, 2], "steps": 8, "against": "recurrentgemma_2b@1x1",
+     "expect": {"flash_attention": 8, "rglru_scan": 18}})
+SERVE_SHARDED_KEEP = 8   # logits of the prefill and of this many steps kept
+SERVE_SHARDED_TOL = 1e-5  # of the unsharded run's largest logit
+# the (1, 2) steps as shipped, against the unsharded run's own logits:
+# recurrentgemma-2b read 5.3e-5 to 6.2e-5 over 8 steps, deepseek-v2 3.9e-6
+# (NVIDIA H100 80GB HBM3, 700.00 W), from the attention's bfloat16 casts
+# (`f32_attention`); the controls must move them past this (a cache
+# missing half its tokens' entries read 0.0452 and 0.501, missing the newest
+# token's 4.0e-4 and 1.06e-3)
+SERVE_SHARDED_TP_TOL = 1.5e-4
+
+
+def serve_cfg(run: dict):
+    """A serving run's config: the architecture's, cut in depth where the
+    run says so."""
+    from repro_torch.configs import get_config
+    cfg = get_config(run["arch"])
+    return dataclasses.replace(cfg, num_layers=run["layers"]) \
+        if run.get("layers") else cfg
+
+
+def placed_seeded(cfg, specs: dict, mesh, dev, rank: int):
+    """This rank's shards of ``LM(cfg, seed=0)``'s weights at ``specs``,
+    drawn on the card a layer at a time (`seeded_params`; ranks sharing a
+    card one after another), as DTensors; and the local tensors."""
+    import torch.distributed as dist
+    from repro_torch.core import sharding as shd
+    from repro_torch.models.transformer import seeded_params
+
+    def keep(k, t):
+        mine = shd.local_chunk(t, specs[k], mesh)
+        return mine.clone() if mine.numel() < t.numel() else t
+    local = None
+    shared = dist.get_world_size() > torch.cuda.device_count()
+    for r in range(dist.get_world_size() if shared else 1):
+        if r == rank or not shared:
+            local = seeded_params(cfg, 0, device=dev, keep=keep)
+            torch.cuda.synchronize()
+        dist.barrier()
+    return ({k: shd.from_local(v, specs[k], mesh) for k, v in local.items()},
+            local)
+
+
+def serve_prompts(cfg, dev):
+    """`launch.serve.generate`'s prompts: batch SERVE_BATCH x SERVE_PROMPT
+    from seed 0."""
+    from repro_torch.launch.serve import token_stream
+    return token_stream(torch.Generator().manual_seed(0),
+                        SERVE_BATCH * SERVE_PROMPT, cfg.vocab_size).reshape(
+        SERVE_BATCH, SERVE_PROMPT).to(dev)
+
+
+def serve_calls(prefill, decode, tokens, steps: int, fed=None,
+                before_step=None):
+    """A prefill, then ``steps`` decode steps fed ``fed`` (or the greedy
+    tokens), each with the launch and collective counts set to 0 before
+    and read after -> (logits of every call, tokens fed, the final cache,
+    seconds of the prefill and of each step, launches of the prefill and
+    summed over the steps, the first step's collectives).
+    ``before_step(cache)`` sees the cache before each step."""
+    from repro_torch.core import sharding as shd
+    from repro_torch.kernels import launches, reset_launches
+    reset_launches()
+    shd.reset_collectives()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(tokens)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    pre = {k: v for k, v in launches.items() if v}
+    out, used, step_s, dec, coll = [logits], [], [], {}, {}
+    for i in range(steps):
+        tok = fed[i] if fed is not None else logits.argmax(-1)
+        used.append(tok)
+        if before_step is not None:
+            before_step(cache)
+        reset_launches()
+        shd.reset_collectives()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = decode(cache, tok, SERVE_PROMPT + i)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        for k, v in launches.items():
+            if v:
+                dec[k] = dec.get(k, 0) + v
+        if i == 0:
+            coll = {k: dict(v) for k, v in shd.collectives.items()}
+        out.append(logits)
+    return out, used, cache, pre_s, step_s, pre, dec, coll
+
+
+@contextlib.contextmanager
+def replayed_writes():
+    """Inside, a decode step writes only its slot's position: the cache it
+    is given already holds, in that slot, the entries another run's step
+    wrote (`written`)."""
+    from repro_torch.models import attention as mod
+    inner = mod._write_slot
+    mod._write_slot = lambda cache, step, entries, block: inner(
+        cache, step, {}, block)
+    try:
+        yield
+    finally:
+        mod._write_slot = inner
+
+
+@contextlib.contextmanager
+def f32_attention():
+    """Inside, a decode step's attention keeps its weights and its output
+    in float32 where `attention.sdpa` / ``sdpa_split`` (as the JAX
+    package's ``_sdpa``) cast them to the cache's bfloat16: those casts are
+    discrete, and a probability one rounding apart under another
+    summation order moved recurrentgemma-2b's logits 2.7e-5 to 6.2e-5 of
+    the largest (NVIDIA H100 80GB HBM3, 700.00 W; 2e-7 without them, on
+    the CPU at 14 layers)."""
+    from repro_torch.models import attention as mod
+    inner, inner_split = mod.sdpa, mod.sdpa_split
+    mod.sdpa = lambda q, k, v, *a: inner(q, k, v.float(), *a)
+    mod.sdpa_split = lambda q, k, v, *a: inner_split(q, k, v.float(), *a)
+    try:
+        yield
+    finally:
+        mod.sdpa, mod.sdpa_split = inner, inner_split
+
+
+def written(before: list, after: list) -> list:
+    """A step's input cache with the slot entries that step wrote: the
+    attention and MLA layers' (ring slots and positions) from ``after``,
+    the recurrent states from ``before``."""
+    return [dict(a) if "pos" in a else dict(b)
+            for b, a in zip(before, after)]
+
+
+def zeroed(cache: list, upto: int, count=None) -> list:
+    """A copy of a gathered cache with the K/V (or latent) entries of the
+    attention and MLA layers' newest ``count`` positions before ``upto``
+    zeroed (None: half of the positions a layer's ring holds)."""
+    out = []
+    for layer in cache:
+        layer = {k: v.clone() for k, v in layer.items()}
+        for k in ("k", "v", "ckv", "krope"):
+            if k in layer:
+                W = layer[k].shape[1]
+                n = count or min(upto, W) // 2
+                layer[k][:, torch.arange(upto - n, upto,
+                                         device=layer[k].device) % W] = 0
+        out.append(layer)
+    return out
+
+
+def new_slot_entries(got: list, want: list, pos: int) -> dict:
+    """The entries slot ``pos % Wc`` holds in two caches: how many differ,
+    and the largest difference of a layer's entries over one bfloat16
+    rounding of their largest (2^-8 of it; the CPU test's measure of a
+    cache leaf)."""
+    n = differ = 0
+    worst = 0.0
+    for g, w in zip(got, want):
+        for k in ("k", "v", "ckv", "krope"):
+            if k not in g:
+                continue
+            slot = pos % g[k].shape[1]
+            a, b = g[k][:, slot].float(), w[k][:, slot].float()
+            big = max(float(a.abs().max()), float(b.abs().max()), 1e-30)
+            n += a.numel()
+            differ += int((a != b).sum())
+            worst = max(worst, float((a - b).abs().max()) / (big * 2 ** -8))
+    return {"entries": n, "differ": differ, "max_roundings": worst}
+
+
+def sharded_serve_run(run: dict, dev, rank: int, store: str) -> dict:
+    """One model at one mesh through the serving plans' step_fn (phase
+    12).  At (1, 1) the unsharded `LM.prefill` / `decode_step` on the
+    same weights follows, fed the same tokens, and its logits (the
+    prefill's and SERVE_SHARDED_KEEP steps'), tokens and MoE routing are
+    saved under ``store`` for a larger mesh's run (``against``), which is
+    fed those tokens and replays that routing.  Such a run's prefill and
+    decode steps, as shipped, are held to those saved logits
+    (``logit_rel``).  The same steps then run again from the same prefill
+    with the attention's weights and output kept in float32
+    (`f32_attention`: the bfloat16 casts are discrete, so two summation
+    orders may round a probability apart), and each is held to the
+    unsharded `decode_step` (the whole model, drawn on rank 0 once the
+    shards are freed) run the same way on the same inputs: the sharded
+    run's cache before the step (gathered), with the K/V (or latent)
+    entries the sharded step wrote into its slot (`written`,
+    `replayed_writes`; a step reads back the bfloat16 entries it has just
+    written, which may round apart too) (``logit_rel_f32``).  The
+    unsharded step's own entries of the slot are held to one bfloat16
+    rounding of the largest of a layer's (`new_slot_entries`), and its
+    logits on them are reported beside (``logit_rel_own_entries``).  The
+    control (``control``): how far the unsharded step's logits move when
+    the cache after the prefill has lost the entries of half the tokens it
+    holds (the newest), or of the newest prompt token (`zeroed`).  The (1, 1) runs hold the
+    bfloat16 casts' path bit for bit."""
+    import torch.distributed as dist
+    from repro_torch.core import sharding as shd
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch import plans
+    from repro_torch.launch.mesh import host_mesh_for
+    from repro_torch.models.transformer import seeded_params, structure
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_run = time.perf_counter()
+    cfg = serve_cfg(run)
+    mesh = host_mesh_for(run["mesh"], device=dev.type)
+    f32 = torch.float32
+    pplan = plans.prefill_plan(run["arch"], "prefill_32k", mesh,
+                               param_dtype=f32, cfg=cfg)
+    dplan = plans.decode_plan(run["arch"], "decode_32k", mesh,
+                              param_dtype=f32, cfg=cfg)
+    specs = pplan.in_specs[0]
+    t0 = time.perf_counter()
+    placed, local = placed_seeded(cfg, specs, mesh, dev, rank)
+    build_s = time.perf_counter() - t0
+    bax = pplan.options["layout"]["batch_axis"]
+    put = lambda t: shd.distribute(t, (bax,) + (None,) * (t.dim() - 1),
+                                   mesh)
+    tokens = serve_prompts(cfg, dev)
+    ref = None
+    if run.get("against"):
+        ref = torch.load(os.path.join(store, run["against"] + ".pt"))
+    flips = {"calls": 0, "flipped": 0, "assignments": 0}
+    ctx = (moe_routing(replay=[r.to(dev) for r in ref["routing"]],
+                       flips=flips) if ref is not None and cfg.num_experts
+           else contextlib.nullcontext())
+    first, snap = [], []
+    keep_first = lambda c: None if first else first.append(  # noqa: E731
+        shd.map_tree(lambda t: t.clone(), c))
+    whole_copy = lambda c: snap.append(shd.map_tree(      # noqa: E731
+        lambda t: t.clone() if rank == 0 else None, shd.full_tree(c)))
+    fed_ref = None if ref is None else [t.to(dev) for t in ref["fed"]]
+    with ctx:
+        out, fed, cache, pre_s, step_s, pre, dec, coll = serve_calls(
+            lambda t: pplan.step_fn(placed, put(t)),
+            lambda c, t, i: dplan.step_fn(placed, c, put(t), i), tokens,
+            run["steps"], fed_ref, None if ref is None else keep_first)
+    res = {"mesh": run["mesh"], "build_s": build_s, "prefill_s": pre_s,
+           "step_s": step_s, "launches_prefill": pre,
+           "launches_decode": dec, "collectives_a_step": coll,
+           "cache_layout": pplan.options["layout"],
+           "finite": all(bool(torch.isfinite(x).all()) for x in out),
+           "off_card": [k for k, v in local.items()
+                        if v.device.type != dev.type],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if ref is not None:
+        rel = lambda a, b: float((a.cpu() - b).abs().max()  # noqa: E731
+                                 / b.abs().max())
+        # the shipped path, against the unsharded run's own logits
+        res["logit_rel"] = [rel(a, b) for a, b in zip(out, ref["logits"])]
+        # the diagnosis: the same steps from the same prefill, with the
+        # attention in float32, each step's cache gathered before it
+        n_moe = ref["prefill_routings"]     # one routing a MoE layer
+        dflips = {"calls": 0, "flipped": 0, "assignments": 0}
+        with (moe_routing(replay=[r.to(dev) for r in ref["routing"][n_moe:]],
+                          flips=dflips) if n_moe
+              else contextlib.nullcontext()), f32_attention():
+            dout, _, dcache, *_ = serve_calls(
+                lambda t: (out[0], first.pop()),
+                lambda c, t, i: dplan.step_fn(placed, c, put(t), i), tokens,
+                run["steps"], fed_ref, whole_copy)
+        whole_copy(dcache)                      # after the last step
+        dout = [x.cpu() for x in dout]
+        del placed, local, cache, dcache, out
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        want, free, slots, control = [ref["logits"][0]], [], [], {}
+        if rank == 0:
+            whole = seeded_params(cfg, 0, device=dev)
+            model = structure(cfg)
+            decode_ids = [r.to(dev) for r in ref["routing"][n_moe:]]
+
+            def routed(i):
+                return moe_routing(
+                    replay=decode_ids[i * n_moe:(i + 1) * n_moe],
+                    flips={"calls": 0, "flipped": 0, "assignments": 0}) \
+                    if n_moe else contextlib.nullcontext()
+            with torch.no_grad(), routed(0):
+                # the control: the shipped unsharded step after the
+                # prefill, and the same step on a cache missing entries
+                base, _ = model.decode_step(
+                    shd.map_tree(lambda t: t.clone(), snap[0]), fed[0],
+                    SERVE_PROMPT, params=whole)
+            for what, count in (("half_the_tokens", None),
+                                ("newest_token", 1)):
+                with torch.no_grad(), routed(0):
+                    lost, _ = model.decode_step(
+                        zeroed(snap[0], SERVE_PROMPT, count), fed[0],
+                        SERVE_PROMPT, params=whole)
+                control[what] = rel(lost, base.cpu())
+            for i, tok in enumerate(fed):
+                pos = SERVE_PROMPT + i
+                with torch.no_grad():
+                    # the unsharded step on the cache before the sharded
+                    # one: its own entries of slot pos, its logits
+                    with routed(i), f32_attention():
+                        own, oc = model.decode_step(
+                            shd.map_tree(lambda t: t.clone(), snap[i]), tok,
+                            pos, params=whole)
+                    slots.append(new_slot_entries(oc, snap[i + 1], pos))
+                    free.append(own.cpu())
+                    # and on the entries the sharded step wrote there
+                    with routed(i), replayed_writes(), f32_attention():
+                        lg, _ = model.decode_step(
+                            written(snap[i], snap[i + 1]), tok, pos,
+                            params=whole)
+                    want.append(lg.cpu())
+                snap[i] = None
+            del whole
+        snap.clear()
+        errs = [rel(a, b) for a, b in zip(dout, want)]
+        res.update(logit_rel_f32=errs[:1] + (errs[1:] if rank == 0 else []),
+                   logit_rel_own_entries=[rel(a, b) for a, b in
+                                          zip(dout[1:], free)],
+                   new_slot_entries=slots, control=control,
+                   routing_replayed=flips, routing_replayed_f32=dflips)
+        placed = local = cache = out = None
+    else:
+        model, rec = structure(cfg), ([] if cfg.num_experts else None)
+        with moe_routing(record=rec) if rec is not None \
+                else contextlib.nullcontext():
+            pout, _, pcache, ppre_s, pstep_s, ppre, pdec, _ = serve_calls(
+                lambda t: model.prefill(t, plans.SHAPES["prefill_32k"][
+                    "seq"], params=local),
+                lambda c, t, i: model.decode_step(c, t, i, params=local),
+                tokens, run["steps"], fed)
+        res.update(
+            plain_prefill_s=ppre_s, plain_step_s=pstep_s,
+            plain_launches_prefill=ppre, plain_launches_decode=pdec,
+            logits_bit_equal=all(torch.equal(a, b)
+                                 for a, b in zip(out, pout)),
+            cache_bit_equal=all(
+                torch.equal(shd.local(c[k]), p[k])
+                for c, p in zip(cache, pcache) for k in p))
+        keep = SERVE_SHARDED_KEEP
+        if rank == 0:
+            torch.save({"logits": [x.cpu() for x in pout[:keep + 1]],
+                        "fed": [t.cpu() for t in fed[:keep]],
+                        "routing": [r.cpu() for r in rec or []],
+                        "prefill_routings": sum(
+                            layer.is_moe for layer in model.layers)},
+                       os.path.join(store, run["tag"] + ".pt"))
+        del pout, pcache
+    del placed, local, cache, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    res["run_s"] = time.perf_counter() - t_run
+    return res
+
+
 def sharded_train_worker(cfg: dict) -> None:
     """One rank of a sharded-training job (``--train-sharded-worker``):
     each run of ``cfg`` in order, one JSON line at the end."""
@@ -5315,6 +5699,14 @@ def sharded_train_worker(cfg: dict) -> None:
         print(f"rank {rank}: {run['tag']}", file=sys.stderr, flush=True)
         out["runs"][run["tag"]] = sharded_train_run(run, dev, rank, refs,
                                                     snaps)
+    # phase 12 in the same job
+    out["serve"] = {}
+    t0 = time.perf_counter()
+    for run in cfg.get("serve", ()):
+        print(f"rank {rank}: {run['tag']}", file=sys.stderr, flush=True)
+        out["serve"][run["tag"]] = sharded_serve_run(run, dev, rank,
+                                                     cfg["store"])
+    out["serve_s"] = time.perf_counter() - t0
     print("TRAINSHARDED" + json.dumps(out), flush=True)
     dist.destroy_process_group()
 
@@ -5360,10 +5752,13 @@ def train_sharded_phase(dev, smi_line: str) -> dict:
     gloo ranks sharing the card, within SHARDED_TOL of the unsharded
     step, every kernel of the path launched on each rank's shards."""
     from repro_torch.kernels import launches
+    import tempfile
     t_phase = time.perf_counter()
     free_library_memory()
-    ranks, wall = sharded_train_job(1, {"runs": list(SHARDED_RUNS)},
-                                    SHARDED_TIMEOUT)
+    store = tempfile.mkdtemp(prefix="serve_sharded_")
+    ranks, wall = sharded_train_job(1, {"runs": list(SHARDED_RUNS),
+                                        "serve": list(SERVE_SHARDED_RUNS),
+                                        "store": store}, SHARDED_TIMEOUT)
     r0 = ranks[0]
     check(r0["backend"] == "nccl", f"sharded training ran on "
           f"{r0['backend']}")
@@ -5408,8 +5803,10 @@ def train_sharded_phase(dev, smi_line: str) -> dict:
     # the sharding at work on the card: two gloo ranks, mesh (1, 2)
     tag = SHARDED_TP_RUN["tag"]
     what = f"sharded training {tag}"
-    two, wall2 = sharded_train_job(2, {"runs": [SHARDED_TP_RUN]},
-                                   SHARDED_TP_TIMEOUT)
+    two, wall2 = sharded_train_job(2, {"runs": [SHARDED_TP_RUN],
+                                       "serve": list(SERVE_SHARDED_TP_RUNS),
+                                       "store": store}, SHARDED_TP_TIMEOUT)
+    shutil.rmtree(store, ignore_errors=True)
     tr = [r["runs"][tag] for r in two]
     check(all(r["backend"] == "gloo" for r in two),
           f"{what}: backends {[r['backend'] for r in two]}")
@@ -5449,12 +5846,120 @@ def train_sharded_phase(dev, smi_line: str) -> dict:
           f"{plain[0]['launches']}, peak {runs[tag]['peak_gib']} GiB, "
           f"collectives a round {runs[tag]['collectives_a_round']} "
           f"({smi_line})", flush=True)
+    serve = serve_sharded_report(r0, two, smi_line)
     res = {"device": smi_line, "runs": runs, "backend": r0["backend"],
            "job_wall_s": {"mesh_1x1": wall, "mesh_1x2": wall2},
-           "phase_s": time.perf_counter() - t_phase, "counts": counts}
+           "phase_s": time.perf_counter() - t_phase - serve["phase_s"],
+           "counts": counts, "serve": serve}
     print(f"phase 11 (sharded training): {res['phase_s']:.2f} s",
           flush=True)
     return res
+
+
+def serve_sharded_report(r0: dict, two: list, smi_line: str) -> dict:
+    """Phase 12's checks and lines, from phase 11's two jobs: the (1, 1)
+    runs bit for bit the unsharded calls with equal launches; the (1, 2)
+    runs within SERVE_SHARDED_TP_TOL of the (1, 1) run's logits as
+    shipped (both controls past it), within SERVE_SHARDED_TOL of the
+    unsharded steps with the attention in float32, every kernel of the
+    path launched on each rank, none in decode."""
+    runs, counts = {}, {}
+    for tag, run in r0["serve"].items():
+        what = f"sharded serving {tag}"
+        want = next(r["expect"] for r in SERVE_SHARDED_RUNS
+                    if r["tag"] == tag)
+        check(run["logits_bit_equal"] and run["cache_bit_equal"],
+              f"{what}: departs from LM.prefill / decode_step: logits "
+              f"{run['logits_bit_equal']}, caches {run['cache_bit_equal']}")
+        check(run["launches_prefill"] == run["plain_launches_prefill"]
+              and all(run["launches_prefill"].get(k, 0) == n
+                      for k, n in want.items())
+              and sum(run["launches_prefill"].values()) == sum(
+                  want.values()),
+              f"{what}: prefill launches {run['launches_prefill']}, "
+              f"unsharded {run['plain_launches_prefill']}, expected {want}")
+        check(not any(run["launches_decode"].values()) and not any(
+            run["plain_launches_decode"].values()),
+              f"{what}: decode launched {run['launches_decode']}")
+        check(run["finite"] and not run["off_card"],
+              f"{what}: finite {run['finite']}, off the card "
+              f"{run['off_card']}")
+        counts[f"serve_sharded_{tag}"] = run["launches_prefill"]
+        runs[tag] = run
+        print(f"{what}: bit for bit LM.prefill / decode_step, prefill "
+              f"{run['prefill_s']:.3f} s (unsharded {run['plain_prefill_s']:.3f}"
+              f"), decode {len(run['step_s'])} steps "
+              f"{sum(run['step_s']):.3f} s (unsharded "
+              f"{sum(run['plain_step_s']):.3f}), launches a prefill "
+              f"{run['launches_prefill']}, peak {run['peak_gib']:.2f} GiB, "
+              f"build {run['build_s']:.2f} s, run {run['run_s']:.2f} s "
+              f"({smi_line})", flush=True)
+    for tag in two[0]["serve"]:
+        what = f"sharded serving {tag}"
+        rs = [r["serve"][tag] for r in two]
+        want = next(r["expect"] for r in SERVE_SHARDED_TP_RUNS
+                    if r["tag"] == tag)
+        worst = max(max(r["logit_rel"]) for r in rs)
+        f32 = max(max(r["logit_rel_f32"]) for r in rs)
+        slots, control = rs[0]["new_slot_entries"], rs[0]["control"]
+        check(len(rs[0]["logit_rel"]) == len(rs[0]["step_s"]) + 1
+              and len(rs[0]["logit_rel_f32"]) == len(rs[0]["step_s"]) + 1,
+              f"{what}: {len(rs[0]['logit_rel'])} and "
+              f"{len(rs[0]['logit_rel_f32'])} calls compared")
+        check(worst <= SERVE_SHARDED_TP_TOL, f"{what}: logits "
+              f"{[r['logit_rel'] for r in rs]} of the largest unsharded "
+              f"logit (routing replayed: {rs[0]['routing_replayed']})")
+        check(min(control.values()) > SERVE_SHARDED_TP_TOL,
+              f"{what}: the control {control} is within "
+              f"{SERVE_SHARDED_TP_TOL}")
+        check(f32 <= SERVE_SHARDED_TOL, f"{what}: with the attention in "
+              f"float32, logits {[r['logit_rel_f32'] for r in rs]} of the "
+              f"largest unsharded logit (routing replayed: "
+              f"{rs[0]['routing_replayed_f32']})")
+        check(all(x["max_roundings"] <= 1.0 for x in slots), f"{what}: "
+              f"the entries a step wrote, against the unsharded step's: "
+              f"{slots}")
+        for i, r in enumerate(rs):
+            check(r["launches_prefill"] == want
+                  and not any(r["launches_decode"].values()),
+                  f"{what}: rank {i}: prefill launches "
+                  f"{r['launches_prefill']}, decode {r['launches_decode']}"
+                  f", expected {want} a rank")
+            check(r["finite"] and not r["off_card"],
+                  f"{what}: rank {i}: finite {r['finite']}, off the card "
+                  f"{r['off_card']}")
+        counts[f"serve_sharded_{tag}"] = {
+            k: sum(r["launches_prefill"].get(k, 0) for r in rs)
+            for k in set().union(*(r["launches_prefill"] for r in rs))}
+        runs[tag] = {"ranks": rs, "logit_rel": worst, "logit_rel_f32": f32,
+                     "control": control}
+        print(f"{what}: within {worst:.3g} of the largest unsharded logit "
+              f"over the prefill and {len(rs[0]['step_s'])} steps as "
+              f"shipped (limit {SERVE_SHARDED_TP_TOL:g}; each "
+              f"{rs[0]['logit_rel']}); the control, a cache missing the "
+              f"entries of half its tokens or of the newest, moves "
+              f"them {control['half_the_tokens']:.3g} or "
+              f"{control['newest_token']:.3g}; with the attention's "
+              f"weights and output in float32 both ways, on the entries the "
+              f"sharded step wrote, within {f32:.3g} (limit "
+              f"{SERVE_SHARDED_TOL:g}; each {rs[0]['logit_rel_f32']}); a "
+              f"step's new cache entries against the unsharded step's: "
+              f"{sum(x['differ'] for x in slots)} of "
+              f"{sum(x['entries'] for x in slots)} differ, by at most "
+              f"{max(x['max_roundings'] for x in slots):.3g} bfloat16 "
+              f"rounding of a layer's largest, and on "
+              f"its own entries the unsharded step's logits are "
+              f"{rs[0]['logit_rel_own_entries']} apart "
+              f"(MoE routing replayed: {rs[0]['routing_replayed']}), "
+              f"prefill s {[r['prefill_s'] for r in rs]}, decode step s "
+              f"{[statistics.median(r['step_s']) for r in rs]}, launches a "
+              f"prefill a rank {[r['launches_prefill'] for r in rs]}, peak "
+              f"{[round(r['peak_gib'], 2) for r in rs]} GiB, collectives a "
+              f"decode step {[r['collectives_a_step'] for r in rs]} "
+              f"({smi_line})", flush=True)
+    phase_s = r0["serve_s"] + max(r["serve_s"] for r in two)
+    print(f"phase 12 (sharded serving): {phase_s:.2f} s", flush=True)
+    return {"runs": runs, "counts": counts, "phase_s": phase_s}
 
 
 def main() -> None:
@@ -5490,6 +5995,12 @@ def main() -> None:
     from repro_torch.kernels import build, launches, reset_launches
     from repro_torch.configs import get_config
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    def stamp(phase: str) -> None:
+        """The script's seconds so far, as each phase ends."""
+        print(f"[{time.perf_counter() - t_start:.1f} s] after phase {phase}",
+              flush=True)
 
     # 1. the card
     name = torch.cuda.get_device_name(0)
@@ -5520,6 +6031,7 @@ def main() -> None:
     check(fused_ptxas or not report, "ptxas named no fused kernel")
     check(all(r.get("spill_stores", 0) == 0 and r.get("spill_loads", 0) == 0
               for r in fused_ptxas), f"the fused kernel spills: {fused_ptxas}")
+    stamp("2")
 
     # 3. the main path's federation, and its kernels at its shapes
     spec = FederationSpec.from_dict(PAPER_MLP_FLEET1K)
@@ -5611,32 +6123,39 @@ def main() -> None:
     check(len(actions) > 1, f"the controller never varied a: {actions}")
     del fed, fixed, eng, scanned, event, mean_model
     torch.cuda.empty_cache()
+    stamp("4")
 
     # 4b. the paper's full scheme: a DQN pretrained on the card picks a_i
     adaptive = adaptive_phase(dev)
     counts.update(adaptive.pop("counts"))
     torch.cuda.empty_cache()
+    stamp("4b")
     # 4c. the autoencoder-anomaly task under the same controller
     anomaly = anomaly_phase(dev, args.compare_with)
     counts.update(anomaly.pop("counts"))
+    stamp("4c")
     # 4d. DP, the robust rules and the fault model at full width
     robust = robust_phase(dev)
     counts.update(robust.pop("counts"))
     dense_eqn19 = dense_times(B, N, dev)
     free_library_memory()
+    stamp("4d")
     # 4e. the service mode: checkpointed segments, resume, a SIGKILL
     service = service_phase(dev)
     counts.update(service.pop("counts"))
     torch.cuda.empty_cache()
+    stamp("4e")
     # 4f. populations: B federations as one batched round, and the pool
     population = population_phase(dev)
     counts.update(population.pop("counts"))
     pk = population.pop("kernels")
     free_library_memory()
+    stamp("4f")
     # 4g. the paper's own entry point and evaluation
     paper = paper_phase(dev)
     counts.update(paper.pop("counts"))
     free_library_memory()
+    stamp("4g")
     feds = [adaptive, {k: v for k, v in anomaly.items() if k != "fused"},
             robust]
     print(f"launch counts by path: {json.dumps(counts)}", flush=True)
@@ -5658,6 +6177,7 @@ def main() -> None:
                       for k in launches}
     del sv
     torch.cuda.empty_cache()
+    stamp("5")
 
     # 6. serving: falcon-mamba-7b at full width
     mcfg = get_config(MAMBA_ARCH)
@@ -5675,30 +6195,35 @@ def main() -> None:
                               + msv["counts"]["decode"][k])
     del msv
     free_library_memory()
+    stamp("6")
 
     # 7. serving: the JAX package's seven other architectures
     archs = arch_serving_phase(dev, smi_line)
     serving += archs["records"]
     for k in launches:
         serve_launches[k] += sum(c[k] for c in archs["counts"].values())
+    stamp("7")
 
     # 8. training: recurrentgemma-2b at full width, one Griffin period
     tk = train_kernel_phase(cfg, dev, args.compare_with)
     free_library_memory()
     training = train_phase(dev)
     free_library_memory()
+    stamp("8")
 
     # 9. training: falcon-mamba-7b at full width, two MAMBA layers
     sk = ssm_bwd_phase(mcfg, dev, args.compare_with)
     free_library_memory()
     mtraining = mamba_train_phase(dev)
     free_library_memory()
+    stamp("9")
 
     # 9b. training the MoE, MLA and audio models at full width, cut
     ak = attn_train_shapes_phase(dev)
     free_library_memory()
     moe_training = moe_audio_train_phase(dev, smi_line)
     free_library_memory()
+    stamp("9b")
     train_counts = {"mode_a": training["mode_a"]["launches"],
                     "mode_b": training["mode_b"]["launches"],
                     "falcon_mamba_mode_a": mtraining["mode_a"]["launches"],
@@ -5717,19 +6242,26 @@ def main() -> None:
     c_loc = multi["runs"]["paper-mlp-fleet1k"]["mesh_2"]["C_loc"]
     dense_cm = dense_times(c_loc, N, dev)
     free_library_memory()
+    stamp("10")
 
     # 10b. the partitioner-inferred placement through DTensor
     gspmd = gspmd_phase(dev, smi_line)
     counts.update(gspmd.pop("counts"))
     total = {k: sum(c[k] for c in counts.values()) for k in launches}
+    stamp("10b")
 
     # 11. the sharded federated LM step at mesh (1, 1)
     sharded = train_sharded_phase(dev, smi_line)
     train_counts.update(sharded.pop("counts"))
+    # 12. sharded serving, in phase 11's jobs
+    serve_sharded = sharded.pop("serve")
+    ss = serve_sharded["counts"]
+    ss_total = {k: sum(c.get(k, 0) for c in ss.values()) for k in launches}
+    stamp("11 and 12")
     train_launches = {k: sum(c[k] for c in train_counts.values())
                       for k in launches}
 
-    # 12. the serving line, the kernels line, then the result line
+    # 13. the serving line, the kernels line, then the result line
     t, bd, err = kp["t"], kp["bound"], kp["err"]
     lt, lbd = lk["t"], lk["bound"]
     kernels = [
@@ -5789,12 +6321,13 @@ def main() -> None:
         {"name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
          "replaces": "src/repro/kernels/flash_attention.py:26",
          "launches": serve_launches["flash_attention"]
-         + train_launches["flash_attention"],
+         + train_launches["flash_attention"] + ss_total["flash_attention"],
          "launches_by_path": {
              "serving": serve_launches["flash_attention"],
              **{p: c["flash_attention"]
                 for p, c in archs["counts"].items()},
-             **{p: c["flash_attention"] for p, c in train_counts.items()}},
+             **{p: c["flash_attention"] for p, c in train_counts.items()},
+             **{p: c.get("flash_attention", 0) for p, c in ss.items()}},
          "at_mla_prefill_shape": lk["mla"],
          "lse_variant_at_training_shapes": {
              name: {"ms": ak[name]["fwd_lse_ms"],
@@ -5834,10 +6367,12 @@ def main() -> None:
         {"name": "rglru_scan", "route": "cuda", "source": SCAN_SOURCE,
          "replaces": "src/repro/kernels/rglru_scan.py:22",
          "launches": serve_launches["rglru_scan"]
-         + train_launches["rglru_scan"],
+         + train_launches["rglru_scan"] + ss_total["rglru_scan"],
          "launches_by_path": {"serving": serve_launches["rglru_scan"],
                               **{p: c["rglru_scan"]
-                                 for p, c in train_counts.items()}},
+                                 for p, c in train_counts.items()},
+                              **{p: c.get("rglru_scan", 0)
+                                 for p, c in ss.items()}},
          "max_abs_err": lk["err"]["scan"]["float32"],
          "tolerance": SCAN_TOL["float32"],
          "bf16_max_abs_err": lk["err"]["scan"]["bfloat16"],
@@ -5858,10 +6393,12 @@ def main() -> None:
         {"name": "selective_scan", "route": "cuda", "source": SSM_SOURCE,
          "replaces": "src/repro/kernels/selective_scan.py:25",
          "launches": serve_launches["selective_scan"]
-         + train_launches["selective_scan"],
+         + train_launches["selective_scan"] + ss_total["selective_scan"],
          "launches_by_path": {"serving": serve_launches["selective_scan"],
                               **{p: c["selective_scan"]
-                                 for p, c in train_counts.items()}},
+                                 for p, c in train_counts.items()},
+                              **{p: c.get("selective_scan", 0)
+                                 for p, c in ss.items()}},
          "with_states_launches_falcon_mamba_mode_a":
              mtraining["mode_a"]["state_launches"],
          "at_training_shape_ms": sk["t"]["ssm_fwd_b1"],
@@ -6001,6 +6538,8 @@ def main() -> None:
     print(json.dumps({"multi_device": multi}), flush=True)
     print(json.dumps({"gspmd": gspmd}), flush=True)
     print(json.dumps({"train_sharded": sharded}), flush=True)
+    print(json.dumps({"serve_sharded": {"device": smi_line,
+                                        **serve_sharded}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

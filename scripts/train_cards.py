@@ -49,6 +49,7 @@ SMOKE = os.path.join(ROOT, "chip_smoke.py")     # its --train-sharded-worker
 LM_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
               "rglru_scan.cu", "rglru_scan_bwd.cu")
 DEEPSEEK_TASK = {"micro_batch": 4, "n_micro": 1}
+ROUNDS = 2              # round 1 compared, round 2 timed warm
 TOL = 1e-5
 
 
@@ -70,9 +71,9 @@ def runs_for(mesh: list, opts=("adafactor",)) -> list:
 def _runs(mesh: list) -> list:
     tag = "x".join(map(str, mesh))
     rg = {"scenario": "RECURRENTGEMMA_2B_TRAIN", "mesh": mesh, "NC": 1,
-          "C": 4}
+          "C": 4, "rounds": ROUNDS}
     ds = {"scenario": "DEEPSEEK_V2_236B_TRAIN", "mesh": mesh, "NC": 1,
-          "task": DEEPSEEK_TASK}
+          "task": DEEPSEEK_TASK, "rounds": ROUNDS}
     runs = [{**rg, "tag": f"recurrentgemma_2b_mode_a@{tag}"},
             {**ds, "tag": f"deepseek_v2_236b_mode_b@{tag}"}]
     if mesh == [2, 2]:

@@ -44,15 +44,16 @@ module notes of `repro_torch.core.sharding`).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional
+from typing import (Any, Callable, Dict, List, Mapping, NamedTuple,
+                    Optional, Tuple)
 
 import numpy as np
 import torch
 
 from ..device import is_dtensor
 from ..models.lm import lm_loss, weighted_lm_loss
-from ..models.transformer import (LM, named_from_tree, param_specs,
-                                  tree_from_named)
+from ..models.transformer import (LM, layer_groups, named_from_tree,
+                                  param_specs, structure, tree_from_named)
 from ..optim import Optimizer
 from .trust import staleness_weights
 
@@ -165,15 +166,31 @@ def _assign_(dst, src) -> None:
         dst.copy_(src)
 
 
-def _leaf_state(state, keys, k: str):
-    """The optimizer state as one leaf's update reads it: a dict keyed by
-    the parameters (Adam's ``m``, ``v``; Adafactor's ``acc``) narrows to
-    ``{k: ...}``; other entries (the step count ``t``) stay whole."""
+def _leaf_state(state, keys, ks):
+    """The optimizer state as the update of the leaves ``ks`` (a group,
+    `update_units`) reads it: a dict keyed by the parameters (Adam's
+    ``m``, ``v``; Adafactor's ``acc``) narrows to ``{k: ...}`` for k in
+    ``ks``; other entries (the step count ``t``) stay whole."""
     if isinstance(state, Mapping):
         if set(state) == keys:
-            return {k: state[k]}
-        return {n: _leaf_state(v, keys, k) for n, v in state.items()}
+            return {k: state[k] for k in ks}
+        return {n: _leaf_state(v, keys, ks) for n, v in state.items()}
     return state
+
+
+def update_units(cfg, keys) -> List[Tuple[str, ...]]:
+    """The order a step updates the parameters ``keys`` in: each of the
+    JAX package's stacked groups (`layer_groups`) as one unit, which its
+    optimizer updates as one leaf (Adafactor's clip and its 1-D moments),
+    the other leaves alone, in ``keys``' order of each unit's first."""
+    groups = {k: g for g in layer_groups(cfg, keys) for k in g}
+    out, seen = [], set()
+    for k in keys:
+        if k not in seen:
+            unit = groups.get(k, (k,))
+            seen.update(unit)
+            out.append(unit)
+    return out
 
 
 def _assign_part_(dst, src, keys, keyed: bool) -> None:
@@ -193,7 +210,9 @@ def _assign_part_(dst, src, keys, keyed: bool) -> None:
 
 def _local_update(loss_fn: Callable, local_steps: int, params: Tree,
                   opt_state, batch: Tree, accum_dtype, sync: Callable,
-                  update: Callable) -> torch.Tensor:
+                  update: Callable, units,
+                  unclipped: Optional[Callable] = None,
+                  clipped: Optional[Callable] = None) -> torch.Tensor:
     """``local_steps`` optimizer steps of one client, each averaging the
     gradients of the microbatches of ``batch`` (leaves (n_micro, Bm, ...)).
     ``params`` and ``opt_state`` are views into the stacked state and are
@@ -212,8 +231,17 @@ def _local_update(loss_fn: Callable, local_steps: int, params: Tree,
     buffer of the 30B+ models) sums the microbatches' gradients in that
     dtype, each cast before it is added, and the averaged gradient stays
     in it.  ``sync(name, grad)`` sums the gradient over the ranks that
-    hold the leaf whole (none unsharded), and ``update(name, grads, state,
-    params)`` is the optimizer's update of the rank's shard."""
+    hold the leaf whole (none unsharded), and ``update(unit, grads, state,
+    params)`` is the optimizer's update of the rank's shards of a unit.
+
+    A unit of several >= 2-D leaves (a stacked group) whose optimizer
+    clips over the group (Adafactor: ``unclipped(name, grad, state) ->
+    (u, new state, sum of squares of the whole leaf's u, its entries)``
+    and ``clipped(u, ss, n)``, `optim.Optimizer`) is updated in two
+    passes: each leaf's unclipped update is made and its gradient freed,
+    then each update is clipped by the group's RMS and applied.  So a
+    group takes its gradients' memory, and a sharded leaf is gathered
+    whole one at a time."""
     n_micro = next(iter(batch.values())).shape[0]
     keys = list(params)
     key_set = set(keys)
@@ -237,19 +265,37 @@ def _local_update(loss_fn: Callable, local_steps: int, params: Tree,
                     leaves[k].grad = None
         with torch.no_grad():
             new = None
-            for k in keys:
-                if low:
-                    g = acc.pop(k) / n_micro
-                else:
-                    g = leaves[k].grad.div_(n_micro)
-                leaves[k].grad = None
-                g = sync(k, g)
+            for unit in units:
+                gs = {}
+                for k in unit:
+                    if low:
+                        g = acc.pop(k) / n_micro
+                    else:
+                        g = leaves[k].grad.div_(n_micro)
+                    leaves[k].grad = None
+                    gs[k] = sync(k, g)
+                    del g
+                if (unclipped is not None and len(unit) > 1
+                        and params[unit[0]].dim() >= 2):
+                    us, ss, n = {}, 0.0, 0
+                    for k in unit:
+                        us[k], new, s, m = unclipped(
+                            k, gs.pop(k),
+                            _leaf_state(opt_state, key_set, (k,)))
+                        _assign_part_(opt_state, new, key_set, keyed=True)
+                        ss, n = ss + s, n + m
+                    for k in unit:
+                        params[k].add_(clipped(us.pop(k), ss, n).to(
+                            params[k].dtype))
+                    continue
                 updates, new = update(
-                    k, {k: g}, _leaf_state(opt_state, key_set, k),
-                    {k: params[k]})
+                    unit, gs, _leaf_state(opt_state, key_set, unit),
+                    {k: params[k] for k in unit})
                 _assign_part_(opt_state, new, key_set, keyed=True)
-                params[k].add_(updates[k].to(params[k].dtype))
-                del g, updates
+                for k in unit:
+                    params[k].add_(updates[k].to(params[k].dtype))
+                    del gs[k]
+                del gs, updates
             # the entries every leaf shares (the step count), once
             _assign_part_(opt_state, new, key_set, keyed=False)
         del leaves, new
@@ -286,7 +332,7 @@ def build_train_step(cfg, opt: Optimizer, *, mode: str, local_steps: int = 1,
     expert-parallel branch (the JAX package's ``shard_map`` under
     ``set_mesh``).
     """
-    model = LM(cfg, device="meta", seed=None)     # the structure, no weights
+    model = structure(cfg)     # the structure, no weights
     lead = lead_dims(mode)
 
     def train_step(state: TrainState, batch, trust_rep, staleness):
@@ -297,6 +343,8 @@ def build_train_step(cfg, opt: Optimizer, *, mode: str, local_steps: int = 1,
             raise ValueError("a sharded step computes the LM loss; a "
                              "custom loss_fn runs unsharded")
         axes = sh.compute_axes
+        units = update_units(cfg, list(rk.params))
+        stacked = {g: (g,) for g in layer_groups(cfg, rk.params)}
         fed = rk.lead_axes[0] + (rk.lead_axes[1] if lead > 1 else ())
         fed_group = sh.group(fed)
         dev = rk.device
@@ -314,9 +362,14 @@ def build_train_step(cfg, opt: Optimizer, *, mode: str, local_steps: int = 1,
             return shd.all_reduce_(g, sh.group(shd.grad_axes(inner[k],
                                                              axes)))
 
-        def update(k, grads, st, prm):
-            return shd.sharded_update(opt, grads, st, prm, {k: inner[k]},
-                                      sh.mesh, axes)
+        def update(unit, grads, st, prm):
+            return shd.sharded_update(opt, grads, st, prm,
+                                      {k: inner[k] for k in unit}, sh.mesh,
+                                      axes, groups=stacked.get(unit, ()))
+
+        def unclipped(k, g, st):
+            return shd.sharded_unclipped(opt, k, g, st, inner[k], sh.mesh,
+                                         axes)
 
         def local_round(idx):
             at = tuple(o + i for o, i in zip(rk.origin, idx))
@@ -325,7 +378,8 @@ def build_train_step(cfg, opt: Optimizer, *, mode: str, local_steps: int = 1,
             loss = _local_update(loss_fn or lm, local_steps,
                                  _index(rk.params, idx), ost,
                                  _index(rk.batch, idx), accum_dtype, sync,
-                                 update)
+                                 update, units,
+                                 opt.unclipped and unclipped, opt.clipped)
             return shd.all_reduce_(loss, sh.group(axes))
 
         def merge_whole_():
@@ -478,7 +532,10 @@ def _opt_specs_like(opt_name: str, pspecs, opt_state_shapes):
             if isinstance(ps, tuple):          # a parameter's spec
                 if "v" in shapes:
                     return {"v": ps}
-                return {"r": ps[:-1], "c": ps[:-2] + ps[-1:]}
+                # a 1-D leaf of a group keeps the group's column: its spec
+                c = len(tuple(shapes["c"].shape))
+                return {"r": ps[:-1],
+                        "c": ps if c == len(ps) else ps[:-2] + ps[-1:]}
             if isinstance(ps, Mapping):
                 return {k: leaf_spec(ps[k], shapes[k]) for k in ps}
             return [leaf_spec(p, s) for p, s in zip(ps, shapes)]
@@ -525,11 +582,115 @@ def batch_specs(cfg, batch_shapes, *, mode: str, pod_axis=None):
     return {k: spec(v) for k, v in batch_shapes.items()}
 
 
-def build_serve_step(model: LM) -> Callable:
-    """serve_step(cache, tokens, step) -> (logits, cache): one decode step
-    of ``model`` (plain decode; federated learning is train-time)."""
-    def serve_step(cache, tokens, step: int):
-        return model.decode_step(cache, tokens, step)
+def cache_layout(cfg, batch: int, n_data: int, tp_size: int = 16
+                 ) -> Dict[str, Any]:
+    """The JAX package's ``_cache_layout``: the `cache_specs` keywords of
+    a batch of ``batch`` on ``n_data`` x ``tp_size`` ranks.  The batch
+    goes on ``data`` only where ``data`` divides it (long_500k's batch of
+    1 stays replicated); K/V heads on ``model`` where the axis divides a
+    count above one, else (several heads) their slots; MLA's latent
+    slots and the recurrent states' channels on ``model``."""
+    batch_axis = "data" if batch % n_data == 0 and batch >= n_data else None
+    kv_ok = (cfg.num_kv_heads > 1 and not cfg.use_mla
+             and cfg.num_kv_heads % tp_size == 0)
+    kv_axis = "model" if kv_ok else None
+    attn_seq_axis = ("model" if (cfg.num_kv_heads > 1 and not cfg.use_mla
+                                 and not kv_ok) else None)
+    seq_axis = "model" if cfg.use_mla else None
+    return dict(batch_axis=batch_axis, kv_axis=kv_axis, seq_axis=seq_axis,
+                state_axis="model", attn_seq_axis=attn_seq_axis)
+
+
+class _ServeShare(NamedTuple):
+    """This rank's view of a serving call (`_serve_share`)."""
+    shards: Any           # `sharding.Shards`; NO_SHARDS for plain weights
+    params: Tree          # the local tensors (at their at-rest specs)
+    tokens: torch.Tensor  # this rank's rows
+    mesh: Any
+    batch_axis: Any       # the mesh axis of the batch, or None
+
+
+def _serve_share(params, tokens) -> _ServeShare:
+    """Placed parameters (DTensors at the serving plan's specs) and tokens
+    (a DTensor whose rows split over ``data``, or whole on every rank) ->
+    this rank's shards, rows and `Shards` (the parameters' compute
+    layouts, their at-rest specs to gather FSDP'd leaves a layer at a
+    time, the batch's axis); plain parameters -> the unsharded call."""
+    from . import sharding as shd
+    first = next(iter(params.values()))
+    if not is_dtensor(first):
+        return _ServeShare(shd.NO_SHARDS, params, tokens, None, None)
+    mesh = first.device_mesh
+    rest = {k: shd.spec_of(v) for k, v in params.items()}
+    compute = {k: shd.compute_spec(k, s) for k, s in rest.items()}
+    batch_axis = None
+    if is_dtensor(tokens):
+        batch_axis = shd.spec_of(tokens)[0]
+        tokens = tokens.to_local()
+    dev = first.to_local().device
+    sh = shd.Shards(mesh, compute, tokens=shd.entry_axes(batch_axis),
+                    rest=rest)
+    return _ServeShare(sh, {k: shd.local(v) for k, v in params.items()},
+                       tokens.to(dev), mesh, batch_axis)
+
+
+def build_prefill_step(cfg, cache_len: int) -> Callable:
+    """prefill_step(params, tokens) -> (logits, cache): the serving
+    prefill of ``cfg`` (`LM.prefill`) with a cache of ``cache_len``
+    positions.  Placed parameters and tokens (the serving plan's specs)
+    run on this rank's shards: the logits are whole on every rank and the
+    cache is DTensors at `cache_specs` of `cache_layout` (with the
+    tokens' batch axis); plain ones give the unsharded call."""
+    model = structure(cfg)     # the structure, no weights
+
+    def prefill_step(params, tokens):
+        from . import sharding as shd
+        from ..models.transformer import cache_specs
+        rk = _serve_share(params, tokens)
+        with torch.no_grad():
+            logits, cache = model.prefill(rk.tokens, cache_len,
+                                          params=rk.params, shards=rk.shards)
+        if rk.mesh is None:
+            return logits, cache
+        from ..launch.mesh import axis_size
+        layout = cache_layout(cfg, 1, 1, axis_size(rk.mesh, "model"))
+        layout["batch_axis"] = rk.batch_axis
+        specs = cache_specs(cache, **layout)
+        return logits, shd.map_tree(lambda t, s: shd.from_local(
+            t.contiguous(), s, rk.mesh), cache, specs)
+
+    return prefill_step
+
+
+def build_serve_step(cfg) -> Callable:
+    """serve_step(params, cache, tokens, step) -> (logits, cache): one
+    decode step of ``cfg`` (`LM.decode_step`; plain decode: federated
+    learning is train-time), the cache updated in place.  Placed
+    parameters, cache and tokens run on this rank's shards, the logits
+    whole on every rank; plain ones give the unsharded call."""
+    model = structure(cfg)
+
+    def serve_step(params, cache, tokens, step: int):
+        from . import sharding as shd
+        rk = _serve_share(params, tokens)
+        if rk.mesh is None:
+            with torch.no_grad():
+                return model.decode_step(cache, rk.tokens, step,
+                                         params=params)
+        local = shd.map_tree(shd.local, cache)
+        with torch.no_grad():
+            logits, new = model.decode_step(local, rk.tokens, step,
+                                            params=rk.params,
+                                            shards=rk.shards)
+            # states a layer replaced (RG-LRU and Mamba ``h``, ``conv``)
+            # go back into the DTensors' storage
+            for old, lc in zip(cache, new):
+                for k, t in lc.items():
+                    mine = old[k].to_local()
+                    if t is not mine:
+                        mine.copy_(t)
+        return logits, cache
+
     return serve_step
 
 
@@ -548,7 +709,7 @@ def build_init_fn(cfg, opt: Optimizer, *, mode: str, n_clusters: int,
         meta = device is not None and torch.device(device).type == "meta"
         model = LM(cfg, device=device, seed=None if meta else seed)
         params = {k: p.detach() for k, p in model.named_parameters()}
-        opt_state = opt.init(params)
+        opt_state = opt.init(params, groups=layer_groups(cfg, params))
         stack = lambda x: x.expand(lead + tuple(x.shape)).clone()
         return TrainState({k: stack(p) for k, p in params.items()},
                           _map_tensors(opt_state, stack), 0)
@@ -568,19 +729,75 @@ def _is_param_tree(tree) -> bool:
     return isinstance(tree, Mapping) and "embed" in tree
 
 
+_MOMENTS = ("r", "c", "v")
+
+
+def _is_moments(tree) -> bool:
+    """An optimizer's per-leaf dict (Adafactor's ``r``/``c`` or ``v``)."""
+    return isinstance(tree, Mapping) and bool(tree) and set(tree) <= set(
+        _MOMENTS)
+
+
+def _stacked_columns(tree, lead: int, fn):
+    """``fn(c, r)`` on the column of every 1-D leaf of a stacked group in
+    an Adafactor tree of the JAX layout (its row ``r`` is the (G,) stack
+    after ``lead`` dims, or a layer's 0-d row)."""
+    def walk(node):
+        if _is_moments(node):
+            if "c" in node and np.ndim(node["r"]) == lead + 1:
+                return dict(node, c=fn(node["c"], node["r"]))
+            return node
+        if isinstance(node, Mapping):
+            return {k: walk(v) for k, v in node.items()}
+        return node
+    return dict(tree, groups=[walk(g) for g in tree["groups"]])
+
+
+def acc_from_tree(tree, cfg, lead: int):
+    """The JAX package's Adafactor ``acc`` tree (its parameter tree of
+    per-leaf moment dicts) -> the port's, keyed by parameter name: a
+    stacked 1-D group's one column ``c`` (n,) goes to each of its
+    layers."""
+    def spread(c, r):
+        c = np.asarray(c)
+        return np.broadcast_to(np.expand_dims(c, lead), np.shape(r)
+                               + c.shape[lead:])
+    named = named_from_tree(_stacked_columns(tree, lead, spread), cfg,
+                            lead)
+    out: Dict[str, Any] = {}
+    for k, v in named.items():
+        head, _, tail = k.rpartition(".")
+        if tail in _MOMENTS and k.startswith("layers."):
+            out.setdefault(head, {})[tail] = v
+        else:
+            out[k] = v
+    return out
+
+
+def acc_to_tree(acc, cfg, lead: int):
+    """The inverse of `acc_from_tree`, as numpy arrays: a stacked 1-D
+    group's column is its first layer's (every layer holds the same)."""
+    return _stacked_columns(tree_from_named(acc, cfg, lead), lead,
+                            lambda c, r: c[(slice(None),) * lead + (0,)])
+
+
 def train_state_from_numpy(state: Mapping[str, Any], cfg, *, mode: str,
                            device=None) -> TrainState:
     """A JAX ``TrainState`` as numpy arrays (``{"params", "opt",
     "round"}``: the parameter tree with its (NC, C) or (NC,) leading dims,
-    and the optimizer state, e.g. Adam's ``{"m", "v", "t"}``) -> the
-    port's `TrainState` on ``device``."""
+    and the optimizer state, e.g. Adam's ``{"m", "v", "t"}`` or
+    Adafactor's ``{"acc", "t"}``) -> the port's `TrainState` on
+    ``device``."""
     lead = lead_dims(mode)
     put = lambda a: torch.as_tensor(np.array(a), device=device)
 
     def convert(tree):
         if _is_param_tree(tree):
-            return {k: put(v) for k, v in
-                    named_from_tree(tree, cfg, lead).items()}
+            named = (acc_from_tree(tree, cfg, lead)
+                     if _is_moments(tree["embed"]) else
+                     named_from_tree(tree, cfg, lead))
+            return {k: _map_tensors(v, put) if isinstance(v, Mapping)
+                    else put(v) for k, v in named.items()}
         if isinstance(tree, Mapping):
             return {k: convert(v) for k, v in tree.items()}
         if isinstance(tree, (tuple, list)) and not tree:
@@ -599,6 +816,8 @@ def train_state_to_numpy(state: TrainState, cfg, *, mode: str
 
     def convert(tree):
         if _is_param_tree(tree):
+            if _is_moments(tree["embed"]):
+                return acc_to_tree(tree, cfg, lead)
             return tree_from_named(tree, cfg, lead)
         if isinstance(tree, Mapping):
             return {k: convert(v) for k, v in tree.items()}

@@ -187,11 +187,15 @@ def local(t):
 
 
 def map_tree(fn, tree, *rest):
-    """``fn`` over the tensors of a (nested) dict, with the matching leaves
-    of the trees ``rest`` (specs) beside each; anything else is kept."""
+    """``fn`` over the tensors of a (nested) dict or list (a decode
+    cache), with the matching leaves of the trees ``rest`` (specs) beside
+    each; anything else is kept."""
     if isinstance(tree, Mapping):
         return {k: map_tree(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_tree(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
     if isinstance(tree, torch.Tensor):
         return fn(tree, *rest)
     return tree
@@ -210,6 +214,26 @@ def full_state(state):
     all-gather a sharded leaf: every rank calls it)."""
     return type(state)(map_tree(full, state.params),
                        map_tree(full, state.opt), state.round)
+
+
+def distribute_tree(tree, specs, mesh):
+    """A whole tree of tensors (parameters, a decode cache: the same on
+    every rank) -> its DTensors at the specs' placements."""
+    return map_tree(lambda t, s: distribute(t, s, mesh), tree, specs)
+
+
+def full_tree(tree):
+    """A tree of DTensors as whole plain tensors on every rank (one
+    all-gather a sharded leaf: every rank calls it)."""
+    return map_tree(full, tree)
+
+
+def from_local(t: torch.Tensor, spec: Spec, mesh):
+    """The DTensor whose shard on this rank is ``t`` (sharing its storage)
+    at ``spec``'s placements: nothing travels."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, mesh, placements(spec, mesh),
+                              run_check=False)
 
 
 def distribute_batch(batch, specs, mesh):
@@ -356,16 +380,28 @@ class Shards:
 
     def __init__(self, mesh, specs: Mapping[str, Spec], *,
                  tokens: Tuple[str, ...] = (), ep: bool = False,
-                 prefix: str = ""):
+                 prefix: str = "", rest: Mapping[str, Spec] = None):
         self.mesh, self.specs = mesh, specs
         names = _names(mesh)
         self.tp = ("model",) if "model" in names else ()
         self.tokens = tuple(a for a in tokens if a in names)
-        self.ep, self.prefix = ep, prefix
+        self.ep, self.prefix, self.rest = ep, prefix, rest
 
     def sub(self, prefix: str) -> "Shards":
         return Shards(self.mesh, self.specs, tokens=self.tokens, ep=self.ep,
-                      prefix=f"{self.prefix}{prefix}.")
+                      prefix=f"{self.prefix}{prefix}.", rest=self.rest)
+
+    def use(self, params: Mapping[str, torch.Tensor], prefix: str = ""
+            ) -> Dict[str, torch.Tensor]:
+        """``params`` (this rank's shards at their at-rest specs ``rest``,
+        named under ``prefix``) in their compute layouts: the FSDP'd
+        leaves gathered (serving gathers a layer's as it runs).  Without
+        ``rest`` the parameters are in their compute layouts already."""
+        if not self.rest:
+            return dict(params)
+        pre = f"{self.prefix}{prefix}." if prefix else self.prefix
+        return {k: self.relayout(v, self.rest[pre + k], self.specs[pre + k])
+                for k, v in params.items()}
 
     def spec(self, name: str) -> Spec:
         return self.specs[self.prefix + name]
@@ -479,15 +515,20 @@ def _reduces(state) -> bool:
     return isinstance(state, Mapping) and "acc" in state
 
 
-def state_spec(state, spec: Spec):
-    """The spec tree of one leaf's optimizer state (`fl_step._leaf_state`'s
-    shape) from the leaf's spec: `fl_step._opt_specs_like` per leaf."""
+def state_spec(state, spec):
+    """The spec tree of one unit's optimizer state (`fl_step._leaf_state`'s
+    shape) from its leaves' specs (``spec``: one leaf's, or a dict of
+    them by name): `fl_step._opt_specs_like` per leaf."""
     if isinstance(state, Mapping):
+        if isinstance(spec, Mapping) and set(state) == set(spec):
+            return {k: state_spec(v, spec[k]) for k, v in state.items()}
         out = {}
         for n, v in state.items():
             if n in ("r", "c", "v") and isinstance(v, torch.Tensor):
+                # a 1-D leaf of a stacked group keeps its group's column
                 out[n] = (spec[:-1] if n == "r" else
-                          spec[:-2] + spec[-1:] if n == "c" else spec)
+                          spec if n == "v" or v.dim() == len(spec) else
+                          spec[:-2] + spec[-1:])
             elif n == "t":
                 out[n] = ()
             else:
@@ -498,26 +539,55 @@ def state_spec(state, spec: Spec):
     return state
 
 
+def _sharded(specs, mesh, axes) -> bool:
+    return any(a in axes and _size(mesh, a) > 1
+               for spec in specs.values() for a in spec_axes(spec))
+
+
 def sharded_update(opt, grads, state, params, specs: Mapping[str, Spec],
-                   mesh, axes: Sequence[str]):
-    """``opt.update`` of one leaf's shard.  Elementwise optimizers (SGD,
-    Adam) update the local shard as it is.  An update that averages over
-    the leaf's dims (Adafactor's factored moments and its update
-    clipping) of a leaf sharded over ``axes`` runs on the whole leaf's
-    gradient and state, gathered on every rank by the process groups'
+                   mesh, axes: Sequence[str], groups=()):
+    """``opt.update`` of one unit's shards: a leaf, or a stacked group of
+    1-D leaves (``groups``; a group of >= 2-D leaves goes a leaf at a time
+    through `sharded_unclipped`).  Elementwise optimizers (SGD, Adam)
+    update the local shards as they are.  An update that averages over
+    the leaves' dims (Adafactor's factored moments and its update
+    clipping) of leaves sharded over ``axes`` runs on the whole leaves'
+    gradients and state, gathered on every rank by the process groups'
     all-gathers (such an update reads no parameters: Adafactor's), and
-    each rank keeps its chunk of the update and of the new state: the
-    unsharded update of the same gradient, bit for bit, and no DTensor
-    collective.  ``specs``: the leaf's at-rest spec without the leading
+    each rank keeps its chunk of the updates and of the new state: the
+    unsharded update of the same gradients, bit for bit, and no DTensor
+    collective.  ``specs``: the leaves' at-rest specs without the leading
     dims."""
-    (k, spec), = specs.items()
-    sharded = any(a in axes and _size(mesh, a) > 1 for a in spec_axes(spec))
-    if not (sharded and _reduces(state)):
-        return opt.update(grads, state, params)
+    if not (_sharded(specs, mesh, axes) and _reduces(state)):
+        return opt.update(grads, state, params, groups=groups)
     sh = Shards(mesh, {})
     up = lambda t, s: sh.relayout(t, s, (None,) * len(s))       # noqa
     down = lambda t, s: sh.relayout(t, (None,) * len(s), s)     # noqa
-    updates, new = opt.update({k: up(grads[k], spec)},
-                              map_tree(up, state, state_spec(state, spec)))
-    return ({k: down(updates[k], spec)},
-            map_tree(down, new, state_spec(new, spec)))
+    updates, new = opt.update({k: up(grads[k], specs[k]) for k in grads},
+                              map_tree(up, state, state_spec(state, specs)),
+                              groups=groups)
+    return ({k: down(u, specs[k]) for k, u in updates.items()},
+            map_tree(down, new, state_spec(new, specs)))
+
+
+def sharded_unclipped(opt, k: str, grad, state, spec: Spec, mesh,
+                      axes: Sequence[str]):
+    """``opt.unclipped`` of the leaf ``k``'s shard (a leaf of a stacked
+    group of >= 2-D leaves, `fl_step._local_update`): a leaf sharded over
+    ``axes`` is gathered whole with its state, as in `sharded_update`, and
+    freed on return -> (this rank's chunk of the unclipped update and of
+    the new state, the whole leaf's float32 sum of squares of the update,
+    and its number of entries)."""
+    if not _sharded({k: spec}, mesh, axes):
+        us, new, ss = opt.unclipped({k: grad}, state)
+        return us[k], new, ss, us[k].numel()
+    sh = Shards(mesh, {})
+    specs = {k: spec}
+    whole = (None,) * len(spec)
+    us, new, ss = opt.unclipped(
+        {k: sh.relayout(grad, spec, whole)},
+        map_tree(lambda t, s: sh.relayout(t, s, (None,) * len(s)), state,
+                 state_spec(state, specs)))
+    down = lambda t, s: sh.relayout(t, (None,) * len(s), s)     # noqa
+    return (down(us[k], spec), map_tree(down, new, state_spec(new, specs)),
+            ss, us[k].numel())

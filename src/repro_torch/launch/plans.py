@@ -11,9 +11,12 @@ the placements they give on the plan's mesh.  Concrete arguments at
 example scale come from `distribute_state` / `distribute_batch` of the
 same specs, and ``step_fn`` runs on them.
 
-Only the training plan is ported: the serving plans (``prefill_plan``,
-``decode_plan``, the cache layouts) wait for ROADMAP.md, queue 1,
-item 9.
+The serving plans' parameters are the JAX package's serving layout:
+bfloat16 except `F32_LEAVES`, tensor parallelism on ``model`` and, for
+``fsdp_tp`` / ``ep_tp``, dense weights or experts on ``data`` (gathered
+a layer at a time as the step runs).  Their caches follow
+`repro_torch.core.fl_step.cache_layout` through
+`repro_torch.models.transformer.cache_specs`, a cache a layer.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import torch
 from ..configs import get_config
 from ..core import fl_step as fl
 from ..core.sharding import placements
+from ..models.transformer import cache_specs, param_specs, structure
 from ..optim import adafactor
 from .mesh import axis_size
 
@@ -72,13 +76,15 @@ def _token_struct(cfg, lead, batch, seq):
 
 
 def _place(specs, mesh):
-    """A spec tree (a `TrainState` of specs, dicts, spec tuples) -> the
-    same tree of placements on ``mesh``."""
+    """A spec tree (a `TrainState` of specs, dicts, lists, spec tuples)
+    -> the same tree of placements on ``mesh``."""
     if isinstance(specs, fl.TrainState):
         return fl.TrainState(_place(specs.params, mesh),
                              _place(specs.opt, mesh), placements((), mesh))
     if isinstance(specs, dict):
         return {k: _place(v, mesh) for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [_place(v, mesh) for v in specs]
     return placements(specs, mesh)
 
 
@@ -158,11 +164,102 @@ def train_plan(arch_id: str, shape_name: str, mesh,
                          "q_chunk": None})
 
 
+def _serve_cfg(arch_id: str, shape_name: str, cfg=None):
+    """The architecture's config (or ``cfg``, e.g. cut in depth), as
+    long_500k swaps its global attention for the declared sliding
+    window (`ArchConfig.long_context_variant`: it raises for a
+    full-attention config without one, as the JAX package's does)."""
+    cfg = cfg or get_config(arch_id)
+    if shape_name == "long_500k" and not cfg.subquadratic:
+        cfg = cfg.long_context_variant()
+    return cfg
+
+
+def _serve_params(cfg, param_dtype=torch.bfloat16):
+    """The model's parameters as meta tensors in the serving dtypes:
+    ``param_dtype`` except `F32_LEAVES`."""
+    return {k: (v if k.rsplit(".", 1)[-1] in F32_LEAVES
+                else v.to(param_dtype))
+            for k, v in structure(cfg).named_parameters()}
+
+
+def _serve_param_specs(cfg, tp_size, params=None):
+    """-> (the serving parameters (meta), their specs): tensor parallelism
+    on ``model``; dense weights (``fsdp_tp``) or experts (``ep_tp``) on
+    ``data``."""
+    fsdp = "data" if cfg.shard_scheme in ("ep_tp", "fsdp_tp") else None
+    stack_axis = "data" if cfg.shard_scheme == "stack_tp" else None
+    shapes = _serve_params(cfg) if params is None else params
+    return shapes, param_specs(shapes, cfg, tp="model", fsdp=fsdp,
+                               stack_axis=stack_axis, tp_size=tp_size)
+
+
+def _serve_layout(cfg, shape_name, mesh):
+    spec = SHAPES[shape_name]
+    seq, batch = spec["seq"], spec["global_batch"]
+    tp_size = axis_size(mesh, "model")
+    layout = fl.cache_layout(cfg, batch, axis_size(mesh, "data"), tp_size)
+    return seq, batch, tp_size, layout
+
+
+def decode_plan(arch_id: str, shape_name: str, mesh,
+                param_dtype=torch.bfloat16, cfg=None) -> Plan:
+    """One decode step of ``arch_id`` at ``shape_name`` on ``mesh``, as the
+    JAX package plans it: (parameters, cache, tokens, step) at the serving
+    layout, the cache updated in place (``donate``).  ``applicable``'s
+    skip reason rides along.  ``cfg``: a config of the architecture cut
+    in depth (a smoke run); ``param_dtype`` float32 for such a run's
+    weights."""
+    skip = applicable(arch_id, shape_name)
+    cfg = _serve_cfg(arch_id, shape_name, cfg)
+    seq, batch, tp_size, layout = _serve_layout(cfg, shape_name, mesh)
+    pshapes, pspecs = _serve_param_specs(cfg, tp_size,
+                                         _serve_params(cfg, param_dtype))
+    cache = structure(cfg).init_cache(batch, seq)
+    cspecs = cache_specs(cache, **layout)
+    if cfg.num_codebooks > 1:
+        tok = _meta((batch, cfg.num_codebooks), torch.int32)
+        tok_spec = (layout["batch_axis"], None)
+    else:
+        tok = _meta((batch,), torch.int32)
+        tok_spec = (layout["batch_axis"],)
+    step_pos = _meta((), torch.int32)
+    in_specs = (pspecs, cspecs, tok_spec, ())
+    in_sh = tuple(_place(sp, mesh) for sp in in_specs)
+    return Plan(arch_id, shape_name, "decode", fl.build_serve_step(cfg),
+                (pshapes, cache, tok, step_pos), in_specs, in_sh,
+                (None, in_sh[1]), cfg, donate=(1,), skip=skip,
+                options={"layout": layout})
+
+
+def prefill_plan(arch_id: str, shape_name: str, mesh,
+                 param_dtype=torch.bfloat16, cfg=None) -> Plan:
+    """The serving prefill of ``arch_id`` at ``shape_name`` on ``mesh``, as
+    the JAX package plans it: (parameters, tokens) -> (logits, the cache
+    of ``seq`` positions at the serving layout).  The JAX package's
+    ``q_chunk=1024`` has no counterpart (`LM.prefill`).  ``cfg``,
+    ``param_dtype``: as in `decode_plan`."""
+    cfg = _serve_cfg(arch_id, shape_name, cfg)
+    seq, batch, tp_size, layout = _serve_layout(cfg, shape_name, mesh)
+    pshapes, pspecs = _serve_param_specs(cfg, tp_size,
+                                         _serve_params(cfg, param_dtype))
+    cspecs = cache_specs(structure(cfg).init_cache(
+        batch, seq), **layout)
+    tok = _token_struct(cfg, (), batch, seq)
+    tok_spec = (layout["batch_axis"],) + (None,) * (tok.dim() - 1)
+    in_specs = (pspecs, tok_spec)
+    in_sh = tuple(_place(sp, mesh) for sp in in_specs)
+    return Plan(arch_id, shape_name, "prefill",
+                fl.build_prefill_step(cfg, seq), (pshapes, tok), in_specs,
+                in_sh, (None, _place(cspecs, mesh)), cfg,
+                options={"layout": layout, "cache_specs": cspecs,
+                         "q_chunk": None})
+
+
 def make_plan(arch_id: str, shape_name: str, mesh) -> Plan:
     kind = SHAPES[shape_name]["kind"]
     if kind == "train":
         return train_plan(arch_id, shape_name, mesh)
-    raise NotImplementedError(
-        f"the {kind} plan ({shape_name}) is not ported: the serving plans "
-        "(prefill_plan, decode_plan, cache_specs and their cache layouts) "
-        "wait for ROADMAP.md, queue 1, item 9")
+    if kind == "prefill":
+        return prefill_plan(arch_id, shape_name, mesh)
+    return decode_plan(arch_id, shape_name, mesh)

@@ -97,12 +97,13 @@ def generate(cfg: ArchConfig, batch: int = 4, prompt_len: int = 32,
     prefill_s = time.perf_counter() - t0
     phase("decode")
 
-    step = build_serve_step(model)
+    step = build_serve_step(cfg)
+    params = dict(model.named_parameters())
     tok = _sample(logits, temperature, sampler)
     out, steps = [tok], []
     t0 = time.perf_counter()
     for i in range(gen - 1):
-        step_logits, cache = step(cache, tok, prompt_len + i)
+        step_logits, cache = step(params, cache, tok, prompt_len + i)
         steps.append(step_logits)
         tok = _sample(step_logits, temperature, sampler)
         out.append(tok)

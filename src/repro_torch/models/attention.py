@@ -129,25 +129,44 @@ def _project_qkv(p: Mapping[str, torch.Tensor], cfg: ArchConfig, x,
     return q, k, v
 
 
-def _ring_cache(Wc: int, **entries: torch.Tensor) -> Dict[str, torch.Tensor]:
+def _ring_cache(Wc: int, block=(0, 1), **entries: torch.Tensor
+                ) -> Dict[str, torch.Tensor]:
     """Pack the last Wc positions of each (B,S,...) entry (roped keys,
     values, MLA latents) into ring-buffer slot order so decode can
-    continue: slot = position % Wc."""
+    continue: slot = position % Wc.  ``block`` (r, n): keep only the r-th
+    of n contiguous blocks of slots (a context-parallel cache's share);
+    ``pos`` stays whole."""
     first = next(iter(entries.values()))
     B, S, dev = first.shape[0], first.shape[1], first.device
+    r, n = block
+    Wl = _block_width(Wc, n)
     take = min(S, Wc)
     tail_pos = torch.arange(S - take, S, device=dev)
     slots = tail_pos % Wc
+    mine = (slots >= r * Wl) & (slots < (r + 1) * Wl)
     out = {}
     for name, t in entries.items():
-        c = torch.zeros((B, Wc) + tuple(t.shape[2:]), dtype=CACHE_DTYPE,
+        c = torch.zeros((B, Wl) + tuple(t.shape[2:]), dtype=CACHE_DTYPE,
                         device=dev)
-        c[:, slots] = t[:, S - take:].to(CACHE_DTYPE)
+        c[:, slots[mine] - r * Wl] = t[:, S - take:][:, mine].to(
+            CACHE_DTYPE)
         out[name] = c
     cpos = torch.full((Wc,), -1, dtype=torch.int32, device=dev)
     cpos[slots] = tail_pos.to(torch.int32)
     out["pos"] = cpos
     return out
+
+
+def _block_width(Wc: int, n: int) -> int:
+    """The slots a rank of a context-parallel cache keeps: Wc / n.  A
+    width the axis does not divide is refused (the JAX package's layout
+    needs the dim to divide as well)."""
+    if Wc % n:
+        raise ValueError(
+            f"a context-parallel cache of {Wc} slots does not split over "
+            f"the {n} ranks of its axis: give a cache length (or window) "
+            f"that {n} divides")
+    return Wc // n
 
 
 def cache_width(cfg: ArchConfig, kind: str, max_len: int) -> int:
@@ -183,9 +202,6 @@ def attn_forward(p, cfg: ArchConfig, x, kind: str,
     sh = share(shards)
     ax = sh.axes("wq", 1)
     n = sh.size(ax)
-    if return_cache and n > 1:
-        raise ValueError("a sharded attention returns no cache: the "
-                         "serving plans are not ported (ROADMAP.md)")
     whole_q = H % n == 0
     whole_kv = whole_q and Kv % n == 0
     q, k, v = _project_qkv(p, cfg, x, sh, ax, (whole_q, whole_kv))
@@ -203,7 +219,13 @@ def attn_forward(p, cfg: ArchConfig, x, kind: str,
     y = sh.reduce(out @ p["wo"], ax)
     if not return_cache:
         return y
-    return y, _ring_cache(cache_width(cfg, kind, cache_len), k=k, v=v)
+    # k, v hold this rank's K/V heads (``kv_axis``) or all of them: the
+    # single head of MQA on every rank, or, where the heads do not split
+    # whole, this rank's block of ring slots (``attn_seq_axis``)
+    cp = n > 1 and Kv > 1 and not whole_kv
+    block = (sh.index(ax), n) if cp else (0, 1)
+    return y, _ring_cache(cache_width(cfg, kind, cache_len), block, k=k,
+                          v=v)
 
 
 def init_attn_cache(cfg: ArchConfig, batch: int, max_len: int, kind: str,
@@ -222,25 +244,106 @@ def init_attn_cache(cfg: ArchConfig, batch: int, max_len: int, kind: str,
             "pos": pos}
 
 
-def attn_decode(p, cfg: ArchConfig, x, cache, step: int, kind: str):
+def _split_softmax(s, group):
+    """Softmax weights (float32) over the last dim of this rank's scores
+    ``s``, a block of the slots of a cache split over ``group``: the row
+    max and the exp-sum are combined over the group by its own
+    all-reduces."""
+    from ..core.sharding import all_reduce_
+    m = s.amax(dim=-1, keepdim=True).contiguous()
+    all_reduce_(m, group, torch.distributed.ReduceOp.MAX)
+    e = torch.exp(s - m)
+    total = e.sum(dim=-1, keepdim=True).contiguous()
+    all_reduce_(total, group)
+    return e / total
+
+
+def _sum_over(x, group):
+    """The sum of every rank's ``x`` over ``group`` (a block's weighted
+    values), in place on a contiguous copy."""
+    from ..core.sharding import all_reduce_
+    return all_reduce_(x.contiguous(), group)
+
+
+def sdpa_split(q, k, v, mask, scale: float, cap: float, group):
+    """`sdpa` of one query over a cache whose slots are split over
+    ``group``: this rank's slots ``k``, ``v`` and their ``mask``.  Each
+    rank scores its own slots; the row max, the exp-sum and the weighted
+    values are combined over the group.  The weights take v's dtype
+    before the product and the product sums in float32, as the plain
+    version's does."""
+    B, S, H, dq = q.shape
+    Kv = k.shape[2]
+    qg = q.reshape(B, S, Kv, H // Kv, dq)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    scores = softcap(scores, cap)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
+    w = _split_softmax(scores, group).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", w.to(torch.float32),
+                       v.to(torch.float32))
+    return _sum_over(out, group).to(v.dtype).reshape(B, S, H, v.shape[-1])
+
+
+def _write_slot(cache, step: int, entries, block) -> torch.Tensor:
+    """Write ``entries`` (name -> (B, ...) tensors) into slot ``step %
+    Wc`` of a ring cache, on the rank that owns the slot (``block`` (r,
+    n): the r-th of n blocks of slots, each rank's share), and the
+    position into the whole ``pos``.  -> this rank's slots' validity."""
+    r, n = block
+    cpos = cache["pos"]
+    Wl = cpos.shape[0] // n
+    slot = step % cpos.shape[0]
+    if r * Wl <= slot < (r + 1) * Wl:
+        for name, t in entries.items():
+            cache[name][:, slot - r * Wl] = t.to(cache[name].dtype)
+    cpos[slot] = step
+    return cpos[r * Wl:(r + 1) * Wl]
+
+
+def attn_decode(p, cfg: ArchConfig, x, cache, step: int, kind: str,
+                shards=None):
     """x: (B,1,D); step: the absolute position.  Returns (y, cache); the
-    cache's tensors are updated in place (one slot of the ring)."""
+    cache's tensors are updated in place (one slot of the ring).
+
+    ``shards`` (a rank's share of sharded serving; the cache at
+    `repro_torch.models.transformer.cache_specs`' layout): where the
+    query and K/V heads split whole over the tensor-parallel axes, the
+    rank runs its own heads on its K/V heads.  Elsewhere (the JAX
+    package's ``_decode_replicate_heads``) q, k and v are computed whole
+    on every rank, which is cheap at one token, and the cache is never
+    gathered: one K/V head is whole on every rank, and several that do
+    not split are split on their slots instead (context-parallel, the
+    rank that owns slot ``step % Wc`` writes it, `sdpa_split`).  The rank
+    keeps its rows of ``wo``, and the partial outputs are summed."""
     B = x.shape[0]
-    q, k, v = _project_qkv(p, cfg, x)
+    H, Kv = cfg.num_heads, cfg.num_kv_heads
+    sh = share(shards)
+    ax = sh.axes("wq", 1)
+    n = sh.size(ax)
+    split = H % n == 0 and Kv % n == 0
+    q, k, v = _project_qkv(p, cfg, x, sh, ax, (split, split))
     at = torch.tensor([step], device=x.device)
     q = apply_rope(q, at, cfg.rope_theta)
     k = apply_rope(k, at, cfg.rope_theta)
-    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
-    slot = step % ck.shape[1]
-    ck[:, slot] = k[:, 0].to(ck.dtype)
-    cv[:, slot] = v[:, 0].to(cv.dtype)
-    cpos[slot] = step
+    cp = not split and Kv > 1
+    block = (sh.index(ax), n) if cp else (0, 1)
+    cpos = _write_slot(cache, step, {"k": k[:, 0], "v": v[:, 0]}, block)
     valid = (cpos >= 0) & (cpos <= step)
     if kind == LOCAL and cfg.window > 0:
         valid &= cpos > step - cfg.window
-    out = sdpa(q, ck, cv, valid, cfg.head_dim ** -0.5, cfg.attn_softcap)
-    y = out.reshape(B, 1, -1).to(p["wo"].dtype) @ p["wo"]
-    return y, cache
+    scale = cfg.head_dim ** -0.5
+    if cp:
+        out = sdpa_split(q, cache["k"], cache["v"], valid, scale,
+                         cfg.attn_softcap, sh.group(ax))
+    else:
+        out = sdpa(q, cache["k"], cache["v"], valid, scale,
+                   cfg.attn_softcap)
+    out = out.reshape(B, 1, -1).to(p["wo"].dtype)
+    if not split:
+        out = sh.chunk(out, -1, ax)       # this rank's rows of wo
+    return sh.reduce(out @ p["wo"], ax), cache
 
 
 # --------------------------------------------------------------------- #
@@ -291,9 +394,6 @@ def mla_forward(p, cfg: ArchConfig, x, kind: str,
     sh = share(shards)
     ax = sh.axes("wq_b" if cfg.q_lora_rank else "wq", 1)
     n = sh.size(ax)
-    if return_cache and n > 1:
-        raise ValueError("a sharded attention returns no cache: the "
-                         "serving plans are not ported (ROADMAP.md)")
     whole = cfg.num_heads % n == 0
     regroup = None if whole else (lambda t: sh.gather(t, -1, ax))
     pos = torch.arange(S, device=x.device)
@@ -315,62 +415,112 @@ def mla_forward(p, cfg: ArchConfig, x, kind: str,
     y = sh.reduce(out @ p["wo"], ax)
     if not return_cache:
         return y
-    return y, _ring_cache(cache_len, ckv=c_kv, krope=k_rope[:, :, 0])
+    # the latent is whole on every rank; each keeps its block of slots
+    return y, _ring_cache(cache_len, (sh.index(ax), n), ckv=c_kv,
+                          krope=k_rope[:, :, 0])
 
 
-def _mla_step(p, cfg: ArchConfig, x, cache, step: int):
+def _mla_step(p, cfg: ArchConfig, x, cache, step: int, block=(0, 1),
+              regroup=None):
     """The part both decodes share: this position's query, and its latent
-    and roped key written into the cache's slot (in place).  -> (q_nope,
-    q_rope, the cache's valid positions)."""
+    and roped key written into the cache's slot (in place, on the rank
+    whose ``block`` of slots holds it).  -> (q_nope, q_rope, this rank's
+    slots' validity)."""
     at = torch.tensor([step], device=x.device)
-    q_nope, q_rope = _mla_q(p, cfg, x)
+    q_nope, q_rope = _mla_q(p, cfg, x, regroup)
     q_rope = apply_rope(q_rope, at, cfg.rope_theta)
     c_kv, k_rope = _mla_latent(p, cfg, x, at)
-    cc, cr, cpos = cache["ckv"], cache["krope"], cache["pos"]
-    slot = step % cc.shape[1]
-    cc[:, slot] = c_kv[:, 0].to(cc.dtype)
-    cr[:, slot] = k_rope[:, 0, 0].to(cr.dtype)
-    cpos[slot] = step
+    cpos = _write_slot(cache, step, {"ckv": c_kv[:, 0],
+                                     "krope": k_rope[:, 0, 0]}, block)
     return q_nope, q_rope, (cpos >= 0) & (cpos <= step)
 
 
-def mla_decode_absorbed(p, cfg: ArchConfig, x, cache, step: int):
+def _mla_share(cfg: ArchConfig, shards):
+    """-> (shards, tensor-parallel axes, their size, whether the heads
+    split whole over them, the regroup of a flat heads x dims output
+    where they do not, this rank's block of the cache's slots)."""
+    sh = share(shards)
+    ax = sh.axes("wq_b" if cfg.q_lora_rank else "wq", 1)
+    n = sh.size(ax)
+    whole = cfg.num_heads % n == 0
+    regroup = None if whole else (lambda t: sh.gather(t, -1, ax))
+    return sh, ax, n, whole, regroup, (sh.index(ax), n)
+
+
+def mla_decode_absorbed(p, cfg: ArchConfig, x, cache, step: int,
+                        shards=None):
     """Absorbed-matrix decode: W_UK folds into the query and W_UV into the
     output, so attention runs in the latent space (H * Wc * r products a
-    token, not Wc * r * H * (nope + v) to expand K/V)."""
+    token, not Wc * r * H * (nope + v) to expand K/V).
+
+    ``shards``: the latent cache split on its slots over the
+    tensor-parallel axes (``seq_axis``).  Each rank folds its own heads'
+    queries, gathers the folded queries of all heads (a (B, H, r)
+    tensor), scores its slots, combines the softmax and the latent
+    context over the axes, and unfolds its heads' context through its
+    columns of ``wkv_b`` into its rows of ``wo``.  Where the heads do not
+    split whole, ``wkv_b`` is gathered and every head runs on each
+    rank."""
     B, H, r = x.shape[0], cfg.num_heads, cfg.kv_lora_rank
-    q_nope, q_rope, valid = _mla_step(p, cfg, x, cache, step)
-    wkv_b = p["wkv_b"].reshape(r, H, cfg.qk_nope_dim + cfg.v_head_dim)
+    sh, ax, n, whole, regroup, block = _mla_share(cfg, shards)
+    q_nope, q_rope, valid = _mla_step(p, cfg, x, cache, step, block,
+                                      regroup)
+    wkv_b = p["wkv_b"] if whole else sh.gather(p["wkv_b"], 1, ax)
+    Hl = q_nope.shape[2]
+    wkv_b = wkv_b.reshape(r, Hl, cfg.qk_nope_dim + cfg.v_head_dim)
     w_uk, w_uv = wkv_b[..., :cfg.qk_nope_dim], wkv_b[..., cfg.qk_nope_dim:]
     q_eff = torch.einsum("bhn,rhn->bhr", q_nope[:, 0], w_uk)
+    q_r = q_rope[:, 0]
+    if whole:                                   # every head's query
+        q_eff, q_r = sh.gather(q_eff, 1, ax), sh.gather(q_r, 1, ax)
     c = cache["ckv"].to(x.dtype)                              # (B,Wc,r)
     s = (torch.einsum("bhr,btr->bht", q_eff, c)
-         + torch.einsum("bhd,btd->bht", q_rope[:, 0],
-                        cache["krope"].to(x.dtype)))
+         + torch.einsum("bhd,btd->bht", q_r, cache["krope"].to(x.dtype)))
     s = softcap(s.to(torch.float32) * _mla_scale(cfg), cfg.attn_softcap)
     s = torch.where(valid[None, None, :], s, NEG_INF)
-    w = torch.softmax(s, dim=-1).to(x.dtype)                  # (B,H,Wc)
-    ctx = torch.einsum("bht,btr->bhr", w, c)
-    out = torch.einsum("bhr,rhv->bhv", ctx, w_uv)
-    return out.reshape(B, 1, -1) @ p["wo"], cache
+    if n > 1:
+        w = _split_softmax(s, sh.group(ax)).to(x.dtype)
+        ctx = _sum_over(torch.einsum("bht,btr->bhr", w, c), sh.group(ax))
+    else:
+        w = torch.softmax(s, dim=-1).to(x.dtype)               # (B,H,Wc)
+        ctx = torch.einsum("bht,btr->bhr", w, c)
+    if whole:
+        ctx = sh.chunk(ctx, 1, ax)              # this rank's heads
+    out = torch.einsum("bhr,rhv->bhv", ctx, w_uv).reshape(B, 1, -1)
+    if not whole:
+        out = sh.chunk(out, -1, ax)
+    return sh.reduce(out @ p["wo"], ax), cache
 
 
-def mla_decode(p, cfg: ArchConfig, x, cache, step: int, kind: str):
+def mla_decode(p, cfg: ArchConfig, x, cache, step: int, kind: str,
+               shards=None):
     """x: (B,1,D); step: the absolute position.  Returns (y, cache), the
     cache updated in place: the absorbed form when ``cfg.mla_absorbed``,
     else K/V expanded from every cached latent (the JAX package's
-    reference form)."""
+    reference form).  ``shards``: the latent cache split on its slots
+    (`mla_decode_absorbed`); the expanded form gathers ``wkv_b`` and the
+    query, expands every head's K/V on the rank's slots and combines the
+    attention over the axes (`sdpa_split`)."""
     if cfg.mla_absorbed:
-        return mla_decode_absorbed(p, cfg, x, cache, step)
+        return mla_decode_absorbed(p, cfg, x, cache, step, shards)
     B, H, nope = x.shape[0], cfg.num_heads, cfg.qk_nope_dim
-    q_nope, q_rope, valid = _mla_step(p, cfg, x, cache, step)
+    sh, ax, n, whole, regroup, block = _mla_share(cfg, shards)
+    q_nope, q_rope, valid = _mla_step(p, cfg, x, cache, step, block,
+                                      regroup)
+    if whole:
+        q_nope, q_rope = sh.gather(q_nope, 2, ax), sh.gather(q_rope, 2, ax)
     Wc = cache["ckv"].shape[1]
-    kv = (cache["ckv"].to(x.dtype) @ p["wkv_b"]).reshape(
+    kv = (cache["ckv"].to(x.dtype) @ sh.gather(p["wkv_b"], 1, ax)).reshape(
         B, Wc, H, nope + cfg.v_head_dim)
     k = torch.cat([kv[..., :nope],
                    cache["krope"].to(x.dtype)[:, :, None, :].expand(
                        B, Wc, H, cfg.qk_rope_dim)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
-    out = sdpa(q, k, kv[..., nope:], valid, _mla_scale(cfg),
-               cfg.attn_softcap)
-    return out.reshape(B, 1, -1) @ p["wo"], cache
+    if n > 1:
+        out = sdpa_split(q, k, kv[..., nope:], valid, _mla_scale(cfg),
+                         cfg.attn_softcap, sh.group(ax))
+    else:
+        out = sdpa(q, k, kv[..., nope:], valid, _mla_scale(cfg),
+                   cfg.attn_softcap)
+    out = sh.chunk(out.reshape(B, 1, -1), -1, ax)
+    return sh.reduce(out @ p["wo"], ax), cache

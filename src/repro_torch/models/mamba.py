@@ -97,15 +97,22 @@ def init_mamba_cache(cfg: ArchConfig, batch: int, device=None):
     }
 
 
-def mamba_decode(p, cfg: ArchConfig, x, cache, step: int):
+def mamba_decode(p, cfg: ArchConfig, x, cache, step: int, shards=None):
     """x: (B,1,D) one-token step -> (y, cache); the cache dict is updated
-    in place with the new state and conv history."""
-    xin, z = (x[:, 0] @ p["in_proj"]).chunk(2, dim=-1)  # (B,Di)
+    in place with the new state and conv history.  ``shards`` (sharded
+    serving): the rank's channels of ``h`` and ``conv`` (``state_axis``)
+    and of the parameters, as in `mamba_forward`: ``in_proj``'s output is
+    gathered and cut to the rank's channels of both halves, and
+    ``x_proj``'s and ``out_proj``'s partial products are summed."""
+    sh = share(shards)
+    ax = sh.axes("in_proj", 1)
+    xin, z = sh.gather(x[:, 0] @ p["in_proj"], -1, ax).chunk(2, dim=-1)
+    xin, z = sh.chunk(xin, -1, ax), sh.chunk(z, -1, ax)   # (B,Di)
     hist = torch.cat([cache["conv"], xin[:, None].to(cache["conv"].dtype)],
                      dim=1)
     xc = F.silu(torch.einsum("bkd,kd->bd", hist.to(x.dtype), p["conv_w"])
                 + p["conv_b"])
-    dt, Bc, Cc = _ssm_params(p, cfg, xc)
+    dt, Bc, Cc = _ssm_params(p, cfg, xc, sh)
     A = -torch.exp(p["A_log"])
     dA = torch.exp(dt[..., None] * A)
     dBx = (dt * xc)[..., None] * Bc[:, None, :]
@@ -113,4 +120,5 @@ def mamba_decode(p, cfg: ArchConfig, x, cache, step: int):
     y = torch.einsum("bdn,bn->bd", h, Cc.to(torch.float32)).to(x.dtype)
     y = ((y + xc * p["D"].to(x.dtype)) * F.silu(z)).to(x.dtype)
     cache["h"], cache["conv"] = h, hist[:, 1:]
-    return (y @ p["out_proj"])[:, None], cache
+    return sh.reduce(y @ p["out_proj"], sh.axes("out_proj", 0))[:, None], \
+        cache

@@ -89,17 +89,22 @@ def init_rglru_cache(cfg: ArchConfig, batch: int, device=None):
     }
 
 
-def rglru_decode(p, cfg: ArchConfig, x, cache, step: int):
+def rglru_decode(p, cfg: ArchConfig, x, cache, step: int, shards=None):
     """x: (B,1,D) one-token step -> (y, cache); the cache dict is updated
-    in place with the new state and conv history."""
+    in place with the new state and conv history.  ``shards`` (sharded
+    serving): the rank's channels of ``h`` and ``conv`` (``state_axis``)
+    and of the parameters, as in `rglru_forward`: the gates read every
+    channel (one all-gather), and the partial outputs are summed."""
+    sh = share(shards)
+    ax = sh.axes("w_x", 1)
     gate = F.gelu(x[:, 0] @ p["w_gate"], approximate="tanh")
     xin = x[:, 0] @ p["w_x"]
     hist = torch.cat([cache["conv"], xin[:, None].to(cache["conv"].dtype)],
                      dim=1)
     xr = torch.einsum("bkw,kw->bw", hist.to(x.dtype), p["conv_w"]) \
         + p["conv_b"]
-    a, bi = _gates(p, xr)
+    a, bi = _gates(p, sh.gather(xr, -1, ax))
     h = a * cache["h"] + bi * xr.to(torch.float32)
-    y = (h.to(x.dtype) * gate) @ p["w_out"]
+    y = sh.reduce((h.to(x.dtype) * gate) @ p["w_out"], ax)
     cache["h"], cache["conv"] = h, hist[:, 1:]
     return y[:, None], cache

@@ -56,7 +56,8 @@ routing depends only on the layer's input and every op on the way
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, List, Mapping, Optional
+import functools
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -173,21 +174,32 @@ class Layer(nn.Module):
             x = x + y
         return x, aux, lcache
 
-    def decode(self, x, lcache, step: int):
+    def decode(self, x, lcache, step: int,
+               params: Optional[Mapping[str, torch.Tensor]] = None,
+               shards=None):
+        """One token through the layer, its cache updated in place.
+        ``params`` and ``shards`` as in `forward`: this rank's shards of
+        the parameters and of the cache (`cache_specs`)."""
         cfg = self.cfg
-        h = rmsnorm(self.ln1, x)
+        if params is None:
+            params = dict(self.named_parameters())
+        blk = sub_params(params, self.block)
+        sh = share(shards)
+        bsh = sh.sub(self.block)
+        h = rmsnorm(params["ln1"], x)
         if self.kind == MAMBA:
-            y, lcache = mamba_decode(self.mamba, cfg, h, lcache, step)
+            y, lcache = mamba_decode(blk, cfg, h, lcache, step, shards=bsh)
         elif self.kind == RGLRU:
-            y, lcache = rglru_decode(self.rglru, cfg, h, lcache, step)
+            y, lcache = rglru_decode(blk, cfg, h, lcache, step, shards=bsh)
         else:
             dec = mla_decode if cfg.use_mla else attn_decode
-            y, lcache = dec(self.attn, cfg, h, lcache, step, self.kind)
+            y, lcache = dec(blk, cfg, h, lcache, step, self.kind,
+                            shards=bsh)
         x = x + y
         if self.kind != MAMBA:
-            p = (dict(self.moe.named_parameters()) if self.is_moe
-                 else self.mlp)
-            y, _ = self._ffn(p, rmsnorm(self.ln2, x))
+            name = "moe" if self.is_moe else "mlp"
+            y, _ = self._ffn(sub_params(params, name),
+                             rmsnorm(params["ln2"], x), sh.sub(name))
             x = x + y
         return x, lcache
 
@@ -345,42 +357,107 @@ class LM(nn.Module):
         return self.unembed(rmsnorm(params["final_norm"], x), params,
                             sh), aux
 
-    def prefill(self, tokens: torch.Tensor, cache_len: int):
+    def prefill(self, tokens: torch.Tensor, cache_len: int,
+                params: Optional[Mapping[str, torch.Tensor]] = None,
+                shards=None):
         """Serving prefill: run the whole prompt, return the last position's
         logits (B,V) (or (B,K,V)) and a decode-ready cache (ring-buffer KV
         or MLA latents of the last positions, recurrent states).
 
         The JAX package's ``q_chunk`` (query chunking that bounds the score
         tensor in device memory) has no counterpart: the flash-attention
-        kernel never materialises the scores, whatever S."""
-        x = self.embed_tokens(tokens)
+        kernel never materialises the scores, whatever S.
+
+        ``params`` / ``shards`` (`repro_torch.core.sharding.Shards` with
+        the parameters' at-rest specs, ``rest``): this rank's shards of the
+        parameters and its rows of ``tokens`` (over ``shards.tokens``).  A
+        layer's FSDP'd leaves are gathered as the layer runs and dropped
+        after it; the cache is this rank's shards at `cache_specs`'
+        layout, and the logits are whole on every rank."""
+        sh = share(shards)
+        params = dict(self.named_parameters()) if params is None else params
+        x = self.embed_tokens(tokens, sh.use({"embed": params["embed"]})[
+            "embed"], sh)
         cache: Cache = []
-        for layer in self.layers:
-            x, _, lc = layer(x, cache_len=cache_len)
+        for i, layer in enumerate(self.layers):
+            pre = f"layers.{i}"
+            x, _, lc = layer(x, cache_len=cache_len,
+                             params=sh.use(sub_params(params, pre), pre),
+                             shards=sh.sub(pre))
             cache.append(lc)
-        return self._last_logits(rmsnorm(self.final_norm, x[:, -1:])), cache
+        return self._whole_logits(x[:, -1:], params, sh), cache
 
-    def _last_logits(self, x):
-        """(B,1,D) -> (B,V) or (B,K,V)."""
-        logits = self.unembed(x)
-        return logits[:, :, 0] if self.cfg.num_codebooks > 1 else \
+    def _whole_logits(self, x, params, sh):
+        """(B_local,1,D) -> the last logits (B,V) (or (B,K,V)) of the
+        whole batch on every rank: this rank's vocab columns gathered over
+        the vocab's axes, its rows over the tokens' axes."""
+        keys = ["final_norm", "embed"] + (
+            [] if self.cfg.tie_embeddings else ["lm_head"])
+        head = sh.use({k: params[k] for k in keys})
+        logits = self.unembed(rmsnorm(head["final_norm"], x), head, sh)
+        logits = sh.gather(logits, -1, self._vocab_axes(sh))
+        logits = logits[:, :, 0] if self.cfg.num_codebooks > 1 else \
             logits[:, 0]
+        return sh.gather(logits, 0, sh.tokens)
 
-    # -- decode ---------------------------------------------------------- #
     def init_cache(self, batch: int, max_len: int) -> Cache:
         """An empty decode cache: K/V and MLA latents in bfloat16 (ring
         buffers of the window for LOCAL layers), RG-LRU and Mamba states
         in float32."""
         return [layer.init_cache(batch, max_len) for layer in self.layers]
 
-    def decode_step(self, cache: Cache, tokens: torch.Tensor, step: int):
+    def decode_step(self, cache: Cache, tokens: torch.Tensor, step: int,
+                    params: Optional[Mapping[str, torch.Tensor]] = None,
+                    shards=None):
         """One-token decode.  tokens: (B,), or (B,K) for K codebooks; step:
         the absolute position.  Returns (logits (B,V) or (B,K,V), cache),
-        the cache updated in place."""
-        x = self.embed_tokens(tokens[..., None])
-        for layer, lc in zip(self.layers, cache):
-            x, _ = layer.decode(x, lc, step)
-        return self._last_logits(rmsnorm(self.final_norm, x)), cache
+        the cache updated in place.  ``params`` / ``shards`` as in
+        `prefill`: this rank's shards, rows and cache, the logits whole."""
+        sh = share(shards)
+        params = dict(self.named_parameters()) if params is None else params
+        x = self.embed_tokens(tokens[..., None], sh.use(
+            {"embed": params["embed"]})["embed"], sh)
+        for i, (layer, lc) in enumerate(zip(self.layers, cache)):
+            pre = f"layers.{i}"
+            x, _ = layer.decode(x, lc, step,
+                                params=sh.use(sub_params(params, pre), pre),
+                                shards=sh.sub(pre))
+        return self._whole_logits(x, params, sh), cache
+
+
+def seeded_params(cfg: ArchConfig, seed: int, *, device=None,
+                  keep=None) -> Dict[str, torch.Tensor]:
+    """``LM(cfg, device=device, seed=seed)``'s parameters, the same
+    numbers drawn in the same order, one layer at a time: ``keep(name,
+    tensor)`` (e.g. this rank's shard of it, a copy) is applied to each
+    leaf of a layer before the next layer is drawn, so a rank of a mesh
+    holds its shards and one layer whole at most, never the model."""
+    keep = keep or (lambda name, t: t)
+    g = torch.Generator(device=device or "cpu").manual_seed(seed)
+    books = (cfg.num_codebooks,) if cfg.num_codebooks > 1 else ()
+    out = {"embed": keep("embed", torch.empty(
+        books + (cfg.padded_vocab, cfg.d_model), device=device).normal_(
+            0.0, 0.02, generator=g))}
+    for i, kind in enumerate(cfg.layer_kinds()):
+        layer = Layer(cfg, kind, i, g, device)
+        for k, v in layer.named_parameters():
+            out[f"layers.{i}.{k}"] = keep(f"layers.{i}.{k}", v.detach())
+        del layer
+    out["final_norm"] = keep("final_norm",
+                             torch.ones((cfg.d_model,), device=device))
+    if not cfg.tie_embeddings:
+        out["lm_head"] = keep("lm_head", torch.empty(
+            books + (cfg.d_model, cfg.padded_vocab), device=device).normal_(
+                0.0, 0.02, generator=g))
+    return out
+
+
+@functools.lru_cache(maxsize=16)
+def structure(cfg: ArchConfig) -> LM:
+    """The model of ``cfg`` on the ``meta`` device (no weights), one a
+    config: the layers' kinds and names for a step that runs on
+    parameters it is handed, and the shapes of a plan."""
+    return LM(cfg, device="meta", seed=None)
 
 
 # --------------------------------------------------------------------- #
@@ -394,6 +471,27 @@ def _split_depth(cfg: ArchConfig):
     groups = (cfg.num_layers - pre) // pat
     return (list(range(pre)), groups,
             list(range(pre + groups * pat, cfg.num_layers)))
+
+
+def layer_groups(cfg: ArchConfig, names) -> List[Tuple[str, ...]]:
+    """The JAX package's stacked leaves among the parameter names
+    ``names``: for each block position j of ``cfg.block_pattern`` and each
+    leaf path <rest>, the G names ``layers.{i}.<rest>`` with i =
+    len(prefix) + g * len(block_pattern) + j, g = 0 .. G-1, in g's order.
+    Prefix and suffix layers, ``embed``, ``lm_head`` and ``final_norm`` are
+    in no group."""
+    pre, groups, _ = _split_depth(cfg)
+    pat = len(cfg.block_pattern)
+    first, last = len(pre), len(pre) + groups * pat
+    out: Dict[Tuple[int, str], List[str]] = {}
+    for k in names:
+        parts = k.split(".")
+        if parts[0] != "layers" or not first <= int(parts[1]) < last:
+            continue
+        j = (int(parts[1]) - first) % pat
+        out.setdefault((j, ".".join(parts[2:])), []).append(k)
+    return [tuple(sorted(v, key=lambda k: int(k.split(".")[1])))
+            for v in out.values()]
 
 
 def _map(tree, fn):
@@ -453,9 +551,11 @@ def tree_from_named(named: Mapping[str, Any], cfg: ArchConfig,
                     lead: int = 0) -> Dict[str, Any]:
     """The inverse of `named_from_tree` over numpy arrays (tensors are
     copied to the host): the JAX package's tree, each group's layers
-    stacked at axis ``lead``."""
-    arr = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
-           else np.asarray(v) for k, v in named.items()}
+    stacked at axis ``lead``.  A value may be a dict of arrays (an
+    optimizer's per-leaf moments), stacked entry by entry."""
+    host = lambda v: (v.detach().cpu().numpy()                  # noqa
+                      if isinstance(v, torch.Tensor) else np.asarray(v))
+    arr = {k: _map(v, host) for k, v in named.items()}
     layers: List[Dict[str, Any]] = [{} for _ in range(cfg.num_layers)]
     for k, v in arr.items():
         if not k.startswith("layers."):
@@ -595,6 +695,45 @@ def param_specs(params, cfg: ArchConfig, *, tp="model", fsdp=None,
         return tuple(base)
 
     return _map_with_keys(params, spec)
+
+
+def cache_specs(cache, *, batch_axis="data", kv_axis=None, seq_axis=None,
+                state_axis=None, attn_seq_axis=None):
+    """The JAX package's ``cache_specs``: one spec a leaf of a decode
+    cache (the port's list of per-layer dicts, or any nesting of dicts and
+    lists of leaves with a ``shape``), by the leaf's name.  The JAX
+    package's stacked-group dim has no counterpart: the port keeps a cache
+    a layer (`unstack_layers` maps the JAX package's onto it).
+
+    batch_axis    -- the batch dim (None for long_500k's batch of 1)
+    kv_axis       -- the K/V-head dim of attention caches (when divisible)
+    seq_axis      -- the sequence (slot) dim of MLA's ``ckv`` / ``krope``
+    state_axis    -- the channel dim of RG-LRU / Mamba ``h`` and ``conv``
+    attn_seq_axis -- the slot dim of attention K/V caches where the K/V
+                     head count does not divide the model axis: the
+                     context-parallel cache
+    ``pos`` is replicated."""
+    def spec(keys, leaf):
+        name = next((k for k in reversed(keys) if isinstance(k, str)), None)
+        nd = _ndim(leaf)
+        base = [None] * nd
+        if name == "pos":
+            return tuple(base)
+        if nd > 0:
+            base[0] = batch_axis
+        if name in ("k", "v") and nd == 4:
+            base[2] = kv_axis
+            if kv_axis is None and attn_seq_axis is not None:
+                base[1] = attn_seq_axis
+        elif name in ("ckv", "krope") and nd == 3:
+            base[1] = seq_axis
+        elif name == "h":
+            base[1] = state_axis
+        elif name == "conv" and nd == 3:
+            base[2] = state_axis
+        return tuple(base)
+
+    return _map_with_keys(cache, spec)
 
 
 def _zip_map(trees: List[Any], fn):

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (the thread budget under xdist)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (the thread budget under xdist)
 
 from repro_torch.kernels import (flatten_rows, launches, layout_of,  # noqa: E402
                                  leaf_views, trust_aggregate,

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (the thread budget under xdist)
 
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (the thread budget under xdist)
 
 from repro_torch.kernels import (flash_attention, launches,  # noqa: E402
                                  reset_launches, rglru_scan)

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (the thread budget under xdist)
 
 from test_torch_lm_arch import (BATCH, DECODE_TOL, PREFILL_TOL,  # noqa: E402
                                 STEPS, Served, close, compare_cache,

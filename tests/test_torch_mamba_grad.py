@@ -43,6 +43,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (the thread budget under xdist)
 
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core import fl_step as tfl  # noqa: E402

@@ -17,6 +17,7 @@ import time
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (the thread budget under xdist)
 
 from repro_torch.api import FederationSpec, ShardingSpec  # noqa: E402
 from repro_torch.api import placement  # noqa: E402

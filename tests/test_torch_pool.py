@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (the thread budget under xdist)
 
 from repro_torch.obs import EngineObs  # noqa: E402
 from repro_torch.pop import PopulationSpec  # noqa: E402

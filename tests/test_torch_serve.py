@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (the thread budget under xdist)
 
 from repro_torch import api as tapi  # noqa: E402
 from repro_torch.api.records import (JsonlSink, read_jsonl_trace,  # noqa

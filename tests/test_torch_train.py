@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (the thread budget under xdist)
 
 from repro_torch.api import (ClusteringSpec, ControllerSpec,  # noqa: E402
                              Federation, FederationSpec, FleetSpec,

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (the thread budget under xdist)
 
 from test_torch_train import (C, NC, _max_rel,  # noqa: E402
                               _state_and_batch, needs_jax)  # noqa: F401

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (the thread budget under xdist)
 
 from test_torch_lm_grad import FORMULA_TOL, _attn_case, _card  # noqa: E402
 from test_torch_lm_grad import _rel as _grad_rel  # noqa: E402

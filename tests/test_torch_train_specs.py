@@ -15,8 +15,8 @@ package's, leaf for leaf, as tuples.
   devices, the port's in one on a fake process group of 256 then 512
   ranks, both started with the file's first test.
 * The guards: a sharded datacenter `FederationSpec` raises the JAX
-  package's error, the prefill and decode plans raise naming the ROADMAP
-  item, and the new modules import no JAX.
+  package's error, the prefill and decode plans are built, and the new
+  modules import no JAX.
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (the thread budget under xdist)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from jax.sharding import PartitionSpec as P  # noqa: E402
@@ -46,8 +47,8 @@ from repro_torch import optim as topt  # noqa: E402
 from repro_torch.api import spec as tspec  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core import fl_step as tfl  # noqa: E402
-from repro_torch.models.transformer import (LM, named_from_tree,  # noqa
-                                            param_specs)
+from repro_torch.models.transformer import (LM, layer_groups,  # noqa
+                                            named_from_tree, param_specs)
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
@@ -114,9 +115,34 @@ def _named(tree, cfg, lead):
              else k): v for k, v in out.items()}
 
 
+class _Whole(_Leaf):
+    """A stacked 1-D group's Adafactor column (n,): every layer holds it
+    whole, so a layer's index leaves it as it is."""
+
+    def __getitem__(self, idx):
+        return self
+
+
+def _group_columns(tree, lead):
+    """An Adafactor ``acc`` tree of `_Leaf`s (JAX layout) whose stacked
+    1-D groups' columns index as `_Whole`."""
+    def walk(node):
+        if isinstance(node, dict) and set(node) == {"r", "c"}:
+            r, c = node["r"], node["c"]
+            if len(r.shape) == lead + 1:
+                return dict(node, c=_Whole(c.shape, c.dtype, c.spec))
+            return node
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return node
+    return dict(tree, groups=[walk(g) for g in tree["groups"]])
+
+
 def _spec_leaves(tree, lead, cfg):
     wrap = jax.tree.map(lambda p: _Leaf((0,) * len(p), spec=_tup(p)), tree,
                         is_leaf=lambda x: isinstance(x, P))
+    if isinstance(wrap.get("embed"), dict):        # Adafactor's acc
+        wrap = _group_columns(wrap, lead)
     return {k: v.spec for k, v in _named(wrap, cfg, lead).items()}
 
 
@@ -258,21 +284,6 @@ OPTS = {"sgd": (lambda m: jopt.sgd(0.1), lambda m: topt.sgd(0.1)),
                       lambda m: topt.adafactor(1e-2))}
 
 
-def _known_adafactor_split(want: dict, got: dict, cfg) -> None:
-    """The one layout the two packages' Adafactor states differ in: the
-    JAX package stacks a group's layers, so a 1-D parameter of a group is
-    a (G, n) leaf whose moments it factors into rows (G,) and columns
-    (n,); the port keeps each layer's (n,) leaf and its full moment
-    ``v``.  Every other leaf's moments and specs agree."""
-    extra_w = {k.rsplit("/", 1)[0] for k in set(want) - set(got)}
-    extra_g = {k.rsplit("/", 1)[0] for k in set(got) - set(want)}
-    assert extra_w == extra_g
-    shapes = dict(LM(cfg, device="meta", seed=None).named_parameters())
-    for k in extra_g:
-        assert shapes[k].dim() == 1, k
-        assert {f"{k}/r", f"{k}/c"} <= set(want) and f"{k}/v" in got
-
-
 @pytest.mark.parametrize("opt_name", list(OPTS))
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "deepseek-v2-236b",
                                   "grok-1-314b", "musicgen-large"])
@@ -309,11 +320,8 @@ def test_train_state_specs_equal_the_jax_packages(arch, opt_name):
         return
     assert _tup(want.opt["t"]) == got.opt["t"] == ()
     if name == "adafactor":
-        wacc = _spec_leaves(want.opt["acc"], lead, tcfg)
-        gacc = _flat(got.opt["acc"])
-        _known_adafactor_split(wacc, gacc, tcfg)
-        for k in set(wacc) & set(gacc):
-            assert gacc[k] == wacc[k], k
+        assert _flat(got.opt["acc"]) == _spec_leaves(want.opt["acc"], lead,
+                                                     tcfg)
         return
     for k in ("m", "v"):
         assert got.opt[k] == _spec_leaves(want.opt[k], lead, tcfg)
@@ -365,12 +373,13 @@ def test_train_plan_equals_the_jax_packages(started_plans, mesh):
             lambda x: _Leaf(x["shape"], x["dtype"], _spec(x["spec"])), t,
             is_leaf=lambda x: isinstance(x, dict) and "shape" in x)
         wparams = _named(wrap(want["params"]), cfg, lead)
-        wacc = _named(wrap(want["opt"]["acc"]), cfg, lead)
+        wacc = _named(_group_columns(wrap(want["opt"]["acc"]), lead), cfg,
+                      lead)
         gacc = _flat(got["opt"]["acc"])
-        _known_adafactor_split(wacc, gacc, cfg)
         assert set(wparams) == set(got["params"]), key
+        assert set(wacc) == set(gacc), key
         for w, g in ((wparams, got["params"]), (wacc, gacc)):
-            for k in set(w) & set(g):
+            for k in w:
                 gk = g[k]
                 assert tuple(gk["shape"]) == w[k].shape, (key, k)
                 assert gk["dtype"] == w[k].dtype, (key, k)
@@ -409,11 +418,14 @@ def test_a_sharded_datacenter_spec_raises_the_reference_error():
 
 @pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "long_500k"])
 def test_serving_plans_raise_naming_the_roadmap_item(shape):
+    """The serving plans, which raised naming ROADMAP.md's item 9 until
+    they were ported, are built for every serving shape (held to the JAX
+    package's in ``tests/test_torch_serve_specs.py``), with the JAX
+    package's ``applicable`` for every architecture."""
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.plans import SHAPES, applicable, make_plan
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, queue 1, item 9"):
-        make_plan("gemma-2b", shape, None)
-    assert SHAPES[shape]["kind"] in ("prefill", "decode")
+    plan = make_plan("gemma-2b", shape, make_host_mesh(1, 1, device="cpu"))
+    assert plan.kind == SHAPES[shape]["kind"] in ("prefill", "decode")
     from repro.launch.plans import applicable as japplicable
     for arch in ARCHS:
         assert applicable(arch, shape) == japplicable(arch, shape)
@@ -443,8 +455,7 @@ BF16_LOSS_TOL = 1e-5    # the loss is float32, before any update
 @pytest.mark.parametrize("mode", [jfl.MODE_A, jfl.MODE_B])
 def test_bfloat16_buffer_and_adafactor_match_the_jax_step(mode):
     """One step of recurrentgemma-2b's smoke config cut to one Griffin
-    period (one layer a stacked group, so the JAX package's Adafactor
-    factors the same leaves as the port's), 2 microbatches whose gradients
+    period (one layer a stacked group), 2 microbatches whose gradients
     sum in bfloat16, Adafactor with ``compute_dtype`` bfloat16, against
     the JAX package's jitted ``build_train_step`` with the same options:
     each parameter's change within a few bfloat16 ulps of its leaf's
@@ -479,7 +490,8 @@ def test_bfloat16_buffer_and_adafactor_match_the_jax_step(mode):
     params = {k: torch.from_numpy(v.copy()) for k, v in before.items()}
     one = {k: v[(0,) * len(lead)] for k, v in params.items()}
     opt_state = tfl._map_tensors(
-        to.init(one), lambda x: x.expand(lead + tuple(x.shape)).clone())
+        to.init(one, groups=layer_groups(tcfg, one)),
+        lambda x: x.expand(lead + tuple(x.shape)).clone())
     tstep = tfl.build_train_step(tcfg, to, mode=mode,
                                  accum_dtype=torch.bfloat16)
     out, tm = tstep(tfl.TrainState(params, opt_state, 0),
@@ -496,3 +508,128 @@ def test_bfloat16_buffer_and_adafactor_match_the_jax_step(mode):
     assert errs[worst] <= BF16_TOL, (worst, errs[worst])
     np.testing.assert_allclose(tm["loss"].numpy(), np.asarray(jm["loss"]),
                                rtol=BF16_LOSS_TOL)
+
+
+# ---------------------------------------------------------------------- #
+# Adafactor on the JAX package's stacked layer groups
+# ---------------------------------------------------------------------- #
+GROUP_TOL = 1e-5        # of a leaf's largest entry; and the losses
+MOMENT_RTOL = 1e-6
+
+
+
+
+def _linear_losses(params, lead, scale_layer):
+    """A loss linear in the parameters, sum(p * coef), in each package:
+    its gradient is ``coef`` exactly in both, the layer ``scale_layer``'s
+    coefficients 1e-3 of the others'."""
+    g = np.random.default_rng(7)
+    coef = jax.tree.map(lambda a: g.standard_normal(
+        a.shape[len(lead):]).astype(np.float32), params)
+    for sub in coef["groups"]:
+        for leaf in jax.tree.leaves(sub):
+            leaf[scale_layer] *= 1e-3
+    jc = jax.tree.map(jnp.asarray, coef)
+    tc = {k: torch.from_numpy(v) for k, v in named_from_tree(
+        coef, GROUP_CFG[1]).items()}
+
+    def jloss(p, mb):
+        return sum(jnp.sum(a * c) for a, c in zip(jax.tree.leaves(p),
+                                                  jax.tree.leaves(jc)))
+
+    def tloss(p, mb):
+        return sum(torch.sum(p[k] * tc[k]) for k in p)
+    return jloss, tloss
+
+
+GROUP_CFG = tuple(__import__("dataclasses").replace(f("gemma-7b"),
+                                                    num_layers=2)
+                  for f in (jax_smoke, get_smoke_config))
+
+
+@pytest.mark.parametrize("loss", ["lm", "linear"])
+def test_adafactor_updates_a_stacked_group_as_the_jax_package(loss):
+    """One mode-A Adafactor step of gemma-7b's smoke config at 2 layers
+    (pattern ('attn',): each leaf a group of G = 2) whose layers'
+    gradients are ~1e3 apart, against the JAX package's jitted
+    ``build_train_step``: the update is clipped over each group and a 1-D
+    group's moments are the stack's rows (G,) and columns (n,).  Each
+    parameter within 1e-5 of its leaf's largest entry and the losses
+    within 1e-5; the moments, carried over by `train_state_to_numpy`, to
+    1e-6 relative where both packages get the same gradients.
+
+    ``lm``: the LM loss, the second layer's ``wo`` and ``wd`` scaled by
+    1e-3 (its other leaves' gradients fall ~1e3); its float32 gradients
+    differ between the packages by ~1e-4 relative in their smallest
+    entries, and a 1-D group's column (a squared gradient) carries that,
+    so the moments are held to their layout there.  ``linear``: a loss
+    linear in the parameters, whose gradient is the same in both, the
+    second layer's 1e-3 of the first's."""
+    NC, C, n_micro, bm, seq = 1, 2, 1, 2, 16
+    jcfg, tcfg = GROUP_CFG
+    mode, lead = jfl.MODE_A, (NC, C)
+    assert tuple(jcfg.block_pattern) == ("attn",)
+    jo, to = jopt.adafactor(1e-2), topt.adafactor(1e-2)
+    js = jfl.build_init_fn(jcfg, jo, mode=mode, n_clusters=NC,
+                           clients_per_cluster=C)(jax.random.PRNGKey(3))
+    params = jax.tree.map(np.asarray, js.params)
+    jloss = tloss = None
+    if loss == "lm":
+        for part, leaf in (("attn", "wo"), ("mlp", "wd")):
+            w = np.array(params["groups"][0][part][leaf])
+            w[:, :, 1] *= 1e-3
+            params["groups"][0][part][leaf] = w
+        js = js._replace(params=jax.tree.map(jnp.asarray, params))
+    else:
+        jloss, tloss = _linear_losses(params, lead, 1)
+    g = np.random.default_rng(3)
+    toks = g.integers(0, jcfg.vocab_size, lead + (n_micro, bm, seq + 1))
+    batch = {"tokens": toks[..., :-1].astype(np.int32),
+             "labels": toks[..., 1:].astype(np.int32)}
+    rep = (g.random(lead) + 0.1).astype(np.float32)
+    stale = np.zeros((NC,), np.float32)
+    jout, jm = jax.jit(jfl.build_train_step(jcfg, jo, mode=mode,
+                                            loss_fn=jloss))(
+        js, jax.tree.map(jnp.asarray, batch), jnp.asarray(rep),
+        jnp.asarray(stale))
+
+    before = named_from_tree(params, tcfg, len(lead))
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in before.items()}
+    one = {k: v[(0,) * len(lead)] for k, v in tp.items()}
+    groups = layer_groups(tcfg, one)
+    assert groups and all(len(grp) == 2 for grp in groups)
+    opt_state = tfl._map_tensors(
+        to.init(one, groups=groups),
+        lambda x: x.expand(lead + tuple(x.shape)).clone())
+    out, tm = tfl.build_train_step(tcfg, to, mode=mode, loss_fn=tloss)(
+        tfl.TrainState(tp, opt_state, 0),
+        {k: torch.from_numpy(v.astype(np.int64)) for k, v in batch.items()},
+        torch.from_numpy(rep), torch.from_numpy(stale))
+
+    want = named_from_tree(jax.tree.map(np.asarray, jout.params), tcfg,
+                           len(lead))
+    errs = {k: float(np.abs(out.params[k].numpy() - w).max()
+                     / np.abs(w).max()) for k, w in want.items()}
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= GROUP_TOL, (worst, errs[worst])
+    np.testing.assert_allclose(tm["loss"].numpy(), np.asarray(jm["loss"]),
+                               rtol=GROUP_TOL)
+    # the moments, in the JAX package's layout
+    jacc = jax.tree.map(np.asarray, jout.opt["acc"])
+    tacc = tfl.train_state_to_numpy(out, tcfg, mode=mode)["opt"]["acc"]
+    flat = lambda t: {jax.tree_util.keystr(p): v for p, v in   # noqa
+                      jax.tree_util.tree_leaves_with_path(t)}
+    fj, ft = flat(jacc), flat(tacc)
+    assert set(fj) == set(ft)
+    vectors = [k for k in fj if k.startswith("['groups'][0]")
+               and k.endswith("['r']") and fj[k].ndim == len(lead) + 1]
+    assert len(vectors) == 2                          # ln1, ln2: rows (G,)
+    for k in vectors:
+        col = k[:-len("['r']")] + "['c']"
+        assert fj[col].shape == ft[col].shape == lead + (
+            jcfg.d_model,), col                           # columns (n,)
+    for k in fj:
+        assert fj[k].shape == ft[k].shape, k
+        if loss == "linear":
+            np.testing.assert_allclose(ft[k], fj[k], rtol=MOMENT_RTOL,
+                                       err_msg=k)
