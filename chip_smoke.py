@@ -303,7 +303,7 @@ Needs one NVIDIA GPU and nvcc.  In order:
    weights, each rank's shards drawn on the card from seed 0 a layer at a
    time, batch 4 x 4096-token prompts: at mesh (1, 1) recurrentgemma-2b,
    falcon-mamba-7b and deepseek-v2-236b (3 of 60 layers), a prefill and
-   32 greedy steps, every logit and cache bit for bit `LM.prefill` /
+   16 greedy steps, every logit and cache bit for bit `LM.prefill` /
    ``decode_step`` on the same weights and the launches a prefill equal
    (8 ``flash_attention`` + 18 ``rglru_scan``; 64 ``selective_scan``; 3
    ``flash_attention``), none in decode; at mesh (1, 2), two gloo ranks
@@ -318,7 +318,23 @@ Needs one NVIDIA GPU and nvcc.  In order:
    launched on each rank;
    seconds, each rank's peak memory and a decode step's collectives by
    kind and bytes;
-13. prints the federations line (4b, 4c and 4d), the serving line, the
+13. training at the plans' bfloat16, in phase 11's NCCL job:
+   `launch.plans.train_plan`'s step (parameters bfloat16 but the float32
+   leaves, Adafactor) of recurrentgemma-2b (3 layers) and falcon-mamba-7b
+   (2 layers) at full width, mesh (1, 1), 4 sequences of 4096 tokens, the
+   launch counts set to 0 before the step and read after (every kernel
+   of the path, the bfloat16 instances of the attention's forward with
+   lse and backward and of the selective scan's forward with chunk states
+   and backward among them), the loss finite and the parameters still
+   bfloat16; the dry run's estimate of the same step on meta arguments
+   (`launch.dryrun`) against the step: its peak within 15 % of
+   ``max_memory_allocated`` and its operations equal to the step's as
+   counted (`launch.op_stats`); then, in this process, each bfloat16
+   kernel against its plain version at that step's shapes (and the
+   RG-LRU backward's bfloat16 instance, which no path launches: both
+   packages scan float32 gates), timed beside the plain version, SDPA at
+   bfloat16 for the attention, and its bound;
+14. prints the federations line (4b, 4c and 4d), the serving line, the
    service line (4e: each segment's ``service_rounds_per_sec``, its
    checkpoint's seconds and bytes, the chaos children's start-up seconds,
    kills and restarts, beside the card's name and power limit), the
@@ -330,8 +346,8 @@ Needs one NVIDIA GPU and nvcc.  In order:
    training line (8, 9 and 9b: seconds a round, losses, launches,
    peak memory), the multi-device line (10, beside the card's name and power
    limit), the gspmd line (10b, likewise), the sharded-training line
-   (11, likewise), the sharded-serving line (12, likewise), the kernels
-   line, then the result line.
+   (11, likewise), the sharded-serving line (12, likewise), the bfloat16
+   training line (13), the kernels line, then the result line.
 
 The trust kernels are timed back to back through their wrappers (the
 kernels line's ``ms`` and ``library_ms``) and by device time, warm (ten
@@ -3394,10 +3410,12 @@ def bwd_check(cfg, dev) -> dict:
 def bwd_turns(cfg, dev, dirs) -> dict:
     """Each DIR's ``flash_attention_bwd.cu`` and ``rglru_scan_bwd.cu``
     (the same C interfaces) against this checkout's at the training shape,
-    in turns (old, new, new, old), warm and cold (L2 flushed): {source:
-    {dir: {"warm": {"old": [...], "new": [...]}, "cold": ...,
-    "max_rel_diff": x}}}, ms.  Both sides call their C function on the
-    same preallocated outputs."""
+    and the attention's bfloat16 instance at phase 13's microbatch of 2
+    (``flash_attention_bwd.cu@bfloat16``), in turns (old, new, new, old),
+    warm and cold (L2 flushed): {source: {dir: {"warm": {"old": [...],
+    "new": [...]}, "cold": ..., "max_rel_diff": x, "bit_for_bit": b}}},
+    ms.  Both sides call their C function on the same preallocated
+    outputs."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (_forward,
                                                      bwd_scratch_floats)
@@ -3427,13 +3445,25 @@ def bwd_turns(cfg, dev, dirs) -> dict:
     dhs = torch.randn((1, S, W), generator=g, device=dev)
     dh = torch.randn((1, W), generator=g, device=dev)
     da, dbx = torch.empty_like(a), torch.empty_like(a)
+    # the bfloat16 instance at phase 13's microbatch of 2
+    bf = (*attn_inputs(2, S, H, Kv, d, torch.bfloat16, dev, 131),
+          torch.randn((2, S, H, d), generator=g, device=dev)
+          .to(torch.bfloat16))
+    bf = (*bf[:3], *_forward(*bf[:3], window, 0.0, True), bf[3],
+          torch.empty((bwd_scratch_floats(2, S, H, Kv, d, d),), device=dev))
+    dbf = tuple(torch.empty_like(x) for x in bf[:3])
 
-    def fa_call(where, lib):
+    def fa_call(where, lib, bf16=False):
+        qq, kk, vv, oo, ll, dd, sc = (bf if bf16 else
+                                      (q, k, v, out, lse, do, scratch))
+        grads = dbf if bf16 else (dq, dk, dv)
+        fn = lib.fa_backward_bf16 if bf16 else lib.fa_backward_f32
+
         def call():
-            status = lib.fa_backward_f32(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                do.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), 1, S, H, Kv, d,
+            status = fn(
+                qq.data_ptr(), kk.data_ptr(), vv.data_ptr(), oo.data_ptr(),
+                dd.data_ptr(), ll.data_ptr(), sc.data_ptr(),
+                *(x.data_ptr() for x in grads), qq.shape[0], S, H, Kv, d,
                 d, d ** -0.5, window, 0.0, stream())
             check(status == 0, f"flash_attention_bwd of {where}: {status}")
         return call
@@ -3446,18 +3476,23 @@ def bwd_turns(cfg, dev, dirs) -> dict:
             check(status == 0, f"rglru_scan_bwd of {where}: {status}")
         return call
 
+    fa_bf16 = lambda where, lib: fa_call(where, lib, bf16=True)
+    fa_kw = {"reps": 3, "windows": 3, "warmup": 1}
     out_t = {}
-    for (src, module), make, kw in zip(sources, (fa_call, scan_call), (
-            {"reps": 3, "windows": 3, "warmup": 1}, {"reps": 10})):
+    for (src, module), key, make, outs, kw in zip(
+            sources + sources[:1],
+            ("flash_attention_bwd.cu", "rglru_scan_bwd.cu",
+             "flash_attention_bwd.cu@bfloat16"),
+            (fa_call, scan_call, fa_bf16),
+            ((dq, dk, dv), (da, dbx), dbf), (fa_kw, {"reps": 10}, fa_kw)):
         name = os.path.basename(src)
-        out_t[name] = {}
+        out_t[key] = {}
         if not others[name]:
             continue
         mine = other_libraries(name, [HERE_CSRC], module,
                                "_bwd_signatures")[HERE_CSRC]
         for where, old in others[name].items():
             fns = {"old": make(where, old), "new": make("this checkout", mine)}
-            outs = (dq, dk, dv) if module == "flash_attention" else (da, dbx)
             for x in outs:             # what the other version leaves
                 x.fill_(float("nan"))  # unwritten shows as NaN
             fns["old"]()
@@ -3467,12 +3502,14 @@ def bwd_turns(cfg, dev, dirs) -> dict:
             # over each one's largest entry (a timing-only variant may
             # differ; NaN where it wrote nothing)
             diff = [rel_to_max(a_, b_) for a_, b_ in zip(got_old, outs)]
-            out_t[name][where] = {
+            same = all(torch.equal(a_, b_) for a_, b_ in zip(got_old, outs))
+            out_t[key][where] = {
                 "warm": in_turns(fns, graph=name.startswith("rglru"), **kw),
                 "cold": in_turns(fns, flush=flush, **kw),
-                "max_rel_diff": torch.tensor(diff).max().item()}
-            print(f"{name} in turns against {where} (old, new, new, old), "
-                  f"ms: {json.dumps(out_t[name][where])}", flush=True)
+                "max_rel_diff": torch.tensor(diff).max().item(),
+                "bit_for_bit": same}
+            print(f"{key} in turns against {where} (old, new, new, old), "
+                  f"ms: {json.dumps(out_t[key][where])}", flush=True)
     return out_t
 
 
@@ -5186,6 +5223,114 @@ def sharded_round(step, state, batch, rep, stale, dev):
                       "collectives": {"own": own, "dtensor": dtensor}}
 
 
+def split_recorder(opt, rec: dict, keep: bool):
+    """``opt``, recording in call order (with ``keep``, to the host) each
+    whole gradient an update is given and each whole update it makes; or,
+    where ``rec["replay"]`` holds such a list of gradients, updating with
+    those instead.  An update of a sharded leaf runs on the whole gathered
+    leaf (`sharding.sharded_update`), so these are whole on every rank.
+    Mode B's one cluster makes the same calls in the same order sharded
+    and unsharded."""
+    from repro_torch import optim
+    rec.update(grads=[], updates=[])
+    host = lambda t: t.detach().to("cpu", copy=True) if keep else None
+
+    def take(gs):
+        if rec.get("replay") is not None:
+            gs = {k: rec["replay"][len(rec["grads"]) + i][1].to(
+                device=g.device, dtype=g.dtype)
+                for i, (k, g) in enumerate(gs.items())}
+        rec["grads"] += [(k, host(g)) for k, g in gs.items()]
+        return gs
+
+    def update(grads, state, params=None, groups=()):
+        us, new = opt.update(take(grads), state, params, groups=groups)
+        rec["updates"] += [(k, host(u)) for k, u in us.items()]
+        return us, new
+
+    def unclipped(grads, state):
+        return opt.unclipped(take(grads), state)
+
+    def clipped(u, ss, n):
+        out = opt.clipped(u, ss, n)
+        rec["updates"].append(("clipped", host(out)))
+        return out
+    return optim.Optimizer(opt.init, update,
+                           unclipped if opt.unclipped else None,
+                           clipped if opt.clipped else None)
+
+
+def split_check(cfg, opt, mode, init, specs, mesh, batch, pbatch, rep,
+                stale, dev, rank, scratch: str) -> dict:
+    """F3's check, split in two (`scripts/train_cards.py --split`): the
+    sharded step's whole gradients against the unsharded step's (within
+    SHARDED_TOL of each leaf's largest entry), and the sharded step fed
+    the unsharded step's gradients against the unsharded step, update for
+    update, bit for bit.  The MoE routing of the first sharded step is
+    replayed in both others.  Rank 0 compares; the unsharded gradients
+    reach the other ranks through ``scratch`` (a shared directory)."""
+    import torch.distributed as dist
+    from repro_torch.core import fl_step as fl
+    from repro_torch.core import sharding as shd
+    routes = [] if cfg.num_experts else None
+    flips = {"calls": 0, "flipped": 0, "assignments": 0}
+    path = os.path.join(scratch, "unsharded_grads.pt")
+
+    def sharded(rec, replay_routes):
+        step = fl.build_train_step(cfg, split_recorder(opt, rec, rank == 0),
+                                   mode=mode)
+        placed = shd.distribute_state(init(0), specs, mesh)
+        ctx = (moe_routing(record=routes) if routes is not None
+               and not replay_routes else
+               moe_routing(replay=list(routes), flips={
+                   "calls": 0, "flipped": 0, "assignments": 0})
+               if routes is not None else contextlib.nullcontext())
+        with ctx:
+            step(placed, pbatch, rep, stale)
+        del placed
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    got = {}
+    sharded(got, False)
+    out = {}
+    if rank == 0:
+        want = {}
+        plain = fl.build_train_step(cfg, split_recorder(opt, want, True),
+                                    mode=mode)
+        with (moe_routing(replay=list(routes), flips=flips)
+              if routes is not None else contextlib.nullcontext()):
+            plain(init(0), batch, rep, stale)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rel = {k: float((g.double() - w.double()).abs().max())
+               / max(float(w.abs().max()), 1e-30)
+               for (k, g), (_, w) in zip(got["grads"], want["grads"])}
+        worst = max(rel, key=rel.get)
+        out.update(grad_rel=rel[worst], grad_worst=worst,
+                   grads=len(rel), routing_replayed=dict(flips))
+        torch.save(want["grads"], path)
+        del got
+    dist.barrier()
+    fed = {"replay": torch.load(path)}
+    sharded(fed, True)
+    if rank == 0:
+        pairs = list(zip(fed["updates"], want["updates"]))
+        equal = [torch.equal(a, b) for (_, a), (_, b) in pairs]
+        diff = max(float((a.double() - b.double()).abs().max())
+                   / max(float(b.abs().max()), 1e-30)
+                   for (_, a), (_, b) in pairs)
+        out.update(updates=len(pairs), updates_bit_equal=all(equal),
+                   updates_max_rel=diff,
+                   updates_apart=[k for ((k, _), _), e in zip(pairs, equal)
+                                  if not e],
+                   same_calls=[k for k, _ in fed["grads"]]
+                   == [k for k, _ in want["grads"]])
+    del fed
+    dist.barrier()
+    return out
+
+
 def sharded_train_run(run: dict, dev, rank: int, refs: dict,
                       snaps: dict) -> dict:
     """One model at one mesh: the sharded step from a seeded state, rounds
@@ -5260,6 +5405,14 @@ def sharded_train_run(run: dict, dev, rank: int, refs: dict,
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    if run.get("split"):
+        import tempfile
+        scratch = run.get("scratch") or tempfile.gettempdir()
+        pbatch = shd.distribute_batch(batch, fl.batch_specs(
+            cfg, batch, mode=mode, pod_axis=pod_axis), mesh)
+        out["split"] = split_check(cfg, opt, mode, init, specs, mesh, batch,
+                                   pbatch, rep, stale, dev, rank, scratch)
+        del pbatch
     snaps[run["tag"]] = (snap, [x["loss"] for x in out["rounds"]])
     if rank == 0:
         if run.get("compare_with"):
@@ -5310,14 +5463,16 @@ def sharded_train_run(run: dict, dev, rank: int, refs: dict,
 # `LM.prefill` / `decode_step` on the same weights, launches equal; then on
 # phase 11's two gloo ranks sharing the card, mesh (1, 2), the prefill and
 # 8 decode steps fed the (1, 1) run's tokens (its MoE routing replayed)
+SERVE_SHARDED_STEPS = 16  # the (1, 1) runs' greedy decode steps
 SERVE_SHARDED_RUNS = (
     {"tag": "recurrentgemma_2b@1x1", "arch": "recurrentgemma-2b",
-     "mesh": [1, 1], "steps": SERVE_GEN,
+     "mesh": [1, 1], "steps": SERVE_SHARDED_STEPS,
      "expect": {"flash_attention": 8, "rglru_scan": 18}},
     {"tag": "falcon_mamba_7b@1x1", "arch": "falcon-mamba-7b",
-     "mesh": [1, 1], "steps": SERVE_GEN, "expect": {"selective_scan": 64}},
+     "mesh": [1, 1], "steps": SERVE_SHARDED_STEPS,
+     "expect": {"selective_scan": 64}},
     {"tag": "deepseek_v2_236b@1x1", "arch": "deepseek-v2-236b",
-     "layers": 3, "mesh": [1, 1], "steps": SERVE_GEN,
+     "layers": 3, "mesh": [1, 1], "steps": SERVE_SHARDED_STEPS,
      "expect": {"flash_attention": 3}})
 SERVE_SHARDED_TP_RUNS = (
     {"tag": "deepseek_v2_236b@1x2", "arch": "deepseek-v2-236b", "layers": 3,
@@ -5679,6 +5834,299 @@ def sharded_serve_run(run: dict, dev, rank: int, store: str) -> dict:
     return res
 
 
+# --------------------------------------------------------------------- #
+# 13. training at the plans' bfloat16, and the dry run against it
+# --------------------------------------------------------------------- #
+# in phase 11's NCCL rank, mesh (1, 1): `train_plan`'s step at the plan's
+# bfloat16 (parameters bfloat16 but `F32_LEAVES`, Adafactor) at full
+# width, cut in depth, BF16_BATCH sequences of 4096 tokens (one client,
+# two microbatches of two); the launch counts set to 0 before the step and
+# read after it; the dry run's estimate of the same step on meta arguments
+# against the step's measured peak and operations
+BF16_RUNS = (
+    {"tag": "recurrentgemma_2b@bf16", "arch": "recurrentgemma-2b",
+     "layers": 3,
+     "expect": ("flash_attention", "flash_attention_bwd", "rglru_scan",
+                "rglru_scan_bwd"),
+     "bf16": ("flash_attention", "flash_attention_bwd")},
+    {"tag": "falcon_mamba_7b@bf16", "arch": "falcon-mamba-7b", "layers": 2,
+     "expect": ("selective_scan", "selective_scan_bwd"),
+     "bf16": ("selective_scan", "selective_scan_bwd")})
+BF16_BATCH = 4          # the plans' global batch of 256 cut to 4
+BF16_PEAK_TOL = 0.15    # the estimate's peak against the measured one
+# a bfloat16 kernel against its plain version (float32 from the upcast
+# inputs, rounded once to bfloat16), of each output's largest entry: the
+# kernel's float32 sums in another order, then its own rounding: two
+# bfloat16 roundings apart at most
+BF16_KERNEL_TOL = 2 ** -7
+BF16_LSE_TOL = 2e-5     # the forward's lse: float32 from the same inputs
+
+
+def bf16_train_run(run: dict, dev) -> dict:
+    """One phase-13 run on this rank: the estimate, then the step."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import bf16_launches, launches, reset_launches
+    from repro_torch.launch import dryrun, plans
+    from repro_torch.launch.mesh import make_host_mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    mesh = make_host_mesh(1, 1, device="cuda")
+    cfg = dc.replace(get_config(run["arch"]), num_layers=run["layers"])
+    plan = plans.train_plan(run["arch"], "train_4k", mesh, cfg=cfg,
+                            global_batch=BF16_BATCH)
+    t0 = time.perf_counter()
+    est, n_arg = dryrun.estimate(plan, mesh)
+    est_s = time.perf_counter() - t0
+    real = plans.materialize(plan, dev, seed=0)
+    args = dryrun.placed_args(real, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out, m = plan.step_fn(*args)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    got = {k: v for k, v in launches.items() if v}
+    got_bf16 = {k: v for k, v in bf16_launches.items() if v}
+    loss = m["loss"].float().reshape(-1).tolist()
+    dtypes = sorted({str(v.dtype) for v in out.params.values()})
+    del out, m, args, real
+    gc.collect()
+    torch.cuda.empty_cache()
+    real = plans.materialize(plan, dev, seed=0)
+    counted = dryrun.trace(real, dryrun.placed_args(real, mesh))
+    del real
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss": loss, "step_s": step_s, "estimate_s": est_s,
+            "launches": got, "bf16_launches": got_bf16,
+            "param_dtypes": dtypes, "peak_bytes": peak,
+            "estimate_peak_bytes": est.peak_bytes,
+            "estimate_peak_by": est.summary()["peak"],
+            "argument_bytes": n_arg, "flops": counted.flops,
+            "estimate_flops": est.flops,
+            "kernel_flops": dict(est.kernel_flops),
+            "layers": cfg.num_layers,
+            "microbatches": tuple(plan.args[1]["tokens"].shape[:4])}
+
+
+def bf16_report(res: dict, smi_line: str) -> dict:
+    """Phase 13's checks and line from the (1, 1) job's runs: the loss
+    finite, every kernel of the path launched (the bfloat16 instances
+    among them), the parameters still bfloat16, the estimate's peak
+    within BF16_PEAK_TOL of the measured one and its operations equal."""
+    from repro_torch.kernels import launches
+    runs, counts, bf16_counts = {}, {}, {}
+    for run in BF16_RUNS:
+        r = res[run["tag"]]
+        what = f"bf16 training {run['tag']}"
+        check(all(math.isfinite(x) for x in r["loss"]),
+              f"{what}: losses {r['loss']}")
+        check(all(r["launches"].get(k, 0) > 0 for k in run["expect"]),
+              f"{what}: a kernel of the path did not launch: "
+              f"{r['launches']}")
+        check(all(r["bf16_launches"].get(k, 0) > 0 for k in run["bf16"]),
+              f"{what}: a bfloat16 kernel did not launch: "
+              f"{r['bf16_launches']}")
+        check("torch.bfloat16" in r["param_dtypes"],
+              f"{what}: parameters {r['param_dtypes']}")
+        ratio = r["estimate_peak_bytes"] / r["peak_bytes"]
+        check(abs(ratio - 1.0) <= BF16_PEAK_TOL,
+              f"{what}: the estimated peak {r['estimate_peak_bytes']} is "
+              f"{ratio:.3f} of the measured {r['peak_bytes']}")
+        check(r["flops"] == r["estimate_flops"],
+              f"{what}: operations {r['flops']}, estimated "
+              f"{r['estimate_flops']}")
+        counts[f"bf16_{run['tag'].split('@')[0]}"] = {
+            k: r["launches"].get(k, 0) for k in launches}
+        bf16_counts[run["tag"]] = r["bf16_launches"]
+        runs[run["tag"]] = {**r, "peak_ratio": ratio}
+        print(f"{what}: {r['layers']} layers, microbatches "
+              f"{r['microbatches']}, loss {r['loss']}, step "
+              f"{r['step_s']:.3f} s, peak {r['peak_bytes'] / 2 ** 30:.3f} "
+              f"GiB against the dry run's {r['estimate_peak_bytes'] / 2 ** 30:.3f}"
+              f" ({ratio:.3f}; {r['estimate_peak_by']}), operations "
+              f"{r['flops']:.6e} = estimate, launches {r['launches']}, "
+              f"bfloat16 {r['bf16_launches']} ({smi_line})", flush=True)
+    return {"device": smi_line, "runs": runs, "counts": counts,
+            "bf16_counts": bf16_counts}
+
+
+def bf16_kernel_phase(dev) -> dict:
+    """The bfloat16 kernels of training at the plans' bfloat16 against
+    their plain versions at phase 13's shapes (a microbatch of 2 x 4096:
+    recurrentgemma-2b's attention and RG-LRU, falcon-mamba-7b's scan),
+    timed beside the plain version, a library call where one computes the
+    same function, and their bounds (`repro_torch.kernels`' cost
+    functions at the bfloat16 tensor-core rate for the attention's
+    products, the float32 rate for the scans' arithmetic)."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    fam = importlib.import_module("repro_torch.kernels.flash_attention")
+    rgm = importlib.import_module("repro_torch.kernels.rglru_scan")
+    ssm = importlib.import_module("repro_torch.kernels.selective_scan")
+    t_phase = time.perf_counter()
+    bf = torch.bfloat16
+    Bm, S = 2, RECURRENT_TRAIN_SEQ
+    rg, fm = get_config(ARCH), get_config(MAMBA_ARCH)
+    H, Kv, d, window, W = (rg.num_heads, rg.num_kv_heads, rg.head_dim,
+                           rg.window, rg.lru_width)
+    out = {}
+
+    def timed_once(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    # the attention: the forward with lse, then the backward
+    q, k, v = attn_inputs(Bm, S, H, Kv, d, bf, dev, 131)
+    g = torch.Generator(device=dev).manual_seed(132)
+    do = torch.randn((Bm, S, H, d), generator=g, device=dev).to(bf)
+    o, lse = fam._forward(q, k, v, window, 0.0, True)
+    o_ref, lse_ref = ref.flash_attention_lse_ref(q, k, v, window=window)
+    fwd_err = rel_to_max(o, o_ref)
+    fwd_abs = (o.float() - o_ref.float()).abs().max().item()
+    lse_err = (lse - lse_ref).abs().max().item()
+    grads = fam.flash_attention_bwd(q, k, v, o, lse, do, window=window)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, window=window)
+    bwd_err = max(rel_to_max(a_, b_) for a_, b_ in zip(grads, want))
+    bwd_abs = max((a_.float() - b_.float()).abs().max().item()
+                  for a_, b_ in zip(grads, want))
+    again = fam.flash_attention_bwd(q, k, v, o, lse, do, window=window)
+    same = all(torch.equal(a_, b_) for a_, b_ in zip(grads, again))
+    del want, again, o_ref, lse_ref
+    check(fwd_err <= FA_TOL["bfloat16"] and lse_err <= BF16_LSE_TOL,
+          f"flash_attention bf16 with lse: output {fwd_err}, lse {lse_err}")
+    check(bwd_err <= BF16_KERNEL_TOL and same,
+          f"flash_attention_bwd bf16: {bwd_err} (bit for bit twice: "
+          f"{same})")
+    pos = torch.arange(S, device=dev)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                             - window)
+    qh, kh, vh = (x.transpose(1, 2).repeat_interleave(H // x.shape[2], 1)
+                  .contiguous().requires_grad_() for x in (q, k, v))
+    doh = do.transpose(1, 2).contiguous()
+    lib_fwd = lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                     attn_mask=mask)
+    lib_out = lib_fwd()
+    lib_bwd = lambda: torch.autograd.grad(lib_out, (qh, kh, vh), doh,
+                                          retain_graph=True)
+    fl_f, by_f = fam.forward_cost(Bm, S, H, Kv, d, d, window, 2, lse=True)
+    fl_b, by_b = fam.backward_cost(Bm, S, H, Kv, d, d, window, 2)
+    out["flash_attention_lse_bf16"] = {
+        "max_abs_err": fwd_abs, "max_rel_err": fwd_err,
+        "lse_max_abs_err": lse_err,
+        "tolerance": FA_TOL["bfloat16"],
+        "ms": time_ms(lambda: fam._forward(q, k, v, window, 0.0, True),
+                      reps=3, windows=5, warmup=1),
+        "plain_ms": timed_once(lambda: ref.flash_attention_lse_ref(
+            q, k, v, window=window)),
+        "library_ms": time_ms(lib_fwd, reps=3, windows=5, warmup=1),
+        "library": "scaled_dot_product_attention, bfloat16, boolean window "
+                   "mask, K/V heads repeated (no lse)",
+        "bound": bound_ms(by_f, fl_f, BF16_FLOPS_PER_S), "flops": fl_f,
+        "bytes": by_f, "shape": [Bm, S, H, Kv, d, d, window]}
+    out["flash_attention_bwd_bf16"] = {
+        "max_abs_err": bwd_abs, "max_rel_err": bwd_err,
+        "tolerance": BF16_KERNEL_TOL,
+        "bit_for_bit_twice": same,
+        "ms": time_ms(lambda: fam.flash_attention_bwd(
+            q, k, v, o, lse, do, window=window), reps=3, windows=5,
+            warmup=1),
+        "plain_ms": timed_once(lambda: ref.flash_attention_bwd_ref(
+            q, k, v, o, lse, do, window=window)),
+        "library_ms": time_ms(lib_bwd, reps=3, windows=5, warmup=1),
+        "library": "torch.autograd.grad through scaled_dot_product_"
+                   "attention, bfloat16, boolean window mask, K/V heads "
+                   "repeated, its backward alone",
+        "bound": bound_ms(by_b, fl_b, BF16_FLOPS_PER_S), "flops": fl_b,
+        "bytes": by_b, "shape": [Bm, S, H, Kv, d, d, window]}
+    del q, k, v, do, o, lse, grads, qh, kh, vh, doh, lib_out, mask
+
+    # the RG-LRU scan's backward at bfloat16 (not on phase 13's path:
+    # both packages scan float32 gates at any parameter type)
+    a, bx = scan_inputs(Bm, S, W, bf, dev, 133, (0.9, 0.9999))
+    hs, _ = ref.rglru_scan_ref(a, bx)
+    dhs = torch.randn((Bm, S, W), generator=g, device=dev).to(bf)
+    dh = torch.randn((Bm, W), generator=g, device=dev)
+    got = rgm.rglru_scan_bwd(a, hs, dhs, dh)
+    want = ref.rglru_scan_bwd_ref(a, hs, dhs, dh)
+    err = max(rel_to_max(x, y) for x, y in zip(got, want))
+    abs_ = max((x.float() - y.float()).abs().max().item()
+               for x, y in zip(got, want))
+    check(err <= BF16_KERNEL_TOL and all(x.dtype == bf for x in got),
+          f"rglru_scan_bwd bf16: {err}")
+    fl_r, by_r = rgm.backward_cost(Bm, S, W, 2)
+    out["rglru_scan_bwd_bf16"] = {
+        "max_abs_err": abs_, "max_rel_err": err,
+        "tolerance": BF16_KERNEL_TOL,
+        "ms": time_ms(lambda: rgm.rglru_scan_bwd(a, hs, dhs, dh)),
+        "plain_ms": timed_once(lambda: ref.rglru_scan_bwd_ref(
+            a, hs, dhs, dh)),
+        "library_ms": None, "bound": bound_ms(by_r, fl_r), "flops": fl_r,
+        "bytes": by_r, "shape": [Bm, S, W]}
+    del a, bx, hs, dhs, dh, got, want
+
+    # the selective scan: the forward with chunk states, then the backward
+    Di, N = fm.d_inner, fm.ssm_state
+    xc, dt, Bc, Cc, A = ssm_inputs(Bm, S, Di, N, bf, dev, 134)
+    dy = torch.randn((Bm, S, Di), generator=g, device=dev).to(bf)
+    y, h_last, ch = ssm._forward(xc, dt, Bc, Cc, A, states=True)
+    y_ref, h_ref = ref.selective_scan_ref(xc, dt, Bc, Cc, A)
+    ch_ref = ref.selective_scan_chunk_states_ref(xc, dt, Bc, Cc, A)
+    fwd_err = max(rel_to_max(y, y_ref), rel_to_max(h_last, h_ref),
+                  rel_to_max(ch, ch_ref))
+    fwd_abs = max((x.float() - y_.float()).abs().max().item() for x, y_ in
+                  ((y, y_ref), (h_last, h_ref), (ch, ch_ref)))
+    del y_ref, h_ref, ch_ref
+    check(fwd_err <= SCAN_TOL["bfloat16"],
+          f"selective_scan bf16 with chunk states: {fwd_err}")
+    got = ssm.selective_scan_bwd(xc, dt, Bc, Cc, A, dy, None, ch)
+    want = ref.selective_scan_bwd_ref(xc, dt, Bc, Cc, A, dy)
+    err = {n_: rel_to_max(x, y_) for n_, x, y_ in zip(SSM_GRADS, got, want)}
+    abs_ = max((x.float() - y_.float()).abs().max().item()
+               for x, y_ in zip(got, want))
+    check(max(err.values()) <= BF16_KERNEL_TOL,
+          f"selective_scan_bwd bf16: {err}")
+    del want
+    fl_s, by_s = ssm.forward_cost(Bm, S, Di, N, 2, states=True)
+    fl_sb, by_sb = ssm.backward_cost(Bm, S, Di, N, 2)
+    out["selective_scan_states_bf16"] = {
+        "max_abs_err": fwd_abs, "max_rel_err": fwd_err,
+        "tolerance": SCAN_TOL["bfloat16"],
+        "ms": time_ms(lambda: ssm._forward(xc, dt, Bc, Cc, A, states=True),
+                      reps=3, windows=5, warmup=1),
+        "plain_ms": timed_once(lambda: ref.selective_scan_chunk_states_ref(
+            xc, dt, Bc, Cc, A)),
+        "library_ms": None, "bound": bound_ms(by_s, fl_s), "flops": fl_s,
+        "bytes": by_s, "shape": [Bm, S, Di, N]}
+    out["selective_scan_bwd_bf16"] = {
+        "max_abs_err": abs_, "max_rel_err": max(err.values()),
+        "rel_err_by_gradient": err,
+        "tolerance": BF16_KERNEL_TOL,
+        "ms": time_ms(lambda: ssm.selective_scan_bwd(
+            xc, dt, Bc, Cc, A, dy, None, ch), reps=3, windows=5, warmup=1),
+        "plain_ms": timed_once(lambda: ref.selective_scan_bwd_ref(
+            xc, dt, Bc, Cc, A, dy)),
+        "library_ms": None, "bound": bound_ms(by_sb, fl_sb),
+        "flops": fl_sb, "bytes": by_sb, "shape": [Bm, S, Di, N]}
+    del xc, dt, Bc, Cc, A, dy, y, h_last, ch, got
+    for name, r in out.items():
+        print(f"{name} at {r['shape']}: {r['ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.1f} ms, library {r['library_ms']}, bound "
+              f"{r['bound']}, error {r['max_rel_err']} of the largest "
+              f"entry ({r['max_abs_err']} absolute)", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    free_library_memory()
+    return out
+
+
 def sharded_train_worker(cfg: dict) -> None:
     """One rank of a sharded-training job (``--train-sharded-worker``):
     each run of ``cfg`` in order, one JSON line at the end."""
@@ -5707,6 +6155,13 @@ def sharded_train_worker(cfg: dict) -> None:
         out["serve"][run["tag"]] = sharded_serve_run(run, dev, rank,
                                                      cfg["store"])
     out["serve_s"] = time.perf_counter() - t0
+    # phase 13 in the same job
+    out["bf16"] = {}
+    t0 = time.perf_counter()
+    for run in cfg.get("bf16", ()):
+        print(f"rank {rank}: {run['tag']}", file=sys.stderr, flush=True)
+        out["bf16"][run["tag"]] = bf16_train_run(run, dev)
+    out["bf16_s"] = time.perf_counter() - t0
     print("TRAINSHARDED" + json.dumps(out), flush=True)
     dist.destroy_process_group()
 
@@ -5758,6 +6213,7 @@ def train_sharded_phase(dev, smi_line: str) -> dict:
     store = tempfile.mkdtemp(prefix="serve_sharded_")
     ranks, wall = sharded_train_job(1, {"runs": list(SHARDED_RUNS),
                                         "serve": list(SERVE_SHARDED_RUNS),
+                                        "bf16": list(BF16_RUNS),
                                         "store": store}, SHARDED_TIMEOUT)
     r0 = ranks[0]
     check(r0["backend"] == "nccl", f"sharded training ran on "
@@ -5847,10 +6303,13 @@ def train_sharded_phase(dev, smi_line: str) -> dict:
           f"collectives a round {runs[tag]['collectives_a_round']} "
           f"({smi_line})", flush=True)
     serve = serve_sharded_report(r0, two, smi_line)
+    bf16 = bf16_report(r0["bf16"], smi_line)
+    bf16["phase_s"] = r0["bf16_s"]
     res = {"device": smi_line, "runs": runs, "backend": r0["backend"],
            "job_wall_s": {"mesh_1x1": wall, "mesh_1x2": wall2},
-           "phase_s": time.perf_counter() - t_phase - serve["phase_s"],
-           "counts": counts, "serve": serve}
+           "phase_s": time.perf_counter() - t_phase - serve["phase_s"]
+           - bf16["phase_s"], "counts": counts, "serve": serve,
+           "bf16": bf16}
     print(f"phase 11 (sharded training): {res['phase_s']:.2f} s",
           flush=True)
     return res
@@ -5960,6 +6419,44 @@ def serve_sharded_report(r0: dict, two: list, smi_line: str) -> dict:
     phase_s = r0["serve_s"] + max(r["serve_s"] for r in two)
     print(f"phase 12 (sharded serving): {phase_s:.2f} s", flush=True)
     return {"runs": runs, "counts": counts, "phase_s": phase_s}
+
+
+BF16_ENTRIES = (
+    ("flash_attention_lse_bf16", "flash_attention", FA_SOURCE,
+     "src/repro/kernels/flash_attention.py:96",
+     "the forward kernel's bfloat16 instance with its lse output "
+     "(fa_forward_lse_bf16), for the backward"),
+    ("flash_attention_bwd_bf16", "flash_attention_bwd", FA_BWD_SOURCE,
+     "src/repro/models/attention.py:72",
+     "no Pallas counterpart: jax.grad of _sdpa at bfloat16 "
+     "(fa_backward_bf16: bfloat16 tiles converted as staged, the "
+     "float32 kernel's 3xTF32 products)"),
+    ("selective_scan_states_bf16", "selective_scan", SSM_SOURCE,
+     "src/repro/kernels/selective_scan.py:56",
+     "the forward's bfloat16 instance that also writes the float32 chunk "
+     "states (selective_scan_states_bf16), for the backward"),
+    ("selective_scan_bwd_bf16", "selective_scan_bwd", SSM_BWD_SOURCE,
+     "src/repro/kernels/ref.py:37",
+     "no Pallas counterpart: jax.vjp of selective_scan_ref at bfloat16 "
+     "(selective_scan_bwd_states_bf16)"))
+
+
+def bf16_kernel_entries(bk: dict, bf16_counts: dict) -> list:
+    """The kernels line's entries of phase 13's bfloat16 instances: the
+    launches of phase 13's path (its two training steps), the checks and
+    times of `bf16_kernel_phase`."""
+    out = []
+    for name, counter, source, replaces, note in BF16_ENTRIES:
+        r = bk[name]
+        out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "replaces_note": note,
+            "launches": sum(c.get(counter, 0) for c in bf16_counts.values()),
+            "launches_by_path": {p: c.get(counter, 0)
+                                 for p, c in bf16_counts.items()},
+            **{k: v for k, v in r.items() if k != "bound"},
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1]})
+    return out
 
 
 def main() -> None:
@@ -6257,11 +6754,18 @@ def main() -> None:
     serve_sharded = sharded.pop("serve")
     ss = serve_sharded["counts"]
     ss_total = {k: sum(c.get(k, 0) for c in ss.values()) for k in launches}
-    stamp("11 and 12")
+    # 13. training at the plans' bfloat16, in phase 11's first job; then
+    # its kernels against their plain versions here
+    bf16_train = sharded.pop("bf16")
+    train_counts.update(bf16_train.pop("counts"))
+    bf16_counts = bf16_train.pop("bf16_counts")
+    stamp("11, 12 and 13's runs")
+    bk = bf16_kernel_phase(dev)
+    stamp("13")
     train_launches = {k: sum(c[k] for c in train_counts.values())
                       for k in launches}
 
-    # 13. the serving line, the kernels line, then the result line
+    # 14. the serving line, the kernels line, then the result line
     t, bd, err = kp["t"], kp["bound"], kp["err"]
     lt, lbd = lk["t"], lk["bound"]
     kernels = [
@@ -6488,7 +6992,13 @@ def main() -> None:
          or "not built in this run",
          "shape": {"B": 1, "S": RECURRENT_TRAIN_SEQ, "W": cfg.lru_width,
                    "dtype": "float32"},
-         "bytes": tk["bytes"]["scan_bwd"]},
+         "bytes": tk["bytes"]["scan_bwd"],
+         # its bfloat16 instance (rglru_scan_bwd_bf16), held and timed in
+         # phase 13; training at bfloat16 launches the float32 one, since
+         # both packages scan float32 gates at any parameter type
+         "bf16": {k_: v_ for k_, v_ in bk["rglru_scan_bwd_bf16"].items()
+                  if k_ != "bound"},
+         "bf16_bound_ms": bk["rglru_scan_bwd_bf16"]["bound"][0]},
         {"name": "selective_scan_bwd", "route": "cuda",
          "source": SSM_BWD_SOURCE,
          "replaces": "src/repro/kernels/ref.py:37",
@@ -6521,6 +7031,7 @@ def main() -> None:
          "bytes": sk["bytes"], "flops": sk["flops"],
          "exponentials": sk["exponentials"]},
     ]
+    kernels += bf16_kernel_entries(bk, bf16_counts)
     print(json.dumps({"federations": feds}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"service": {"device": smi_line, **service["service"]}}),
@@ -6540,6 +7051,8 @@ def main() -> None:
     print(json.dumps({"train_sharded": sharded}), flush=True)
     print(json.dumps({"serve_sharded": {"device": smi_line,
                                         **serve_sharded}}), flush=True)
+    print(json.dumps({"bf16_training": {**bf16_train, "kernels": bk}}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

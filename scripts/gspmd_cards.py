@@ -1,15 +1,18 @@
 """The partitioner-inferred placement across cards: one NCCL rank a card.
 
-    python3 scripts/gspmd_cards.py [--meshes 2 4]   # on four cards
+    python3 scripts/gspmd_cards.py [--meshes 2 4 2x2]   # on four cards
+    python3 scripts/gspmd_cards.py --meshes 2x2 --repeat 8 \
+        --specs paper-mlp-fleet1k                         # F2's check
 
 `chip_smoke.py`'s phase 10b runs meshes (1,) and (1, 1) only: on one card
 the ranks would share it over gloo, whose all-gather of CUDA tensors
 DTensor cannot use (`scripts/dtensor_probe.py`).  With a card a rank the
 backend is NCCL: this script starts `chip_smoke.py`'s hidden
-``--gspmd-worker`` as one job a mesh, 2 ranks for (2,) and 4 for (4,)
-(the placement refuses a multi-axis mesh over NCCL, which hung:
-ROADMAP.md, queue 1, item 9), each running ``paper-mlp-fleet1k``,
-``dp-fleet1k`` and ``paper-adaptive-fleet1k``, and holds rank 0's records to its
+``--gspmd-worker`` as one job a mesh, 2 ranks for (2,), 4 for (4,) and
+(2, 2) (which hung while DTensor inferred the round's reductions:
+ROADMAP.md, F2; ``--repeat`` runs a mesh's job that many times), each
+running ``paper-mlp-fleet1k``,
+``dp-fleet1k`` and ``paper-adaptive-fleet1k`` (or ``--specs``), and holds rank 0's records to its
 unsharded engine on the same card (the schedule exactly, t, loss and
 energy within 1e-5 relative; the DQN's under the same net) and every
 rank's records to rank 0's, byte for byte; each rank's trust launches a
@@ -37,11 +40,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-MESHES = ("2", "4")             # one job each, in this order
+MESHES = ("2", "4", "2x2")      # one job each, in this order
 SMOKE = os.path.join(ROOT, "chip_smoke.py")     # its --gspmd-worker
 
 
-def main(timeout: float = 240.0, meshes=MESHES) -> int:
+def main(timeout: float = 240.0, meshes=MESHES, repeat: int = 1,
+         specs=None) -> int:
     import torch
     import chip_smoke as cs
     from repro_torch.launch.distributed import spawn_local
@@ -55,7 +59,7 @@ def main(timeout: float = 240.0, meshes=MESHES) -> int:
     out = {"device": smi.splitlines()[0] if smi else None, "cards": cards,
            "meshes": {}}
     ok = True
-    for shape in meshes:
+    for shape, turn in [(m, i) for m in meshes for i in range(repeat)]:
         mesh = [int(m) for m in shape.split("x")]
         G = math.prod(mesh)
         meshes_ = [mesh]
@@ -64,7 +68,7 @@ def main(timeout: float = 240.0, meshes=MESHES) -> int:
             return 2
         # each rank's Python stack, written 15 s before the job's timeout
         stacks = tempfile.mkdtemp(prefix="gspmd_stacks_")
-        cfg = {"meshes": meshes_, "specs": list(cs.GSPMD_SPECS),
+        cfg = {"meshes": meshes_, "specs": list(specs or cs.GSPMD_SPECS),
                "stacks": {"dir": stacks, "after_s": max(timeout - 15, 1)}}
         t0 = time.perf_counter()
         try:
@@ -74,8 +78,9 @@ def main(timeout: float = 240.0, meshes=MESHES) -> int:
             dumps = "".join(
                 f"{f}: " + open(os.path.join(stacks, f)).read()
                 for f in sorted(os.listdir(stacks)))
-            print(f"{G} ranks, mesh {mesh}: no end within {timeout} s; "
-                  f"where the ranks were:\n{e.stderr}\n{dumps}", flush=True)
+            print(f"{G} ranks, mesh {mesh} (run {turn + 1} of {repeat}): "
+                  f"no end within {timeout} s; where the ranks were:\n"
+                  f"{e.stderr}\n{dumps}", flush=True)
             return 1
         finally:
             shutil.rmtree(stacks, ignore_errors=True)
@@ -125,8 +130,13 @@ def main(timeout: float = 240.0, meshes=MESHES) -> int:
                       "rounds/s, rank 0, median [min, max]: " + "; ".join(
                           f"{k} {v['median']} [{v['min']}, {v['max']}]"
                           for k, v in st.items()) + f" ({smi})", flush=True)
-            out["meshes"].setdefault(tag, {})[name] = entry
-            print(json.dumps({f"{name}@{tag}": entry}), flush=True)
+            if repeat > 1:
+                tag_ = f"{tag}#{turn + 1}"
+                entry["run"] = turn + 1
+            else:
+                tag_ = tag
+            out["meshes"].setdefault(tag_, {})[name] = entry
+            print(json.dumps({f"{name}@{tag_}": entry}), flush=True)
     out["ok"] = ok
     print(json.dumps(out), flush=True)
     return 0 if ok else 1
@@ -136,8 +146,14 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--meshes", nargs="+", default=list(MESHES),
                     help="mesh shapes to run, one job each (default: "
-                         "2 4)")
+                         "2 4 2x2)")
+    ap.add_argument("--repeat", type=int, default=1,
+                    help="jobs a mesh, one after another")
+    ap.add_argument("--specs", nargs="+", default=None,
+                    help="specs a job runs (default: chip_smoke's "
+                         "GSPMD_SPECS)")
     ap.add_argument("--timeout", type=float, default=240.0,
                     help="seconds a job may take")
     args = ap.parse_args()
-    sys.exit(main(timeout=args.timeout, meshes=args.meshes))
+    sys.exit(main(timeout=args.timeout, meshes=args.meshes,
+                  repeat=args.repeat, specs=args.specs))

@@ -124,7 +124,7 @@ from repro_torch.optim import adam
 
 from . import placement as placement_lib
 from .components import ControllerCtx
-from .placement import whole
+from .placement import gather, whole
 from .records import FLTrace, RoundRecord
 from .registry import register_engine
 from .spec import (DATACENTER_SCALE, DEVICE_SCALE, GSPMD_DEVICE_SCALE,
@@ -613,9 +613,11 @@ class DeviceScaleEngine:
     # the round
     # ------------------------------------------------------------------ #
     def _cluster_freq_table(self, twins: TwinState) -> torch.Tensor:
-        """Straggler (min) calibrated frequency of every cluster, (C,)."""
-        fmat = take(calibrated_freq(twins), self._member_table,
-                    float("inf"))
+        """Straggler (min) calibrated frequency of every cluster, (C,),
+        from the whole frequencies (`placement.gather` on the partitioner-
+        inferred placement: a plain tensor, the same on every rank)."""
+        fmat = take(gather(calibrated_freq(twins)),
+                    self._member_table, float("inf"))
         fmin = torch.where(self._member_mask, fmat, float("inf")).min(
             dim=1).values
         return torch.where(self._member_mask.any(dim=1), fmin, 1.0)
@@ -714,15 +716,19 @@ class DeviceScaleEngine:
         rnd = state.round + 1
         ts = _with_row(state.cluster_ts, c, rnd.to(torch.float32))
         staleness = rnd.to(torch.float32) - ts
+        # Eqn 19's reductions over the clusters run on whole tensors
+        # (`placement.gather`: explicit collectives on a sharded state)
+        whole_ = gather
         if self._fuse_global:
             gflat = self.aggregator.aggregate_with_global(
                 m.new, m.w, mask_f, state.cluster_flat,
-                staleness_weights(staleness), c)
+                staleness_weights(whole_(staleness)), c)
             cflat = state.cluster_flat
         else:
             cflat = _with_row(state.cluster_flat, c, self._eqn6(
                 state, c, m.new, m.upd, m.w, mask, mask_f, cnt, draws))
-            gflat, _ = time_weighted_average(cflat, staleness)
+            gflat, _ = time_weighted_average(whole_(cflat),
+                                             whole_(staleness))
         cflat = _with_row(cflat, c, gflat)
 
         if fm.may_drop:
@@ -946,7 +952,9 @@ class DeviceScaleEngine:
         with self._obs_span("round", mode="scanned", rounds=int(K)) as sp, \
                 self._spmd():
             for _ in range(int(K)):
-                c = torch.argmin(times)
+                # the whole times, the same on every rank: DTensor's
+                # argmin of a sharded tensor gathers partial results
+                c = torch.argmin(gather(times))
                 t = _row(times, c)
                 feats = self._ctl_features(state, c)
                 cobs = ctl_policy.CtlObs(

@@ -65,6 +65,30 @@ def whole(t):
     return t.full_tensor() if is_dtensor(t) else t
 
 
+def gather(t):
+    """The whole value of the DTensor ``t`` as a plain tensor on every
+    rank, by the process groups' own all-gathers of its shards, one
+    mesh dim after another in the mesh's order (every rank calls it,
+    in the same order); a plain tensor as it is.  The partitioner-
+    inferred round takes the inputs of its own reductions through
+    this (the next event's ``argmin``, the straggler minimum, Eqn 19's
+    weights and sum), so that none is left to DTensor, whose inferred
+    collectives for them differ between PyTorch versions (2.11's
+    ``argmin`` of a sharded tensor gathers partial results, and one
+    rank of four skipped a ``(Partial(min), Partial(min))`` reduction
+    there: mesh (2, 2) over NCCL hung); each is the unsharded engine's
+    on whole tensors."""
+    if not is_dtensor(t):
+        return t
+    from repro_torch.core.sharding import Shards, spec_of
+    if any(p.is_partial() for p in t.placements):
+        raise ValueError(f"gather takes sharded or replicated DTensors, "
+                         f"got {t.placements}")
+    with torch.no_grad():
+        return Shards(t.device_mesh, {}).relayout(
+            t.to_local(), spec_of(t), (None,) * t.dim())
+
+
 _replicating = [0]
 
 
@@ -238,15 +262,6 @@ def gspmd_placement(sharding: ShardingSpec, device=None) -> Placement:
             "process with a segfault (scripts/dtensor_probe.py); run one "
             "rank a card (backend nccl) or on the CPU (device='cpu'); "
             "ROADMAP.md, queue 1, item 9")
-    if (G > 1 and len(sharding.mesh) > 1
-            and dist.get_backend(group) == "nccl"):
-        raise RuntimeError(
-            f"impl='gspmd' on the multi-axis mesh {tuple(sharding.mesh)} "
-            "over NCCL hangs: on four H100s mesh (2, 2) stopped in its "
-            "first rounds in three runs of four, the ranks waiting in "
-            "DTensor's collectives at different ops (not yet diagnosed); "
-            "run a 1-D mesh over NCCL, or the multi-axis mesh on the CPU "
-            "(device='cpu'); ROADMAP.md, queue 1, item 9")
     kernel_rules()
     member_rules()
     return Placement(world_size=G, rank=dist.get_rank(group), device=dev,

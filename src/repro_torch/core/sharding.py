@@ -556,12 +556,15 @@ def sharded_update(opt, grads, state, params, specs: Mapping[str, Spec],
     all-gathers (such an update reads no parameters: Adafactor's), and
     each rank keeps its chunk of the updates and of the new state: the
     unsharded update of the same gradients, bit for bit, and no DTensor
-    collective.  ``specs``: the leaves' at-rest specs without the leading
-    dims."""
+    collective.  The gathered tensors are made contiguous, as the
+    unsharded step's are: a reduction over a strided layout sums in
+    another order on the CPU.  ``specs``: the leaves' at-rest specs
+    without the leading dims."""
     if not (_sharded(specs, mesh, axes) and _reduces(state)):
         return opt.update(grads, state, params, groups=groups)
     sh = Shards(mesh, {})
-    up = lambda t, s: sh.relayout(t, s, (None,) * len(s))       # noqa
+    up = lambda t, s: sh.relayout(                               # noqa
+        t, s, (None,) * len(s)).contiguous()
     down = lambda t, s: sh.relayout(t, (None,) * len(s), s)     # noqa
     updates, new = opt.update({k: up(grads[k], specs[k]) for k in grads},
                               map_tree(up, state, state_spec(state, specs)),
@@ -585,9 +588,9 @@ def sharded_unclipped(opt, k: str, grad, state, spec: Spec, mesh,
     specs = {k: spec}
     whole = (None,) * len(spec)
     us, new, ss = opt.unclipped(
-        {k: sh.relayout(grad, spec, whole)},
-        map_tree(lambda t, s: sh.relayout(t, s, (None,) * len(s)), state,
-                 state_spec(state, specs)))
+        {k: sh.relayout(grad, spec, whole).contiguous()},
+        map_tree(lambda t, s: sh.relayout(t, s, (None,) * len(s))
+                 .contiguous(), state, state_spec(state, specs)))
     down = lambda t, s: sh.relayout(t, (None,) * len(s), s)     # noqa
     return (down(us[k], spec), map_tree(down, new, state_spec(new, specs)),
             ss, us[k].numel())

@@ -18,7 +18,7 @@
   ops                       entry points for the models and the federation
 """
 from .flash_attention import flash_attention, flash_attention_bwd
-from .launch import launches, reset_launches
+from .launch import bf16_launches, launches, reset_launches
 from .ops import (attention, flatten_rows, layout_of, leaf_views, lru_scan,
                   mamba_scan, trust_aggregate_global_tree,
                   trust_aggregate_tree)
@@ -32,7 +32,8 @@ from .trust_aggregate import (trust_aggregate, trust_aggregate_global,
 __all__ = ["trust_aggregate", "trust_aggregate_global", "trust_aggregate_tree",
            "trust_aggregate_pop", "trust_aggregate_global_pop",
            "trust_aggregate_global_tree", "flatten_rows", "layout_of",
-           "leaf_views", "launches", "reset_launches", "flash_attention",
+           "leaf_views", "launches", "bf16_launches", "reset_launches",
+           "flash_attention",
            "flash_attention_bwd", "rglru_scan", "rglru_scan_bwd",
            "selective_scan", "selective_scan_bwd", "state_launches",
            "without_chunk_states", "attention", "lru_scan", "mamba_scan"]

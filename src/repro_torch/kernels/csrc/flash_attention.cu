@@ -658,4 +658,16 @@ int fa_forward_bf16(const void* q, const void* k, const void* v, void* out,
                                stream);
 }
 
+// fa_forward_bf16 with lse, (batch, heads, seq) f32: the forward of
+// training at bfloat16 (flash_attention_bwd.cu's fa_backward_bf16 reads
+// it).  out is bit for bit fa_forward_bf16's.
+int fa_forward_lse_bf16(const void* q, const void* k, const void* v,
+                        void* out, void* lse, int batch, int seq, int heads,
+                        int kv_heads, int d, int dv, float scale, int window,
+                        float softcap, void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, out, static_cast<float*>(lse), batch,
+                               seq, heads, kv_heads, d, dv, scale, window,
+                               softcap, stream);
+}
+
 }  // extern "C"

@@ -1,6 +1,6 @@
 // Backward of causal flash attention (sliding window, tanh logit cap,
-// grouped K/V heads) for Hopper, sm_90a, float32, with a plain C interface
-// loaded through ctypes.
+// grouped K/V heads) for Hopper, sm_90a, float32 or bfloat16, with a plain
+// C interface loaded through ctypes.
 //
 // The TPU package has no backward kernel: its training differentiates the
 // jnp attention (jax.grad through _sdpa and causal_mask,
@@ -113,8 +113,29 @@
 //     groups' named barriers removed (a timing-only variant) 9.31-9.32
 //     against 9.36, ~0.5 %.
 
+// bfloat16 (fa_backward_bf16, training at the plans' bfloat16).  q, k, v,
+// o and dO are bfloat16, lse float32; dq, dk and dv are written in
+// bfloat16, the type of the JAX package's gradient of bfloat16 inputs.
+// The tiles are converted to float32 as they are staged (plain 8-byte
+// loads in place of cp.async), so shared memory and the layouts are the
+// float32 kernel's.  S = Q K^T and dP = dO V^T multiply two bfloat16
+// inputs: they run on bfloat16 mma.sync m16n8k16 with f32 accumulators
+// (scores_bf16), one instruction for the float32 kernel's six m16n8k8
+// TF32 ones over 16 columns, the operands repacked exactly from the
+// staged floats.  dV, dK and dQ multiply p or dS, computed in float32, by
+// a staged bfloat16 tile: they keep the 3xTF32 split of p and dS, and
+// drop the product with the tile's low part, which is zero (a bfloat16
+// value is exact in TF32), so two m16n8k8 a k-step in place of three.
+// So p and dS are not rounded to bfloat16 (the JAX package rounds them),
+// every sum is f32, and the partial dK and dV of grouped heads stay
+// float32 in the scratch; only the final stores round.
+
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -182,6 +203,45 @@ __device__ __forceinline__ void stage(float* dst, int dst_pitch,
   }
 }
 
+// four bfloat16 at p (8-byte aligned) as floats, and the reverse
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  __nv_bfloat162 lo, hi;
+  memcpy(&lo, &w.x, 4);
+  memcpy(&hi, &w.y, 4);
+  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// `stage` of a bfloat16 source: the same tile as float32, by plain loads
+// (vec: cols and the source pitch are whole 8-byte units, src 8-byte
+// aligned)
+__device__ __forceinline__ void stage(float* dst, int dst_pitch,
+                                      const __nv_bfloat16* src,
+                                      int64_t src_pitch, int valid, int cols,
+                                      bool vec) {
+  if (vec) {
+    const int per_row = cols / 4;
+    for (int i = threadIdx.x; i < kT * per_row; i += kThreads) {
+      const int r = i / per_row, c = (i - r * per_row) * 4;
+      *reinterpret_cast<float4*>(dst + r * dst_pitch + c) =
+          r < valid ? load4(src + r * src_pitch + c)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kT * cols; i += kThreads) {
+      const int r = i / cols, c = i - r * cols;
+      dst[r * dst_pitch + c] =
+          r < valid ? __bfloat162float(src[r * src_pitch + c]) : 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ float as_float(float x) { return x; }
+__device__ __forceinline__ float as_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
 // lse and D of the kT rows from `row` into shared memory (zeros past seq)
 __device__ __forceinline__ void stage_rows(float* sl, float* sd,
                                            const float* lrow,
@@ -210,6 +270,21 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b, a: 16 x 16 (row), b: 16 x 8 (col), bfloat16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats that hold bfloat16 values as one bfloat16 pair, x in the low
+// half: their high halves, exact (the low halves are zero)
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  return __byte_perm(__float_as_uint(x), __float_as_uint(y), 0x7632);
 }
 
 // s[j] (streamed rows 8 j + perm(n) of the tile) += A B^T over this warp's
@@ -264,6 +339,41 @@ __device__ __forceinline__ void scores(float (&s)[4][4], const float* a_row,
     for (int e = 0; e < 4; ++e) s[j][e] += small[j][e];
 }
 
+// `scores` of tiles that hold bfloat16 values, on bfloat16 m16n8k16: lane
+// (g, t) holds columns 4t, 4t + 1 of a chunk as the mma's k = 2t, 2t + 1
+// and columns 4t + 2, 4t + 3 as k = 2t + 8, 2t + 9, in A (rows g, g + 8)
+// and B alike
+__device__ __forceinline__ void scores_bf16(float (&s)[4][4],
+                                            const float* a_row,
+                                            const float* b_row, int pitch,
+                                            int chunks) {
+#pragma unroll 2
+  for (int ch = 0; ch < chunks; ++ch) {
+    const float4 xa = *reinterpret_cast<const float4*>(a_row + ch * 16);
+    const float4 xb =
+        *reinterpret_cast<const float4*>(a_row + 8 * pitch + ch * 16);
+    const uint32_t a[4] = {pack_bf16(xa.x, xa.y), pack_bf16(xb.x, xb.y),
+                           pack_bf16(xa.z, xa.w), pack_bf16(xb.z, xb.w)};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 kv = *reinterpret_cast<const float4*>(
+          b_row + 8 * j * pitch + ch * 16);
+      mma_bf16(s[j], a, pack_bf16(kv.x, kv.y), pack_bf16(kv.z, kv.w));
+    }
+  }
+}
+
+// the scores' products of tiles staged from T
+template <typename T>
+__device__ __forceinline__ void scores_of(float (&s)[4][4], const float* a_row,
+                                          const float* b_row, int pitch,
+                                          int chunks) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    scores_bf16(s, a_row, b_row, pitch, chunks);
+  else
+    scores(s, a_row, b_row, pitch, chunks);
+}
+
 // o[n] (columns 8 n .. 8 n + 7 from x) += W X over the tile's 32 streamed
 // rows, for this warp's 16 rows.  w[j] holds the 16 x 8 block of streamed
 // rows 8 j .. 8 j + 7 in the accumulator layout of `scores` (columns 2t,
@@ -278,8 +388,9 @@ __device__ __forceinline__ void scores(float (&s)[4][4], const float* a_row,
 // first layers on their own inputs, scripts/fa_bwd_accuracy.py; the
 // plain f32 version ~3e-6).  kAll: all NT n-tiles are live, so the
 // unrolled loop has no branch; otherwise n-tiles at or past `cols`
-// columns are skipped.
-template <int NT, bool kAll>
+// columns are skipped.  kExact: x holds bfloat16 values, whose TF32 low
+// part is zero, so the product with it is left out.
+template <int NT, bool kAll, bool kExact>
 __device__ __forceinline__ void outer_tiles(float (&o)[NT][4],
                                             const float (&w)[4][4],
                                             const float* x, int px, int cols,
@@ -303,9 +414,14 @@ __device__ __forceinline__ void outer_tiles(float (&o)[NT][4],
         const float* x0 = x + (8 * j + t) * px + g + 8 * n;
         const float* x1 = x + (8 * j + (t ^ 6)) * px + g + 8 * n;
         uint32_t bh0, bl0, bh1, bl1;
-        split(*x0, bh0, bl0);
-        split(*x1, bh1, bl1);
-        mma_tf32(c, ah[j], bl0, bl1);
+        if (kExact) {
+          bh0 = __float_as_uint(*x0);
+          bh1 = __float_as_uint(*x1);
+        } else {
+          split(*x0, bh0, bl0);
+          split(*x1, bh1, bl1);
+          mma_tf32(c, ah[j], bl0, bl1);
+        }
         mma_tf32(c, al[j], bh0, bh1);
         mma_tf32(c, ah[j], bh0, bh1);
       }
@@ -315,14 +431,15 @@ __device__ __forceinline__ void outer_tiles(float (&o)[NT][4],
   }
 }
 
-template <int NT>
+template <typename T, int NT>
 __device__ __forceinline__ void outer(float (&o)[NT][4], const float (&w)[4][4],
                                       const float* x, int px, int cols,
                                       int lane) {
+  constexpr bool kExact = std::is_same<T, __nv_bfloat16>::value;
   if (cols >= 8 * NT)
-    outer_tiles<NT, true>(o, w, x, px, cols, lane);
+    outer_tiles<NT, true, kExact>(o, w, x, px, cols, lane);
   else
-    outer_tiles<NT, false>(o, w, x, px, cols, lane);
+    outer_tiles<NT, false, kExact>(o, w, x, px, cols, lane);
 }
 
 // the 4 warps of a row group (ids 1 and 2; __syncthreads is 0)
@@ -403,12 +520,21 @@ __device__ __forceinline__ void store2(float* p, float a, float b, bool both,
     if (both) p[1] = b;
   }
 }
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b,
+                                       bool both, bool pair) {
+  if (both && pair) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  } else {
+    p[0] = __float2bfloat16(a);
+    if (both) p[1] = __float2bfloat16(b);
+  }
+}
 
 // rows R and R + 8 of this warp's accumulators o into the rows of dst at
 // positions pos[0], pos[1] (row stride `stride`), columns col0 + 8 n + 2t
 // below `dim`, times `mul`
-template <int NT>
-__device__ __forceinline__ void store_rows(float* dst, int64_t stride,
+template <int NT, typename O>
+__device__ __forceinline__ void store_rows(O* dst, int64_t stride,
                                            const float (&o)[NT][4],
                                            const int (&pos)[2], int seq,
                                            int col0, int dim, int t,
@@ -417,7 +543,7 @@ __device__ __forceinline__ void store_rows(float* dst, int64_t stride,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (pos[r] >= seq) continue;
-    float* row = dst + pos[r] * stride;
+    O* row = dst + pos[r] * stride;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       const int col = col0 + 8 * n + 2 * t;
@@ -429,17 +555,19 @@ __device__ __forceinline__ void store_rows(float* dst, int64_t stride,
 }
 
 // D = rowsum(dO * o): one warp a (b, i, h) row, rows in memory order
+template <typename T>
 __global__ void __launch_bounds__(256)
-fa_bwd_delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
+fa_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                     float* __restrict__ delta, int64_t rows, int seq,
                     int heads, int dv) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * 8 + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const float* po = o + row * dv;
-  const float* pd = dout + row * dv;
+  const T* po = o + row * dv;
+  const T* pd = dout + row * dv;
   float acc = 0.f;
-  for (int c = lane; c < dv; c += 32) acc = fmaf(po[c], pd[c], acc);
+  for (int c = lane; c < dv; c += 32)
+    acc = fmaf(as_float(po[c]), as_float(pd[c]), acc);
 #pragma unroll
   for (int off = 16; off > 0; off /= 2)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -475,14 +603,13 @@ __device__ __forceinline__ void part_chunks(int n, int part, int& c0,
 }
 
 // NT: 8-column tiles of dK and dV a warp holds; 4 parts x 8 NT >= d, dv
-template <int NT>
+template <typename T, int NT>
 __global__ void __launch_bounds__(kThreads, 1)
-fa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v,
-                   const float* __restrict__ dout,
+fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ dout,
                    const float* __restrict__ lse,
-                   float* __restrict__ scratch, float* __restrict__ dk,
-                   float* __restrict__ dvo, Dims z, bool vec) {
+                   float* __restrict__ scratch, T* __restrict__ dk,
+                   T* __restrict__ dvo, Dims z, bool vec) {
   extern __shared__ __align__(16) float smem[];
   const int pd = pitch_of(z.d), pv = pitch_of(z.dv);
   float* sK = smem;                    // [kT][pd]
@@ -503,8 +630,8 @@ fa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int64_t os = static_cast<int64_t>(z.heads) * z.dv;
   const int64_t ks = static_cast<int64_t>(z.kv_heads) * z.d;
   const int64_t vs = static_cast<int64_t>(z.kv_heads) * z.dv;
-  const float* qb = q + b * z.seq * qs + static_cast<int64_t>(h) * z.d;
-  const float* ob = dout + b * z.seq * os + static_cast<int64_t>(h) * z.dv;
+  const T* qb = q + b * z.seq * qs + static_cast<int64_t>(h) * z.d;
+  const T* ob = dout + b * z.seq * os + static_cast<int64_t>(h) * z.dv;
   const float* lrow = lse + (b * z.heads + h) * z.seq;
   const float* drow = scratch + (b * z.heads + h) * z.seq;   // D
 
@@ -569,15 +696,15 @@ fa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      scores(s, k_row, sq + bq, pd, c1q - c0q);
+      scores_of<T>(s, k_row, sq + bq, pd, c1q - c0q);
       exchange(s, sX, warp, lane);
-      scores(dp, v_row, so + bo, pv, c1v - c0v);
+      scores_of<T>(dp, v_row, so + bo, pv, c1v - c0v);
       group_sync(warp);                // every warp has read the scores
       exchange(dp, sX, warp, lane);
       probs(s, dp, a_pos, q0, true, sL + buf * kT, sD + buf * kT, none,
             none, t, z.seq, z.scale, z.window, z.softcap);
-      outer<NT>(acc_v, s, so + col0, pv, z.dv - col0, lane);
-      outer<NT>(acc_k, dp, sq + col0, pd, z.d - col0, lane);
+      outer<T, NT>(acc_v, s, so + col0, pv, z.dv - col0, lane);
+      outer<T, NT>(acc_k, dp, sq + col0, pd, z.d - col0, lane);
     }
     __syncthreads();   // this buffer (and the partial scores) are consumed
   }
@@ -589,8 +716,8 @@ fa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* part_v = part_k + aligned(n_rows * z.d);
   const int64_t head_row = (b * z.heads + h) * z.seq;
   if (group == 1) {
-    store_rows<NT>(dk + b * z.seq * ks + kvh * z.d, ks, acc_k, a_pos, z.seq,
-                   col0, z.d, t, z.scale);
+    store_rows<NT>(dk + b * z.seq * ks + kvh * z.d, ks, acc_k, a_pos,
+                   z.seq, col0, z.d, t, z.scale);
     store_rows<NT>(dvo + b * z.seq * vs + kvh * z.dv, vs, acc_v, a_pos,
                    z.seq, col0, z.dv, t, 1.f);
   } else {
@@ -603,8 +730,9 @@ fa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // out (B, S, Kv, dim) = the sum over each group's heads of part (B, H, S,
 // dim), in head order
+template <typename T>
 __global__ void __launch_bounds__(256)
-fa_bwd_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
+fa_bwd_sum_kernel(const float* __restrict__ part, T* __restrict__ out,
                   int64_t n, int seq, int heads, int kv_heads, int dim) {
   const int group = heads / kv_heads;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
@@ -621,16 +749,16 @@ fa_bwd_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
     float acc = 0.f;
     for (int hh = 0; hh < group; ++hh)
       acc += p[static_cast<int64_t>(hh) * seq * dim];
-    out[i] = acc;
+    store2(out + i, acc, 0.f, false, false);
   }
 }
 
-template <int NT>
+template <typename T, int NT>
 __global__ void __launch_bounds__(kThreads, 1)
-fa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ dout,
+fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
                  const float* __restrict__ lse,
-                 const float* __restrict__ delta, float* __restrict__ dq,
+                 const float* __restrict__ delta, T* __restrict__ dq,
                  Dims z, bool vec) {
   extern __shared__ __align__(16) float smem[];
   const int pd = pitch_of(z.d), pv = pitch_of(z.dv);
@@ -652,8 +780,8 @@ fa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int64_t os = static_cast<int64_t>(z.heads) * z.dv;
   const int64_t ks = static_cast<int64_t>(z.kv_heads) * z.d;
   const int64_t vs = static_cast<int64_t>(z.kv_heads) * z.dv;
-  const float* kb = k + b * z.seq * ks + static_cast<int64_t>(kvh) * z.d;
-  const float* vb = v + b * z.seq * vs + static_cast<int64_t>(kvh) * z.dv;
+  const T* kb = k + b * z.seq * ks + static_cast<int64_t>(kvh) * z.d;
+  const T* vb = v + b * z.seq * vs + static_cast<int64_t>(kvh) * z.dv;
 
   for (int i = tid; i < 3 * kT * (pd + pv); i += kThreads) smem[i] = 0.f;
   __syncthreads();
@@ -719,14 +847,14 @@ fa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      scores(s, q_row, sk + bk, pd, c1q - c0q);
+      scores_of<T>(s, q_row, sk + bk, pd, c1q - c0q);
       exchange(s, sX, warp, lane);
-      scores(dp, o_row, sv + bv, pv, c1v - c0v);
+      scores_of<T>(dp, o_row, sv + bv, pv, c1v - c0v);
       group_sync(warp);
       exchange(dp, sX, warp, lane);
       probs(s, dp, a_pos, k0, false, nullptr, nullptr, la, da, t, z.seq,
             z.scale, z.window, z.softcap);
-      outer<NT>(acc, dp, sk + col0, pd, z.d - col0, lane);
+      outer<T, NT>(acc, dp, sk + col0, pd, z.d - col0, lane);
     }
     __syncthreads();
   }
@@ -735,25 +863,23 @@ fa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  acc, a_pos, z.seq, col0, z.d, t, z.scale);
 }
 
-template <int NT>
-int launch_nt(const float* q, const float* k, const float* v,
-              const float* dout, const float* lse, float* scratch, float* dq,
-              float* dk, float* dv, int batch, const Dims& z, bool vec,
-              cudaStream_t s) {
+template <typename T, int NT>
+int launch_nt(const T* q, const T* k, const T* v, const T* dout,
+              const float* lse, float* scratch, T* dq, T* dk, T* dv,
+              int batch, const Dims& z, bool vec, cudaStream_t s) {
   const size_t smem = bwd_smem(z.d, z.dv);
   cudaError_t err = cudaFuncSetAttribute(
-      fa_bwd_dkdv_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_bwd_dkdv_kernel<T, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(fa_bwd_dq_kernel<NT>,
+  err = cudaFuncSetAttribute(fa_bwd_dq_kernel<T, NT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (z.seq + kT - 1) / kT;
   const dim3 grid(static_cast<unsigned>(tiles) * z.heads, batch);
-  fa_bwd_dkdv_kernel<NT><<<grid, kThreads, smem, s>>>(q, k, v, dout, lse,
-                                                      scratch, dk, dv, z,
-                                                      vec);
+  fa_bwd_dkdv_kernel<T, NT><<<grid, kThreads, smem, s>>>(
+      q, k, v, dout, lse, scratch, dk, dv, z, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (z.heads != z.kv_heads) {
@@ -766,16 +892,67 @@ int launch_nt(const float* q, const float* k, const float* v,
       const int64_t n = out_rows * dim;
       const int64_t blocks = (n + 255) / 256 < (1 << 20) ? (n + 255) / 256
                                                          : (1 << 20);
-      fa_bwd_sum_kernel<<<static_cast<unsigned>(blocks), 256, 0, s>>>(
+      fa_bwd_sum_kernel<T><<<static_cast<unsigned>(blocks), 256, 0, s>>>(
           which == 0 ? part_k : part_v, which == 0 ? dk : dv, n, z.seq,
           z.heads, z.kv_heads, dim);
       err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
     }
   }
-  fa_bwd_dq_kernel<NT><<<grid, kThreads, smem, s>>>(q, k, v, dout, lse,
-                                                    scratch, dq, z, vec);
+  fa_bwd_dq_kernel<T, NT><<<grid, kThreads, smem, s>>>(
+      q, k, v, dout, lse, scratch, dq, z, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const void* lse, void* delta, void* dq,
+           void* dk, void* dv, int batch, int seq, int heads, int kv_heads,
+           int d, int dv_dim, float scale, int window, float softcap,
+           void* stream) {
+  if (d < 1 || dv_dim < 1 || d > kMaxDim || dv_dim > kMaxDim ||
+      kv_heads < 1 || heads % kv_heads != 0 || batch > 65535 ||
+      heads > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0 || seq == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Dims z{seq, heads, kv_heads, d, dv_dim, window, scale, softcap};
+  const int64_t rows = static_cast<int64_t>(batch) * seq * heads;
+  fa_bwd_delta_kernel<T><<<static_cast<unsigned>((rows + 7) / 8), 256, 0,
+                           s>>>(static_cast<const T*>(o),
+                                static_cast<const T*>(dout),
+                                static_cast<float*>(delta), rows, seq, heads,
+                                dv_dim);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  // 16-byte (f32) or 8-byte (bf16) units of 4 columns
+  const bool vec = d % 4 == 0 && dv_dim % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(q) |
+                    reinterpret_cast<uintptr_t>(k) |
+                    reinterpret_cast<uintptr_t>(v) |
+                    reinterpret_cast<uintptr_t>(dout)) % (4 * sizeof(T)) == 0;
+  const auto* qf = static_cast<const T*>(q);
+  const auto* kf = static_cast<const T*>(k);
+  const auto* vf = static_cast<const T*>(v);
+  const auto* df = static_cast<const T*>(dout);
+  const auto* lf = static_cast<const float*>(lse);
+  auto* sf = static_cast<float*>(delta);
+  auto* dqf = static_cast<T*>(dq);
+  auto* dkf = static_cast<T*>(dk);
+  auto* dvf = static_cast<T*>(dv);
+  const int widest = d > dv_dim ? d : dv_dim;
+  if (widest <= 32)
+    return launch_nt<T, 1>(qf, kf, vf, df, lf, sf, dqf, dkf, dvf, batch, z,
+                           vec, s);
+  if (widest <= 64)
+    return launch_nt<T, 2>(qf, kf, vf, df, lf, sf, dqf, dkf, dvf, batch, z,
+                           vec, s);
+  if (widest <= 128)
+    return launch_nt<T, 4>(qf, kf, vf, df, lf, sf, dqf, dkf, dvf, batch, z,
+                           vec, s);
+  return launch_nt<T, 8>(qf, kf, vf, df, lf, sf, dqf, dkf, dvf, batch, z,
+                         vec, s);
 }
 
 }  // namespace
@@ -795,46 +972,21 @@ int fa_backward_f32(const void* q, const void* k, const void* v,
                     void* delta, void* dq, void* dk, void* dv, int batch,
                     int seq, int heads, int kv_heads, int d, int dv_dim,
                     float scale, int window, float softcap, void* stream) {
-  if (d < 1 || dv_dim < 1 || d > kMaxDim || dv_dim > kMaxDim ||
-      kv_heads < 1 || heads % kv_heads != 0 || batch > 65535 ||
-      heads > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (batch == 0 || seq == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Dims z{seq, heads, kv_heads, d, dv_dim, window, scale, softcap};
-  const int64_t rows = static_cast<int64_t>(batch) * seq * heads;
-  fa_bwd_delta_kernel<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(
-      static_cast<const float*>(o), static_cast<const float*>(dout),
-      static_cast<float*>(delta), rows, seq, heads, dv_dim);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, batch, seq,
+                       heads, kv_heads, d, dv_dim, scale, window, softcap,
+                       stream);
+}
 
-  const bool vec = d % 4 == 0 && dv_dim % 4 == 0 &&
-                   (reinterpret_cast<uintptr_t>(q) |
-                    reinterpret_cast<uintptr_t>(k) |
-                    reinterpret_cast<uintptr_t>(v) |
-                    reinterpret_cast<uintptr_t>(dout)) % 16 == 0;
-  const auto* qf = static_cast<const float*>(q);
-  const auto* kf = static_cast<const float*>(k);
-  const auto* vf = static_cast<const float*>(v);
-  const auto* df = static_cast<const float*>(dout);
-  const auto* lf = static_cast<const float*>(lse);
-  auto* sf = static_cast<float*>(delta);
-  auto* dqf = static_cast<float*>(dq);
-  auto* dkf = static_cast<float*>(dk);
-  auto* dvf = static_cast<float*>(dv);
-  const int widest = d > dv_dim ? d : dv_dim;
-  if (widest <= 32)
-    return launch_nt<1>(qf, kf, vf, df, lf, sf, dqf, dkf, dvf, batch, z, vec,
-                        s);
-  if (widest <= 64)
-    return launch_nt<2>(qf, kf, vf, df, lf, sf, dqf, dkf, dvf, batch, z, vec,
-                        s);
-  if (widest <= 128)
-    return launch_nt<4>(qf, kf, vf, df, lf, sf, dqf, dkf, dvf, batch, z, vec,
-                        s);
-  return launch_nt<8>(qf, kf, vf, df, lf, sf, dqf, dkf, dvf, batch, z, vec,
-                      s);
+// fa_backward_f32 of bfloat16 q, k, v, o, dout (lse and the scratch
+// float32): dq, dk, dv written in bfloat16 (the notes at the top).
+int fa_backward_bf16(const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const void* lse,
+                     void* delta, void* dq, void* dk, void* dv, int batch,
+                     int seq, int heads, int kv_heads, int d, int dv_dim,
+                     float scale, int window, float softcap, void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                               batch, seq, heads, kv_heads, d, dv_dim, scale,
+                               window, softcap, stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
 // Backward of the RG-LRU gated linear recurrence (recurrentgemma-2b) for
-// Hopper, sm_90a, float32, with a plain C interface loaded through ctypes.
+// Hopper, sm_90a, float32 or bfloat16, with a plain C interface loaded
+// through ctypes.
 //
 // The TPU package has no backward kernel: its training differentiates the
 // lax.scan of rglru_forward (src/repro/models/rglru.py:67), and that is the
@@ -69,8 +70,18 @@
 // largest entry, also with a close to 1 (tests/test_torch_lm_kernels.py
 // emulates this order on the CPU).
 
+// bfloat16 (rglru_scan_bwd_bf16): a, hs and d hs in bfloat16 (d h_last
+// float32, as the forward's h_last), d a and d bx written in bfloat16.  A
+// tile is converted to float32 as it is staged (plain 8-byte loads of 4
+// channels in place of cp.async) and back as it leaves, so the scan is the
+// float32 kernel's.  Both packages' recurrentgemma-2b runs this scan on
+// float32 gates whatever the parameter type, so training at bfloat16
+// launches the float32 instance.
+
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -150,6 +161,69 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int row0,
 
 // The swizzled tile src to rows t0 .. t0 + kTile - 1 (those below seq) x
 // channels [0, cols_ok) of dst.
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  __nv_bfloat162 lo, hi;
+  memcpy(&lo, &w.x, 4);
+  memcpy(&hi, &w.y, 4);
+  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 w;
+  memcpy(&w.x, &lo, 4);
+  memcpy(&w.y, &hi, 4);
+  *reinterpret_cast<uint2*>(p) = w;
+}
+
+// `stage` and `unstage` of bfloat16 rows: the same tiles as float32, by
+// plain loads and stores (vec: 4 channels are one 8-byte unit)
+__device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src,
+                                      int row0, int seq, int64_t width,
+                                      int cols_ok, bool vec) {
+  if (vec) {
+#pragma unroll
+    for (int i = threadIdx.x; i < kTile * kUnits; i += kThreads) {
+      const int r = i / kUnits, q = i % kUnits, row = row0 + r;
+      const bool ok = row >= 0 && row < seq && q * kVec < cols_ok;
+      *reinterpret_cast<float4*>(dst + slot(r, q)) =
+          ok ? load4(src + row * width + q * kVec)
+             : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kElems; i += kThreads) {
+      const int r = i / kChannels, c = i % kChannels, row = row0 + r;
+      dst[slot(r, c / kVec) + c % kVec] =
+          row >= 0 && row < seq && c < cols_ok
+              ? __bfloat162float(src[row * width + c])
+              : 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ void unstage(__nv_bfloat16* dst, const float* src,
+                                        int t0, int seq, int64_t width,
+                                        int cols_ok, bool vec) {
+  if (vec) {
+#pragma unroll
+    for (int i = threadIdx.x; i < kTile * kUnits; i += kThreads) {
+      const int r = i / kUnits, q = i % kUnits;
+      if (t0 + r < seq && q * kVec < cols_ok)
+        store4(dst + (t0 + r) * width + q * kVec,
+               *reinterpret_cast<const float4*>(src + slot(r, q)));
+    }
+  } else {
+    for (int i = threadIdx.x; i < kElems; i += kThreads) {
+      const int r = i / kChannels, c = i % kChannels;
+      if (t0 + r < seq && c < cols_ok)
+        dst[(t0 + r) * width + c] =
+            __float2bfloat16(src[slot(r, c / kVec) + c % kVec]);
+    }
+  }
+}
+
 __device__ __forceinline__ void unstage(float* dst, const float* src, int t0,
                                         int seq, int64_t width, int cols_ok,
                                         bool vec) {
@@ -173,13 +247,13 @@ __device__ __forceinline__ void unstage(float* dst, const float* src, int t0,
 // Block: kUnits warps; warp u owns channels w0 + 4 u .. + 3, lane k steps
 // k kSteps .. + kSteps - 1 of every tile.  Grid: (W / kChannels rounded
 // up, B).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-rglru_scan_bwd_kernel(const float* __restrict__ a,
-                      const float* __restrict__ hs,
-                      const float* __restrict__ dhs,
+rglru_scan_bwd_kernel(const T* __restrict__ a, const T* __restrict__ hs,
+                      const T* __restrict__ dhs,
                       const float* __restrict__ dh_last,
-                      float* __restrict__ da, float* __restrict__ dbx,
-                      int seq, int width, bool vec) {
+                      T* __restrict__ da, T* __restrict__ dbx, int seq,
+                      int width, bool vec) {
   extern __shared__ __align__(16) float smem[];
   float* s_a = smem;                          // [kStages][kElems] a, rows t + 1
   float* s_d = s_a + kStages * kElems;        // d hs, then d bx
@@ -304,6 +378,33 @@ rglru_scan_bwd_kernel(const float* __restrict__ a,
   }
 }
 
+template <typename T>
+int launch(const void* a, const void* hs, const void* dhs,
+           const void* dh_last, void* da, void* dbx, int batch, int seq,
+           int width, void* stream) {
+  if (batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0 || seq == 0 || width == 0) return 0;
+  // 4 channels a unit: 16 bytes (f32, cp.async) or 8 (bf16)
+  const bool vec = width % kVec == 0 &&
+                   ((reinterpret_cast<uintptr_t>(a) |
+                     reinterpret_cast<uintptr_t>(hs) |
+                     reinterpret_cast<uintptr_t>(dhs) |
+                     reinterpret_cast<uintptr_t>(da) |
+                     reinterpret_cast<uintptr_t>(dbx)) %
+                    (kVec * sizeof(T))) == 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      rglru_scan_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((width + kChannels - 1) / kChannels, batch);
+  rglru_scan_bwd_kernel<T><<<grid, kThreads, kSmem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(a), static_cast<const T*>(hs),
+      static_cast<const T*>(dhs), static_cast<const float*>(dh_last),
+      static_cast<T*>(da), static_cast<T*>(dbx), seq, width, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -313,25 +414,17 @@ extern "C" {
 int rglru_scan_bwd_f32(const void* a, const void* hs, const void* dhs,
                        const void* dh_last, void* da, void* dbx, int batch,
                        int seq, int width, void* stream) {
-  if (batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (batch == 0 || seq == 0 || width == 0) return 0;
-  const bool vec = width % kVec == 0 &&
-                   ((reinterpret_cast<uintptr_t>(a) |
-                     reinterpret_cast<uintptr_t>(hs) |
-                     reinterpret_cast<uintptr_t>(dhs) |
-                     reinterpret_cast<uintptr_t>(da) |
-                     reinterpret_cast<uintptr_t>(dbx)) & 15) == 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      rglru_scan_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((width + kChannels - 1) / kChannels, batch);
-  rglru_scan_bwd_kernel<<<grid, kThreads, kSmem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(hs),
-      static_cast<const float*>(dhs), static_cast<const float*>(dh_last),
-      static_cast<float*>(da), static_cast<float*>(dbx), seq, width, vec);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(a, hs, dhs, dh_last, da, dbx, batch, seq, width,
+                       stream);
+}
+
+// rglru_scan_bwd_f32 of bfloat16 a, hs, d hs (d h_last float32): d a and
+// d bx in bfloat16.
+int rglru_scan_bwd_bf16(const void* a, const void* hs, const void* dhs,
+                        const void* dh_last, void* da, void* dbx, int batch,
+                        int seq, int width, void* stream) {
+  return launch<__nv_bfloat16>(a, hs, dhs, dh_last, da, dbx, batch, seq,
+                               width, stream);
 }
 
 }  // extern "C"

@@ -447,7 +447,7 @@ int launch_kernel(const void* xc, const void* dt, const void* bc,
   return static_cast<int>(cudaGetLastError());
 }
 
-// chunk_h (float32 only) selects the instance that writes the states
+// chunk_h selects the instance that writes the states
 template <typename T, int L>
 int launch_lanes(const void* xc, const void* dt, const void* bc,
                  const void* cc, const void* a, void* y, void* h_last,
@@ -456,10 +456,8 @@ int launch_lanes(const void* xc, const void* dt, const void* bc,
   if (chunk_h == nullptr)
     return launch_kernel<T, L, false>(xc, dt, bc, cc, a, y, h_last, chunk_h,
                                       batch, seq, d_inner, n_state, stream);
-  if constexpr (sizeof(T) == sizeof(float))
-    return launch_kernel<T, L, true>(xc, dt, bc, cc, a, y, h_last, chunk_h,
-                                     batch, seq, d_inner, n_state, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_kernel<T, L, true>(xc, dt, bc, cc, a, y, h_last, chunk_h,
+                                   batch, seq, d_inner, n_state, stream);
 }
 
 // the least power of two L >= lanes, up to kMaxLanes
@@ -523,6 +521,18 @@ int selective_scan_bf16(const void* xc, const void* dt, const void* bc,
                         int batch, int seq, int d_inner, int n_state,
                         void* stream) {
   return launch<__nv_bfloat16>(xc, dt, bc, cc, a, y, h_last, nullptr, batch,
+                               seq, d_inner, n_state, stream);
+}
+
+// selective_scan_bf16 that also writes the chunk states (float32, as
+// selective_scan_states_f32 lays them out), for training at bfloat16:
+// y and h_last bit for bit selective_scan_bf16's.
+int selective_scan_states_bf16(const void* xc, const void* dt,
+                               const void* bc, const void* cc, const void* a,
+                               void* y, void* h_last, void* chunk_h,
+                               int batch, int seq, int d_inner, int n_state,
+                               void* stream) {
+  return launch<__nv_bfloat16>(xc, dt, bc, cc, a, y, h_last, chunk_h, batch,
                                seq, d_inner, n_state, stream);
 }
 

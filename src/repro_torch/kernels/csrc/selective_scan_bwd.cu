@@ -1,5 +1,6 @@
 // Backward of the Mamba-1 selective scan (falcon-mamba-7b) for Hopper,
-// sm_90a, float32, with a plain C interface loaded through ctypes.
+// sm_90a, float32 or bfloat16, with a plain C interface loaded through
+// ctypes.
 //
 // The TPU package has no backward kernel: its training differentiates the
 // lax.scan of mamba_forward (src/repro/models/mamba.py:68-83), and
@@ -89,8 +90,20 @@
 // version (tests/test_torch_mamba_grad.py emulates these numerics on the
 // CPU).
 
+// bfloat16 (selective_scan_bwd_states_bf16, training at the plans'
+// bfloat16): xc, dt, Bc, Cc and dy in bfloat16, A, d h_last and the chunk
+// states float32 (the forward's selective_scan_states_bf16 writes them in
+// float32); dxc, ddt, dBc and dCc are written in bfloat16 and dA in
+// float32, the types of the JAX package's gradients.  The chunks are
+// converted to float32 as they are staged (plain 8-byte loads of 4
+// values in place of cp.async; the states still by cp.async) and the
+// outputs as they leave, so the walk and every sum are the float32
+// kernel's.
+
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -150,6 +163,56 @@ __device__ __forceinline__ void stage(float* dst, const float* src,
     for (int i = threadIdx.x; i < kRows * kCols; i += kThreads) {
       const int r = i / kCols, c = i % kCols;
       dst[i] = r < rows_ok && c < cols_ok ? src[r * src_pitch + c] : 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  __nv_bfloat162 lo, hi;
+  memcpy(&lo, &w.x, 4);
+  memcpy(&hi, &w.y, 4);
+  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 w;
+  memcpy(&w.x, &lo, 4);
+  memcpy(&w.y, &hi, 4);
+  *reinterpret_cast<uint2*>(p) = w;
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// `stage` of a bfloat16 source: the same float32 tile by plain loads
+// (vec: 4 values are one 8-byte unit)
+template <int kThreads, int kRows, int kCols>
+__device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src,
+                                      int64_t src_pitch, int rows_ok,
+                                      int cols_ok, bool vec) {
+  if (vec) {
+    constexpr int kPerRow = kCols / 4;
+#pragma unroll
+    for (int i = threadIdx.x; i < kRows * kPerRow; i += kThreads) {
+      const int r = i / kPerRow, c = (i % kPerRow) * 4;
+      const bool ok = r < rows_ok && c < cols_ok;
+      *reinterpret_cast<float4*>(dst + r * kCols + c) =
+          ok ? load4(src + r * src_pitch + c)
+             : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kRows * kCols; i += kThreads) {
+      const int r = i / kCols, c = i % kCols;
+      dst[i] = r < rows_ok && c < cols_ok
+                   ? __bfloat162float(src[r * src_pitch + c])
+                   : 0.f;
     }
   }
 }
@@ -233,17 +296,15 @@ struct Layout {
 // Block: Layout<L>::kThreads threads; thread c * L + sub holds states
 // n = sub * 4 .. + 3 of channel d0 + c.  Grid: (Di / kChannels rounded up,
 // B).
-template <int L>
+template <typename T, int L>
 __global__ void __launch_bounds__(Layout<L>::kThreads, 1)
-selective_scan_bwd_kernel(const float* __restrict__ xc,
-                          const float* __restrict__ dt,
-                          const float* __restrict__ bc,
-                          const float* __restrict__ cc,
+selective_scan_bwd_kernel(const T* __restrict__ xc, const T* __restrict__ dt,
+                          const T* __restrict__ bc, const T* __restrict__ cc,
                           const float* __restrict__ a_mat,
-                          const float* __restrict__ dy,
+                          const T* __restrict__ dy,
                           const float* __restrict__ dh_last,
                           const float* __restrict__ chunk_h,
-                          float* __restrict__ dxc, float* __restrict__ ddt,
+                          T* __restrict__ dxc, T* __restrict__ ddt,
                           float* __restrict__ part_bc,
                           float* __restrict__ part_a, int batch, int seq,
                           int d_inner, int n_state, bool vec_x, bool vec_n) {
@@ -447,19 +508,19 @@ selective_scan_bwd_kernel(const float* __restrict__ xc,
           const int row = i / kUnits, ch = i % kUnits * 4;
           const int u = row % kSub;
           if (t0 + u < seq && ch < cols_ok)
-            *reinterpret_cast<float4*>(
-                (row < kSub ? dxc : ddt) + xoff0 +
-                static_cast<int64_t>(t0 + u) * d_inner + ch) =
-                *reinterpret_cast<const float4*>(out + row * kChannels + ch);
+            store4((row < kSub ? dxc : ddt) + xoff0 +
+                       static_cast<int64_t>(t0 + u) * d_inner + ch,
+                   *reinterpret_cast<const float4*>(out + row * kChannels +
+                                                    ch));
         }
       } else {
         for (int i = tid; i < 2 * kSub * kChannels; i += kThreads) {
           const int row = i / kChannels, ch = i - row * kChannels;
           const int u = row % kSub;
           if (t0 + u < seq && ch < cols_ok)
-            (row < kSub ? dxc : ddt)[xoff0 +
-                                     static_cast<int64_t>(t0 + u) * d_inner +
-                                     ch] = out[i];
+            put((row < kSub ? dxc : ddt) + xoff0 +
+                    static_cast<int64_t>(t0 + u) * d_inner + ch,
+                out[i]);
         }
       }
       if (Lay::kRedBufs == 1) __syncthreads();   // the buffer is read
@@ -479,10 +540,11 @@ selective_scan_bwd_kernel(const float* __restrict__ xc,
 
 // d Bc and d Cc: the blocks' partials summed in order; dA: the partials of
 // the batch summed in order.  One thread an output.
+template <typename T>
 __global__ void selective_scan_bwd_sum(const float* __restrict__ part_bc,
                                        const float* __restrict__ part_a,
-                                       float* __restrict__ dbc,
-                                       float* __restrict__ dcc,
+                                       T* __restrict__ dbc,
+                                       T* __restrict__ dcc,
                                        float* __restrict__ da, int blocks,
                                        int batch, int seq, int d_inner,
                                        int n_state) {
@@ -497,7 +559,7 @@ __global__ void selective_scan_bwd_sum(const float* __restrict__ part_bc,
       const int64_t bt = i / (2 * n_state);
       const int rem = static_cast<int>(i - bt * 2 * n_state);
       const int kind = rem / n_state, n = rem - kind * n_state;
-      (kind == 0 ? dbc : dcc)[bt * n_state + n] = s;
+      put((kind == 0 ? dbc : dcc) + bt * n_state + n, s);
     } else {
       const int64_t j = i - n_bc;
       const int64_t dd = j / n_state;
@@ -510,12 +572,11 @@ __global__ void selective_scan_bwd_sum(const float* __restrict__ part_bc,
   }
 }
 
-template <int L>
-int launch_lanes(const float* xc, const float* dt, const float* bc,
-                 const float* cc, const float* a, const float* dy,
-                 const float* dh_last, const float* chunk_h, float* dxc,
-                 float* ddt, float* dbc, float* dcc, float* da,
-                 float* scratch, int batch, int seq, int d_inner,
+template <typename T, int L>
+int launch_lanes(const T* xc, const T* dt, const T* bc, const T* cc,
+                 const float* a, const T* dy, const float* dh_last,
+                 const float* chunk_h, T* dxc, T* ddt, T* dbc, T* dcc,
+                 float* da, float* scratch, int batch, int seq, int d_inner,
                  int n_state, cudaStream_t stream) {
   using Lay = Layout<L>;
   const int blocks = (d_inner + Lay::kChannels - 1) / Lay::kChannels;
@@ -523,14 +584,18 @@ int launch_lanes(const float* xc, const float* dt, const float* bc,
   float* part_bc = scratch;
   float* part_a =
       part_bc + up(static_cast<int64_t>(blocks) * batch * seq * 2 * n_state);
-  const auto aligned = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  // units of 4 values: 16 bytes (f32, and the states) or 8 (bf16)
+  const auto aligned = [](const void* p, size_t unit) {
+    return reinterpret_cast<uintptr_t>(p) % unit == 0;
   };
-  const bool vec_x = d_inner % 4 == 0 && aligned(xc) && aligned(dt) &&
-                     aligned(dy) && aligned(chunk_h) && aligned(dxc) &&
-                     aligned(ddt);
-  const bool vec_n = n_state % 4 == 0 && aligned(bc) && aligned(cc);
-  auto kernel = selective_scan_bwd_kernel<L>;
+  constexpr size_t kUnit = 4 * sizeof(T);
+  const bool vec_x = d_inner % 4 == 0 && aligned(xc, kUnit) &&
+                     aligned(dt, kUnit) && aligned(dy, kUnit) &&
+                     aligned(chunk_h, 16) && aligned(dxc, kUnit) &&
+                     aligned(ddt, kUnit);
+  const bool vec_n = n_state % 4 == 0 && aligned(bc, kUnit) &&
+                     aligned(cc, kUnit);
+  auto kernel = selective_scan_bwd_kernel<T, L>;
   constexpr size_t smem = sizeof(float) * Lay::kFloats;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -545,28 +610,47 @@ int launch_lanes(const float* xc, const float* dt, const float* bc,
                         static_cast<int64_t>(d_inner) * n_state;
   const int64_t want = (total + 255) / 256;
   const int sum_blocks = static_cast<int>(want < 65535 ? want : 65535);
-  selective_scan_bwd_sum<<<sum_blocks, 256, 0, stream>>>(
+  selective_scan_bwd_sum<T><<<sum_blocks, 256, 0, stream>>>(
       part_bc, part_a, dbc, dcc, da, blocks, batch, seq, d_inner, n_state);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the least power of two L >= lanes, up to kMaxLanes
-template <int L = 1>
-int launch_bwd(const float* xc, const float* dt, const float* bc,
-               const float* cc, const float* a, const float* dy,
-               const float* dh_last, const float* chunk_h, float* dxc,
-               float* ddt, float* dbc, float* dcc, float* da, float* scratch,
-               int batch, int seq, int d_inner, int n_state, int lanes,
-               cudaStream_t stream) {
+template <typename T, int L = 1>
+int launch_bwd(const T* xc, const T* dt, const T* bc, const T* cc,
+               const float* a, const T* dy, const float* dh_last,
+               const float* chunk_h, T* dxc, T* ddt, T* dbc, T* dcc,
+               float* da, float* scratch, int batch, int seq, int d_inner,
+               int n_state, int lanes, cudaStream_t stream) {
   if constexpr (L < kMaxLanes) {
     if (lanes > L)
-      return launch_bwd<2 * L>(xc, dt, bc, cc, a, dy, dh_last, chunk_h, dxc,
-                               ddt, dbc, dcc, da, scratch, batch, seq,
-                               d_inner, n_state, lanes, stream);
+      return launch_bwd<T, 2 * L>(xc, dt, bc, cc, a, dy, dh_last, chunk_h,
+                                  dxc, ddt, dbc, dcc, da, scratch, batch,
+                                  seq, d_inner, n_state, lanes, stream);
   }
-  return launch_lanes<L>(xc, dt, bc, cc, a, dy, dh_last, chunk_h, dxc, ddt,
-                         dbc, dcc, da, scratch, batch, seq, d_inner, n_state,
-                         stream);
+  return launch_lanes<T, L>(xc, dt, bc, cc, a, dy, dh_last, chunk_h, dxc,
+                            ddt, dbc, dcc, da, scratch, batch, seq, d_inner,
+                            n_state, stream);
+}
+
+template <typename T>
+int launch_checked(const void* xc, const void* dt, const void* bc,
+                   const void* cc, const void* a, const void* dy,
+                   const void* dh_last, const void* chunk_h, void* dxc,
+                   void* ddt, void* dbc, void* dcc, void* da, void* scratch,
+                   int batch, int seq, int d_inner, int n_state,
+                   void* stream) {
+  if (n_state < 1 || n_state > kMaxState || seq < 1 || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto t = [](const void* p) { return static_cast<const T*>(p); };
+  const auto w = [](void* p) { return static_cast<T*>(p); };
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  return launch_bwd<T>(t(xc), t(dt), t(bc), t(cc), f(a), t(dy), f(dh_last),
+                       f(chunk_h), w(dxc), w(ddt), w(dbc), w(dcc),
+                       static_cast<float*>(da), static_cast<float*>(scratch),
+                       batch, seq, d_inner, n_state,
+                       (n_state + kStates - 1) / kStates,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // warps of the walk kernel resident on one SM: the runtime's occupancy for
@@ -577,7 +661,7 @@ int warps_per_sm(int lanes) {
     if (lanes > L) return warps_per_sm<2 * L>(lanes);
   }
   using Lay = Layout<L>;
-  auto kernel = selective_scan_bwd_kernel<L>;
+  auto kernel = selective_scan_bwd_kernel<float, L>;
   constexpr size_t smem = sizeof(float) * Lay::kFloats;
   int blocks = 0;
   if (cudaFuncSetAttribute(kernel,
@@ -621,15 +705,26 @@ int selective_scan_bwd_states_f32(const void* xc, const void* dt,
                                   void* dxc, void* ddt, void* dbc, void* dcc,
                                   void* da, void* scratch, int batch, int seq,
                                   int d_inner, int n_state, void* stream) {
-  if (n_state < 1 || n_state > kMaxState || seq < 1 || batch > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto f = [](const void* p) { return static_cast<const float*>(p); };
-  const auto w = [](void* p) { return static_cast<float*>(p); };
-  return launch_bwd(f(xc), f(dt), f(bc), f(cc), f(a), f(dy), f(dh_last),
-                    f(chunk_h), w(dxc), w(ddt), w(dbc), w(dcc), w(da),
-                    w(scratch), batch, seq, d_inner, n_state,
-                    (n_state + kStates - 1) / kStates,
-                    static_cast<cudaStream_t>(stream));
+  return launch_checked<float>(xc, dt, bc, cc, a, dy, dh_last, chunk_h,
+                               dxc, ddt, dbc, dcc, da, scratch, batch, seq,
+                               d_inner, n_state, stream);
+}
+
+// selective_scan_bwd_states_f32 of bfloat16 xc, dt, bc, cc, dy (a,
+// dh_last, chunk_h and the scratch float32): dxc, ddt, dbc, dcc written in
+// bfloat16, da in float32 (the notes at the top).
+int selective_scan_bwd_states_bf16(const void* xc, const void* dt,
+                                   const void* bc, const void* cc,
+                                   const void* a, const void* dy,
+                                   const void* dh_last, const void* chunk_h,
+                                   void* dxc, void* ddt, void* dbc,
+                                   void* dcc, void* da, void* scratch,
+                                   int batch, int seq, int d_inner,
+                                   int n_state, void* stream) {
+  return launch_checked<__nv_bfloat16>(xc, dt, bc, cc, a, dy, dh_last,
+                                       chunk_h, dxc, ddt, dbc, dcc, da,
+                                       scratch, batch, seq, d_inner, n_state,
+                                       stream);
 }
 
 }  // extern "C"

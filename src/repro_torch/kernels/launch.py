@@ -4,9 +4,16 @@ with its C signatures, the current stream and the error check.
 Each launch of a kernel adds one to ``launches[<kernel name>]``, and only a
 launch does: a run resets the counts, drives a path, and reads them to show
 that the path went through the kernels.
+
+A wrapper also reports each call's kernel work (its operations and bytes,
+from the shapes: `kernel_work`) to the innermost active op counter
+(`repro_torch.launch.op_stats`), on every device: on the meta device,
+where a wrapper builds and launches nothing and returns outputs of the
+kernel's shapes and types, that is the only trace a kernel leaves.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Dict, List
 
@@ -30,9 +37,34 @@ launches: Dict[str, int] = {"trust_aggregate": 0,
                             "selective_scan_bwd": 0}
 
 
+# active op counters, innermost last (`repro_torch.launch.op_stats.OpStats`
+# pushes itself while it is entered)
+counters: List = []
+
+
+def kernel_work(name: str, flops: float, n_bytes: float):
+    """The context of one kernel call by a wrapper: the innermost active
+    counter counts ``flops`` and ``n_bytes`` for kernel ``name`` and none
+    of the ops inside (the plain version's, on the CPU), keeping only the
+    storages that leave it (the outputs).  No counter: nothing."""
+    if not counters:
+        return contextlib.nullcontext()
+    return counters[-1].kernel(name, flops, n_bytes)
+
+
+# of those, the launches of the bfloat16 instances that training at the
+# plans' bfloat16 added (the forward with lse, the chunk states' forward
+# and the backwards): each such launch adds one here as well
+bf16_launches: Dict[str, int] = {"flash_attention": 0,
+                                 "flash_attention_bwd": 0,
+                                 "rglru_scan_bwd": 0, "selective_scan": 0,
+                                 "selective_scan_bwd": 0}
+
+
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, bf16_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def typed_library(source: str, signatures: Dict[str, List]) -> ctypes.CDLL:

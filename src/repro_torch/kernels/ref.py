@@ -118,7 +118,7 @@ def flash_attention_bwd_ref(q, k, v, o, lse, dout, *, window=0,
     p = exp(s - lse), dS = p (dO . v - rowsum(dO o)), times (1 - tanh^2)
     of the capped score under a cap; dQ = scale dS k, dK = scale dS^T q
     (summed over a group's query heads), dV = p^T dO.  -> (dq, dk, dv)
-    in the shapes of q, k, v."""
+    in the shapes and types of q, k, v (bfloat16 inputs are upcast)."""
     B, S, H, d = q.shape
     Kv, dv = k.shape[2], v.shape[3]
     g = H // Kv
@@ -137,7 +137,8 @@ def flash_attention_bwd_ref(q, k, v, o, lse, dout, *, window=0,
     dq = torch.einsum("bkgst,btkd->bskgd", ds, k.to(torch.float32)) * scale
     dk = torch.einsum("bkgst,bskgd->btkd", ds, qg) * scale
     dvv = torch.einsum("bkgst,bskgd->btkd", p, do)
-    return dq.reshape(B, S, H, d), dk, dvv
+    return (dq.reshape(B, S, H, d).to(q.dtype), dk.to(k.dtype),
+            dvv.to(v.dtype))
 
 
 def rglru_scan_ref(a, bx):
@@ -156,8 +157,9 @@ def rglru_scan_bwd_ref(a, hs, dhs, dh_last):
     """The gradient of `rglru_scan_ref` by its reverse recurrence, in
     float32: g_t = dhs_t + a_{t+1} g_{t+1}, g_{S-1} = dhs_{S-1} + dh_last;
     d bx_t = g_t, d a_t = g_t h_{t-1} (h_{-1} = 0).  a, hs, dhs: (B,S,W);
-    dh_last: (B,W) -> (da, dbx) (B,S,W) float32."""
-    S = a.shape[1]
+    dh_last: (B,W) -> (da, dbx) (B,S,W) in a's type (bfloat16 inputs are
+    upcast)."""
+    S, dtype = a.shape[1], a.dtype
     a, hs, dhs = (x.to(torch.float32) for x in (a, hs, dhs))
     da, dbx = torch.empty_like(a), torch.empty_like(a)
     g = dh_last.to(torch.float32)
@@ -165,7 +167,7 @@ def rglru_scan_bwd_ref(a, hs, dhs, dh_last):
         g = dhs[:, t] + (a[:, t + 1] * g if t + 1 < S else g)
         dbx[:, t] = g
         da[:, t] = g * hs[:, t - 1] if t > 0 else 0.0
-    return da, dbx
+    return da.to(dtype), dbx.to(dtype)
 
 
 def selective_scan_ref(xc, dt, Bc, Cc, A):

@@ -20,13 +20,19 @@ recomputed) the forward writes none and saves a placeholder of their
 shape.
 
 Given CPU tensors the wrappers compute the plain versions from `ref`.
-Given CUDA tensors they launch the kernels on the current stream or raise:
-there is no fallback.  Each forward launch adds one to
-``launches["selective_scan"]``, and one that also writes the chunk states
-one to ``state_launches["selective_scan"]`` as well; each backward (the
-walk, then the sums of its partials) adds one to
-``launches["selective_scan_bwd"]``.  The backward takes float32 only; a
-bfloat16 input that needs a gradient raises.
+Given meta tensors they return meta outputs of the kernels' shapes and
+types and build and launch nothing.  Given CUDA tensors they launch the
+kernels on the current stream or raise: there is no fallback.  Each
+forward launch adds one to ``launches["selective_scan"]``, and one that
+also writes the chunk states one to ``state_launches["selective_scan"]``
+as well; each backward (the walk, then the sums of its partials) adds one
+to ``launches["selective_scan_bwd"]`` (a bfloat16 launch of the states'
+forward or of the backward one to ``bf16_launches`` too).  Both take
+float32 or bfloat16
+(the chunk states float32 either way; the backward's gradients in the
+inputs' types, dA float32).  Every call reports its kernel's work
+(`forward_cost`, `backward_cost`) to an active op counter
+(`launch.kernel_work`).
 """
 from __future__ import annotations
 
@@ -37,7 +43,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from .launch import P, current_stream, launches, raise_on, typed_library
+from .launch import (P, bf16_launches, current_stream, kernel_work,
+                     launches, raise_on, typed_library)
 from .ref import (selective_scan_bwd_ref, selective_scan_chunk_states_ref,
                   selective_scan_ref)
 
@@ -50,10 +57,38 @@ BWD_STATES = 4                  # the backward's states a lane (the .cu's)
 _I = ctypes.c_int
 _signatures = {name: [P, P, P, P, P, P, P, _I, _I, _I, _I, P]
                for name in ("selective_scan_f32", "selective_scan_bf16")}
-_signatures["selective_scan_states_f32"] = [P] * 8 + [_I] * 4 + [P]
-_bwd_signatures = {"selective_scan_bwd_states_f32": [P] * 14 + [_I] * 4
-                   + [P],
-                   "selective_scan_bwd_warps_per_sm": [_I]}
+_signatures.update({name: [P] * 8 + [_I] * 4 + [P]
+                    for name in ("selective_scan_states_f32",
+                                 "selective_scan_states_bf16")})
+_bwd_signatures = {name: [P] * 14 + [_I] * 4 + [P]
+                   for name in ("selective_scan_bwd_states_f32",
+                                "selective_scan_bwd_states_bf16")}
+_bwd_signatures["selective_scan_bwd_warps_per_sm"] = [_I]
+
+
+def forward_cost(B, S, Di, N, itemsize=4, states=False) -> Tuple[int, int]:
+    """(operations, bytes) of one forward launch: 6 N + 1 a (b, t, d) (the
+    decay's product and exponential, dt x B, the state's multiply-add, y's
+    product and sum); xc, dt, Bc, Cc read and y written once, A read and
+    h_last (and the float32 chunk states) written."""
+    n_bytes = itemsize * (3 * B * S * Di + 2 * B * S * N) + \
+        4 * (Di * N + B * Di * N)
+    if states:
+        n_bytes += 4 * -(-S // CHUNK) * B * N * Di
+    return B * S * Di * (6 * N + 1), n_bytes
+
+
+def backward_cost(B, S, Di, N, itemsize=4,
+                  dh_last=False) -> Tuple[int, int]:
+    """(operations, bytes) of one backward launch given the chunk states:
+    ~19 a (b, t, d, n) (the states rebuilt, g's recurrence, the four
+    gradient terms); xc, dt, dy, Bc, Cc, A and the chunk states (and
+    d h_last) read, dxc, ddt, dBc, dCc and dA written once."""
+    n_bytes = itemsize * (5 * B * S * Di + 4 * B * S * N) + \
+        4 * (2 * Di * N + -(-S // CHUNK) * B * N * Di)
+    if dh_last:
+        n_bytes += 4 * B * Di * N
+    return 19 * B * S * Di * N, n_bytes
 
 # forward launches that also wrote the chunk states (each is counted in
 # launches["selective_scan"] too); reset and read beside `launches`
@@ -76,7 +111,7 @@ def without_chunk_states():
 
 def _check(xc, dt, Bc, Cc, A, dtypes, extra=()):
     """xc, dt (B,S,Di), Bc, Cc (B,S,N) of one type in ``dtypes``, A (Di,N)
-    float32, and ``extra`` (name, tensor, shape) float32, all contiguous
+    float32, and ``extra`` (name, tensor, shape, dtype), all contiguous
     on xc's device."""
     dev = xc.device
     if xc.dtype not in dtypes:
@@ -90,7 +125,7 @@ def _check(xc, dt, Bc, Cc, A, dtypes, extra=()):
     todo = [("xc", xc, (B, S, Di), xc.dtype), ("dt", dt, (B, S, Di), xc.dtype),
             ("Bc", Bc, (B, S, N), xc.dtype), ("Cc", Cc, (B, S, N), xc.dtype),
             ("A", A, (Di, N), torch.float32)]
-    todo += [(name, t, shape, torch.float32) for name, t, shape in extra]
+    todo += list(extra)
     for name, t, shape, want in todo:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
@@ -109,13 +144,27 @@ def _check(xc, dt, Bc, Cc, A, dtypes, extra=()):
 
 def _forward(xc, dt, Bc, Cc, A, states: bool = False):
     """(y, h_last), and with ``states`` the state entering each chunk of
-    `CHUNK` steps, (chunks, B, N, Di) float32 (float32 inputs only)."""
+    `CHUNK` steps, (chunks, B, N, Di) float32."""
+    B, S, Di = xc.shape
+    flops, n_bytes = forward_cost(B, S, Di, A.shape[1], xc.element_size(),
+                                  states)
+    with kernel_work("selective_scan", flops, n_bytes):
+        return _forward_call(xc, dt, Bc, Cc, A, states)
+
+
+def _forward_call(xc, dt, Bc, Cc, A, states):
+    if xc.device.type == "meta":
+        _check(xc, dt, Bc, Cc, A, (torch.float32, torch.bfloat16))
+        B, S, Di = xc.shape
+        f32 = dict(dtype=torch.float32)
+        out = (torch.empty_like(xc), xc.new_empty((B, Di, A.shape[1]), **f32))
+        return out + (xc.new_empty((-(-S // CHUNK), B, A.shape[1], Di),
+                                   **f32),) if states else out
     if xc.device.type == "cpu":
         out = selective_scan_ref(xc, dt, Bc, Cc, A)
         return out + (selective_scan_chunk_states_ref(xc, dt, Bc, Cc, A),
                       ) if states else out
-    _check(xc, dt, Bc, Cc, A, (torch.float32,) if states
-           else (torch.float32, torch.bfloat16))
+    _check(xc, dt, Bc, Cc, A, (torch.float32, torch.bfloat16))
     dev = xc.device
     B, S, Di = xc.shape
     N = A.shape[1]
@@ -130,8 +179,10 @@ def _forward(xc, dt, Bc, Cc, A, states: bool = False):
         ptrs = (xc.data_ptr(), dt.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
                 A.data_ptr(), y.data_ptr(), h_last.data_ptr())
         if states:
-            status = lib.selective_scan_states_f32(
-                *ptrs, chunk_h.data_ptr(), B, S, Di, N, current_stream())
+            fn = (lib.selective_scan_states_f32 if xc.dtype == torch.float32
+                  else lib.selective_scan_states_bf16)
+            status = fn(*ptrs, chunk_h.data_ptr(), B, S, Di, N,
+                        current_stream())
         else:
             fn = (lib.selective_scan_f32 if xc.dtype == torch.float32
                   else lib.selective_scan_bf16)
@@ -140,6 +191,8 @@ def _forward(xc, dt, Bc, Cc, A, states: bool = False):
     launches["selective_scan"] += 1
     if states:
         state_launches["selective_scan"] += 1
+        if xc.dtype == torch.bfloat16:
+            bf16_launches["selective_scan"] += 1
     return (y, h_last, chunk_h) if states else (y, h_last)
 
 
@@ -170,19 +223,33 @@ def bwd_scratch_floats(B: int, S: int, Di: int, N: int) -> int:
 def selective_scan_bwd(xc, dt, Bc, Cc, A, dy, dh_last=None, chunk_h=None):
     """The gradient of `selective_scan` at (xc, dt, Bc, Cc, A) given dy
     (B, S, Di) and d h_last (B, Di, N), or None when no gradient reaches
-    the final state -> (dxc, ddt, dBc, dCc, dA), float32 only.  chunk_h:
-    the forward's state entering each chunk, (chunks, B, N, Di); without
-    it the forward kernel runs first to write it."""
+    the final state -> (dxc, ddt, dBc, dCc, dA) in the inputs' types (xc,
+    dt, Bc, Cc and dy float32 or bfloat16, one type; A, dh_last and dA
+    float32).  chunk_h: the forward's state entering each chunk, (chunks,
+    B, N, Di) float32; without it the forward kernel runs first to write
+    it."""
+    B, S, Di = xc.shape
+    flops, n_bytes = backward_cost(B, S, Di, A.shape[1], xc.element_size(),
+                                   dh_last is not None)
+    with kernel_work("selective_scan_bwd", flops, n_bytes):
+        return _backward_call(xc, dt, Bc, Cc, A, dy, dh_last, chunk_h)
+
+
+def _backward_call(xc, dt, Bc, Cc, A, dy, dh_last, chunk_h):
+    if xc.device.type == "meta":
+        _check(xc, dt, Bc, Cc, A, (torch.float32, torch.bfloat16))
+        return tuple(torch.empty_like(t) for t in (xc, dt, Bc, Cc, A))
     if xc.device.type == "cpu":
         return selective_scan_bwd_ref(xc, dt, Bc, Cc, A, dy, dh_last)
     B, S, Di = xc.shape
     N = A.shape[1]
-    extra = [("dy", dy, (B, S, Di))]
+    f32 = torch.float32
+    extra = [("dy", dy, (B, S, Di), xc.dtype)]
     if dh_last is not None:
-        extra.append(("dh_last", dh_last, (B, Di, N)))
+        extra.append(("dh_last", dh_last, (B, Di, N), f32))
     if chunk_h is not None:
-        extra.append(("chunk_h", chunk_h, (-(-S // CHUNK), B, N, Di)))
-    _check(xc, dt, Bc, Cc, A, (torch.float32,), extra)
+        extra.append(("chunk_h", chunk_h, (-(-S // CHUNK), B, N, Di), f32))
+    _check(xc, dt, Bc, Cc, A, (torch.float32, torch.bfloat16), extra)
     dxc, ddt, dBc, dCc = (torch.empty_like(t) for t in (xc, dt, Bc, Cc))
     dA = torch.empty_like(A)
     if xc.numel() == 0:
@@ -192,8 +259,10 @@ def selective_scan_bwd(xc, dt, Bc, Cc, A, dy, dh_last=None, chunk_h=None):
     scratch = torch.empty((bwd_scratch_floats(B, S, Di, N),),
                           dtype=torch.float32, device=xc.device)
     lib = typed_library(BWD_SOURCE, _bwd_signatures)
+    fn = (lib.selective_scan_bwd_states_f32 if xc.dtype == torch.float32
+          else lib.selective_scan_bwd_states_bf16)
     with torch.cuda.device(xc.device):
-        status = lib.selective_scan_bwd_states_f32(
+        status = fn(
             xc.data_ptr(), dt.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
             A.data_ptr(), dy.data_ptr(),
             None if dh_last is None else dh_last.data_ptr(),
@@ -202,6 +271,8 @@ def selective_scan_bwd(xc, dt, Bc, Cc, A, dy, dh_last=None, chunk_h=None):
             B, S, Di, N, current_stream())
     raise_on(status, "selective_scan_bwd")
     launches["selective_scan_bwd"] += 1
+    if xc.dtype == torch.bfloat16:
+        bf16_launches["selective_scan_bwd"] += 1
     return dxc, ddt, dBc, dCc, dA
 
 
@@ -225,15 +296,12 @@ class _SelectiveScan(torch.autograd.Function):
             y, h_last = _forward(xc, dt, Bc, Cc, A)
             chunk_h = None          # the plain backward recomputes them
         else:
-            if xc.dtype != torch.float32:
-                raise TypeError(f"the selective-scan backward takes float32 "
-                                f"only, got {xc.dtype}")
             if _keep_states.get():
                 y, h_last, chunk_h = _forward(xc, dt, Bc, Cc, A, states=True)
             else:
                 y, h_last = _forward(xc, dt, Bc, Cc, A)
                 B, S, Di = xc.shape
-                chunk_h = xc.new_zeros(()).expand(
+                chunk_h = xc.new_zeros((), dtype=torch.float32).expand(
                     -(-S // CHUNK), B, A.shape[1], Di)
         ctx.save_for_backward(xc, dt, Bc, Cc, A, chunk_h)
         ctx.set_materialize_grads(False)
@@ -258,8 +326,8 @@ def selective_scan(xc: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
     A: (Di,N) float32 -> (y (B,S,Di) in xc's type, h_last (B,Di,N) f32).
 
     xc, dt, Bc and Cc are float32 or bfloat16, all one type; the state is
-    carried in float32.  N is at most 64.  Differentiable (float32) when an
-    input requires a gradient.
+    carried in float32.  N is at most 64.  Differentiable (either type)
+    when an input requires a gradient.
     """
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (xc, dt, Bc, Cc, A)):

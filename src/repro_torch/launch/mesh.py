@@ -12,15 +12,55 @@ does on 512 forced host devices -- ask for ``fake=True``: the mesh then
 sits on torch's ``fake`` process-group backend, whose collectives move
 nothing.  Nothing falls back to it.
 
-The JAX module's v5e constants (peak rate, memory and link bandwidth) are
-not ported: the H100's come with the dry-run estimates (ROADMAP.md).
-Functions, not module constants: importing this module starts nothing.
+The JAX module's v5e constants (peak rate, memory and link bandwidth) do
+not carry over.  The roofline terms of the dry run (`repro_torch.launch.
+dryrun`) divide by the H100's published figures instead, `peak_flops_bf16`,
+`hbm_bytes_per_s` and `link_bytes_per_s`, each for the card `CARD` names:
+NVIDIA's data sheet of the SXM part at its full 700 W power limit.  A
+mesh lays ranks out row-major over nodes of `NODE_CARDS` cards; an axis
+whose ranks share a node talks over NVLink, one that spans nodes over one
+400 Gb/s NIC a card.  Functions, not module constants: importing this
+module starts nothing.
 """
 from __future__ import annotations
 
 import math
 
 from .distributed import device_mesh, job_group
+
+
+CARD = "NVIDIA H100 80GB HBM3, 700.00 W"   # the card the figures are for
+NODE_CARDS = 8                             # cards a node joins by NVLink
+
+
+def peak_flops_bf16() -> float:
+    """Dense bfloat16 tensor-core operations a second of one `CARD`."""
+    return 989e12
+
+
+def hbm_bytes_per_s() -> float:
+    """HBM3 bytes a second of one `CARD`."""
+    return 3.35e12
+
+
+def nvlink_bytes_per_s() -> float:
+    """NVLink bytes a second each way between two cards of a node
+    (`CARD`'s 900 GB/s both ways)."""
+    return 450e9
+
+
+def nic_bytes_per_s() -> float:
+    """Bytes a second each way of one 400 Gb/s NIC a card, between
+    nodes."""
+    return 50e9
+
+
+def link_bytes_per_s(ranks) -> float:
+    """The rate of a collective over ``ranks`` (global ranks, laid out
+    row-major over nodes of `NODE_CARDS`): NVLink when they share one
+    node, the NIC when they span nodes."""
+    nodes = {r // NODE_CARDS for r in ranks}
+    return nvlink_bytes_per_s() if len(nodes) <= 1 else nic_bytes_per_s()
 
 
 def _fake_group(world: int) -> None:

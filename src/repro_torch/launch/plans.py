@@ -28,7 +28,8 @@ import torch
 from ..configs import get_config
 from ..core import fl_step as fl
 from ..core.sharding import placements
-from ..models.transformer import cache_specs, param_specs, structure
+from ..models.transformer import (cache_specs, param_specs, seeded_params,
+                                  structure)
 from ..optim import adafactor
 from .mesh import axis_size
 
@@ -97,8 +98,19 @@ def applicable(arch_id: str, shape_name: str) -> Optional[str]:
     return None
 
 
+def _real(t: torch.Tensor, device, gen: torch.Generator, high: int = 0
+          ) -> torch.Tensor:
+    """A meta tensor's counterpart on ``device``: token ids below ``high``
+    (int tensors), or ones (weights: a batch's rows weighted alike)."""
+    if t.dtype in (torch.int32, torch.int64):
+        return torch.randint(0, high, tuple(t.shape), generator=gen,
+                             dtype=t.dtype).to(device)
+    return torch.ones(t.shape, dtype=t.dtype, device=device)
+
+
 def train_plan(arch_id: str, shape_name: str, mesh,
-               param_dtype=torch.bfloat16) -> Plan:
+               param_dtype=torch.bfloat16, cfg=None, seq=None,
+               global_batch=None, device="meta", seed: int = 0) -> Plan:
     """The sharded federated training step of ``arch_id`` at
     ``shape_name`` on ``mesh``, as the JAX package plans it: the
     architecture's mode, clusters on ``pod``, Adafactor (bfloat16 update
@@ -107,10 +119,19 @@ def train_plan(arch_id: str, shape_name: str, mesh,
     has no counterpart: the flash-attention kernel never holds the scores
     (`repro_torch.models.transformer.LM.prefill`).  Its ``sequential``
     Adafactor bounds XLA's temporaries; the port's step updates leaf by
-    leaf already."""
-    cfg = get_config(arch_id)
+    leaf already.
+
+    ``cfg``, ``seq``, ``global_batch``: a config of the architecture cut
+    in depth and a shorter or smaller batch (a run at example scale).
+    ``device``: where the arguments are made, the meta device (abstract:
+    nothing allocated) unless asked; elsewhere the model is drawn from
+    ``seed`` and the tokens from a generator seeded with it, whole (place
+    them with `distribute_state` / `distribute_batch` of ``in_specs``)."""
+    cut = cfg
+    cfg = cfg or get_config(arch_id)
     spec = SHAPES[shape_name]
-    seq, gbatch = spec["seq"], spec["global_batch"]
+    seq = seq or spec["seq"]
+    gbatch = global_batch or spec["global_batch"]
     n_pods = axis_size(mesh, "pod")
     n_data = axis_size(mesh, "data")
     tp_size = axis_size(mesh, "model")
@@ -140,8 +161,8 @@ def train_plan(arch_id: str, shape_name: str, mesh,
                  "weights": _meta((NC, n_micro, bm), torch.float32)}
 
     init = fl.build_init_fn(cfg, opt, mode=mode, n_clusters=NC,
-                            clients_per_cluster=n_data, device="meta")
-    state = init()
+                            clients_per_cluster=n_data, device=device)
+    state = init(seed)
     state = state._replace(params={
         k: v if k.rsplit(".", 1)[-1] in F32_LEAVES else v.to(param_dtype)
         for k, v in state.params.items()})
@@ -151,6 +172,12 @@ def train_plan(arch_id: str, shape_name: str, mesh,
     batch_sp = fl.batch_specs(cfg, batch, mode=mode, pod_axis=pod_axis)
     rep = _meta((NC, n_data if mode == fl.MODE_A else 1), torch.float32)
     stale = _meta((NC,), torch.float32)
+    if torch.device(device).type != "meta":
+        gen = torch.Generator().manual_seed(seed)
+        batch = {k: _real(v, device, gen, cfg.vocab_size)
+                 for k, v in batch.items()}
+        rep, stale = (_real(t, device, gen) / t.shape[-1]
+                      for t in (rep, stale))
 
     step = fl.build_train_step(cfg, opt, mode=mode, local_steps=1,
                                accum_dtype=accum_dtype)
@@ -161,7 +188,9 @@ def train_plan(arch_id: str, shape_name: str, mesh,
                 (in_sh[0], None), cfg, donate=(0,),
                 options={"accum_dtype": accum_dtype,
                          "compute_dtype": torch.bfloat16 if big else None,
-                         "q_chunk": None})
+                         "q_chunk": None, "mesh": mesh,
+                         "build": dict(param_dtype=param_dtype, cfg=cut,
+                                       seq=seq, global_batch=gbatch)})
 
 
 def _serve_cfg(arch_id: str, shape_name: str, cfg=None):
@@ -175,12 +204,27 @@ def _serve_cfg(arch_id: str, shape_name: str, cfg=None):
     return cfg
 
 
-def _serve_params(cfg, param_dtype=torch.bfloat16):
-    """The model's parameters as meta tensors in the serving dtypes:
-    ``param_dtype`` except `F32_LEAVES`."""
-    return {k: (v if k.rsplit(".", 1)[-1] in F32_LEAVES
-                else v.to(param_dtype))
-            for k, v in structure(cfg).named_parameters()}
+def _serve_params(cfg, param_dtype=torch.bfloat16, device="meta",
+                  seed: int = 0):
+    """The model's parameters in the serving dtypes: ``param_dtype``
+    except `F32_LEAVES`; meta tensors, or on ``device`` drawn from
+    ``seed`` (`seeded_params`, a layer at a time)."""
+    cast = lambda k, v: (v if k.rsplit(".", 1)[-1] in F32_LEAVES
+                         else v.to(param_dtype))
+    if torch.device(device).type != "meta":
+        return seeded_params(cfg, seed, device=device, keep=cast)
+    return {k: cast(k, v) for k, v in structure(cfg).named_parameters()}
+
+
+def _real_cache(cache, device):
+    """An empty decode cache like the meta ``cache``, on ``device``: zero
+    states and entries, every slot's position -1 (unwritten)."""
+    if isinstance(cache, list):
+        return [_real_cache(c, device) for c in cache]
+    return {k: (torch.full(v.shape, -1, dtype=v.dtype, device=device)
+                if k == "pos" else
+                torch.zeros(v.shape, dtype=v.dtype, device=device))
+            for k, v in cache.items()}
 
 
 def _serve_param_specs(cfg, tp_size, params=None):
@@ -203,18 +247,22 @@ def _serve_layout(cfg, shape_name, mesh):
 
 
 def decode_plan(arch_id: str, shape_name: str, mesh,
-                param_dtype=torch.bfloat16, cfg=None) -> Plan:
+                param_dtype=torch.bfloat16, cfg=None, device="meta",
+                seed: int = 0) -> Plan:
     """One decode step of ``arch_id`` at ``shape_name`` on ``mesh``, as the
     JAX package plans it: (parameters, cache, tokens, step) at the serving
     layout, the cache updated in place (``donate``).  ``applicable``'s
     skip reason rides along.  ``cfg``: a config of the architecture cut
     in depth (a smoke run); ``param_dtype`` float32 for such a run's
-    weights."""
+    weights.  ``device``: where the arguments are made (`train_plan`'s):
+    elsewhere than meta the weights are drawn from ``seed``, the cache is
+    empty, the tokens are drawn and the step is the cache's middle."""
     skip = applicable(arch_id, shape_name)
+    cut = cfg
     cfg = _serve_cfg(arch_id, shape_name, cfg)
     seq, batch, tp_size, layout = _serve_layout(cfg, shape_name, mesh)
-    pshapes, pspecs = _serve_param_specs(cfg, tp_size,
-                                         _serve_params(cfg, param_dtype))
+    pshapes, pspecs = _serve_param_specs(
+        cfg, tp_size, _serve_params(cfg, param_dtype, device, seed))
     cache = structure(cfg).init_cache(batch, seq)
     cspecs = cache_specs(cache, **layout)
     if cfg.num_codebooks > 1:
@@ -224,28 +272,39 @@ def decode_plan(arch_id: str, shape_name: str, mesh,
         tok = _meta((batch,), torch.int32)
         tok_spec = (layout["batch_axis"],)
     step_pos = _meta((), torch.int32)
+    if torch.device(device).type != "meta":
+        gen = torch.Generator().manual_seed(seed)
+        cache = _real_cache(cache, device)
+        tok = _real(tok, device, gen, cfg.vocab_size)
+        step_pos = torch.tensor(seq // 2, dtype=torch.int32, device=device)
     in_specs = (pspecs, cspecs, tok_spec, ())
     in_sh = tuple(_place(sp, mesh) for sp in in_specs)
     return Plan(arch_id, shape_name, "decode", fl.build_serve_step(cfg),
                 (pshapes, cache, tok, step_pos), in_specs, in_sh,
                 (None, in_sh[1]), cfg, donate=(1,), skip=skip,
-                options={"layout": layout})
+                options={"layout": layout, "mesh": mesh,
+                         "build": dict(param_dtype=param_dtype, cfg=cut)})
 
 
 def prefill_plan(arch_id: str, shape_name: str, mesh,
-                 param_dtype=torch.bfloat16, cfg=None) -> Plan:
+                 param_dtype=torch.bfloat16, cfg=None, device="meta",
+                 seed: int = 0) -> Plan:
     """The serving prefill of ``arch_id`` at ``shape_name`` on ``mesh``, as
     the JAX package plans it: (parameters, tokens) -> (logits, the cache
     of ``seq`` positions at the serving layout).  The JAX package's
     ``q_chunk=1024`` has no counterpart (`LM.prefill`).  ``cfg``,
-    ``param_dtype``: as in `decode_plan`."""
+    ``param_dtype``, ``device``, ``seed``: as in `decode_plan`."""
+    cut = cfg
     cfg = _serve_cfg(arch_id, shape_name, cfg)
     seq, batch, tp_size, layout = _serve_layout(cfg, shape_name, mesh)
-    pshapes, pspecs = _serve_param_specs(cfg, tp_size,
-                                         _serve_params(cfg, param_dtype))
+    pshapes, pspecs = _serve_param_specs(
+        cfg, tp_size, _serve_params(cfg, param_dtype, device, seed))
     cspecs = cache_specs(structure(cfg).init_cache(
         batch, seq), **layout)
     tok = _token_struct(cfg, (), batch, seq)
+    if torch.device(device).type != "meta":
+        tok = _real(tok, device, torch.Generator().manual_seed(seed),
+                    cfg.vocab_size)
     tok_spec = (layout["batch_axis"],) + (None,) * (tok.dim() - 1)
     in_specs = (pspecs, tok_spec)
     in_sh = tuple(_place(sp, mesh) for sp in in_specs)
@@ -253,13 +312,24 @@ def prefill_plan(arch_id: str, shape_name: str, mesh,
                 fl.build_prefill_step(cfg, seq), (pshapes, tok), in_specs,
                 in_sh, (None, _place(cspecs, mesh)), cfg,
                 options={"layout": layout, "cache_specs": cspecs,
-                         "q_chunk": None})
+                         "q_chunk": None, "mesh": mesh,
+                         "build": dict(param_dtype=param_dtype, cfg=cut)})
 
 
-def make_plan(arch_id: str, shape_name: str, mesh) -> Plan:
+def make_plan(arch_id: str, shape_name: str, mesh, **kw) -> Plan:
+    """The plan of ``shape_name``'s kind; ``kw`` go to its builder (a cut
+    ``cfg``, ``device`` and ``seed``; a training plan's ``seq`` and
+    ``global_batch``)."""
     kind = SHAPES[shape_name]["kind"]
     if kind == "train":
-        return train_plan(arch_id, shape_name, mesh)
+        return train_plan(arch_id, shape_name, mesh, **kw)
     if kind == "prefill":
-        return prefill_plan(arch_id, shape_name, mesh)
-    return decode_plan(arch_id, shape_name, mesh)
+        return prefill_plan(arch_id, shape_name, mesh, **kw)
+    return decode_plan(arch_id, shape_name, mesh, **kw)
+
+
+def materialize(plan: Plan, device, seed: int = 0) -> Plan:
+    """``plan`` made again with its arguments on ``device``, drawn from
+    ``seed`` (its builder's ``device`` / ``seed``)."""
+    return make_plan(plan.arch, plan.shape, plan.options["mesh"],
+                     device=device, seed=seed, **plan.options["build"])

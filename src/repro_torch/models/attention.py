@@ -141,18 +141,21 @@ def _ring_cache(Wc: int, block=(0, 1), **entries: torch.Tensor
     r, n = block
     Wl = _block_width(Wc, n)
     take = min(S, Wc)
-    tail_pos = torch.arange(S - take, S, device=dev)
+    # the slots depend on the shapes alone: found on the host, so the
+    # device is never read back (a boolean index would be)
+    tail_pos = torch.arange(S - take, S)
     slots = tail_pos % Wc
     mine = (slots >= r * Wl) & (slots < (r + 1) * Wl)
+    dst = (slots[mine] - r * Wl).to(dev)
+    src = (tail_pos[mine] - (S - take)).to(dev)
     out = {}
     for name, t in entries.items():
         c = torch.zeros((B, Wl) + tuple(t.shape[2:]), dtype=CACHE_DTYPE,
                         device=dev)
-        c[:, slots[mine] - r * Wl] = t[:, S - take:][:, mine].to(
-            CACHE_DTYPE)
+        c[:, dst] = t[:, S - take:].index_select(1, src).to(CACHE_DTYPE)
         out[name] = c
     cpos = torch.full((Wc,), -1, dtype=torch.int32, device=dev)
-    cpos[slots] = tail_pos.to(torch.int32)
+    cpos[slots.to(dev)] = tail_pos.to(device=dev, dtype=torch.int32)
     out["pos"] = cpos
     return out
 
@@ -286,20 +289,38 @@ def sdpa_split(q, k, v, mask, scale: float, cap: float, group):
     return _sum_over(out, group).to(v.dtype).reshape(B, S, H, v.shape[-1])
 
 
-def _write_slot(cache, step: int, entries, block) -> torch.Tensor:
+def _write_slot(cache, step: torch.Tensor, entries, block) -> torch.Tensor:
     """Write ``entries`` (name -> (B, ...) tensors) into slot ``step %
     Wc`` of a ring cache, on the rank that owns the slot (``block`` (r,
     n): the r-th of n blocks of slots, each rank's share), and the
-    position into the whole ``pos``.  -> this rank's slots' validity."""
+    position into the whole ``pos``.  ``step`` is a 0-d tensor on the
+    cache's device: the slot is found there, never read back to the host
+    (another rank's slot rewrites this rank's clamped slot with what it
+    holds).  -> this rank's slots' validity."""
     r, n = block
     cpos = cache["pos"]
     Wl = cpos.shape[0] // n
-    slot = step % cpos.shape[0]
-    if r * Wl <= slot < (r + 1) * Wl:
-        for name, t in entries.items():
-            cache[name][:, slot - r * Wl] = t.to(cache[name].dtype)
-    cpos[slot] = step
+    slot = (step % cpos.shape[0]).reshape(1).to(torch.long)
+    mine = slot - r * Wl
+    own = (mine >= 0) & (mine < Wl)
+    mine = mine.clamp(0, Wl - 1)
+    for name, t in entries.items():
+        buf = cache[name]
+        new = t.to(buf.dtype)[:, None]
+        keep = own.reshape((1, 1) + (1,) * (new.dim() - 2))
+        buf.index_copy_(1, mine, torch.where(keep, new,
+                                             buf.index_select(1, mine)))
+    cpos.index_copy_(0, slot, step.reshape(1).to(cpos.dtype))
     return cpos[r * Wl:(r + 1) * Wl]
+
+
+def decode_position(step, device) -> torch.Tensor:
+    """A decode step's absolute position as a 0-d int64 tensor on
+    ``device`` (an int is copied there once a step; a tensor is used as
+    it is, so a step given on the device is never read back)."""
+    if isinstance(step, torch.Tensor):
+        return step.to(device=device, dtype=torch.long).reshape(())
+    return torch.tensor(step, dtype=torch.long, device=device)
 
 
 def attn_decode(p, cfg: ArchConfig, x, cache, step: int, kind: str,
@@ -324,7 +345,8 @@ def attn_decode(p, cfg: ArchConfig, x, cache, step: int, kind: str,
     n = sh.size(ax)
     split = H % n == 0 and Kv % n == 0
     q, k, v = _project_qkv(p, cfg, x, sh, ax, (split, split))
-    at = torch.tensor([step], device=x.device)
+    step = decode_position(step, x.device)
+    at = step.reshape(1)
     q = apply_rope(q, at, cfg.rope_theta)
     k = apply_rope(k, at, cfg.rope_theta)
     cp = not split and Kv > 1
@@ -426,7 +448,8 @@ def _mla_step(p, cfg: ArchConfig, x, cache, step: int, block=(0, 1),
     and roped key written into the cache's slot (in place, on the rank
     whose ``block`` of slots holds it).  -> (q_nope, q_rope, this rank's
     slots' validity)."""
-    at = torch.tensor([step], device=x.device)
+    step = decode_position(step, x.device)
+    at = step.reshape(1)
     q_nope, q_rope = _mla_q(p, cfg, x, regroup)
     q_rope = apply_rope(q_rope, at, cfg.rope_theta)
     c_kv, k_rope = _mla_latent(p, cfg, x, at)

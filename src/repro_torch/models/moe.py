@@ -99,12 +99,27 @@ def capacity(tokens: int, cfg: ArchConfig) -> int:
                    // cfg.num_experts))
 
 
+def one_hot(ids: torch.Tensor, E: int) -> torch.Tensor:
+    """``F.one_hot(ids, E)`` (int64) by a comparison on the device: the
+    library call checks the ids' range on the host (a read back on the
+    CPU, none possible on the meta device)."""
+    return (ids[..., None] == torch.arange(E, device=ids.device)).long()
+
+
+def expert_counts(gate_idx: torch.Tensor, E: int) -> torch.Tensor:
+    """``torch.bincount(gate_idx.reshape(-1), minlength=E)`` (int64)
+    without its host read of the largest id."""
+    ids = gate_idx.reshape(-1)
+    return torch.zeros(E, dtype=torch.int64, device=ids.device).index_add_(
+        0, ids, torch.ones_like(ids, dtype=torch.int64))
+
+
 def dispatch(xt: torch.Tensor, e_flat: torch.Tensor, E: int, cap: int
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Scatter each assignment of ``e_flat`` (T * K expert ids, token-major)
     into its expert's next free slot.  -> (buf (E, cap, D), slot (T * K,)
     with E * cap for a dropped assignment, keep (T * K,) bool)."""
-    onehot = F.one_hot(e_flat, E)
+    onehot = one_hot(e_flat, E)
     pos = (torch.cumsum(onehot, dim=0) * onehot).sum(-1) - 1
     keep = pos < cap
     slot = torch.where(keep, e_flat * cap + pos,
@@ -169,7 +184,7 @@ def _moe_ep(p, cfg: ArchConfig, x: torch.Tensor, sh, routing):
     T = Tl * nd
     xt = x.reshape(Tl, D)
     probs, gate_vals, gate_idx = route(p, cfg, xt, routing)
-    routed = torch.bincount(gate_idx.reshape(-1), minlength=E)
+    routed = expert_counts(gate_idx, E)
     from ..core.sharding import all_reduce_
     all_reduce_(routed, sh.group(tok))
     me = sh.reduce(probs.sum(0), tok) / T      # the mean over all tokens
@@ -209,7 +224,7 @@ def moe_forward(p: Mapping[str, torch.Tensor], cfg: ArchConfig,
     xt = xa.reshape(T, D)
     probs, gate_vals, gate_idx = route(p, cfg, xt, routing)
     # E * <fraction routed to e> . <mean router probability of e>
-    routed = torch.bincount(gate_idx.reshape(-1), minlength=E)
+    routed = expert_counts(gate_idx, E)
     aux = E * torch.sum(probs.mean(0) * routed.to(torch.float32) / (T * K))
     buf, slot, keep = dispatch(xt, gate_idx.reshape(-1), E, capacity(T, cfg))
     y = _combine(_experts(p, cfg, buf, sh), slot, keep, gate_vals, x.dtype)

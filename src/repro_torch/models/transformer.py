@@ -65,7 +65,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import without_chunk_states
-from .attention import (attn_decode, attn_forward, init_attn,
+from .attention import (attn_decode, attn_forward, decode_position, init_attn,
                         init_attn_cache, mla_decode, mla_forward)
 from .config import ATTN, LOCAL, MAMBA, RGLRU, ArchConfig
 from .mamba import init_mamba, init_mamba_cache, mamba_decode, mamba_forward
@@ -417,6 +417,7 @@ class LM(nn.Module):
         params = dict(self.named_parameters()) if params is None else params
         x = self.embed_tokens(tokens[..., None], sh.use(
             {"embed": params["embed"]})["embed"], sh)
+        step = decode_position(step, x.device)
         for i, (layer, lc) in enumerate(zip(self.layers, cache)):
             pre = f"layers.{i}"
             x, _ = layer.decode(x, lc, step,

@@ -197,6 +197,49 @@ JOBS = {
 }
 
 
+# F2: each rank's collectives in order over 3 scanned rounds of
+# paper-mlp-fleet1k at mesh (2, 2), against the unsharded engine
+SEQ_ROUNDS = 3
+SEQ_WORKER = r"""
+import json, sys
+import torch
+torch.set_num_threads(1)
+import torch.distributed as dist
+from repro_torch.launch.distributed import initialize_from_env
+initialize_from_env(device="cpu")
+from repro_torch import api as tapi
+from repro_torch.api import scenarios
+from repro_torch.launch.op_stats import OpStats
+K = int(sys.argv[1])
+d = json.loads(json.dumps(scenarios.PAPER_MLP_FLEET1K))
+
+
+def rows(tr):
+    return [[r.t, r.round, r.cluster, r.a, r.loss, r.energy, r.acc,
+             r.agg_count] for r in tr.records]
+
+
+fed = tapi.Federation.from_dict(
+    {**d, "sharding": {"mesh": [2, 2], "impl": "gspmd"}}, device="cpu")
+stats = OpStats(record=True)
+with stats:
+    got = rows(fed.engine.run_scanned(K))
+plain = rows(tapi.Federation.from_dict(d, device="cpu").engine.run_scanned(K))
+print("RESULT" + json.dumps({
+    "rank": dist.get_rank(), "rows": got, "plain": plain,
+    "seq": [[k, list(g), list(sh), dt] for k, g, sh, dt in stats.sequence]}))
+"""
+
+
+def run_seq_job():
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    out = spawn_local(["-c", SEQ_WORKER, str(SEQ_ROUNDS)], n_procs=4,
+                      timeout=JOB_TIMEOUT, env=env)
+    for o in out:
+        assert o.returncode == 0, o.stderr[-4000:]
+    return [json.loads(o.stdout.split("RESULT", 1)[1]) for o in out]
+
+
 def run_job(mesh):
     cfg = dict(JOBS[mesh], root=os.path.dirname(SRC))
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
@@ -210,10 +253,13 @@ def run_job(mesh):
 
 @pytest.fixture(scope="module", autouse=True)
 def started_jobs():
-    """Both jobs start with the module's first test (6 processes, each job
-    within its own timeout) and run while the in-process tests do."""
-    pool = concurrent.futures.ThreadPoolExecutor(2)
-    yield {m: pool.submit(run_job, m) for m in JOBS}
+    """The three jobs start with the module's first test (10 processes,
+    each job within its own timeout) and run while the in-process tests
+    do."""
+    pool = concurrent.futures.ThreadPoolExecutor(3)
+    futures = {m: pool.submit(run_job, m) for m in JOBS}
+    futures["seq"] = pool.submit(run_seq_job)
+    yield futures
     pool.shutdown(wait=True)
 
 
@@ -294,15 +340,16 @@ def test_mesh_one_matches_the_jax_gspmd_engine(needs_jax, execution):
 
 @pytest.mark.parametrize("backend,mesh,refused", [
     ("gloo", (2,), "segfault"), ("gloo", (2, 2), "segfault"),
-    ("nccl", (2, 2), "hangs"), ("nccl", (4, 2), "hangs"),
+    ("nccl", (2, 2), None), ("nccl", (4, 2), None),
     ("nccl", (2,), None), ("nccl", (1, 1), None)],
     ids=["gloo-2", "gloo-2x2", "nccl-2x2", "nccl-4x2", "nccl-2", "nccl-1x1"])
 def test_placement_refuses_what_fails_on_cards(monkeypatch, backend, mesh,
                                                refused):
     """On cards, no fallback: gloo ranks sharing a card (DTensor's
-    all-gather segfaults) and multi-axis meshes over NCCL (they hang) raise
-    a `RuntimeError` naming ROADMAP item 9; 1-D meshes over NCCL and
-    one-rank meshes build."""
+    all-gather segfaults) raise a `RuntimeError` naming ROADMAP item 9;
+    meshes over NCCL, 1-D and multi-axis (F2 repaired: the round's
+    reductions and its event choice run on tensors the process groups
+    gathered, `placement.gather`), and one-rank meshes build."""
     G = int(np.prod(mesh))
     monkeypatch.setattr(placement, "_process_group", lambda shape: "group")
     monkeypatch.setattr(placement, "resolve_device",
@@ -501,3 +548,34 @@ def test_the_service_refuses_a_sharded_spec_naming_its_item(tmp_path,
         assert "a sharded service" in err and "queue 1, item 9" in err
     assert start(spec_dict(FIXED, scale="device-gspmd"), "scale",
                  "--segment-rounds", "2", "--max-segments", "1") == 0
+
+
+def _rank_free(seq):
+    """A rank's collectives with each group as its ranks' offsets from its
+    first: the same axis gives the same entry on every rank."""
+    return [(kind, tuple(r - min(group) for r in group) if group else (),
+             tuple(shape), dtype) for kind, group, shape, dtype in seq]
+
+
+def test_every_rank_runs_the_same_collectives_in_order(jobs):
+    """F2: at mesh (2, 2) every rank issues the same collectives (kind,
+    mesh axis, shape, type) in the same order over three rounds of
+    ``paper-mlp-fleet1k``, none of them a reduction DTensor inferred (the
+    next event's ``argmin``, the straggler minimum and Eqn 19 take whole
+    tensors through the process groups' all-gathers, `placement.gather`),
+    and the records hold to the unsharded engine as the (2, 2) meshes
+    above do."""
+    res = jobs["seq"]
+    seqs = [_rank_free(r["seq"]) for r in res]
+    assert seqs[0], "no collective recorded"
+    for r, s in zip(res[1:], seqs[1:]):
+        assert s == seqs[0], f"rank {r['rank']} departs from rank 0"
+    assert {k for k, *_ in seqs[0]} == {"all_gather"}, seqs[0]
+    for r in res:
+        assert r["rows"] == res[0]["rows"]
+    got, want = res[0]["rows"], res[0]["plain"]
+    assert len(got) == len(want) == SEQ_ROUNDS + 1
+    for g, w in zip(got, want):
+        assert (g[1], g[2], g[3], g[7]) == (w[1], w[2], w[3], w[7]), (g, w)
+        np.testing.assert_allclose([g[0], g[4], g[5]], [w[0], w[4], w[5]],
+                                   rtol=RTOL, atol=ATOL)

@@ -384,6 +384,60 @@ with open(os.path.join(d, "moe_jax.pkl"), "wb") as f:
                  "keep": [np.asarray(s[2]) for s in shards]}, f)
 """
 
+# F3: the JAX package's own training step under Adafactor at fm-a-2x2's
+# config (falcon-mamba-7b smoke, mode A, NC 1 x C 2, 2 microbatches of 2 x
+# 24 tokens, zero moments), sharded on a (2, 2) ('data', 'model') mesh of 4
+# forced host devices against the same step unsharded; each parameter's
+# largest difference over its leaf's largest entry, under Adafactor and
+# under SGD
+JAX_F3 = r"""
+import json, os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import numpy as np
+import jax, jax.numpy as jnp
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.configs import get_smoke_config
+from repro.core import fl_step as fl
+from repro.optim import adafactor, sgd
+
+cfg = get_smoke_config("falcon-mamba-7b")
+mode, NC, C, n_micro, bm, seq = cfg.fl_mode, 1, 2, 2, 2, 24
+g = np.random.default_rng(5)
+toks = g.integers(0, cfg.vocab_size,
+                  (NC, C, n_micro, bm, seq + 1)).astype(np.int32)
+batch = {"tokens": jnp.asarray(toks[..., :-1]),
+         "labels": jnp.asarray(toks[..., 1:])}
+rep = jnp.asarray(g.random((NC, C)).astype(np.float32) + 0.1)
+stale = jnp.zeros((NC,), jnp.float32)
+mesh = jax.make_mesh((2, 2), ("data", "model"))
+ns = lambda s: jax.tree.map(lambda x: NamedSharding(mesh, x), s,
+                            is_leaf=lambda x: isinstance(x, P))
+out = {}
+for name, opt in (("adafactor", adafactor(1e-2)), ("sgd", sgd(1e-2))):
+    state = fl.build_init_fn(cfg, opt, mode=mode, n_clusters=NC,
+                             clients_per_cluster=C)(jax.random.PRNGKey(3))
+    step = fl.build_train_step(cfg, opt, mode=mode)
+    plain = jax.jit(step)(state, batch, rep, stale)[0]
+    specs = fl.train_state_specs(cfg, jax.eval_shape(lambda: state),
+                                 mode=mode, opt_name=name, pod_axis=None,
+                                 tp_size=2)
+    bsp = fl.batch_specs(cfg, batch, mode=mode, pod_axis=None)
+    with mesh:
+        sharded = jax.jit(step, in_shardings=(
+            ns(specs), ns(bsp), ns(P(None, None)), ns(P(None))),
+            out_shardings=(ns(specs), None))(state, batch, rep, stale)[0]
+    errs = {}
+    for (path, a), b in zip(jax.tree_util.tree_flatten_with_path(
+            plain.params)[0], jax.tree.leaves(sharded.params)):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        errs[jax.tree_util.keystr(path)] = float(
+            np.abs(b - a).max() / max(np.abs(a).max(), 1e-30))
+    worst = max(errs, key=errs.get)
+    out[name] = {"rel": errs[worst], "worst": worst}
+print("F3" + json.dumps(out))
+"""
+
+
 
 def _rel(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
@@ -447,6 +501,14 @@ def _run_job(d):
     return json.loads(out[0].stdout.split("RESULT", 1)[1])
 
 
+def _run_jax_f3():
+    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
+    r = subprocess.run([sys.executable, "-c", JAX_F3], env=env,
+                       capture_output=True, text=True, timeout=JOB_TIMEOUT)
+    assert r.returncode == 0, r.stderr[-4000:]
+    return json.loads(r.stdout.split("F3", 1)[1])
+
+
 def _run_jax_ep(d):
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
     r = subprocess.run([sys.executable, "-c", JAX_EP, d], env=env,
@@ -466,10 +528,11 @@ def started():
             pickle.dump(inp, f)
         with open(os.path.join(d, "moe_in.pkl"), "wb") as f:
             pickle.dump(_moe_inputs(), f)
-        pool = concurrent.futures.ThreadPoolExecutor(2)
+        pool = concurrent.futures.ThreadPoolExecutor(3)
         yield {"dir": d, "cfg": cfg, "opt": opt, "inp": inp,
                "job": pool.submit(_run_job, d),
-               "jax_ep": pool.submit(_run_jax_ep, d)}
+               "jax_ep": pool.submit(_run_jax_ep, d),
+               "jax_f3": pool.submit(_run_jax_f3)}
         pool.shutdown(wait=True)
 
 
@@ -598,6 +661,22 @@ def test_sharded_step_holds_to_the_unsharded_step(job, name):
         assert r["param_rel"] <= TOL, (name, r["worst"], r["param_rel"])
     for k, e in r["metrics_rel"].items():
         assert e <= TOL, (name, k, e)
+
+
+def test_jax_sharded_adafactor_departs_as_the_port_does(started, job):
+    """F3 closed: the JAX package's own sharded Adafactor step departs from
+    its unsharded step at fm-a-2x2's config by the same order as the
+    port's sharded step from the port's (within 10x either way; measured
+    8.1e-6 at ``mamba.conv_b`` against the port's 1.1e-5 at
+    ``layers.1.mamba.dt_bias``), while its SGD step stays within the 1e-5
+    the port's sharded steps are held to (1.6e-6) and below its Adafactor
+    step: the magnification is Adafactor's, in the reference as in the
+    port."""
+    ref = started["jax_f3"].result()
+    port = job["fm-a-2x2"]["param_rel"]
+    assert ref["sgd"]["rel"] <= TOL, ref["sgd"]
+    assert ref["adafactor"]["rel"] > ref["sgd"]["rel"], ref
+    assert 0.1 <= ref["adafactor"]["rel"] / port <= 10, (ref, port)
 
 
 def test_a_sharded_group_is_gathered_a_leaf_at_a_time(job):
