@@ -65,9 +65,8 @@ Needs one NVIDIA GPU and nvcc.  In order:
    repro_torch.serve`` children on the card, each pretraining its DQN and
    reporting its kernel-library load as a compile event) against an
    in-process uninterrupted run, byte-equal; then ``service_status``, the
-   ``metrics`` and ``status --watch --once`` subcommands on its run dir.
-   78.1 s on one H100 (the chaos run 32.8 s of it; 17.6 s on a host
-   twice as fast);
+   ``metrics`` and ``status --watch --once`` subcommands on its run dir
+   (the harness and the reads run with the jobs at the end: 14, 15);
 4f. populations (``repro_torch.pop``, ``repro_torch.serve.pool``): the
    population-batched kernels against their batched plain versions at
    the main population's shapes (P 8, C 99, B 16, N 159,010; P 8, C 111,
@@ -83,10 +82,10 @@ Needs one NVIDIA GPU and nvcc.  In order:
    (schedule equal, accuracy within 0.002); ``dp-fleet1k`` with
    ``privacy.noise``
    {0.25, 0.5} (10 batched masked and 10 batched unmasked launches, then
-   live checks); and ``python -m repro_torch.serve pool start|resume|
+   live checks); its ``python -m repro_torch.serve pool start|resume|
    status`` on a 2-member population in 10-round segments against a
    straight pool (traces byte-equal), with a ragged frontier resumed to
-   the common step;
+   the common step, runs at the end with phases 14 and 15;
 4g. the paper's own entry point and evaluation (``repro_torch.core.
    AsyncFederation``, ``repro_torch.paper``): ``get_config("paper_mnist")``
    (16 devices in 4 clusters, the 784-200-10 MLP, N = 159,010) through the
@@ -238,7 +237,7 @@ Needs one NVIDIA GPU and nvcc.  In order:
    3`` for the default recurrentgemma-2b, falcon-mamba-7b, grok-1-314b,
    deepseek-v2-236b and musicgen-large side by side on the card (their
    smoke configs; grok's only training run on the card), each of which
-   must exit 0;
+   must exit 0, run with the jobs at the end (14, 15);
 10. the cluster-major federation over ``torch.distributed`` ranks
    (``repro_torch.api.cluster_engine``), its ranks started by
    ``repro_torch.launch.distributed.spawn_local`` on this script's hidden
@@ -264,8 +263,10 @@ Needs one NVIDIA GPU and nvcc.  In order:
    rounds each, their median and spread), the
    all-reduce milliseconds a round (over 5 rounds, as the population's
    rounds), each rank's backend, device and
-   peak memory, the kernel library each rank loaded; then the unmasked
-   kernel timed at a rank's Eqn-19 shape (C_loc 8, N 159,010);
+   peak memory, the kernel library each rank loaded; the (2,) job then
+   serves ``paper-mlp-fleet1k`` for 2 segments of 5 rounds
+   (``run_service`` on its ranks: phase 15's uninterrupted run); then the
+   unmasked kernel timed at a rank's Eqn-19 shape (C_loc 8, N 159,010);
 10b. the partitioner-inferred placement (``impl='gspmd'``:
    `DeviceScaleEngine` on DTensors over a ``DeviceMesh`` of ranks),
    started by ``spawn_local`` on the hidden ``--gspmd-worker`` flag: at
@@ -278,9 +279,10 @@ Needs one NVIDIA GPU and nvcc.  In order:
    under the same net); the trust kernels' launches a round equal to the
    unsharded engine's; DTensor's collectives a round by kind and bytes;
    the steady rounds/s of each mesh beside the unsharded engine's (three
-   interleaved windows of 10 rounds); each rank's peak memory; then two
-   gloo ranks sharing the card, whose mesh (2,) must refuse with the
-   placement's `RuntimeError` naming the all-gather;
+   interleaved windows of 10 rounds); each rank's peak memory; and the
+   two gloo ranks sharing the card of phase 10's (2,) job, whose gspmd
+   mesh (2,) must refuse with the placement's `RuntimeError` naming the
+   all-gather;
 11. the sharded federated LM step (`repro_torch.core.sharding`, the JAX
    package's partition specs as DTensor placements), started by
    ``spawn_local`` on the hidden ``--train-sharded-worker`` flag as one
@@ -296,7 +298,10 @@ Needs one NVIDIA GPU and nvcc.  In order:
    microbatch, one round) at mesh (1, 2) on two gloo ranks sharing the
    card, the heads, channels and vocab split: within 1e-5 of the
    unsharded step, every kernel of the path launched on each rank, as
-   often as the unsharded step; ``scripts/train_cards.py``
+   often as the unsharded step; each rank's peak over the step beside
+   `launch.op_stats`' estimate of rank 0's share of it (the same step on
+   meta tensors over a fake process group of the mesh, in a process of
+   its own: `sharded_estimate_worker`); ``scripts/train_cards.py``
    runs the same worker on four cards;
 12. sharded serving, in phase 11's two jobs: the serving plans'
    (`launch.plans.prefill_plan` / ``decode_plan``) step_fn on placed f32
@@ -334,7 +339,20 @@ Needs one NVIDIA GPU and nvcc.  In order:
    RG-LRU backward's bfloat16 instance, which no path launches: both
    packages scan float32 gates), timed beside the plain version, SDPA at
    bfloat16 for the attention, and its bound;
-14. prints the federations line (4b, 4c and 4d), the serving line, the
+14. the sharded pool, and 15. the sharded service, with 4f's pool CLI:
+   three chains of ``python -m repro_torch.serve`` commands at once
+   (`jobs_phase`), beside 4e's chaos harness and 9b's training CLIs.  14: 4 replicates of ``paper-mlp-fleet1k`` at mesh
+   (2,) through ``pool start`` (2 segments of 5 rounds) and ``pool
+   resume`` (1), each a job of two gloo ranks sharing the card under the
+   command's process, against the unsharded pool in this process: every
+   member's ``trace.jsonl`` and every checkpoint bit for bit, rank 0's
+   batched fused launches from its metrics.  15: phase 10's (2,) spec
+   through ``serve chaos --kills 1`` (2 segments of 5 rounds): the
+   recovered ``trace.jsonl`` byte-equal to phase 10's uninterrupted run,
+   no rank of the killed job alive, rank 0's trust launches, the last
+   checkpoint restored into an unsharded engine here, one round of its
+   fused kernel against the plain version;
+16. prints the federations line (4b, 4c and 4d), the serving line, the
    service line (4e: each segment's ``service_rounds_per_sec``, its
    checkpoint's seconds and bytes, the chaos children's start-up seconds,
    kills and restarts, beside the card's name and power limit), the
@@ -347,7 +365,8 @@ Needs one NVIDIA GPU and nvcc.  In order:
    peak memory), the multi-device line (10, beside the card's name and power
    limit), the gspmd line (10b, likewise), the sharded-training line
    (11, likewise), the sharded-serving line (12, likewise), the bfloat16
-   training line (13), the kernels line, then the result line.
+   training line (13), the sharded pool line (14), the sharded service
+   line (15), the kernels line, then the result line.
 
 The trust kernels are timed back to back through their wrappers (the
 kernels line's ``ms`` and ``library_ms``) and by device time, warm (ten
@@ -385,6 +404,8 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import torch
@@ -1453,21 +1474,16 @@ def service_phase(dev) -> dict:
     byte-equal, the manifests' f64 energy equal, 10 fused launches a
     segment; after the resume one more round restored from the
     checkpoint holds the fused kernel against its plain version); then the
-    chaos harness on ``paper-adaptive-fleet1k`` (three segments, one
-    SIGKILL, ``python -m repro_torch.serve`` children on the card each
-    pretraining its DQN) against an in-process uninterrupted run; then
-    the chaos run dir read as a user would (``service_status``, the
-    ``metrics`` and ``status --watch --once`` subcommands)."""
-    import shutil
-    import tempfile
+    in-process uninterrupted run of ``paper-adaptive-fleet1k`` that the
+    chaos harness is held to (`ServiceChaos`, with the jobs at the end;
+    ``chaos`` in the result: its run dirs, which it removes)."""
     from repro_torch.api import Federation, FederationSpec
     from repro_torch.api.scenarios import (PAPER_ADAPTIVE_FLEET1K,
                                            PAPER_MLP_FLEET1K)
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.serve import (RunDir, latest_resumable,
                                    restore_resumable, run_service,
-                                   run_supervised, service_status)
-    from repro_torch.serve.service import child_env
+                                   service_status)
     K = 10
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="chip_smoke_service_")
@@ -1538,70 +1554,131 @@ def service_phase(dev) -> dict:
               f"{json.dumps(out['paper-mlp-fleet1k']['segments'])}",
               flush=True)
 
-        # 2. chaos: SIGKILL a child after a checkpoint lands
+        # 2. chaos: the uninterrupted reference here; the harness itself
+        # runs with the jobs at the end (`ServiceChaos`)
         aspec = FederationSpec.from_dict(PAPER_ADAPTIVE_FLEET1K)
         ref = run_dir("adaptive_ref", aspec)
         t_ref = serve(ref.root, "service_chaos_reference", 3)
-        chaos = RunDir(os.path.join(root, "adaptive_chaos"))
-        t0 = time.perf_counter()
-        summary = run_supervised(
-            chaos.root, total_segments=3, segment_rounds=K, kills=1,
-            keep=0, spec_file=ref.spec_path, device="cuda",
-            kill_timeout=300.0, log=lambda msg: print(msg, flush=True))
-        t_chaos = time.perf_counter() - t0
-        if read_bytes(chaos.trace_path) != read_bytes(ref.trace_path):
-            with open(chaos.path("serve.log")) as f:
-                print(f.read()[-4000:], file=sys.stderr)
-            fail("chaos: the recovered trace.jsonl differs from the "
-                 "uninterrupted run's")
-        check(summary["segments"] == 3 and summary["kills"] == 1
-              and summary["restarts"] >= 1, f"chaos: {summary}")
-        check(manifest(chaos)["energy"] == manifest(ref)["energy"],
-              "chaos: the manifests' energy differs")
-
-        # 3. the chaos run dir, read as a user would
-        st = service_status(chaos.root)
-        check(not st["alive"] and st["state"]["status"] == "stopped"
-              and st["state"]["rounds"] == 3 * K, f"chaos status: {st}")
-        m = st["metrics"]
-        check(m["chaos_sigkills_total"] == 1 and m["fl_compiles_total"] >= 1,
-              f"chaos status metrics: {m}")
-        with open(chaos.metrics_path) as f:
-            events = [json.loads(line) for line in f
-                      if '"event/1"' in line]
-        check(events and all(e["fn"].startswith("trust_aggregate")
-                             for e in events),
-              f"chaos: compile events {events}")
-        cli = {}
-        for cmd in (["metrics"], ["status", "--watch", "--once"],
-                    ["status"]):
-            proc = subprocess.run(
-                [sys.executable, "-m", "repro_torch.serve", *cmd,
-                 "--run-dir", chaos.root], env=child_env(),
-                capture_output=True, text=True, timeout=120)
-            check(proc.returncode == 0,
-                  f"serve {cmd}: exit {proc.returncode}: {proc.stderr}")
-            cli[" ".join(cmd)] = proc.stdout
-        check("chaos_sigkills_total 1" in cli["metrics"],
-              "serve metrics: no chaos_sigkills_total 1")
-        print(cli["status --watch --once"], flush=True)
         out["paper-adaptive-fleet1k"] = {
-            "segments": {"reference": segment_metrics(ref.root),
-                         "chaos": segment_metrics(chaos.root)},
-            "child_startups": summary["startups"],
-            "kills": summary["kills"], "restarts": summary["restarts"],
-            "events": summary["events"],
-            "compile_events": [{"fn": e["fn"], "seconds": e["seconds"]}
-                               for e in events],
-            "wall_s": {"reference": t_ref, "chaos": t_chaos}}
-        print(f"service paper-adaptive-fleet1k: chaos run (1 SIGKILL, "
-              f"{summary['restarts']} restarts, child start-ups "
-              f"{json.dumps(summary['startups'])}) byte-equal to the "
-              f"in-process run; {t_chaos:.2f} s", flush=True)
-    finally:
+            "segments": {"reference": segment_metrics(ref.root)},
+            "wall_s": {"reference": t_ref}}
+    except BaseException:
         shutil.rmtree(root, ignore_errors=True)
+        raise
     out["phase_s"] = time.perf_counter() - t_phase
-    return {"service": out, "counts": counts}
+    return {"service": out, "counts": counts,
+            "chaos": {"root": root, "ref": ref.root,
+                      "spec": ref.spec_path, "K": K}}
+
+
+# what shares the card with 4e's chaos run: its segments' rounds/s and
+# its children's start-ups are taken under that load
+CONTENDED = ("9b's five training CLIs, the command chains of 4f's pool "
+             "CLI, 14 and 15, and the straight pools share the card")
+
+
+class ServiceChaos(threading.Thread):
+    """4e's chaos harness on ``paper-adaptive-fleet1k`` (three segments,
+    one SIGKILL, ``python -m repro_torch.serve`` children on the card each
+    pretraining its DQN), in a thread, with the jobs at the end (its
+    segments' rounds/s and its children's start-ups are taken under their
+    load: `CONTENDED`); then
+    (`report`) against the in-process uninterrupted run `service_phase`
+    made (``pending``), and its run dir read as a user would
+    (``service_status``, the ``metrics`` and ``status --watch --once``
+    subcommands at once)."""
+
+    def __init__(self, pending: dict):
+        super().__init__(daemon=True)
+        self.pending, self.summary, self.error = pending, None, None
+        self.chaos = os.path.join(pending["root"], "adaptive_chaos")
+
+    def run(self) -> None:
+        from repro_torch.serve import run_supervised
+        t0 = time.perf_counter()
+        try:
+            self.summary = run_supervised(
+                self.chaos, total_segments=3,
+                segment_rounds=self.pending["K"], kills=1, keep=0,
+                spec_file=self.pending["spec"], device="cuda",
+                kill_timeout=300.0, log=lambda msg: print(msg, flush=True))
+        except Exception as e:  # noqa: BLE001 -- reported by `report`
+            self.error = e
+        self.seconds = time.perf_counter() - t0
+
+    def report(self, out: dict) -> None:
+        from repro_torch.serve import RunDir, latest_resumable, service_status
+        from repro_torch.serve.service import child_env
+        self.join(900)
+        try:
+            check(self.error is None and self.summary is not None,
+                  f"chaos: {self.error!r}")
+            summary, t_chaos = self.summary, self.seconds
+            chaos, ref = RunDir(self.chaos), RunDir(self.pending["ref"])
+            K = self.pending["K"]
+
+            def manifest(rd):
+                found = latest_resumable(rd.ckpt_dir)
+                check(found is not None,
+                      f"no verified checkpoint in {rd.root}")
+                return found[1]
+            if read_bytes(chaos.trace_path) != read_bytes(ref.trace_path):
+                with open(chaos.path("serve.log")) as f:
+                    print(f.read()[-4000:], file=sys.stderr)
+                fail("chaos: the recovered trace.jsonl differs from the "
+                     "uninterrupted run's")
+            check(summary["segments"] == 3 and summary["kills"] == 1
+                  and summary["restarts"] >= 1, f"chaos: {summary}")
+            check(manifest(chaos)["energy"] == manifest(ref)["energy"],
+                  "chaos: the manifests' energy differs")
+
+            # the chaos run dir, read as a user would
+            st = service_status(chaos.root)
+            check(not st["alive"] and st["state"]["status"] == "stopped"
+                  and st["state"]["rounds"] == 3 * K, f"chaos status: {st}")
+            m = st["metrics"]
+            check(m["chaos_sigkills_total"] == 1
+                  and m["fl_compiles_total"] >= 1,
+                  f"chaos status metrics: {m}")
+            with open(chaos.metrics_path) as f:
+                events = [json.loads(line) for line in f
+                          if '"event/1"' in line]
+            check(events and all(e["fn"].startswith("trust_aggregate")
+                                 for e in events),
+                  f"chaos: compile events {events}")
+            cli, procs = {}, {}
+            for cmd in (["metrics"], ["status", "--watch", "--once"],
+                        ["status"]):         # the three reads at once
+                procs[" ".join(cmd)] = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.serve", *cmd,
+                     "--run-dir", chaos.root], env=child_env(),
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)
+            for cmd, proc in procs.items():
+                out_, err_ = proc.communicate(timeout=120)
+                check(proc.returncode == 0,
+                      f"serve {cmd}: exit {proc.returncode}: {err_}")
+                cli[cmd] = out_
+            check("chaos_sigkills_total 1" in cli["metrics"],
+                  "serve metrics: no chaos_sigkills_total 1")
+            print(cli["status --watch --once"], flush=True)
+            entry = out["paper-adaptive-fleet1k"]
+            entry["segments"]["chaos"] = segment_metrics(chaos.root)
+            entry["wall_s"]["chaos"] = t_chaos
+            entry.update({
+                "chaos_taken_while": CONTENDED,
+                "child_startups": summary["startups"],
+                "kills": summary["kills"], "restarts": summary["restarts"],
+                "events": summary["events"],
+                "compile_events": [{"fn": e["fn"], "seconds": e["seconds"]}
+                                   for e in events]})
+            print(f"service paper-adaptive-fleet1k: chaos run (1 SIGKILL, "
+                  f"{summary['restarts']} restarts, child start-ups "
+                  f"{json.dumps(summary['startups'])}) byte-equal to the "
+                  f"in-process run; {t_chaos:.2f} s, taken while "
+                  f"{CONTENDED}", flush=True)
+        finally:
+            shutil.rmtree(self.pending["root"], ignore_errors=True)
 
 
 # --------------------------------------------------------------------- #
@@ -1908,22 +1985,12 @@ def population_phase(dev) -> dict:
     ``dp-fleet1k``
     with ``privacy.noise`` {0.25, 0.5} (B = 2) through
     ``run_scanned(10)`` (10 batched masked and 10 batched unmasked
-    launches) and two more rounds on live inputs; then the pool CLI on a
-    2-member ``paper-mlp-fleet1k`` population in 10-round segments: two
-    segments and ``pool resume`` for a third, against three straight in
-    this process (each member's trace.jsonl byte-equal, manifest energy
-    equal), a ragged frontier resumed to the common step (in this
-    process), ``pool status``."""
-    import shutil
-    import tempfile
+    launches) and two more rounds on live inputs.  Its pool CLI runs with
+    phases 14 and 15 at the end (`jobs_phase`)."""
     from repro_torch.api import Federation, FederationSpec
     from repro_torch.api.scenarios import DP_FLEET1K, PAPER_MLP_FLEET1K
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.pop import PopulationEngine, PopulationSpec
-    from repro_torch.serve.pool import (common_checkpoint_step, member_dir,
-                                        run_pool, write_pool_spec)
-    from repro_torch.serve.runner import latest_resumable
-    from repro_torch.serve.service import child_env
     t_phase = time.perf_counter()
     kp = pop_kernel_phase(dev)
     free_library_memory()
@@ -2057,84 +2124,6 @@ def population_phase(dev) -> dict:
     del dpop
     torch.cuda.empty_cache()
 
-    # the pool, through the CLI, against a straight pool in process
-    root = tempfile.mkdtemp(prefix="chip_smoke_pool_")
-    try:
-        ppspec = PopulationSpec(base=base, replicates=2)
-        spec_file = os.path.join(root, "population.json")
-        with open(spec_file, "w") as f:
-            json.dump(ppspec.to_dict(), f)
-        resumed, straight = (os.path.join(root, n)
-                             for n in ("resumed", "straight"))
-
-        def cli(*argv):
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-m", "repro_torch.serve", "pool", *argv,
-                 "--run-dir", resumed], env=child_env(),
-                capture_output=True, text=True, timeout=600)
-            check(proc.returncode == 0,
-                  f"pool {argv}: exit {proc.returncode}: {proc.stderr}")
-            return proc.stdout, time.perf_counter() - t0
-
-        loop = ["--segment-rounds", "10", "--keep", "0", "--foreground",
-                "--device", dev.type]
-        wall = {}
-        _, wall["start_2_segments"] = cli(
-            "start", "--spec-file", spec_file, "--max-segments", "2", *loop)
-        _, wall["resume_1_segment"] = cli("resume", "--max-segments", "1",
-                                          *loop)
-        os.makedirs(straight)
-        write_pool_spec(straight, ppspec)
-        reset_launches()
-        t0 = time.perf_counter()
-        run_pool(straight, segment_rounds=10, max_segments=3, keep=None,
-                 device=dev.type, log=lambda *a: None)
-        wall["straight_3_segments_in_process"] = time.perf_counter() - t0
-        counted("pool_straight", {"trust_aggregate_global_pop": 30})
-
-        def compare(what):
-            for b in range(2):
-                ra, rb = member_dir(resumed, b), member_dir(straight, b)
-                check(read_bytes(os.path.join(ra, "trace.jsonl")) ==
-                      read_bytes(os.path.join(rb, "trace.jsonl")),
-                      f"pool ({what}): member {b}'s trace.jsonl differs "
-                      "from the straight pool's")
-                ma = latest_resumable(os.path.join(ra, "checkpoints"))[1]
-                mb = latest_resumable(os.path.join(rb, "checkpoints"))[1]
-                check(ma["rounds"] == mb["rounds"] == 30
-                      and ma["energy"] == mb["energy"],
-                      f"pool ({what}): member {b} manifests {ma} vs {mb}")
-        compare("resumed")
-        # a ragged frontier: member 1 loses its newest checkpoint
-        ckpts = os.path.join(member_dir(resumed, 1), "checkpoints")
-        for f in os.listdir(ckpts):
-            if "00000030" in f:
-                os.remove(os.path.join(ckpts, f))
-        dirs = [member_dir(resumed, b) for b in range(2)]
-        check(common_checkpoint_step(dirs) == 20,
-              f"ragged frontier: common step {common_checkpoint_step(dirs)}")
-        t0 = time.perf_counter()
-        run_pool(resumed, segment_rounds=10, max_segments=1, keep=None,
-                 resume=True, device=dev.type, log=lambda *a: None)
-        wall["ragged_resume_in_process"] = time.perf_counter() - t0
-        compare("ragged frontier resumed")
-        status, wall["status"] = cli("status")
-        st = json.loads(status)
-        check(st["state"]["status"] == "stopped" and not st["alive"]
-              and [m["checkpoint_step"] for m in st["members"]] == [30, 30],
-              f"pool status: {st}")
-        out["pool"] = {"B": 2, "segment_rounds": 10, "wall_s": wall,
-                       "state": st["state"],
-                       "trace_bytes": [os.path.getsize(os.path.join(
-                           member_dir(resumed, b), "trace.jsonl"))
-                           for b in range(2)]}
-        print(f"pool: 2 + 1 resumed segments == 3 straight and a ragged "
-              f"frontier resumed at round 20 == 3 straight (each member's "
-              f"trace.jsonl byte-equal, manifest energy equal); "
-              f"{json.dumps(out['pool'])}", flush=True)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - t_phase
     return {"population": out, "kernels": kp, "counts": counts}
 
@@ -4377,8 +4366,8 @@ def moe_audio_train_phase(dev, smi_line: str) -> dict:
     is built: launches exactly their schedule, each round's seconds, peak
     memory under 80 GB, losses falling, deepseek's dropped assignments a
     round, one client's live gradients (its engine freed first, the state
-    but that client's parameters); then the training CLI on the five
-    trained architectures (phases 8's and 9's too), side by side."""
+    but that client's parameters).  Its training CLIs run with the jobs at
+    the end (`TrainCLIs`)."""
     from repro_torch.api import FederationSpec
     from repro_torch.api.scenarios import (DEEPSEEK_V2_236B_TRAIN,
                                            MUSICGEN_LARGE_TRAIN)
@@ -4427,34 +4416,48 @@ def moe_audio_train_phase(dev, smi_line: str) -> dict:
               f"{2 * per_round} forwards a round), dropped assignments a "
               f"round {rec.get('moe_dropped_a_round')}; {smi_line}",
               flush=True)
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        p for p in (os.path.join(HERE, "src"), env.get("PYTHONPATH")) if p)
-    t1 = time.perf_counter()
-    procs = {arch or "default": subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.train"]
-        + (["--arch", arch] if arch else []) + ["--steps", "3"], cwd=HERE,
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for arch in TRAIN_CLI_ARCHS}
-    cli = {}
-    for arch, proc in procs.items():
-        try:
-            out, err = proc.communicate(timeout=600)
-        except subprocess.TimeoutExpired:
-            for p_ in procs.values():
-                p_.kill()
-            fail(f"the training CLI on {arch} did not end in 600 s")
-        cli[arch] = {"exit": proc.returncode,
-                     "s": time.perf_counter() - t1}
-        print(f"python -m repro_torch.launch.train --arch {arch} --steps 3: "
-              f"exit {proc.returncode} after {cli[arch]['s']:.2f} s (the "
-              f"{len(procs)} side by side):\n{out[-1500:]}", flush=True)
-        check(proc.returncode == 0, f"the training CLI failed on {arch}: "
-              f"{err[-4000:]}")
     wall = time.perf_counter() - t0
     print(f"phase 9b (MoE, MLA and audio training) took {wall:.2f} s",
           flush=True)
-    return {"runs": runs, "counts": counts, "cli": cli, "phase_s": wall}
+    return {"runs": runs, "counts": counts, "phase_s": wall}
+
+
+class TrainCLIs:
+    """9b (d): the training CLI on the five trained architectures (phases
+    8's and 9's too), side by side, with the jobs at the end: started by
+    `start`, held by `done` (each exits 0 within 600 s)."""
+
+    def start(self) -> None:
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (os.path.join(HERE, "src"), env.get("PYTHONPATH"))
+            if p)
+        self.t0 = time.perf_counter()
+        self.procs = {arch or "default": subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train"]
+            + (["--arch", arch] if arch else []) + ["--steps", "3"],
+            cwd=HERE, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for arch in TRAIN_CLI_ARCHS}
+
+    def done(self) -> dict:
+        cli = {}
+        for arch, proc in self.procs.items():
+            try:
+                out, err = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                for p_ in self.procs.values():
+                    p_.kill()
+                fail(f"the training CLI on {arch} did not end in 600 s")
+            cli[arch] = {"exit": proc.returncode,
+                         "s": time.perf_counter() - self.t0}
+            print(f"python -m repro_torch.launch.train --arch {arch} "
+                  f"--steps 3: exit {proc.returncode} after "
+                  f"{cli[arch]['s']:.2f} s (the {len(self.procs)} side by "
+                  f"side, with the jobs at the end):\n{out[-1500:]}",
+                  flush=True)
+            check(proc.returncode == 0, f"the training CLI failed on "
+                  f"{arch}: {err[-4000:]}")
+        return cli
 
 
 # --------------------------------------------------------------------- #
@@ -4675,6 +4678,23 @@ def dist_worker(cfg: dict) -> None:
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     out["library_loads"] = loads
     out["libraries"] = sorted(name for name, _ in loads)
+    if cfg.get("refuse_gspmd"):
+        # phase 10b's check, on these two gloo ranks sharing the card: the
+        # partitioner-inferred placement refuses them
+        from repro_torch.api import placement
+        try:
+            placement.resolve(ShardingSpec(mesh=(G,), impl="gspmd"),
+                              n_devices=1024, n_clusters=16)
+            out["gspmd_refused"] = None
+        except RuntimeError as e:       # the refusal this checks
+            out["gspmd_refused"] = str(e)
+    if cfg.get("service"):
+        # phase 15's uninterrupted sharded service, on these ranks
+        from repro_torch.serve import run_service
+        t0 = time.perf_counter()
+        run_service(cfg["service"], segment_rounds=JOB_K, max_segments=2,
+                    keep=None, device="cuda", log=lambda *a: None)
+        out["service_s"] = time.perf_counter() - t0
     print("DISTRESULT" + json.dumps(out), flush=True)
     dist.destroy_process_group()
 
@@ -4697,7 +4717,7 @@ def dist_job(G: int, cfg: dict) -> list:
     return out, wall
 
 
-def multi_device_phase(dev, smi_line: str) -> dict:
+def multi_device_phase(dev, smi_line: str, service_ref: str) -> dict:
     """10. The cluster-major engine over ``torch.distributed`` ranks on the
     card, against the unsharded port engine of this process on the same
     seed: ``paper-mlp-fleet1k`` at mesh (1,) (NCCL, one rank) and (2,)
@@ -4708,11 +4728,17 @@ def multi_device_phase(dev, smi_line: str) -> dict:
     collectives and trust-kernel launches a round; three more rounds with every kernel call held against its
     plain version; B = 8 replicates as a population over the two ranks
     against the unsharded population; rounds/s, all-reduce ms and peak
-    memory."""
+    memory.  The (2,) job then serves ``paper-mlp-fleet1k`` at mesh (2,)
+    for 2 segments of ``JOB_K`` rounds into ``service_ref``
+    (`repro_torch.serve.run_service` on its ranks): phase 15's
+    uninterrupted sharded run."""
     from repro_torch.api import Federation, FederationSpec
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.pop import PopulationEngine, PopulationSpec
+    from repro_torch.serve import RunDir
     t_phase = time.perf_counter()
+    RunDir(service_ref).ensure().write_spec(FederationSpec.from_dict(
+        {**dist_spec_dicts()[DIST_SPECS[0]], "sharding": {"mesh": [2]}}))
     specs = dist_spec_dicts()
     ref_rows, ref_fig = {}, {}
     for name in DIST_SPECS:
@@ -4743,7 +4769,9 @@ def multi_device_phase(dev, smi_line: str) -> dict:
     two, wall2 = dist_job(2, {"specs": list(DIST_SPECS) + [DIST_DQN],
                               "event": {DIST_SPECS[0]: DIST_E,
                                         DIST_DQN: DIST_E_DQN},
-                              "steady": True, "live": True, "pop": True})
+                              "steady": True, "live": True, "pop": True,
+                              "service": service_ref,
+                              "refuse_gspmd": True})
     counts, runs = {}, {}
     for G, res in ((1, one), (2, two)):
         check(res[0]["backend"] == ("nccl" if G == 1 else "gloo"),
@@ -4867,6 +4895,7 @@ def multi_device_phase(dev, smi_line: str) -> dict:
                               p["member_rounds_per_s_incl_eval"]
                               for p in pops]},
            "job_wall_s": {"mesh_1": wall1, "mesh_2": wall2},
+           "gspmd_refused": [r["gspmd_refused"] for r in two],
            "note": "mesh (2,) is two ranks sharing one card's SMs, not two "
                    "cards",
            "phase_s": time.perf_counter() - t_phase, "counts": counts}
@@ -4922,9 +4951,8 @@ def count_collectives():
 def gspmd_worker(cfg: dict) -> None:
     """One rank of a phase-10b job (``--gspmd-worker``): each spec at each
     mesh of ``cfg`` on the card against the unsharded engine of this
-    process, its launches, DTensor's collectives and figures; or, with
-    ``refuse``, the placement's refusal of ranks that share the card.  One
-    JSON line."""
+    process, its launches, DTensor's collectives and figures.  One JSON
+    line."""
     import torch.distributed as dist
     from repro_torch.api import Federation, FederationSpec, placement
     from repro_torch.kernels import launches, reset_launches
@@ -4939,18 +4967,6 @@ def gspmd_worker(cfg: dict) -> None:
            "device": str(torch.device("cuda", torch.cuda.current_device())),
            "runs": {}}
     specs = dist_spec_dicts()
-    if cfg.get("refuse"):
-        spec = FederationSpec.from_dict({
-            **specs[GSPMD_SPECS[0]],
-            "sharding": {"mesh": [G], "impl": "gspmd"}})
-        try:
-            Federation.from_spec(spec)
-            out["refused"] = None
-        except RuntimeError as e:       # the refusal this job checks
-            out["refused"] = str(e)
-        print("GSPMDRESULT" + json.dumps(out), flush=True)
-        dist.destroy_process_group()
-        return
     torch.cuda.reset_peak_memory_stats()
     for mesh in cfg["meshes"]:
         tag = "x".join(map(str, mesh))
@@ -5036,11 +5052,12 @@ def per_round(counts: dict, rounds: int) -> dict:
             for k, v in counts.items()}
 
 
-def gspmd_phase(dev, smi_line: str) -> dict:
+def gspmd_phase(dev, smi_line: str, refused: list) -> dict:
     """10b. The partitioner-inferred placement on the card (module
     docstring): meshes (1,) and (1, 1) bit for bit against the unsharded
     engine, the kernels' launches, DTensor's collectives, rounds/s and
-    peak memory; then the refusal of two ranks sharing the card."""
+    peak memory; then the refusal of two ranks sharing the card, which
+    phase 10's (2,) job met (``refused``: each rank's message)."""
     t_phase = time.perf_counter()
     free_library_memory()
     one, wall = gspmd_job(1, {"meshes": [list(m) for m in GSPMD_MESHES],
@@ -5094,19 +5111,16 @@ def gspmd_phase(dev, smi_line: str) -> dict:
             check(acc is not None and acc == acc, f"{what}: accuracy {acc}")
         runs.setdefault(name, {})[f"mesh_{tag}"] = entry
 
-    # two ranks sharing the card: the placement refuses, naming the
-    # all-gather the probe found missing
-    two, wall2 = gspmd_job(2, {"refuse": True})
-    for r in two:
-        check(r["backend"] == "gloo" and r["refused"] is not None
-              and "all_gather_into_tensor" in r["refused"]
-              and "segfault" in r["refused"],
-              f"gspmd mesh (2,) on one card: {r['refused']}")
+    # two ranks sharing the card (phase 10's (2,) job): the placement
+    # refuses, naming the all-gather the probe found missing
+    for msg in refused:
+        check(msg is not None and "all_gather_into_tensor" in msg
+              and "segfault" in msg, f"gspmd mesh (2,) on one card: {msg}")
     res = {"device": smi_line, "meshes": [list(m) for m in GSPMD_MESHES],
            "runs": runs, "backend": r0["backend"],
            "rank_device": r0["device"], "peak_gib": [r0["peak_gib"]],
-           "refused_mesh_2": two[0]["refused"],
-           "job_wall_s": {"meshes": wall, "refusal": wall2},
+           "refused_mesh_2": refused[0],
+           "job_wall_s": {"meshes": wall},
            "phase_s": time.perf_counter() - t_phase, "counts": counts}
     print(f"phase 10b (gspmd): {res['phase_s']:.2f} s", flush=True)
     return res
@@ -5132,8 +5146,76 @@ SHARDED_TIMEOUT = 600   # seconds, the phase's job
 # 16.9 s a round at C 1 with 2 microbatches)
 SHARDED_TP_RUN = {"tag": "recurrentgemma_2b_mode_a@1x2", "scenario":
                   "RECURRENTGEMMA_2B_TRAIN", "mesh": [1, 2], "NC": 1, "C": 1,
-                  "task": {"n_micro": 1}, "rounds": 1}
+                  "task": {"n_micro": 1}, "rounds": 1, "step_peak": True}
 SHARDED_TP_TIMEOUT = 300
+
+
+def sharded_estimate_worker(run: dict) -> None:
+    """``--estimate-worker``: `repro_torch.launch.op_stats`' estimate of
+    rank 0's share of ``run``'s sharded step, as the dry run makes one: the
+    same configuration and batch on meta tensors, placed on a fake process
+    group of the run's mesh, its state, batch and weights registered as
+    arguments; one JSON line (its peak bytes by category)."""
+    from repro_torch import optim
+    from repro_torch.api import scenarios
+    from repro_torch.api.components import LMTask
+    from repro_torch.core import fl_step as fl
+    from repro_torch.core import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import _fake_group, axis_size, host_mesh_for
+    from repro_torch.launch.op_stats import OpStats
+    from repro_torch.models.transformer import structure
+    task = LMTask(**{**getattr(scenarios, run["scenario"])["task"]["params"],
+                     **run.get("task", {})})
+    cfg, mode, NC, C = task.cfg, task.mode, run["NC"], run.get("C", 1)
+    _fake_group(math.prod(run["mesh"]))
+    mesh = host_mesh_for(run["mesh"], device="cpu")
+    opt = optim.REGISTRY[run.get("opt", "adafactor")](task.lr)
+    state = fl.build_init_fn(cfg, opt, mode=mode, n_clusters=NC,
+                             clients_per_cluster=C, device="meta")(0)
+    pod_axis = "pod" if axis_size(mesh, "pod") > 1 else None
+    specs = fl.train_state_specs(cfg, state, mode=mode,
+                                 opt_name=run.get("opt", "adafactor"),
+                                 pod_axis=pod_axis,
+                                 tp_size=axis_size(mesh, "model"))
+    put = lambda t, sp: dryrun._put(t, sp, mesh)              # noqa: E731
+    placed = fl.TrainState(shd.map_tree(put, state.params, specs.params),
+                           shd.map_tree(put, state.opt, specs.opt), 0)
+    batch = {k: v.to("meta") for k, v in task.make_batch(
+        torch.Generator().manual_seed(0), NC, C, device="cpu").items()}
+    pbatch = shd.map_tree(put, batch, fl.batch_specs(cfg, batch, mode=mode,
+                                                     pod_axis=pod_axis))
+    rep = torch.ones((NC, C), device="meta")
+    stale = torch.arange(NC, dtype=torch.float32, device="meta")
+    stats = OpStats()
+    stats.name_modules(structure(cfg))
+    stats.track("parameters", placed.params)
+    stats.track("optimizer", placed.opt)
+    stats.track("inputs", pbatch)
+    with stats:
+        fl.build_train_step(cfg, opt, mode=mode)(placed, pbatch, rep, stale)
+    s = stats.summary()
+    print("ESTIMATE" + json.dumps({"peak_bytes": stats.peak_bytes,
+                                   "peak": s["peak"], "most": s["most"]}),
+          flush=True)
+
+
+def sharded_estimate(run: dict) -> subprocess.Popen:
+    """`sharded_estimate_worker` of ``run`` in a process of its own (a fake
+    process group needs a process outside any job), started now; read it
+    with `estimate_result`."""
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--estimate-worker",
+         json.dumps(run)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def estimate_result(proc: subprocess.Popen) -> dict:
+    out, err = proc.communicate(timeout=600)
+    check(proc.returncode == 0 and "ESTIMATE" in out,
+          f"the sharded step's estimate failed ({proc.returncode}): "
+          f"{err[-3000:]}")
+    return json.loads(out.split("ESTIMATE", 1)[1])
 
 
 def _host(tree):
@@ -5386,13 +5468,21 @@ def sharded_train_run(run: dict, dev, rank: int, refs: dict,
     replay = ([] if cfg.num_experts and dist.get_world_size() > 1
               and not run.get("compare_with") and not run.get("ep")
               else None)
+    before = 0
     for r in range(n_rounds):
+        if r == 0 and run.get("step_peak") and dev.type == "cuda":
+            # the first round's own peak, beside the estimate
+            torch.cuda.synchronize()
+            before = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
         with moe_routing(record=replay) if (replay is not None and r == 0) \
                 else contextlib.nullcontext():
             placed, m, rec = sharded_round(step, placed, pbatch, rep, stale,
                                            dev)
         out["rounds"].append(rec)
         if r == 0:
+            if run.get("step_peak") and dev.type == "cuda":
+                out["step_peak_bytes"] = torch.cuda.max_memory_allocated()
             snap = _host(placed.params)
     out["layout"] = all(
         tuple(v.placements) == shd.placements(specs.params[k], mesh)
@@ -5400,7 +5490,8 @@ def sharded_train_run(run: dict, dev, rank: int, refs: dict,
     out["off_card"] = [k for k, v in placed.params.items()
                        if v.to_local().device.type != dev.type]
     if dev.type == "cuda":
-        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["peak_gib"] = max(before, torch.cuda.max_memory_allocated()
+                              ) / 2 ** 30
     del placed, pbatch
     gc.collect()
     if dev.type == "cuda":
@@ -6259,11 +6350,20 @@ def train_sharded_phase(dev, smi_line: str) -> dict:
     # the sharding at work on the card: two gloo ranks, mesh (1, 2)
     tag = SHARDED_TP_RUN["tag"]
     what = f"sharded training {tag}"
+    estimating = sharded_estimate(SHARDED_TP_RUN)
     two, wall2 = sharded_train_job(2, {"runs": [SHARDED_TP_RUN],
                                        "serve": list(SERVE_SHARDED_TP_RUNS),
                                        "store": store}, SHARDED_TP_TIMEOUT)
     shutil.rmtree(store, ignore_errors=True)
+    estimate = estimate_result(estimating)
     tr = [r["runs"][tag] for r in two]
+    step_peaks = [r["step_peak_bytes"] for r in tr]
+    print(f"{what}: the step's peak on each rank {step_peaks} B "
+          f"(max_memory_allocated over round 1), op_stats' estimate of "
+          f"rank 0's share {estimate['peak_bytes']} B "
+          f"({json.dumps(estimate['peak'])}), ratio "
+          f"{step_peaks[0] / estimate['peak_bytes']:.3f} ({smi_line})",
+          flush=True)
     check(all(r["backend"] == "gloo" for r in two),
           f"{what}: backends {[r['backend'] for r in two]}")
     check(all(r["layout"] and not r["off_card"] for r in tr),
@@ -6292,6 +6392,9 @@ def train_sharded_phase(dev, smi_line: str) -> dict:
         "plain_launches_a_round": plain[0]["launches"],
         "losses": tr[0]["rounds"][0]["loss"], "loss_rel": loss_rel,
         "compare": cmp_, "peak_gib": [r["peak_gib"] for r in tr],
+        "step_peak_bytes": step_peaks, "estimate": estimate,
+        "step_peak_over_estimate": [p / estimate["peak_bytes"]
+                                    for p in step_peaks],
         "build_s": [r["build_s"] for r in tr],
         "collectives_a_round": [per_round_collectives(r["rounds"][0])
                                 for r in tr]}
@@ -6459,6 +6562,352 @@ def bf16_kernel_entries(bk: dict, bf16_counts: dict) -> list:
     return out
 
 
+# --------------------------------------------------------------------- #
+# the jobs at the end: 4f's pool CLI, 14 the sharded pool, 15 the sharded
+# service; each a chain of `python -m repro_torch.serve` commands, the
+# three chains at once (their time is their processes' start-up), the
+# in-process work of each on this process's main thread meanwhile
+# --------------------------------------------------------------------- #
+JOB_B, JOB_K = 4, 5     # 14: replicates of paper-mlp-fleet1k; rounds a segment
+JOB_TIMEOUT = 300       # seconds, one command of a chain
+POOL_K = 10             # 4f's pool CLI: rounds a segment
+
+
+class Chain(threading.Thread):
+    """``python -m repro_torch.serve`` commands one after another in a
+    thread of their own (on the card unless ``extra`` says otherwise),
+    each one's exit code, seconds and standard output kept; the output and
+    errors of all of them also go to ``log``."""
+
+    def __init__(self, commands: list, log: str, extra=()):
+        super().__init__(daemon=True)
+        self.commands, self.log, self.extra = commands, log, list(extra)
+        self.results: list = []
+
+    def run(self) -> None:
+        from repro_torch.serve.service import child_env
+        for argv in self.commands:
+            t0 = time.perf_counter()
+            with open(self.log, "a") as err:
+                try:
+                    proc = subprocess.run(
+                        [sys.executable, "-m", "repro_torch.serve", *argv,
+                         *self.extra], stdout=subprocess.PIPE, stderr=err,
+                        stdin=subprocess.DEVNULL, text=True, env=child_env(),
+                        timeout=JOB_TIMEOUT, start_new_session=True)
+                    rc, out = proc.returncode, proc.stdout
+                except subprocess.TimeoutExpired:
+                    rc, out = "timeout", ""
+            self.results.append({"argv": argv, "rc": rc, "stdout": out,
+                                 "s": time.perf_counter() - t0})
+            if rc != 0:
+                return
+
+    def done(self, what: str) -> list:
+        """Wait for the chain; fail on a command that failed."""
+        self.join(JOB_TIMEOUT * max(1, len(self.commands)))
+        bad = [r for r in self.results if r["rc"] != 0]
+        if bad or len(self.results) != len(self.commands):
+            with open(self.log) as f:
+                print(f.read()[-6000:], file=sys.stderr)
+            fail(f"{what}: {[(r['argv'][:2], r['rc']) for r in bad]} of "
+                 f"{len(self.results)} / {len(self.commands)} commands")
+        return self.results
+
+
+def rank_launches(run_dir: str, n_ranks: int) -> list:
+    """Each rank's kernel launches, from the last snapshot in the run
+    dir's ``metrics.jsonl`` (``fl_kernel_launches`` by kernel and rank; a
+    job's ranks are processes of their own), over every kernel of
+    `launches`."""
+    from repro_torch.kernels import launches
+    from repro_torch.serve.service import load_run_metrics
+    fam = ((load_run_metrics(run_dir) or {}).get("families", {})
+           .get("fl_kernel_launches", {}))
+    got = [{} for _ in range(n_ranks)]
+    for x in fam.get("series", ()):
+        got[int(x["labels"]["rank"])][x["labels"]["kernel"]] = int(x["value"])
+    return [{k: g.get(k, 0) for k in launches} for g in got]
+
+
+def checkpoint_files(ckpt_dir: str) -> dict:
+    """Every checkpoint of a run dir: step -> (leaves, manifest numbers)."""
+    import numpy as np
+    from repro_torch.serve import list_resumable
+    out = {}
+    for step, path in list_resumable(ckpt_dir):
+        with np.load(path) as z:
+            leaves = {k: z[k] for k in z.files}
+        with open(path[:-len(".npz")] + ".json") as f:
+            m = json.load(f)
+        out[step] = (leaves, {k: m[k] for k in ("step", "rounds", "energy",
+                                                "segment")})
+    return out
+
+
+def same_checkpoints(a: str, b: str) -> bool:
+    import numpy as np
+    ca, cb = checkpoint_files(a), checkpoint_files(b)
+    return sorted(ca) == sorted(cb) and all(
+        ca[s][1] == cb[s][1] and sorted(ca[s][0]) == sorted(cb[s][0])
+        and all(np.array_equal(ca[s][0][k], cb[s][0][k]) for k in cb[s][0])
+        for s in cb)
+
+
+def jobs_phase(dev, smi_line: str, service_ref: str) -> dict:
+    """4f's pool CLI, 14 and 15, their command chains at once.
+
+    4f, the pool CLI: a 2-member ``paper-mlp-fleet1k`` population in
+    ``POOL_K``-round segments, ``pool start`` for two segments and ``pool
+    resume`` for a third, against three straight in this process (each
+    member's trace.jsonl byte-equal, manifest energy equal), a ragged
+    frontier resumed to the common step (in this process), ``pool
+    status``.
+
+    14, the sharded pool: ``JOB_B`` replicates at mesh (2,) through ``pool
+    start`` (2 segments of ``JOB_K`` rounds, then the job stops) and
+    ``pool resume`` (1 segment), each a job of two gloo ranks sharing the
+    card under the command's process, one block of members a rank; the
+    unsharded pool of the same replicates runs 3 segments in this
+    process: every member's ``trace.jsonl`` byte-equal and every
+    checkpoint leaf and manifest number equal; rank 0's batched
+    fused-kernel launches (from its metrics).
+
+    15, the sharded service: phase 10's (2,) cluster-major spec through
+    ``serve chaos --kills 1`` (2 segments of ``JOB_K`` rounds: the job
+    SIGKILLed after its first checkpoint, every rank with it, then a new
+    job resuming it), against ``service_ref``, the uninterrupted sharded
+    run phase 10's (2,) job served: ``trace.jsonl`` byte-equal; no rank of
+    the killed job alive; the last checkpoint restored into an unsharded
+    engine in this process, which runs one more round with the fused
+    kernel held against its plain version."""
+    import tempfile
+    from repro_torch.api import Federation, FederationSpec
+    from repro_torch.api.scenarios import PAPER_MLP_FLEET1K
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.pop import PopulationSpec
+    from repro_torch.serve import latest_resumable, restore_resumable
+    from repro_torch.serve.pool import (common_checkpoint_step, member_dir,
+                                        pool_status, run_pool,
+                                        write_pool_spec)
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_jobs_")
+    quiet = lambda *a: None                                  # noqa: E731
+    counts, res = {}, {}
+    try:
+        base = FederationSpec.from_dict(PAPER_MLP_FLEET1K)
+
+        def spec_file(name, d):
+            path = os.path.join(root, name)
+            with open(path, "w") as f:
+                json.dump(d, f)
+            return path
+        # 15: the chaos harness, one command
+        chaos = os.path.join(root, "chaos")
+        on = ["--device", dev.type]
+        c15 = Chain([["chaos", "--run-dir", chaos, "--spec-file",
+                      spec_file("service.json", base.replace(
+                          sharding=dataclasses.replace(
+                              base.sharding, mesh=(2,))).to_dict()),
+                      "--segment-rounds", str(JOB_K), "--total-segments",
+                      "2", "--kills", "1", "--keep", "0"]],
+                    os.path.join(root, "chaos.log"), on)
+        # 14: the sharded pool, start then resume
+        sp = PopulationSpec(base=base, replicates=JOB_B).to_dict()
+        sp["sharding"] = {**sp["sharding"], "mesh": [2]}
+        sharded = os.path.join(root, "sharded_pool")
+        loop14 = ["--run-dir", sharded, "--segment-rounds", str(JOB_K),
+                  "--keep", "0", "--foreground"]
+        c14 = Chain([["pool", "start", "--spec-file",
+                      spec_file("sharded_pool.json", sp), "--max-segments",
+                      "2", *loop14],
+                     ["pool", "resume", "--max-segments", "1", *loop14]],
+                    os.path.join(root, "sharded_pool.log"), on)
+        # 4f: the pool, start then resume
+        ppspec = PopulationSpec(base=base, replicates=2)
+        resumed = os.path.join(root, "resumed")
+        loop4f = ["--run-dir", resumed, "--segment-rounds", str(POOL_K),
+                  "--keep", "0", "--foreground"]
+        c4f = Chain([["pool", "start", "--spec-file",
+                      spec_file("population.json", ppspec.to_dict()),
+                      "--max-segments", "2", *loop4f],
+                     ["pool", "resume", "--max-segments", "1", *loop4f]],
+                    os.path.join(root, "pool.log"), on)
+        t0 = time.perf_counter()
+        for c in (c15, c14, c4f):
+            c.start()
+
+        # meanwhile, here: the unsharded pools
+        def straight_pool(name, pspec, K, label, expect):
+            d = os.path.join(root, name)
+            os.makedirs(d)
+            write_pool_spec(d, pspec)
+            reset_launches()
+            t1 = time.perf_counter()
+            run_pool(d, segment_rounds=K, max_segments=3, keep=None,
+                     device=dev.type, log=quiet)
+            torch.cuda.synchronize()
+            counts[label] = dict(launches)
+            check(launches["trust_aggregate_global_pop"] == expect,
+                  f"{label}: launches {counts[label]}")
+            return d, time.perf_counter() - t1
+        plain14, plain14_s = straight_pool(
+            "plain_pool", PopulationSpec(base=base, replicates=JOB_B),
+            JOB_K, "sharded_pool_unsharded_reference", 3 * JOB_K)
+        straight, straight_s = straight_pool(
+            "straight", ppspec, POOL_K, "pool_straight", 3 * POOL_K)
+
+        # 4f: compare, a ragged frontier resumed here, then status
+        r4f = c4f.done("the pool CLI")
+
+        def compare(what):
+            for b in range(2):
+                ra, rb = member_dir(resumed, b), member_dir(straight, b)
+                check(read_bytes(os.path.join(ra, "trace.jsonl")) ==
+                      read_bytes(os.path.join(rb, "trace.jsonl")),
+                      f"pool ({what}): member {b}'s trace.jsonl differs "
+                      "from the straight pool's")
+                ma = latest_resumable(os.path.join(ra, "checkpoints"))[1]
+                mb = latest_resumable(os.path.join(rb, "checkpoints"))[1]
+                check(ma["rounds"] == mb["rounds"] == 3 * POOL_K
+                      and ma["energy"] == mb["energy"],
+                      f"pool ({what}): member {b} manifests {ma} vs {mb}")
+        compare("resumed")
+        ckpts = os.path.join(member_dir(resumed, 1), "checkpoints")
+        for f in os.listdir(ckpts):
+            if f"{3 * POOL_K:08d}" in f:
+                os.remove(os.path.join(ckpts, f))
+        dirs = [member_dir(resumed, b) for b in range(2)]
+        check(common_checkpoint_step(dirs) == 2 * POOL_K,
+              f"ragged frontier: common step {common_checkpoint_step(dirs)}")
+        t1 = time.perf_counter()
+        run_pool(resumed, segment_rounds=POOL_K, max_segments=1, keep=None,
+                 resume=True, device=dev.type, log=quiet)
+        ragged_s = time.perf_counter() - t1
+        compare("ragged frontier resumed")
+        status = Chain([["pool", "status", "--run-dir", resumed]],
+                       os.path.join(root, "pool.log"))
+        status.start()
+
+        # 14: every member against the unsharded pool's
+        r14 = c14.done("the sharded pool")
+        st = pool_status(sharded)
+        check(st["state"]["status"] == "stopped" and not st["alive"]
+              and len(st["state"].get("ranks", ())) == 2
+              and st["state"]["rounds"] == 3 * JOB_K,
+              f"the sharded pool's status: {st['state']}")
+        for b in range(JOB_B):
+            got, want = member_dir(sharded, b), member_dir(plain14, b)
+            check(read_bytes(os.path.join(got, "trace.jsonl"))
+                  == read_bytes(os.path.join(want, "trace.jsonl")),
+                  f"sharded pool member {b}: trace.jsonl differs from the "
+                  "unsharded pool's")
+            check(same_checkpoints(os.path.join(got, "checkpoints"),
+                                   os.path.join(want, "checkpoints")),
+                  f"sharded pool member {b}: checkpoints differ from the "
+                  "unsharded pool's")
+        ranks = rank_launches(sharded, 2)
+        check(all(r["trust_aggregate_global_pop"] == JOB_K for r in ranks),
+              f"the sharded pool's ranks (resumed, 1 segment): launches "
+              f"{ranks}")
+        counts["sharded_pool_rank0_resume"] = ranks[0]
+        counts["sharded_pool_rank1_resume"] = ranks[1]
+        res["sharded_pool"] = {
+            "device": smi_line, "B": JOB_B, "mesh": [2],
+            "segment_rounds": JOB_K, "members_bit_for_bit": True,
+            "start_2_segments_s": r14[0]["s"],
+            "resume_1_segment_s": r14[1]["s"],
+            "unsharded_3_segments_s": plain14_s,
+            "rank_launches_resumed": ranks}
+        print(f"phase 14 (sharded pool): B {JOB_B} at mesh (2,): every "
+              f"member's trace and checkpoints bit for bit the unsharded "
+              f"pool's; start {r14[0]['s']:.2f} s, resume "
+              f"{r14[1]['s']:.2f} s, unsharded 3 segments {plain14_s:.2f} s"
+              f"; the ranks' trust_aggregate_global_pop launches "
+              f"{[r['trust_aggregate_global_pop'] for r in ranks]} "
+              f"({smi_line})", flush=True)
+
+        # 15: the recovered trace against the uninterrupted sharded run's
+        r15 = c15.done("serve chaos of the sharded spec")
+        summary = json.loads(r15[0]["stdout"])
+        kill = [e for e in summary["events"] if e["event"] == "sigkill"]
+        check(summary["segments"] == 2 and summary["kills"] == 1 and kill
+              and len(kill[0]["ranks"]) == 2 and kill[0]["left_alive"] == [],
+              f"chaos of the sharded spec: {summary}")
+        check(read_bytes(os.path.join(chaos, "trace.jsonl"))
+              == read_bytes(os.path.join(service_ref, "trace.jsonl")),
+              "the sharded service: the recovered trace.jsonl differs from "
+              "the uninterrupted sharded run's")
+        # the cluster-major round: the unmasked kernel on every rank a
+        # round, the masked one on the firing cluster's owner only
+        ranks = rank_launches(chaos, 2)
+        check(all(r["trust_aggregate_dense"] == JOB_K for r in ranks)
+              and sum(r["trust_aggregate"] for r in ranks) == JOB_K,
+              f"the sharded service's ranks (resumed, 1 segment): "
+              f"launches {ranks}")
+        counts["sharded_service_rank0_resume"] = ranks[0]
+        counts["sharded_service_rank1_resume"] = ranks[1]
+        path, manifest = latest_resumable(os.path.join(chaos, "checkpoints"))
+        fed = Federation.from_spec(base)
+        check(type(fed.engine).__name__ == "DeviceScaleEngine",
+              f"unsharded engine {type(fed.engine).__name__}")
+        restore_resumable(fed, os.path.join(chaos, "checkpoints"))
+        check(fed.engine.round == manifest["rounds"] == 2 * JOB_K,
+              f"restored round {fed.engine.round}, manifest {manifest}")
+        reset_launches()
+        live = live_check(fed, 1)
+        counts["sharded_service_restored"] = dict(launches)
+        check(len(live) == 1 and live[0][2],
+              f"the restored unsharded engine's fused kernel: {live}")
+        del fed
+        torch.cuda.empty_cache()
+        res["sharded_service"] = {
+            "device": smi_line, "mesh": [2], "impl": "shard_map",
+            "segment_rounds": JOB_K, "trace_bit_for_bit": True,
+            "kill": kill[0], "restarts": summary["restarts"],
+            "child_startups": summary["startups"], "chaos_s": r15[0]["s"],
+            "rank_launches_resumed": ranks,
+            "restored_live_max_abs_err": live[0][0]}
+        trust = [[r["trust_aggregate"], r["trust_aggregate_dense"]]
+                 for r in ranks]
+        print(f"phase 15 (sharded service): chaos --kills 1 at mesh (2,) "
+              f"byte-equal to the uninterrupted sharded run, ranks "
+              f"{kill[0]['ranks']} gone after the kill, the checkpoint "
+              f"restored unsharded (fused kernel {live[0][0]:.3g}); the "
+              f"ranks' masked / unmasked trust launches {trust}; chaos "
+              f"{r15[0]['s']:.2f} s, child start-ups "
+              f"{json.dumps(summary['startups'])} ({smi_line})", flush=True)
+
+        # 4f: the status of the pool, as a user reads it
+        rs = status.done("pool status")
+        st = json.loads(rs[0]["stdout"])
+        check(st["state"]["status"] == "stopped" and not st["alive"]
+              and [m["checkpoint_step"] for m in st["members"]]
+              == [3 * POOL_K] * 2, f"pool status: {st}")
+        res["pool"] = {
+            "B": 2, "segment_rounds": POOL_K,
+            "wall_s": {"start_2_segments": r4f[0]["s"],
+                       "resume_1_segment": r4f[1]["s"],
+                       "straight_3_segments_in_process": straight_s,
+                       "ragged_resume_in_process": ragged_s,
+                       "status": rs[0]["s"]},
+            "state": st["state"],
+            "trace_bytes": [os.path.getsize(os.path.join(
+                member_dir(resumed, b), "trace.jsonl")) for b in range(2)]}
+        print(f"pool: 2 + 1 resumed segments == 3 straight and a ragged "
+              f"frontier resumed at round {2 * POOL_K} == 3 straight (each "
+              f"member's trace.jsonl byte-equal, manifest energy equal); "
+              f"{json.dumps(res['pool'])}", flush=True)
+        res["chains_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["counts"] = counts
+    print(f"phases 4f's pool CLI, 14 and 15, their commands at once: "
+          f"{res['phase_s']:.2f} s", flush=True)
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare-with", metavar="DIR", nargs="+", default=[],
@@ -6473,6 +6922,8 @@ def main() -> None:
                     help=argparse.SUPPRESS)
     ap.add_argument("--train-sharded-worker", metavar="JSON",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--estimate-worker", metavar="JSON",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -6486,6 +6937,9 @@ def main() -> None:
         return
     if args.train_sharded_worker:
         sharded_train_worker(json.loads(args.train_sharded_worker))
+        return
+    if args.estimate_worker:
+        sharded_estimate_worker(json.loads(args.estimate_worker))
         return
     from repro_torch.api import ControllerSpec, Federation, FederationSpec
     from repro_torch.api.scenarios import PAPER_MLP_FLEET1K
@@ -6640,6 +7094,7 @@ def main() -> None:
     # 4e. the service mode: checkpointed segments, resume, a SIGKILL
     service = service_phase(dev)
     counts.update(service.pop("counts"))
+    chaos4e = ServiceChaos(service.pop("chaos"))    # with the jobs, at the end
     torch.cuda.empty_cache()
     stamp("4e")
     # 4f. populations: B federations as one batched round, and the pool
@@ -6733,7 +7188,8 @@ def main() -> None:
 
     # 10. the cluster-major federation over torch.distributed ranks, and
     # the unmasked kernel at a rank's Eqn-19 shape (C_loc 8, N)
-    multi = multi_device_phase(dev, smi_line)
+    service_ref = tempfile.mkdtemp(prefix="chip_smoke_service_ref_")
+    multi = multi_device_phase(dev, smi_line, service_ref)
     counts.update(multi.pop("counts"))
     total = {k: sum(c[k] for c in counts.values()) for k in launches}
     c_loc = multi["runs"]["paper-mlp-fleet1k"]["mesh_2"]["C_loc"]
@@ -6742,7 +7198,7 @@ def main() -> None:
     stamp("10")
 
     # 10b. the partitioner-inferred placement through DTensor
-    gspmd = gspmd_phase(dev, smi_line)
+    gspmd = gspmd_phase(dev, smi_line, multi["gspmd_refused"])
     counts.update(gspmd.pop("counts"))
     total = {k: sum(c[k] for c in counts.values()) for k in launches}
     stamp("10b")
@@ -6762,6 +7218,22 @@ def main() -> None:
     stamp("11, 12 and 13's runs")
     bk = bf16_kernel_phase(dev)
     stamp("13")
+
+    # the jobs at the end, at once: 4e's chaos harness, 9b's training
+    # CLIs, 4f's pool CLI, 14. the sharded pool and 15. the sharded service
+    free_library_memory()
+    clis = TrainCLIs()
+    chaos4e.start()
+    clis.start()
+    jobs = jobs_phase(dev, smi_line, service_ref)
+    shutil.rmtree(service_ref, ignore_errors=True)
+    counts.update(jobs.pop("counts"))
+    population["population"]["pool"] = jobs.pop("pool")
+    moe_training["cli"] = clis.done()
+    chaos4e.report(service["service"])
+    total = {k: sum(c[k] for c in counts.values()) for k in launches}
+    stamp("the jobs at the end (4e's chaos, 9b's CLIs, 4f's pool CLI, 14 "
+          "and 15)")
     train_launches = {k: sum(c[k] for c in train_counts.values())
                       for k in launches}
 
@@ -7052,6 +7524,9 @@ def main() -> None:
     print(json.dumps({"serve_sharded": {"device": smi_line,
                                         **serve_sharded}}), flush=True)
     print(json.dumps({"bf16_training": {**bf16_train, "kernels": bk}}),
+          flush=True)
+    print(json.dumps({"sharded_pool": jobs["sharded_pool"]}), flush=True)
+    print(json.dumps({"sharded_service": jobs["sharded_service"]}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

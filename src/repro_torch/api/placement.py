@@ -259,9 +259,10 @@ def gspmd_placement(sharding: ShardingSpec, device=None) -> Placement:
             f"all-gather between {G} ranks that share a card (backend "
             "gloo), and DTensor's all-gather (the functional collective "
             "all_gather_into_tensor) of CUDA tensors over gloo ends the "
-            "process with a segfault (scripts/dtensor_probe.py); run one "
-            "rank a card (backend nccl) or on the CPU (device='cpu'); "
-            "ROADMAP.md, queue 1, item 9")
+            "process with a segfault (scripts/dtensor_probe.py): a limit "
+            "of the card's torch, not of the port; run one rank a card "
+            "(backend nccl), impl='shard_map' on a 1-D mesh, or on the CPU "
+            "(device='cpu')")
     kernel_rules()
     member_rules()
     return Placement(world_size=G, rank=dist.get_rank(group), device=dev,

@@ -45,8 +45,10 @@ def unported(spec: "FederationSpec") -> Optional[str]:
     meshes) or the partitioner-inferred placement through DTensor
     (``impl='gspmd'``, every multi-axis mesh, and the ``device-gspmd``
     scale); and the datacenter scale's LM training of every kind of model
-    (dense, hybrid, SSM, MoE, MLA and audio).  A sharded datacenter spec
-    is left to `FederationSpec.validate`, which rejects it as the JAX
+    (dense, hybrid, SSM, MoE, MLA and audio).  A sharded device-scale spec
+    runs as a checkpointed service too, and a sharded population as a
+    pool (`repro_torch.serve`: one job of ranks).  A sharded datacenter
+    spec is left to `FederationSpec.validate`, which rejects it as the JAX
     package does."""
     if spec.scale not in (DEVICE_SCALE, GSPMD_DEVICE_SCALE,
                           DATACENTER_SCALE):

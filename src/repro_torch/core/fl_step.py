@@ -338,7 +338,7 @@ def build_train_step(cfg, opt: Optimizer, *, mode: str, local_steps: int = 1,
     def train_step(state: TrainState, batch, trust_rep, staleness):
         from . import sharding as shd
         rk = _rank_share(cfg, state, batch, mode, ep)
-        sh, inner, compute = rk.shards, rk.inner, rk.compute
+        sh, inner = rk.shards, rk.inner
         if loss_fn is not None and sh.mesh is not None:
             raise ValueError("a sharded step computes the LM loss; a "
                              "custom loss_fn runs unsharded")
@@ -351,11 +351,12 @@ def build_train_step(cfg, opt: Optimizer, *, mode: str, local_steps: int = 1,
         trust_rep, staleness = trust_rep.to(dev), staleness.to(dev)
 
         def lm(leaves, mb):
-            ps = {k: sh.relayout(v, inner[k], compute[k])
-                  for k, v in leaves.items()}
+            # the leaves as they rest: the model gathers each layer's as
+            # the layer runs (`LM.forward_aux`)
             if mode == MODE_A:
-                return lm_loss(model, mb, params=ps, remat=remat, shards=sh)
-            return weighted_lm_loss(model, mb, mb["weights"], params=ps,
+                return lm_loss(model, mb, params=leaves, remat=remat,
+                               shards=sh)
+            return weighted_lm_loss(model, mb, mb["weights"], params=leaves,
                                     remat=remat, shards=sh)
 
         def sync(k, g):
@@ -453,7 +454,6 @@ class _RankShare(NamedTuple):
     """This rank's view of a step's state (`_rank_share`)."""
     shards: Any           # `sharding.Shards`; NO_SHARDS for a plain state
     inner: Dict[str, tuple]     # each leaf's at-rest spec, leading dims off
-    compute: Dict[str, tuple]   # the layout each leaf is used in
     params: Tree          # the local tensors (the state's own storage)
     opt: Any
     whole: Any            # per optimizer leaf: whole over the federation
@@ -475,7 +475,7 @@ def _rank_share(cfg, state: TrainState, batch, mode: str, ep: bool
         specs = {k: (None,) * (v.dim() - lead)
                  for k, v in state.params.items()}
         return _RankShare(
-            shd.NO_SHARDS, specs, specs, state.params, state.opt,
+            shd.NO_SHARDS, specs, state.params, state.opt,
             shd.map_tree(lambda t: False, state.opt), batch, (0,) * lead,
             tuple(first.shape[:lead]), ((),) * lead, first.device)
     mesh = first.device_mesh
@@ -483,7 +483,7 @@ def _rank_share(cfg, state: TrainState, batch, mode: str, ep: bool
     inner = {k: s[lead:] for k, s in specs.items()}
     compute = {k: shd.compute_spec(k, s) for k, s in inner.items()}
     sh = shd.Shards(mesh, compute, tokens=("data",) if mode == MODE_B
-                    else (), ep=ep)
+                    else (), ep=ep, rest=inner)
     lead_ax = tuple(shd.entry_axes(e) for e in specs[next(iter(specs))][
         :lead])
     # a leaf replicated over the federation's axes (the step count) holds
@@ -498,7 +498,7 @@ def _rank_share(cfg, state: TrainState, batch, mode: str, ep: bool
              for k, v in batch.items()}
     n_local = tuple(first.to_local().shape[:lead])
     origin = tuple(sh.index(a) * n for a, n in zip(lead_ax, n_local))
-    return _RankShare(sh, inner, compute,
+    return _RankShare(sh, inner,
                       {k: shd.local(v) for k, v in state.params.items()},
                       shd.map_tree(shd.local, state.opt), whole, batch,
                       origin, n_local, lead_ax, dev)

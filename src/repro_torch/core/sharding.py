@@ -28,9 +28,11 @@ share of the forward is a `Shards`:
     count the axis does not divide), the projections are gathered to
     whole heads before the kernel and cut back after it;
   * in mode B the tokens split over ``data``: FSDP'd weights
-    (``fsdp_tp``) are gathered over ``data`` before use (`Shards.relayout`)
-    and the MoE gathers its tokens (the plain dispatch the JAX package's
-    plan runs) or exchanges them all-to-all (the expert-parallel branch,
+    (``fsdp_tp``) rest sharded over ``data`` and are gathered a layer at a
+    time, as the layer runs (`Shards.use` with the at-rest specs ``rest``,
+    inside the layer's checkpoint: its recompute gathers again), and the
+    MoE gathers its tokens (the plain dispatch the JAX package's plan
+    runs) or exchanges them all-to-all (the expert-parallel branch,
     ``ep=True``);
   * the loss of each rank is its *share*: the shares of all ranks of the
     step's group sum to the loss.  Every collective's backward is its
@@ -51,8 +53,9 @@ op.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Any, Dict, Mapping, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -280,6 +283,12 @@ def axis_group(mesh, axes: Sequence[str]):
 collectives: Dict[str, Dict[str, int]] = {}
 
 
+# context-manager factories entered around the gathers of `Shards.use`
+# (`repro_torch.launch.op_stats.OpStats` counts what is made inside as
+# gathered parameters)
+gather_scopes: List[Callable[[], Any]] = []
+
+
 def reset_collectives() -> None:
     """Set the counts of the step's own collectives to 0."""
     collectives.clear()
@@ -370,8 +379,9 @@ def all_reduce_(x: torch.Tensor, group, op=None) -> torch.Tensor:
 class Shards:
     """A rank's share of a sharded forward (module notes): the mesh, the
     compute spec of every parameter (its spec without the federation's
-    leading dims and with the FSDP'd ``data`` entries gathered), the axes
-    the tokens split over (``tokens``: ``('data',)`` in mode B), and
+    leading dims and with the FSDP'd ``data`` entries gathered) and, where
+    the parameters are handed over as they rest, their at-rest specs
+    (``rest``: `use` gathers a layer's), the axes the tokens split over (``tokens``: ``('data',)`` in mode B), and
     whether the MoE runs its expert-parallel branch (``ep``); tensor
     parallelism is on ``model`` (``tp``).  The model's blocks take the view of
     their own parameters (`sub`); every collective is skipped over a
@@ -395,13 +405,18 @@ class Shards:
             ) -> Dict[str, torch.Tensor]:
         """``params`` (this rank's shards at their at-rest specs ``rest``,
         named under ``prefix``) in their compute layouts: the FSDP'd
-        leaves gathered (serving gathers a layer's as it runs).  Without
+        leaves gathered (serving and training gather a layer's as it
+        runs).  Without
         ``rest`` the parameters are in their compute layouts already."""
         if not self.rest:
             return dict(params)
         pre = f"{self.prefix}{prefix}." if prefix else self.prefix
-        return {k: self.relayout(v, self.rest[pre + k], self.specs[pre + k])
-                for k, v in params.items()}
+        with contextlib.ExitStack() as scopes:
+            for scope in gather_scopes:
+                scopes.enter_context(scope())
+            return {k: self.relayout(v, self.rest[pre + k],
+                                     self.specs[pre + k])
+                    for k, v in params.items()}
 
     def spec(self, name: str) -> Spec:
         return self.specs[self.prefix + name]
@@ -580,7 +595,9 @@ def sharded_unclipped(opt, k: str, grad, state, spec: Spec, mesh,
     ``axes`` is gathered whole with its state, as in `sharded_update`, and
     freed on return -> (this rank's chunk of the unclipped update and of
     the new state, the whole leaf's float32 sum of squares of the update,
-    and its number of entries)."""
+    and its number of entries).  The update's chunk is a copy: the caller
+    holds every leaf's of a group until it clips them, and a view would
+    keep each whole update alive with it."""
     if not _sharded({k: spec}, mesh, axes):
         us, new, ss = opt.unclipped({k: grad}, state)
         return us[k], new, ss, us[k].numel()
@@ -592,5 +609,5 @@ def sharded_unclipped(opt, k: str, grad, state, spec: Spec, mesh,
         map_tree(lambda t, s: sh.relayout(t, s, (None,) * len(s))
                  .contiguous(), state, state_spec(state, specs)))
     down = lambda t, s: sh.relayout(t, (None,) * len(s), s)     # noqa
-    return (down(us[k], spec), map_tree(down, new, state_spec(new, specs)),
-            ss, us[k].numel())
+    return (down(us[k], spec).clone(memory_format=torch.contiguous_format),
+            map_tree(down, new, state_spec(new, specs)), ss, us[k].numel())

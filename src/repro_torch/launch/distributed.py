@@ -20,6 +20,15 @@ The env contract (``REPRO_DIST_COORD`` / ``_NPROC`` / ``_PID``, and
 works under an external launcher (mpirun, srun, k8s indexed jobs): export
 the variables for each rank and call :func:`initialize_from_env`.
 
+A job that outlives its caller (the sharded service and pool,
+`repro_torch.serve`) runs under `run_job`: this process starts the G
+ranks and supervises them, and its one pid stands for the job.  SIGTERM
+or SIGINT to it is passed to rank 0, which agrees the stop with the others
+(`agree`); a rank dies with the supervisor (``PR_SET_PDEATHSIG``, set as
+the rank joins its group), and when a rank fails the supervisor kills the
+others, so no rank is left waiting in a collective or holding the card or
+the coordinator's port.
+
 The backend follows one rule, logged at start: ``nccl`` when every rank
 has a card of its own (CUDA and at least as many cards as ranks; rank r
 takes card r), ``gloo`` on the CPU and when ranks share a card (gloo
@@ -45,8 +54,10 @@ ENV_COORD = "REPRO_DIST_COORD"            # host:port of rank 0
 ENV_NPROC = "REPRO_DIST_NPROC"            # world size
 ENV_PID = "REPRO_DIST_PID"                # this process's rank
 ENV_LOCAL = "REPRO_DIST_LOCAL_DEVICES"    # shards a rank: must be 1
+ENV_JOB = "REPRO_DIST_JOB_PID"            # the supervisor of a `run_job`
 
 DEFAULT_TIMEOUT_S = 300.0                 # of the group's collectives
+POLL_S = 0.05                             # how often a job's ranks are polled
 
 log = logging.getLogger("repro_torch.distributed")
 
@@ -76,6 +87,8 @@ def initialize_from_env(device=None,
     coord = os.environ.get(ENV_COORD)
     if coord is None:
         return None
+    if ENV_JOB in os.environ:
+        die_with_job()
     import torch
     import torch.distributed as dist
 
@@ -100,6 +113,139 @@ def initialize_from_env(device=None,
         backend, init_method=f"tcp://{coord}", world_size=nproc, rank=pid,
         timeout=datetime.timedelta(seconds=float(timeout)))
     return pid
+
+
+def in_job() -> bool:
+    """Whether this process is a rank of a job (the ``REPRO_DIST_*`` env
+    is set)."""
+    return ENV_COORD in os.environ
+
+
+def job_rank() -> int:
+    """This process's rank in its job's group (0 outside any group)."""
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def agree(value):
+    """Rank 0's ``value`` on every rank of the job (a broadcast, which
+    every rank calls); ``value`` itself outside a process group."""
+    import torch.distributed as dist
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return value
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def every_rank(value) -> list:
+    """``value`` of every rank of the job, in rank order (an all-gather,
+    which every rank calls); ``[value]`` outside a process group."""
+    import torch.distributed as dist
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return [value]
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, value)
+    return out
+
+
+def die_with_job() -> None:
+    """Have the kernel SIGKILL this rank when its `run_job` supervisor
+    dies (``PR_SET_PDEATHSIG``); exit at once if it is gone already."""
+    import ctypes
+    import signal
+    job = int(os.environ[ENV_JOB])
+    try:
+        libc = ctypes.CDLL(None, use_errno=True)
+        libc.prctl(1, int(signal.SIGKILL), 0, 0, 0)    # PR_SET_PDEATHSIG
+    except (OSError, AttributeError):
+        pass                  # no prctl: the supervisor's kills remain
+    if os.getppid() != job:
+        os._exit(1)
+
+
+def run_job(argv: Sequence[str], n_procs: int, *,
+            env: Optional[dict] = None) -> int:
+    """Run ``n_procs`` ranks of ``[sys.executable, *argv]`` as one job
+    supervised by this process, and return its exit code.
+
+    The ranks write to this process's standard output and error.  Each
+    gets the ``REPRO_DIST_*`` env (`spawn_local`'s) and this pid as
+    ``REPRO_DIST_JOB_PID``: it dies with this process (`die_with_job`).
+    SIGTERM and SIGINT to this process go on to rank 0, which agrees the
+    stop with the other ranks (`agree`).  When a rank exits non-zero the
+    others are killed at once and its code is returned (128 + the signal
+    that ended it, as a shell reports one); 0 when every rank exits 0.
+    Meant for a process that stands for the job (the sharded service's
+    and pool's ``--foreground`` process): a ``start_new_session`` parent
+    can end the whole job with one ``killpg``."""
+    import signal
+    job_env = _job_env(env, n_procs, f"127.0.0.1:{free_port()}", 1)
+    job_env[ENV_JOB] = str(os.getpid())
+    procs: List[subprocess.Popen] = []
+
+    def forward(signum, frame):
+        if procs and procs[0].poll() is None:
+            procs[0].send_signal(signum)
+
+    prev = {sig: signal.signal(sig, forward)
+            for sig in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        code = _run_ranks(argv, n_procs, job_env, procs,
+                          lambda pid: {"stdin": subprocess.DEVNULL})
+    finally:
+        for sig, handler in prev.items():
+            signal.signal(sig, handler)
+    if code:
+        log.error("a rank of the job exited with code %d: ending the job",
+                  code)
+    return code if code >= 0 else 128 - code
+
+
+def _job_env(env: Optional[dict], n_procs: int, coord: str,
+             local_devices: int) -> dict:
+    """``env`` (this process's when None) with the job's ``REPRO_DIST_*``
+    variables but the rank's own (`_run_ranks` adds it)."""
+    base = dict(os.environ if env is None else env)
+    base.update({ENV_COORD: coord, ENV_NPROC: str(n_procs),
+                 ENV_LOCAL: str(local_devices)})
+    return base
+
+
+def _run_ranks(argv: Sequence[str], n_procs: int, env: dict,
+               procs: List[subprocess.Popen], streams,
+               timeout: Optional[float] = None) -> int:
+    """Start ``n_procs`` ranks of ``[sys.executable, *argv]`` into
+    ``procs`` (rank r with ``env`` and its ``REPRO_DIST_PID``, its streams
+    ``streams(r)``, keyword arguments of `subprocess.Popen`) and wait for
+    them, polling every `POLL_S`.  Returns 0 when every rank exits 0,
+    else the first failed rank's return code as soon as it is seen.  Past
+    ``timeout`` seconds raises `subprocess.TimeoutExpired`.  Whatever
+    ends the wait, the ranks still running are killed and every rank is
+    reaped, so none is left waiting in a collective."""
+    deadline = None if timeout is None else time.monotonic() + timeout
+    try:
+        for pid in range(n_procs):
+            procs.append(subprocess.Popen(
+                [sys.executable, *argv], env={**env, ENV_PID: str(pid)},
+                **streams(pid)))
+        while True:
+            codes = [p.poll() for p in procs]
+            failed = [c for c in codes if c not in (None, 0)]
+            if failed:
+                return failed[0]
+            if all(c == 0 for c in codes):
+                return 0
+            if deadline is not None and time.monotonic() > deadline:
+                raise subprocess.TimeoutExpired([sys.executable, *argv],
+                                                timeout)
+            time.sleep(POLL_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            p.wait()
 
 
 def device_mesh(shape: Sequence[int], axes: Sequence[str], device):
@@ -180,45 +326,27 @@ def spawn_local(argv: Sequence[str], n_procs: int = 2,
     wait in a collective, are killed at once.  Past ``timeout`` seconds
     every rank is killed and `subprocess.TimeoutExpired` raised, its
     ``stderr`` the end of each rank's standard error."""
-    coord = coordinator or f"127.0.0.1:{free_port()}"
-    base = dict(os.environ if env is None else env)
+    job_env = _job_env(env, n_procs,
+                       coordinator or f"127.0.0.1:{free_port()}",
+                       local_devices)
     with tempfile.TemporaryDirectory(prefix="repro_dist_") as tmp:
-        procs, files = [], []
-        for pid in range(n_procs):
-            e = dict(base)
-            e.update({ENV_COORD: coord, ENV_NPROC: str(n_procs),
-                      ENV_PID: str(pid), ENV_LOCAL: str(local_devices)})
-            out = open(os.path.join(tmp, f"{pid}.out"), "w+")
-            err = open(os.path.join(tmp, f"{pid}.err"), "w+")
-            files.append((out, err))
-            procs.append(subprocess.Popen([sys.executable, *argv], env=e,
-                                          stdout=out, stderr=err,
-                                          text=True))
-        deadline = time.monotonic() + timeout
+        procs: List[subprocess.Popen] = []
+        files = [(open(os.path.join(tmp, f"{pid}.out"), "w+"),
+                  open(os.path.join(tmp, f"{pid}.err"), "w+"))
+                 for pid in range(n_procs)]
         try:
-            while True:
-                codes = [p.poll() for p in procs]
-                if all(c is not None for c in codes):
-                    break
-                if any(c not in (None, 0) for c in codes):
-                    break                   # a rank failed: end the job
-                if time.monotonic() > deadline:
-                    # each rank's last words, to show where it waited
-                    tails = []
-                    for pid, (_, err) in enumerate(files):
-                        err.flush()
-                        err.seek(0)
-                        tails.append(f"rank {pid}: {err.read()[-2000:]}")
-                    raise subprocess.TimeoutExpired(
-                        [sys.executable, *argv], timeout,
-                        stderr="\n".join(tails))
-                time.sleep(0.05)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-            for p in procs:
-                p.wait()
+            _run_ranks(argv, n_procs, job_env, procs,
+                       lambda pid: {"stdout": files[pid][0],
+                                    "stderr": files[pid][1], "text": True},
+                       timeout)
+        except subprocess.TimeoutExpired as e:
+            # each rank's last words, to show where it waited
+            tails = []
+            for pid, (_, err) in enumerate(files):
+                err.seek(0)
+                tails.append(f"rank {pid}: {err.read()[-2000:]}")
+            e.stderr = "\n".join(tails)
+            raise
         results = []
         for p, (out, err) in zip(procs, files):
             out.seek(0)

@@ -22,7 +22,11 @@ seconds at the H100's published rates (`repro_torch.launch.mesh`; each
 collective at the rate of the links its group spans).  The counted
 quantities are ``flops_per_dev`` (matrix products and the hand-written
 kernels' operations) and ``bytes_per_dev`` (the traffic proxy), and a
-record adds ``peak_bytes_per_device`` (the peak by category), ``device``
+record adds ``peak_bytes_per_device`` (the peak by category;
+``gathered``: the FSDP'd parameters gathered for use), ``largest_at_peak``
+(what held the peak: the live storages grouped by the op that made them,
+`OpStats.largest`), ``most_bytes_per_device`` (each category's own most,
+`OpStats.most`), ``device``
 (the card the rates are for) and ``trace_s``.  A plan `applicable` skips
 is recorded with its reason, as the JAX package records it; a failure is
 recorded and the sweep goes on.
@@ -131,10 +135,13 @@ def record_of(stats: OpStats, n_arg: int, chips: int) -> Dict[str, Any]:
     coll = {k: v["bytes"] for k, v in stats.collectives.items()}
     coll["total"] = stats.collective_bytes
     coll["count"] = sum(v["calls"] for v in stats.collectives.values())
+    summary = stats.summary()
     rec = {"chips": chips,
            "bytes_per_device": {"argument": n_arg,
                                 "total": stats.peak_bytes},
-           "peak_bytes_per_device": stats.summary()["peak"],
+           "peak_bytes_per_device": summary["peak"],
+           "largest_at_peak": summary["largest"],
+           "most_bytes_per_device": summary["most"],
            "flops_per_dev": stats.flops,
            "bytes_per_dev": stats.traffic_bytes,
            "kernel_flops_per_dev": dict(stats.kernel_flops),

@@ -23,8 +23,11 @@ Per rank it gives:
 - ``peak``: the live storages' bytes at their peak, split into the
   categories the caller registers (`track`: parameters, optimizer state,
   inputs, a cache), ``gradients`` (the ``.grad`` of a leaf made by
-  ``detach``, as the training step makes its parameters' leaves) and
-  ``other`` (activations and temporaries), as
+  ``detach``, as the training step makes its parameters' leaves),
+  ``gathered`` (the results of the all-gathers of
+  `repro_torch.core.sharding.Shards.use`: the FSDP'd parameters a layer
+  gathers to use them) and ``other``
+  (activations and temporaries), as
   ``torch.distributed._tools.mem_tracker.MemTracker`` splits them; a CUDA
   storage counts in the allocator's 512-byte blocks.  Under any dispatch
   mode a tensor counts as subclass-like, and autograd then takes the
@@ -36,7 +39,11 @@ Per rank it gives:
   input (of its shape and type) dies before the next op counts as done
   in that input's buffer, as the program run without the counter holds
   it.  Every other op counts out of place, so where autograd swaps some
-  other op the peak errs high;
+  other op the peak errs high.  Beside the peak: each category's own
+  most (``most``), and what held the live bytes when the peak was last
+  within 1 % of its final value (``largest``: the storages grouped by the
+  op that made them, their category and size, largest groups first, each
+  with its count and the layers those ops ran in);
 - ``op_hist``: calls by op;
 - ``layers``: traffic by the model layer the op ran in
   (``torch.distributed._tools.mod_tracker.ModTracker``: forward,
@@ -60,10 +67,12 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
+from ..core import sharding as shd
 from ..kernels import launch as klaunch
 
 CATEGORIES = ("parameters", "gradients", "optimizer", "inputs", "cache",
-              "other")
+              "gathered", "other")
+LARGEST = 8                     # storages listed at the peak
 
 _c10d = torch.ops.c10d
 _fc = torch.ops._c10d_functional
@@ -131,7 +140,7 @@ def _group_ranks(args) -> Tuple[int, ...]:
 
 
 class _Storage:
-    __slots__ = ("nbytes", "category", "ref")
+    __slots__ = ("nbytes", "category", "ref", "op", "layer")
 
 
 class OpStats(TorchDispatchMode):
@@ -153,8 +162,13 @@ class OpStats(TorchDispatchMode):
         self.sequence: List[Tuple[str, Tuple[int, ...], Tuple[int, ...],
                                   str]] = []
         self.live: Counter = Counter()
+        self.most: Counter = Counter()      # each category's own most
         self.peak_bytes = 0
         self.peak: Dict[str, int] = {}
+        self.largest: List[Dict[str, Any]] = []
+        self._listed_at = 0                 # the peak `largest` was taken at
+        self._gathering = False             # inside `Shards.use`'s gathers
+        self._op = "track"
         self._storages: Dict[int, _Storage] = {}
         self._leaves: List[weakref.ref] = []
         self._kernel_depth = 0
@@ -176,6 +190,25 @@ class OpStats(TorchDispatchMode):
         for t in _tensors(tree):
             self._add(_local(t).untyped_storage(), category)
 
+    @contextlib.contextmanager
+    def gathering(self):
+        """Count the results of the all-gathers inside (those of
+        `Shards.use`) as ``gathered``."""
+        before, self._gathering = self._gathering, True
+        try:
+            yield
+        finally:
+            self._gathering = before
+
+    def _move(self, st: torch.UntypedStorage, category: str) -> None:
+        rec = self._storages.get(id(st))
+        if rec is None or rec.ref() is not st or rec.category == category:
+            return
+        self.live[rec.category] -= rec.nbytes
+        rec.category = category
+        self.live[category] += rec.nbytes
+        self.most[category] = max(self.most[category], self.live[category])
+
     def _add(self, st: torch.UntypedStorage, category: str) -> None:
         key = id(st)
         have = self._storages.get(key)
@@ -186,10 +219,12 @@ class OpStats(TorchDispatchMode):
             n = -(-n // 512) * 512
         rec = _Storage()
         rec.nbytes, rec.category = n, category
+        rec.op, rec.layer = self._op, self._layer()
         rec.ref = weakref.ref(st, lambda _, key=key, rec=rec:
                               self._drop(key, rec))
         self._storages[key] = rec
         self.live[category] += n
+        self.most[category] = max(self.most[category], self.live[category])
 
     def _drop(self, key: int, rec: _Storage) -> None:
         self.live[rec.category] -= rec.nbytes
@@ -221,6 +256,24 @@ class OpStats(TorchDispatchMode):
             self._reclassify_gradients()
             self.peak_bytes = total
             self.peak = {c: v for c, v in self.live.items() if v}
+            if total > 1.01 * self._listed_at:
+                self._listed_at = total
+                self.largest = self._groups()
+
+    def _groups(self) -> List[Dict[str, Any]]:
+        """The live storages by (op, category, size), largest total
+        first (`largest`)."""
+        groups: Dict[tuple, Dict[str, Any]] = {}
+        for r in self._storages.values():
+            g = groups.setdefault((r.op, r.category, r.nbytes), {
+                "op": r.op, "category": r.category, "bytes_each": r.nbytes,
+                "count": 0, "layers": set()})
+            g["count"] += 1
+            g["layers"].add(r.layer)
+        top = sorted(groups.values(),
+                     key=lambda g: -g["bytes_each"] * g["count"])[:LARGEST]
+        return [{**g, "bytes": g["bytes_each"] * g["count"],
+                 "layers": len(g["layers"])} for g in top]
 
     # -- kernels --------------------------------------------------------- #
     @contextlib.contextmanager
@@ -245,6 +298,7 @@ class OpStats(TorchDispatchMode):
             self._kernel_depth -= 1
             if self._kernel_depth == 0:
                 pending, self._pending = self._pending, []
+                self._op = f"kernel:{name}"
                 for st in pending:
                     self._add(st, "other")
                 del pending
@@ -260,12 +314,14 @@ class OpStats(TorchDispatchMode):
                 known[m] = name or type(model).__name__
         self._mods.__enter__()
         klaunch.counters.append(self)
+        shd.gather_scopes.append(self.gathering)
         self._update_peak()
         return super().__enter__()
 
     def __exit__(self, *exc):
         self._settle()
         klaunch.counters.remove(self)
+        shd.gather_scopes.remove(self.gathering)
         self._mods.__exit__(*exc)
         return super().__exit__(*exc)
 
@@ -289,6 +345,7 @@ class OpStats(TorchDispatchMode):
             self._pending.extend(t.untyped_storage() for t in outs)
             return out
         name = func.overloadpacket.__name__
+        self._op = name
         self.op_hist[name] += 1
         coll = _COLLECTIVES.get(func)
         if coll is not None:
@@ -336,6 +393,9 @@ class OpStats(TorchDispatchMode):
         c = self.collectives.setdefault(kind, {"calls": 0, "bytes": 0})
         c["calls"] += 1
         c["bytes"] += n
+        if kind == "all_gather" and self._gathering:
+            for t in res:
+                self._move(t.untyped_storage(), "gathered")
         ranks = _group_ranks(args)
         self.collective_groups[ranks] += n
         if self.record:
@@ -376,6 +436,8 @@ class OpStats(TorchDispatchMode):
             "peak_bytes": self.peak_bytes,
             "peak": {c: self.peak.get(c, 0) for c in CATEGORIES
                      if self.peak.get(c, 0)},
+            "most": {c: self.most[c] for c in CATEGORIES if self.most[c]},
+            "largest": list(self.largest),
             "op_hist": dict(self.op_hist.most_common()),
             "layers": hottest_layers(self, n=None),
         }

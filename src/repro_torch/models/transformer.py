@@ -213,6 +213,14 @@ class Layer(nn.Module):
                                device=dev)
 
 
+def _gathered_layer(layer: Layer, x, lp, i: int, sh):
+    """Layer ``i`` on its parameters ``lp`` (this rank's shards), gathered
+    to their compute layouts here: inside a checkpoint, so only the shards
+    are saved (`LM.forward_aux`)."""
+    pre = f"layers.{i}"
+    return layer(x, params=sh.use(lp, pre), shards=sh.sub(pre))
+
+
 def remat_contexts():
     """A layer checkpoint's two contexts: its first pass, whose saved
     tensors are dropped, writes no selective-scan chunk states; its
@@ -335,27 +343,39 @@ class LM(nn.Module):
         load-balance loss, float32 (0 without MoE layers), as the JAX
         package's ``forward``.  ``shards``
         (`repro_torch.core.sharding.Shards`): ``params`` are this rank's
-        shards of a sharded training step, the logits its vocab columns."""
+        shards of a sharded training step, the logits its vocab columns.
+
+        With the at-rest specs (``shards.rest``) a layer's FSDP'd leaves
+        are gathered inside the function its checkpoint wraps (the JAX
+        package's gathers inside ``jax.checkpoint`` of its group body): the
+        checkpoint saves the shards, the gathered leaves die with the
+        layer's first pass, and the recompute gathers them again.  The
+        embedding is gathered for the lookup and the head for the
+        unembedding (a tied embedding once, for both)."""
         if params is None:
             params = dict(self.named_parameters())
         sh = share(shards)
-        x = self.embed_tokens(tokens, params["embed"], sh)
+        emb = sh.use({"embed": params["embed"]})["embed"]
+        x = self.embed_tokens(tokens, emb, sh)
+        if not self.cfg.tie_embeddings:
+            emb = None
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, layer in enumerate(self.layers):
             lp = sub_params(params, f"layers.{i}")
-            lsh = sh.sub(f"layers.{i}")
             if remat:
                 # the recompute routes an MoE layer's tokens as the first
                 # pass did: same input, deterministic ops (module notes)
-                x, a, _ = checkpoint(layer, x, 0, lp, shards=lsh,
+                x, a, _ = checkpoint(_gathered_layer, layer, x, lp, i, sh,
                                      use_reentrant=False,
                                      context_fn=remat_contexts)
             else:
-                x, a, _ = layer(x, params=lp, shards=lsh)
+                x, a, _ = _gathered_layer(layer, x, lp, i, sh)
             if a is not None:
                 aux = aux + a
-        return self.unembed(rmsnorm(params["final_norm"], x), params,
-                            sh), aux
+        head = {"final_norm": params["final_norm"]}
+        head.update({"embed": emb} if emb is not None else
+                    sh.use({"lm_head": params["lm_head"]}))
+        return self.unembed(rmsnorm(head["final_norm"], x), head, sh), aux
 
     def prefill(self, tokens: torch.Tensor, cache_len: int,
                 params: Optional[Mapping[str, torch.Tensor]] = None,

@@ -21,7 +21,10 @@ single JSONL sink (the run dir's ``metrics.jsonl``).  Attach it with
   no HLO, so the ``fl_hlo_*`` gauges are declared and never set;
 * fault bookkeeping: the `FaultModel`'s *static* tallies (Byzantine
   subset sizes, per-family rates) as gauges, plus a rounds-under-fault
-  counter.
+  counter;
+* the kernel launches by kernel and rank at each snapshot (the port's
+  own gauge, ``fl_kernel_launches``: a service or pool child, or each
+  rank of a sharded one, shows which kernels its path ran).
 
 Metric names follow Prometheus conventions with an ``fl_`` prefix; the
 serve supervisor adds ``service_*`` and the chaos harness ``chaos_*``
@@ -105,7 +108,21 @@ class EngineObs:
 
     def flush_snapshot(self) -> None:
         """Append a registry snapshot record to the sink (the serve loop
-        calls this once per segment; chaos after each kill/restart)."""
+        calls this once per segment; chaos after each kill/restart), with
+        the kernel launches so far of this process, or of every rank of
+        its job (``fl_kernel_launches``, by kernel and rank:
+        `repro_torch.kernels.launches`; the plain versions on the CPU count
+        none).  In a job every rank calls it at the same points: the
+        ranks' counts are gathered."""
+        from ..kernels.launch import launches
+        from ..launch.distributed import every_rank
+        g = self.registry.gauge(
+            "fl_kernel_launches",
+            "hand-written kernel launches of each rank (labels: kernel, "
+            "rank)")
+        for rank, counts in enumerate(every_rank(dict(launches))):
+            for name, n in counts.items():
+                g.set(n, kernel=name, rank=str(rank))
         if self.sink is not None:
             self.sink.append(snapshot_record(
                 self.registry, source=self.source, ts=time.time()))

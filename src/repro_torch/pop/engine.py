@@ -618,6 +618,26 @@ class PopulationEngine:
     # ------------------------------------------------------------------ #
     # per-member serve surface (checkpoint/resume in single-tenant format)
     # ------------------------------------------------------------------ #
+    @property
+    def local_members(self) -> range:
+        """The members this rank builds and runs (all of them unsharded)."""
+        return range(self._lo, self._hi)
+
+    def share_members(self) -> None:
+        """Every member's round count and energy from the rank that runs
+        it, on every rank (one all-gather, which every rank calls): after
+        each rank restored its own members from their checkpoints."""
+        if self._group is None:
+            return
+        every = [None] * dist.get_world_size(self._group)
+        dist.all_gather_object(every, {b: (self._rounds[b],
+                                           self._energy_used[b])
+                                       for b in self.local_members},
+                               group=self._group)
+        for part in every:
+            for b, (rounds, energy) in part.items():
+                self._rounds[b], self._energy_used[b] = rounds, energy
+
     def member(self, b: int) -> "PopulationMember":
         return PopulationMember(self, int(b))
 

@@ -42,7 +42,6 @@ from repro_torch.api.spec import (DEVICE_SCALE, FederationSpec,
 __all__ = ["PopulationSpec", "member_seed"]
 
 POP_AXIS = "pop"                 # default mesh axis name for the batch dim
-SHARDED_ITEM = "ROADMAP.md, queue 1, item 9"    # the sharded pool
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))

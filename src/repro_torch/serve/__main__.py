@@ -14,12 +14,20 @@ codes and run dirs, plus ``--device``).
 ``--device`` (``start``, ``resume``, ``chaos``) picks where the federation
 runs: ``cuda`` by default, ``cpu`` for the plain versions of the kernels;
 without a card, only ``--device cpu`` runs.  A scenario or spec the port
-does not run yet (a sharded spec or population among them) exits with
-code 2 naming its ROADMAP item.
+does not run yet (a segment of another scale than the device scale) exits
+with code 2 naming its ROADMAP item.
+
+A sharded spec or ``pool.json`` (a mesh of G > 1 shards) runs as one job
+of G ranks, one shard a rank: the ``--foreground`` process starts them
+(`repro_torch.launch.distributed.run_job`: gloo on the CPU and between
+ranks that share a card, nccl with a card a rank) and stands for them,
+its pid the pidfile's.  ``stop`` and SIGTERM stop every rank after the
+same segment, and a SIGKILL of the job's process group (the chaos
+harness's) or of that process ends every rank.
 
 ``pool start|resume|status|stop`` drive a population of federations in
-one process (`pool.run_pool`) into per-member run dirs, with the same
-flags and ``--device``:
+one process, or one job of ranks when sharded (`pool.run_pool`), into
+per-member run dirs, with the same flags and ``--device``:
 
     PYTHONPATH=src python -m repro_torch.serve pool start --run-dir /tmp/p \
         --spec-file population.json --segment-rounds 10
@@ -52,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import signal
 import subprocess
@@ -59,6 +68,7 @@ import sys
 import time
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.distributed import in_job
 
 from .runner import latest_resumable
 from .service import (CKPT_REQ, LOG_FILE, STOP_REQ, RunDir, child_env,
@@ -221,11 +231,6 @@ def _resolve_spec(args):
     if args.seed is not None:
         spec = spec.replace(seed=args.seed)
     spec.validate()
-    if spec.sharding.is_sharded:
-        # a segment's checkpoint would be every rank's shard of it
-        raise NotImplementedError(
-            f"not ported yet: a sharded service (mesh {spec.sharding.mesh}; "
-            "multi-device, ROADMAP.md, queue 1, item 9)")
     if spec.scale not in (DEVICE_SCALE, GSPMD_DEVICE_SCALE):
         # a segment is run_scanned(K), which only the device scale has
         raise NotImplementedError(
@@ -242,6 +247,41 @@ def _loop_argv(args) -> list:
     if args.max_segments is not None:
         argv += ["--max-segments", str(args.max_segments)]
     return argv
+
+
+def _ranks(spec) -> int:
+    """The ranks a spec (or population spec) runs on: one a shard of its
+    mesh, 1 unsharded."""
+    return math.prod(spec.sharding.mesh) if spec.sharding.is_sharded else 1
+
+
+def _supervise(rd: RunDir, child_argv: list, n_ranks: int) -> int:
+    """Run the ``--foreground`` loop of ``child_argv`` as a job of
+    ``n_ranks`` ranks, this process standing for them (its pid in the
+    pidfile; `run_job`)."""
+    from repro_torch.launch.distributed import run_job
+    rd.write_pid()
+    try:
+        return run_job(["-m", "repro_torch.serve"] + child_argv, n_ranks,
+                       env=child_env())
+    finally:
+        rd.clear_pid()
+
+
+def _as_rank(loop, args, resume: bool) -> int:
+    """This process as a rank of a job: join the group, run the loop, and
+    leave the group with the others."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.distributed import initialize_from_env
+    initialize_from_env(args.device)
+    loop(args.run_dir, segment_rounds=args.segment_rounds,
+         max_segments=args.max_segments,
+         keep=args.keep if args.keep > 0 else None, resume=resume,
+         device=args.device)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
 
 
 def _spawn(rd: RunDir, child_argv: list) -> int:
@@ -292,6 +332,8 @@ def _refuse_if_running(rd: RunDir) -> bool:
 def cmd_start(args) -> int:
     if _no_device(args):
         return 1
+    if in_job():
+        return _as_rank(run_service, args, resume=False)
     rd = RunDir(args.run_dir).ensure()
     if _refuse_if_running(rd):
         return 1
@@ -319,6 +361,9 @@ def cmd_start(args) -> int:
         return 1
     if not args.foreground:
         return _spawn(rd, ["start"] + _loop_argv(args))
+    n = _ranks(rd.load_spec())
+    if n > 1:
+        return _supervise(rd, ["start"] + _loop_argv(args), n)
     run_service(rd.root, segment_rounds=args.segment_rounds,
                 max_segments=args.max_segments, keep=keep, resume=False,
                 device=args.device)
@@ -328,6 +373,8 @@ def cmd_start(args) -> int:
 def cmd_resume(args) -> int:
     if _no_device(args):
         return 1
+    if in_job():
+        return _as_rank(run_service, args, resume=True)
     rd = RunDir(args.run_dir)
     if _refuse_if_running(rd):
         return 1
@@ -338,6 +385,9 @@ def cmd_resume(args) -> int:
     keep = args.keep if args.keep > 0 else None
     if not args.foreground:
         return _spawn(rd, ["resume"] + _loop_argv(args))
+    n = _ranks(rd.load_spec())
+    if n > 1:
+        return _supervise(rd, ["resume"] + _loop_argv(args), n)
     run_service(rd.root, segment_rounds=args.segment_rounds,
                 max_segments=args.max_segments, keep=keep, resume=True,
                 device=args.device)
@@ -482,8 +532,7 @@ def _resolve_pool_spec(args):
         pspec = PopulationSpec(base=base, replicates=args.replicates)
     if args.seed is not None:
         pspec = pspec.replace(base=pspec.base.replace(seed=args.seed))
-    from .pool import runnable_pool_spec
-    return runnable_pool_spec(pspec)
+    return pspec.validate()
 
 
 def _pool_member_dirs(root: str, size: int) -> list:
@@ -494,10 +543,10 @@ def _pool_member_dirs(root: str, size: int) -> list:
 def _checked_pool_spec(root: str):
     """The validated ``pool.json`` of ``root`` and 0, or None and the exit
     code: 1 when it is missing, `EXIT_UNPORTED` when the port cannot run
-    it (a sharded population names its ROADMAP item)."""
-    from .pool import load_pool_spec, runnable_pool_spec
+    it (a population of another scale names its ROADMAP item)."""
+    from .pool import load_pool_spec
     try:
-        return runnable_pool_spec(load_pool_spec(root)), 0
+        return load_pool_spec(root).validate(), 0
     except FileNotFoundError as e:
         print(f"error: {e}", file=sys.stderr)
         return None, 1
@@ -511,6 +560,8 @@ def cmd_pool_start(args) -> int:
                        ensure_pool_dir, run_pool, write_pool_spec)
     if _no_device(args):
         return 1
+    if in_job():
+        return _as_rank(run_pool, args, resume=False)
     rd = ensure_pool_dir(args.run_dir)
     if _refuse_if_running(rd):
         return 1
@@ -535,6 +586,9 @@ def cmd_pool_start(args) -> int:
         return 1
     if not args.foreground:
         return _spawn(rd, ["pool", "start"] + _loop_argv(args))
+    if _ranks(pspec) > 1:
+        return _supervise(rd, ["pool", "start"] + _loop_argv(args),
+                          _ranks(pspec))
     run_pool(rd.root, segment_rounds=args.segment_rounds,
              max_segments=args.max_segments, keep=keep, resume=False,
              device=args.device)
@@ -545,6 +599,8 @@ def cmd_pool_resume(args) -> int:
     from .pool import common_checkpoint_step, run_pool
     if _no_device(args):
         return 1
+    if in_job():
+        return _as_rank(run_pool, args, resume=True)
     rd = RunDir(args.run_dir)
     if _refuse_if_running(rd):
         return 1
@@ -560,6 +616,9 @@ def cmd_pool_resume(args) -> int:
     keep = args.keep if args.keep > 0 else None
     if not args.foreground:
         return _spawn(rd, ["pool", "resume"] + _loop_argv(args))
+    if _ranks(pspec) > 1:
+        return _supervise(rd, ["pool", "resume"] + _loop_argv(args),
+                          _ranks(pspec))
     run_pool(rd.root, segment_rounds=args.segment_rounds,
              max_segments=args.max_segments, keep=keep, resume=True,
              device=args.device)

@@ -24,6 +24,12 @@ Restarts use capped exponential backoff; a child that dies repeatedly
 without advancing the checkpoint frontier exhausts ``max_restarts`` and
 raises — a crash-*loop* is a bug, a crash is routine.
 
+A sharded spec's child stands for a job of G ranks (`__main__.py`): the
+harness kills the child's whole process group, which every rank shares,
+waits until none of the ranks the state names is alive (``left_alive``
+in the kill's event lists any that outlived ``kill_timeout``), and the
+restarted child starts a new job.
+
 CLI: ``python -m repro_torch.serve chaos --run-dir ... --total-segments 4
 --kills 2`` (see `__main__.py`).  The summary also gives each child's
 start-up: seconds from its spawn to its pidfile (``pidfile_s``) and to its
@@ -42,7 +48,7 @@ from repro_torch.api.records import JsonlSink
 from repro_torch.obs import MetricsRegistry, snapshot_record
 
 from .runner import latest_resumable
-from .service import LOG_FILE, METRICS_FILE, RunDir, child_env
+from .service import LOG_FILE, METRICS_FILE, RunDir, child_env, pid_alive
 
 
 def segments_done(ckpt_dir: str) -> int:
@@ -158,12 +164,20 @@ def run_supervised(run_dir: str, *, total_segments: int,
                 note_startup()
                 time.sleep(poll)
             if proc.poll() is None:
-                os.kill(proc.pid, signal.SIGKILL)
+                ranks = (rd.read_state() or {}).get("ranks", [])
+                os.killpg(proc.pid, signal.SIGKILL)     # every rank too
                 proc.wait()
+                until = time.monotonic() + kill_timeout
+                while (any(pid_alive(p) for p in ranks)
+                       and time.monotonic() < until):
+                    time.sleep(poll)
                 kills_left -= 1
                 m_kills.inc(1)
                 snap()
                 events.append({"event": "sigkill", "pid": proc.pid,
+                               "ranks": ranks,
+                               "left_alive": [p for p in ranks
+                                              if pid_alive(p)],
                                "after_segment":
                                    segments_done(rd.ckpt_dir)})
                 log(f"chaos: SIGKILLed pid {proc.pid} after segment "

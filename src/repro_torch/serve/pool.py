@@ -40,6 +40,16 @@ refused, as `runner.restore_resumable` refuses a single-tenant one.
 Telemetry publishes through `repro_torch.obs` with the member index as a
 ``pop`` label; the registry's cardinality guard collapses huge
 populations into the overflow series instead of unbounded growth.
+
+A sharded ``pool.json`` (``sharding.mesh = (G,)``) runs as a job of G
+ranks under one supervising process (`repro_torch.launch.distributed.
+run_job`; the CLI starts it), one block of members a rank as
+`PopulationEngine` shards them: rank r runs members ``[r*B/G,
+(r+1)*B/G)`` and writes their checkpoints and traces.  Rank 0 owns the
+pool root (``serve.json``, ``metrics.jsonl``; the pidfile is the
+supervisor's), takes the stop flag and ``control/stop.req`` at each
+segment boundary and broadcasts the decision, and on resume computes the
+common checkpoint step after a barrier and broadcasts it.
 """
 from __future__ import annotations
 
@@ -51,14 +61,15 @@ from typing import Any, Dict, List, Optional
 
 from repro_torch.api.records import JsonlSink, tail_jsonl
 from repro_torch.checkpoint import load_checkpoint, typed_key_leaves
+from repro_torch.launch.distributed import agree, in_job, job_rank
 from repro_torch.obs import EngineObs
 from repro_torch.pop import PopulationEngine, PopulationSpec
-from repro_torch.pop.spec import SHARDED_ITEM
 
 from .runner import (_resumable_tree, list_resumable, save_resumable,
                      truncate_jsonl_trace, verify_checkpoint)
-from .service import (CKPT_REQ, CONTROL_DIR, STOP_REQ, RunDir,
-                      atomic_write_json, read_json)
+from .service import (CKPT_REQ, CONTROL_DIR, RunDir, _quiet,
+                      atomic_write_json, job_pid, job_pids, read_json,
+                      stop_agreed)
 
 POOL_SPEC_FILE = "pool.json"
 MEMBERS_DIR = "members"
@@ -86,17 +97,18 @@ def load_pool_spec(pool_dir: str) -> PopulationSpec:
     return PopulationSpec.from_dict(d)
 
 
-def runnable_pool_spec(pspec: PopulationSpec) -> PopulationSpec:
-    """``pspec`` validated, or `NotImplementedError` for what the pool
-    cannot run: a sharded population (the pool's members run in one
-    process; a sharded population runs through
-    `PopulationEngine.from_population` under a G-rank launch)."""
-    pspec = pspec.validate()
-    if pspec.sharding.is_sharded:
-        raise NotImplementedError(
-            f"not ported yet: a sharded pool (mesh {pspec.sharding.mesh}; "
-            f"multi-device, {SHARDED_ITEM})")
-    return pspec
+class _LastRecord:
+    """A member's trace sink that keeps its last record for the pool's
+    gauges, passing every record on to ``sink`` (this rank's members'
+    ``trace.jsonl``; None for another rank's)."""
+
+    def __init__(self, sink=None):
+        self.sink, self.record = sink, None
+
+    def append(self, record) -> None:
+        self.record = record
+        if self.sink is not None:
+            self.sink.append(record)
 
 
 def ensure_pool_dir(pool_dir: str) -> RunDir:
@@ -173,9 +185,12 @@ def run_pool(pool_dir: str, *, segment_rounds: int = 25,
     truncates each member's trace back to it.
     """
     rd = ensure_pool_dir(pool_dir)
-    pspec = runnable_pool_spec(load_pool_spec(pool_dir))
+    pspec = load_pool_spec(pool_dir).validate()
     specs = pspec.expand()
     B = len(specs)
+    lead = job_rank() == 0              # rank 0 owns the pool root
+    if not lead:
+        log = _quiet
 
     stopping = {"flag": False}
 
@@ -184,29 +199,36 @@ def run_pool(pool_dir: str, *, segment_rounds: int = 25,
 
     prev = {sig: signal.signal(sig, _on_signal)
             for sig in (signal.SIGTERM, signal.SIGINT)}
-    rd.write_pid()
+    if not in_job():                    # a job's supervisor holds it
+        rd.write_pid()
     try:
-        mrds = []
-        for b, spec in enumerate(specs):
-            mrd = RunDir(member_dir(pool_dir, b)).ensure()
-            if not os.path.exists(mrd.spec_path):
-                mrd.write_spec(spec)
-            mrds.append(mrd)
+        pop = PopulationEngine(specs, device=device,
+                               sharding=pspec.sharding)
+        mine = pop.local_members        # this rank's members
+        mrds = [RunDir(member_dir(pool_dir, b)) for b in range(B)]
+        for b in mine:
+            mrds[b].ensure()
+            if not os.path.exists(mrds[b].spec_path):
+                mrds[b].write_spec(specs[b])
 
-        pop = PopulationEngine(specs, device=device)
-
-        obs = EngineObs(sink=JsonlSink(rd.metrics_path), source="pool")
+        obs = EngineObs(sink=JsonlSink(rd.metrics_path) if lead else None,
+                        source="pool")
         segment = 0
         if resume:
-            step = common_checkpoint_step([m.root for m in mrds])
+            if in_job():                # every rank's writes are done
+                import torch.distributed as dist
+                dist.barrier()
+            step = agree(common_checkpoint_step([m.root for m in mrds])
+                         if lead else None)
             if step is None:
                 raise FileNotFoundError(
                     f"resume: no common verified checkpoint across the "
                     f"{B} member dirs under {rd.path(MEMBERS_DIR)}")
             dropped = 0
-            for b, mrd in enumerate(mrds):
-                manifest = restore_member_at(pop, b, mrd.ckpt_dir, step)
-                dropped += truncate_jsonl_trace(mrd.trace_path, step)
+            for b in mine:
+                manifest = restore_member_at(pop, b, mrds[b].ckpt_dir, step)
+                dropped += truncate_jsonl_trace(mrds[b].trace_path, step)
+            pop.share_members()
             segment = int(manifest.get("segment", 0))
             obs.registry.counter(
                 "pool_resumes_total", "checkpointed pool resumes").inc(1)
@@ -214,33 +236,34 @@ def run_pool(pool_dir: str, *, segment_rounds: int = 25,
                 f"{segment}" + (f", dropped {dropped} unreplayed trace "
                                 "records" if dropped else "") + ")")
 
-        for b, mrd in enumerate(mrds):
-            pop.set_member_sink(b, JsonlSink(mrd.trace_path),
-                                retain=False)
+        lasts = [_LastRecord(JsonlSink(mrds[b].trace_path) if b in mine
+                             else None) for b in range(B)]
+        for b in range(B):
+            pop.set_member_sink(b, lasts[b], retain=False)
 
         g_loss = obs.registry.gauge(
             "pool_member_loss", "last reported loss per pool member")
         g_energy = obs.registry.gauge(
             "pool_member_energy", "cumulative energy per pool member [J]")
+        ranks = {"ranks": job_pids()} if in_job() else {}
 
         def publish(status: str, **extra) -> Dict[str, Any]:
+            if not lead:
+                return {}
             return rd.write_state(
-                status=status, pid=os.getpid(), members=B,
+                status=status, pid=job_pid(), members=B,
                 scenario=pspec.base.task.kind, segment=segment,
                 segment_rounds=segment_rounds,
                 rounds=pop.member_rounds(0),
                 energy=round(sum(pop.member_energy(b)
-                                 for b in range(B)), 6), **extra)
+                                 for b in range(B)), 6), **ranks, **extra)
 
         publish("running")
         t0 = time.monotonic()
         base_segment = segment          # max_segments counts THIS run's
-        while not stopping["flag"]:     # segments, not the lifetime total
-            if (max_segments is not None
-                    and segment - base_segment >= max_segments):
-                break
-            if rd.take_request(STOP_REQ):
-                break
+        while not stop_agreed(          # segments, not the lifetime total
+                lead, stopping, rd, max_segments is not None
+                and segment - base_segment >= max_segments):
             seg_t0 = time.monotonic()
             with obs.span("pool_segment", segment=segment + 1,
                           rounds=segment_rounds, members=B):
@@ -248,8 +271,9 @@ def run_pool(pool_dir: str, *, segment_rounds: int = 25,
                 segment += 1
                 with obs.span("pool_checkpoint", segment=segment) as sp:
                     total = 0
-                    for b, mrd in enumerate(mrds):
-                        path = save_resumable(pop.member(b), mrd.ckpt_dir,
+                    for b in mine:
+                        path = save_resumable(pop.member(b),
+                                              mrds[b].ckpt_dir,
                                               segment=segment, keep=keep)
                         try:
                             total += os.path.getsize(path)
@@ -257,17 +281,18 @@ def run_pool(pool_dir: str, *, segment_rounds: int = 25,
                             pass
                     sp.attrs["bytes"] = total
                 obs.on_checkpoint(sp.dur_s, total)
-            rd.take_request(CKPT_REQ)   # just checkpointed: consume
+            if lead:
+                rd.take_request(CKPT_REQ)   # just checkpointed: consume
             dt = time.monotonic() - seg_t0
             rps = round(B * segment_rounds / max(dt, 1e-9), 3)
             obs.registry.gauge(
                 "pool_rounds_per_sec",
                 "population round throughput of the last segment "
                 "(members x rounds / wall-clock)").set(rps)
-            for b, mrd in enumerate(mrds):
-                last = (tail_jsonl(mrd.trace_path, n=1) or [{}])[-1]
-                if last.get("loss") is not None:
-                    g_loss.set(float(last["loss"]), pop=str(b))
+            for b in range(B):
+                last = lasts[b].record
+                if last is not None and last.loss is not None:
+                    g_loss.set(float(last.loss), pop=str(b))
                 g_energy.set(pop.member_energy(b), pop=str(b))
             obs.registry.counter(
                 "pool_segments_total", "pool segments completed").inc(1)
@@ -282,11 +307,13 @@ def run_pool(pool_dir: str, *, segment_rounds: int = 25,
             f"({pop.member_rounds(0)} rounds x {B} members)")
         return state
     except BaseException as e:
-        rd.write_state(status="failed", pid=os.getpid(),
-                       error=f"{type(e).__name__}: {e}")
+        if lead:
+            rd.write_state(status="failed", pid=job_pid(),
+                           error=f"{type(e).__name__}: {e}")
         raise
     finally:
-        rd.clear_pid()
+        if not in_job():
+            rd.clear_pid()
         for sig, handler in prev.items():
             signal.signal(sig, handler)
 

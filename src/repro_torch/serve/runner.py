@@ -104,16 +104,25 @@ def _resumable_tree(federation) -> Dict[str, Any]:
 
 
 def save_resumable(federation, ckpt_dir: str, *, segment: int,
-                   keep: Optional[int] = 3) -> str:
+                   keep: Optional[int] = 3,
+                   write: bool = True) -> Optional[str]:
     """Checkpoint a federation's full resumable state; returns the npz path.
 
     ``keep`` bounds disk use for unbounded runs: after a successful write,
     all but the newest ``keep`` complete checkpoints are deleted (None
     keeps everything).
+
+    A sharded federation's resumable state is whole, in the unsharded
+    layout, and gathering it is a collective: every rank calls this, and
+    only the rank given ``write`` (rank 0) writes the checkpoint; the
+    others return None.
     """
     engine = federation.engine
     step = int(engine.round)
-    fname = save_checkpoint(ckpt_dir, step, _resumable_tree(federation))
+    tree = _resumable_tree(federation)
+    if not write:
+        return None
+    fname = save_checkpoint(ckpt_dir, step, tree)
     # manifest second: its presence marks the checkpoint complete, the
     # exact-f64 energy tally lives here (npz would truncate it to f32),
     # and the digest is what restore verifies the npz bytes against
@@ -178,17 +187,24 @@ def prune_checkpoints(ckpt_dir: str, keep: int) -> None:
                 pass
 
 
-def restore_resumable(federation, ckpt_dir: str) -> Dict[str, Any]:
-    """Restore a federation to the newest checkpoint; returns its manifest.
+def restore_resumable(federation, ckpt_dir: str,
+                      path: Optional[str] = None) -> Dict[str, Any]:
+    """Restore a federation to the newest checkpoint (or to the one at
+    ``path``: the one every rank of a sharded service restores from);
+    returns its manifest.
 
     The federation must have been built from the *same spec* (same seed:
     data, assignments, and masks regenerate deterministically) — only the
     resumable leaves are overwritten.
     """
-    found = latest_resumable(ckpt_dir)
-    if found is None:
-        raise FileNotFoundError(f"no complete checkpoint under {ckpt_dir}")
-    path, manifest = found
+    if path is None:
+        found = latest_resumable(ckpt_dir)
+        if found is None:
+            raise FileNotFoundError(
+                f"no complete checkpoint under {ckpt_dir}")
+        path = found[0]
+    with open(_manifest_path(path)) as f:
+        manifest = json.load(f)
     keys = typed_key_leaves(path)
     if keys:
         raise ValueError(
@@ -250,12 +266,13 @@ class SegmentRunner:
 
     def __init__(self, federation, ckpt_dir: str, *,
                  segment_rounds: int = 25, keep: Optional[int] = 3,
-                 eval_final: bool = True, obs=None):
+                 eval_final: bool = True, obs=None, write: bool = True):
         self.federation = federation
         self.ckpt_dir = str(ckpt_dir)
         self.segment_rounds = int(segment_rounds)
         self.keep = keep
         self.eval_final = eval_final
+        self.write = write          # False: a rank other than 0 (above)
         self.segment = 0
         # optional `repro_torch.obs.EngineObs`: wraps the segment/checkpoint in
         # timing spans and feeds the checkpoint-latency metrics; the
@@ -268,7 +285,12 @@ class SegmentRunner:
         (None for a fresh start)."""
         if latest_resumable(self.ckpt_dir) is None:
             return None
-        manifest = restore_resumable(self.federation, self.ckpt_dir)
+        return self.resume_from(None)
+
+    def resume_from(self, path: Optional[str]) -> Dict[str, Any]:
+        """Adopt the checkpoint at ``path`` (None: the newest); returns its
+        manifest."""
+        manifest = restore_resumable(self.federation, self.ckpt_dir, path)
         self.segment = int(manifest.get("segment", 0))
         return manifest
 
@@ -295,16 +317,18 @@ class SegmentRunner:
             "service_segments_total", "segments completed").inc(1)
         return trace
 
-    def checkpoint(self) -> str:
+    def checkpoint(self) -> Optional[str]:
         if self.obs is None:
             return save_resumable(self.federation, self.ckpt_dir,
-                                  segment=self.segment, keep=self.keep)
+                                  segment=self.segment, keep=self.keep,
+                                  write=self.write)
         with self.obs.span("checkpoint", segment=self.segment) as sp:
             path = save_resumable(self.federation, self.ckpt_dir,
-                                  segment=self.segment, keep=self.keep)
+                                  segment=self.segment, keep=self.keep,
+                                  write=self.write)
             try:
                 sp.attrs["bytes"] = os.path.getsize(path)
-            except OSError:
+            except (OSError, TypeError):
                 pass
         self.obs.on_checkpoint(sp.dur_s, sp.attrs.get("bytes", 0))
         return path

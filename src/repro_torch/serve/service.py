@@ -23,7 +23,18 @@ repro_torch.serve stop`` both produce a final checkpoint before exit.
 
 `run_service` is the in-process entry: build the federation from
 ``spec.json``, optionally adopt the newest checkpoint, stream the trace,
-and loop segments until stopped or ``max_segments``.  Daemonization is
+and loop segments until stopped or ``max_segments``.
+
+A sharded spec (a mesh of G > 1 shards) runs as a job of G ranks under
+one supervising process (`repro_torch.launch.distributed.run_job`; the
+CLI starts it), whose pid is the pidfile's and the state's.  Every rank
+runs the loop: the segments and the checkpoints' gathers are collectives.
+Rank 0 owns the run dir: the trace, the state, the metrics and the
+checkpoints, whole and in the unsharded layout (`runner.save_resumable`).
+At each segment boundary rank 0 reads the stop flag, ``max_segments`` and
+``control/stop.req`` and broadcasts the decision, so every rank leaves
+after the same segment; a resume restores every rank from the
+checkpoint rank 0 picked.  Daemonization is
 the CLI's job (`__main__.py` re-execs ``start --foreground`` under
 ``start_new_session``); this module never forks — CUDA cannot be used in
 a child forked after it was initialised.
@@ -38,6 +49,8 @@ from typing import Any, Dict, Optional
 
 from repro_torch.api import Federation, FederationSpec
 from repro_torch.api.records import JsonlSink, tail_jsonl
+from repro_torch.launch.distributed import (ENV_JOB, agree, in_job,
+                                            job_rank)
 from repro_torch.obs import (SPAN_SCHEMA, EngineObs, MetricsRegistry,
                              merge_snapshot_records)
 
@@ -89,13 +102,46 @@ def child_env() -> Dict[str, str]:
 
 
 def pid_alive(pid: Optional[int]) -> bool:
+    """Whether ``pid`` runs (a zombie, dead but not yet reaped, does
+    not)."""
     if not pid:
         return False
     try:
         os.kill(int(pid), 0)
     except (OSError, ValueError):
         return False
-    return True
+    try:
+        with open(f"/proc/{int(pid)}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (OSError, IndexError):
+        return True
+
+
+def job_pid() -> int:
+    """The pid that stands for this process's service or pool: its job's
+    supervisor for a rank of a sharded one, else its own."""
+    return int(os.environ.get(ENV_JOB, os.getpid()))
+
+
+def job_pids() -> list:
+    """Every rank's pid, in rank order (a collective in a job)."""
+    import torch.distributed as dist
+    if not (in_job() and dist.is_initialized()):
+        return [os.getpid()]
+    pids = [None] * dist.get_world_size()
+    dist.all_gather_object(pids, os.getpid())
+    return pids
+
+
+def stop_agreed(lead: bool, stopping: Dict[str, bool], rd: "RunDir",
+                done: bool) -> bool:
+    """Whether every rank leaves now: rank 0 (``lead``) takes
+    ``control/stop.req`` (consumed whatever else stops the loop, so a
+    ``stop``'s request does not stop the next ``resume`` at once), reads
+    the stop flag and ``done`` (``max_segments`` reached), and broadcasts
+    its decision (`agree`)."""
+    stop = lead and (rd.take_request(STOP_REQ) or stopping["flag"] or done)
+    return agree(stop)
 
 
 class RunDir:
@@ -210,6 +256,9 @@ def run_service(run_dir: str, *, segment_rounds: int = 25,
     """
     rd = RunDir(run_dir).ensure()
     spec = rd.load_spec()
+    lead = job_rank() == 0              # rank 0 owns the run dir
+    if not lead:
+        log = _quiet
 
     stopping = {"flag": False}
 
@@ -218,57 +267,63 @@ def run_service(run_dir: str, *, segment_rounds: int = 25,
 
     prev = {sig: signal.signal(sig, _on_signal)
             for sig in (signal.SIGTERM, signal.SIGINT)}
-    rd.write_pid()
+    if not in_job():                    # a job's supervisor holds it
+        rd.write_pid()
     fed = None
     try:
         fed = Federation.from_spec(spec, device=device)
         runner = SegmentRunner(fed, rd.ckpt_dir,
-                               segment_rounds=segment_rounds, keep=keep)
+                               segment_rounds=segment_rounds, keep=keep,
+                               write=lead)
         if resume:
-            manifest = runner.maybe_resume()
-            if manifest is None:
+            found = agree(latest_resumable(rd.ckpt_dir) if lead else None)
+            if found is None:
                 raise FileNotFoundError(
                     f"resume: no complete checkpoint under {rd.ckpt_dir}")
-            dropped = truncate_jsonl_trace(rd.trace_path,
-                                           manifest["rounds"])
+            manifest = runner.resume_from(found[0])
+            dropped = (truncate_jsonl_trace(rd.trace_path,
+                                            manifest["rounds"])
+                       if lead else 0)
             log(f"resumed from round {manifest['rounds']} "
                 f"(segment {runner.segment}"
                 + (f", dropped {dropped} unreplayed trace records"
                    if dropped else "") + ")")
 
-        sink = JsonlSink(rd.trace_path)
-        fed.engine.set_trace_sink(sink, retain=False)
+        fed.engine.set_trace_sink(JsonlSink(rd.trace_path) if lead
+                                  else None, retain=False)
 
         # telemetry: spans + registry snapshots stream into metrics.jsonl
         # beside the trace; the engine publishes through the same bundle
-        obs = EngineObs(sink=JsonlSink(rd.metrics_path), source="service")
+        obs = EngineObs(sink=JsonlSink(rd.metrics_path) if lead else None,
+                        source="service")
         fed.engine.set_obs(obs)
         runner.obs = obs
         if resume:
             obs.registry.counter(
                 "service_resumes_total", "checkpointed resumes").inc(1)
+        ranks = {"ranks": job_pids()} if in_job() else {}
 
         def publish(status: str, **extra) -> Dict[str, Any]:
+            if not lead:
+                return {}
             last = (tail_jsonl(rd.trace_path, n=1) or [None])[-1]
             return rd.write_state(
-                status=status, pid=os.getpid(), scenario=spec.task.kind,
+                status=status, pid=job_pid(), scenario=spec.task.kind,
                 segment=runner.segment, segment_rounds=segment_rounds,
                 rounds=runner.rounds, energy=runner.energy,
                 last_loss=(last or {}).get("loss"),
-                last_acc=(last or {}).get("acc"), **extra)
+                last_acc=(last or {}).get("acc"), **ranks, **extra)
 
         publish("running")
         t0 = time.monotonic()
         base_segment = runner.segment   # max_segments counts THIS run's
-        while not stopping["flag"]:     # segments, not the lifetime total
-            if (max_segments is not None
-                    and runner.segment - base_segment >= max_segments):
-                break
-            if rd.take_request(STOP_REQ):
-                break
+        while not stop_agreed(          # segments, not the lifetime total
+                lead, stopping, rd, max_segments is not None
+                and runner.segment - base_segment >= max_segments):
             seg_t0 = time.monotonic()
             runner.run_segment()        # K rounds + checkpoint
-            rd.take_request(CKPT_REQ)   # just checkpointed: consume
+            if lead:
+                rd.take_request(CKPT_REQ)   # just checkpointed: consume
             dt = time.monotonic() - seg_t0
             rps = round(segment_rounds / max(dt, 1e-9), 3)
             obs.registry.gauge(
@@ -285,15 +340,21 @@ def run_service(run_dir: str, *, segment_rounds: int = 25,
             f"({runner.rounds} rounds)")
         return state
     except BaseException as e:
-        rd.write_state(status="failed", pid=os.getpid(),
-                       error=f"{type(e).__name__}: {e}")
+        if lead:
+            rd.write_state(status="failed", pid=job_pid(),
+                           error=f"{type(e).__name__}: {e}")
         raise
     finally:
         if fed is not None:     # stop listening to kernel-library loads
             fed.engine.set_obs(None)
-        rd.clear_pid()
+        if not in_job():
+            rd.clear_pid()
         for sig, handler in prev.items():
             signal.signal(sig, handler)
+
+
+def _quiet(*args, **kwargs) -> None:
+    """The log of a rank other than 0: rank 0 speaks for the job."""
 
 
 # --------------------------------------------------------------------- #

@@ -346,7 +346,8 @@ def test_mesh_one_matches_the_jax_gspmd_engine(needs_jax, execution):
 def test_placement_refuses_what_fails_on_cards(monkeypatch, backend, mesh,
                                                refused):
     """On cards, no fallback: gloo ranks sharing a card (DTensor's
-    all-gather segfaults) raise a `RuntimeError` naming ROADMAP item 9;
+    all-gather segfaults) raise a `RuntimeError` naming the card's limit
+    and what runs instead;
     meshes over NCCL, 1-D and multi-axis (F2 repaired: the round's
     reductions and its event choice run on tensors the process groups
     gathered, `placement.gather`), and one-rank meshes build."""
@@ -366,7 +367,8 @@ def test_placement_refuses_what_fails_on_cards(monkeypatch, backend, mesh,
         return
     with pytest.raises(RuntimeError, match=refused) as err:
         placement.resolve(spec, n_devices=16, n_clusters=4, device="cuda")
-    assert "queue 1, item 9" in str(err.value)
+    assert "a limit of the card's torch" in str(err.value)
+    assert "impl='shard_map'" in str(err.value)
 
 
 def _gspmd_placement(mesh):
@@ -530,10 +532,13 @@ def test_cli_runs_a_two_by_two_mesh_under_a_four_rank_launch(jobs):
 
 def test_the_service_refuses_a_sharded_spec_naming_its_item(tmp_path,
                                                             capsys):
-    """The service keeps refusing sharded specs (a segment's checkpoint
-    would be every rank's shard), naming the ROADMAP item that ports it;
-    the ``device-gspmd`` scale on one device runs as the device scale."""
-    from repro_torch.serve.__main__ import main
+    """The service no longer refuses sharded specs: a mesh of one shard
+    runs in the process (a one-rank group), a larger mesh resolves for a
+    job of ranks (run in ``tests/test_torch_service_sharded.py``); the
+    ``device-gspmd`` scale on one device runs as the device scale."""
+    import argparse
+
+    from repro_torch.serve.__main__ import _ranks, _resolve_spec, main
 
     def start(d, name, *extra):
         path = tmp_path / f"{name}.json"
@@ -541,11 +546,13 @@ def test_the_service_refuses_a_sharded_spec_naming_its_item(tmp_path,
         return main(["start", "--run-dir", str(tmp_path / name),
                      "--spec-file", str(path), "--device", "cpu",
                      "--foreground", *extra])
-    for name, d in (("two", spec_dict(mesh=(2,))),
-                    ("one", spec_dict(mesh=(1, 1)))):
-        assert start(d, name) == 2
-        err = capsys.readouterr().err
-        assert "a sharded service" in err and "queue 1, item 9" in err
+    path = tmp_path / "two.json"
+    path.write_text(json.dumps(spec_dict(mesh=(2,))))
+    two = _resolve_spec(argparse.Namespace(spec_file=str(path), seed=None))
+    assert two.sharding.is_sharded and _ranks(two) == 2
+    assert start(spec_dict(mesh=(1, 1)), "one", "--segment-rounds", "2",
+                 "--max-segments", "1") == 0
+    assert "not ported" not in capsys.readouterr().err
     assert start(spec_dict(FIXED, scale="device-gspmd"), "scale",
                  "--segment-rounds", "2", "--max-segments", "1") == 0
 

@@ -204,9 +204,11 @@ def test_pool_cli_start_resume_status_on_the_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("cmd", ["start", "resume"])
 def test_pool_cli_exits_2_on_a_sharded_pool_json(tmp_path, capsys, cmd):
-    """A `pool.json` the JAX package wrote for a population on a 1-D mesh:
-    both commands refuse it with `EXIT_UNPORTED` and name the ROADMAP item
-    that ports it, before any member runs."""
+    """A `pool.json` the JAX package wrote for a population on a 1-D mesh,
+    which both commands once refused with `EXIT_UNPORTED`: both now run it
+    as a job of two ranks, one member a rank, each rank writing its
+    member's dir (``tests/test_torch_pool_sharded.py`` holds the members
+    to the unsharded pool's)."""
     root = str(tmp_path / "pool")
     os.makedirs(root)
     d = PopulationSpec.from_dict({"base": spec_dict(),
@@ -214,9 +216,14 @@ def test_pool_cli_exits_2_on_a_sharded_pool_json(tmp_path, capsys, cmd):
     d["sharding"] = {**d["sharding"], "mesh": [2]}
     with open(os.path.join(root, "pool.json"), "w") as f:
         json.dump(d, f)
-    assert main(["pool", cmd, "--run-dir", root, "--max-segments", "1",
-                 "--segment-rounds", "2", "--foreground", "--device",
-                 "cpu"]) == 2
-    assert "ROADMAP.md, queue 1, item 9" in capsys.readouterr().err
-    assert not os.path.exists(member_dir(root, 0)) or \
-        not os.listdir(member_dir(root, 0))
+    loop = ["--run-dir", root, "--max-segments", "1", "--segment-rounds",
+            "2", "--foreground", "--device", "cpu"]
+    if cmd == "resume":
+        assert main(["pool", "start", *loop]) == 0
+    assert main(["pool", cmd, *loop]) == 0
+    assert "not ported" not in capsys.readouterr().err
+    st = pool_status(root)
+    assert st["state"]["status"] == "stopped"
+    assert len(st["state"]["ranks"]) == 2
+    step = 2 * (2 if cmd == "resume" else 1)
+    assert [m["checkpoint_step"] for m in st["members"]] == [step, step]

@@ -416,7 +416,8 @@ def test_unported_specs_and_pool_exit_2(tmp_path, capsys):
                  "lm-modeA", "--device", "cpu"]) == 2
     assert "item 10" in capsys.readouterr().err
     # the pool runs since populations were ported; what it cannot run
-    # yet exits 2 naming its item: an LM base spec, a sharded population
+    # yet exits 2 naming its item: an LM base spec.  A sharded population
+    # runs, as a job of ranks
     assert main(["pool", "start", "--run-dir", str(tmp_path / "pool"),
                  "--scenario", "lm-modeA", "--device", "cpu",
                  "--foreground"]) == 2
@@ -425,8 +426,9 @@ def test_unported_specs_and_pool_exit_2(tmp_path, capsys):
              "sharding": {"mesh": [2]}}
     assert main(["pool", "start", "--run-dir", str(tmp_path / "pool2"),
                  "--spec-file", write_spec(tmp_path / "pool.json", pspec),
-                 "--device", "cpu", "--foreground"]) == 2
-    assert "queue 1, item 9" in capsys.readouterr().err
+                 "--device", "cpu", "--foreground", "--segment-rounds", "2",
+                 "--max-segments", "1"]) == 0
+    assert "not ported" not in capsys.readouterr().err
 
 
 def test_import_pulls_in_no_jax():

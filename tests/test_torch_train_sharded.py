@@ -41,7 +41,12 @@ it from a state one unsharded step in, whose moments both runs share,
 and holds the parameters at 1e-5 too.  The same case checks that a
 stacked group of >= 2-D leaves sharded on ``model`` is gathered whole a
 leaf at a time: no leaf's whole gradient is alive when the next one's is
-given to the optimizer.
+given to the optimizer, and the chunk of each leaf's update held until
+the group is clipped holds no storage beyond its own (a view would keep
+the whole gathered update alive).  grok-1-314b's case is stepped once
+more under `repro_torch.launch.op_stats.OpStats`: the FSDP'd leaves it
+gathers alive at once stay within one layer's plus the embedding's or
+the head's (the model gathers a layer's inside its checkpoint).
 """
 from __future__ import annotations
 
@@ -97,6 +102,11 @@ CASES = {
     "ds-b-2x2-ep": dict(arch=KINDS[3], mesh=[2, 2], NC=1, bm=4, ep=True,
                         cf=8.0),
 }
+
+# the case whose FSDP'd leaves the step gathers (mode B, fsdp_tp; ep_tp's
+# deepseek-v2 keeps its experts on data and gathers no leaf), stepped once
+# more under the op counter
+GATHERED = ("grok-b-2x2",)
 
 WORKER = r"""
 import json, os, pickle, sys, weakref
@@ -189,7 +199,7 @@ def client_ids(specs, mode, lead, mesh):
                            mesh).flatten().tolist()
 
 
-def seeded_case(case):
+def seeded_inputs(case):
     cfg = get_smoke_config(case["arch"])
     if "heads" in case:
         cfg = dataclasses.replace(
@@ -218,15 +228,40 @@ def seeded_case(case):
         state, _ = fl.build_train_step(cfg, opt, mode=mode)(
             fl.TrainState(clone(state.params), clone(state.opt), 0), batch,
             rep, stale)
+    return cfg, mode, mesh, opt, state, batch, rep, stale, lead
+
+
+def held_by_chunks(rec):
+    # shd.sharded_unclipped, recording how many bytes each update chunk it
+    # returns holds beyond its own (a view of the whole update holds it)
+    inner = shd.sharded_unclipped
+
+    def unclipped(*a, **k):
+        out = inner(*a, **k)
+        u = out[0]
+        rec["held"] = max(rec.get("held", 0), u.untyped_storage().nbytes()
+                          - u.numel() * u.element_size())
+        return out
+    return unclipped
+
+
+def seeded_case(case):
+    cfg, mode, mesh, opt, state, batch, rep, stale, lead = \
+        seeded_inputs(case)
     nl = 2 if mode == fl.MODE_A else 1
     specs = state_specs(cfg, mode, mesh, state, "adafactor")
     rec = {"shapes": {k: tuple(v.shape[nl:])
                       for k, v in state.params.items()},
            "sharded": {k for k, v in state.params.items() if shd.local_chunk(
                v, specs.params[k], mesh).shape[nl:] != v.shape[nl:]}}
-    got, m, layout, _ = place_and_step(
-        cfg, mode, mesh, recording(opt, rec), "adafactor", state, batch,
-        rep, stale, ep=case.get("ep", False))
+    plain_unclipped, shd.sharded_unclipped = (shd.sharded_unclipped,
+                                              held_by_chunks(rec))
+    try:
+        got, m, layout, _ = place_and_step(
+            cfg, mode, mesh, recording(opt, rec), "adafactor", state, batch,
+            rep, stale, ep=case.get("ep", False))
+    finally:
+        shd.sharded_unclipped = plain_unclipped
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, (client_ids(specs, mode, lead, mesh),
                                    rec["grads"]))
@@ -252,8 +287,38 @@ def seeded_case(case):
                            for k in fed.params),
             "clients": len(wrec["grads"]),
             "live": rec["live"], "gathered": rec["gathered"],
+            "held": rec.get("held", 0),
             "metrics_rel": {k: rel(m[k], mw[k]) for k in mw},
             "layout": layout, "round": got.round}
+
+
+def gathered_case(case):
+    # one more sharded step under the op counter: the most gathered
+    # parameter bytes alive at once, beside this rank's gathered bytes of
+    # each layer, of the embedding and of the head, and of the whole model
+    # (what a step that gathers every leaf before the forward holds)
+    from repro_torch.launch.mesh import axis_size as size
+    from repro_torch.launch.op_stats import OpStats
+    cfg, mode, mesh, opt, state, batch, rep, stale, _ = seeded_inputs(case)
+    nl = 2 if mode == fl.MODE_A else 1
+    specs = state_specs(cfg, mode, mesh, state, "adafactor")
+    per = {}
+    for k, v in state.params.items():
+        rest = specs.params[k][nl:]
+        use = shd.compute_spec(k, rest)
+        if use == rest:
+            continue
+        n = v[(0,) * nl].numel() * v.element_size()
+        for e in use:
+            for a in shd.entry_axes(e):
+                n //= size(mesh, a)
+        unit = ".".join(k.split(".")[:2]) if k.startswith("layers.") else k
+        per[unit] = per.get(unit, 0) + n
+    stats = OpStats()
+    with stats:
+        place_and_step(cfg, mode, mesh, opt, "adafactor", state, batch, rep,
+                       stale)
+    return {"most": stats.most["gathered"], "per": per}
 
 
 def jax_case(d):
@@ -334,6 +399,8 @@ def moe_case(d):
 
 
 res = {name: seeded_case(case) for name, case in cfg_job["cases"].items()}
+res["gathered"] = {name: gathered_case(cfg_job["cases"][name])
+                   for name in cfg_job["gathered"]}
 res["jax"] = jax_case(cfg_job["dir"])
 res["moe"] = moe_case(cfg_job["dir"])
 if dist.get_rank() == 0:
@@ -494,7 +561,8 @@ def _moe_inputs(seed=1):
 def _run_job(d):
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
     out = spawn_local(["-c", WORKER, json.dumps(
-        {"src": SRC, "dir": d, "cases": CASES})], n_procs=4,
+        {"src": SRC, "dir": d, "cases": CASES, "gathered": GATHERED})],
+        n_procs=4,
         timeout=JOB_TIMEOUT, env=env)
     for o in out:
         assert o.returncode == 0, o.stderr[-4000:]
@@ -663,6 +731,26 @@ def test_sharded_step_holds_to_the_unsharded_step(job, name):
         assert e <= TOL, (name, k, e)
 
 
+@pytest.mark.parametrize("name", GATHERED)
+def test_sharded_step_gathers_one_layer_at_a_time(job, name):
+    """The most gathered parameter bytes alive at once in a sharded step
+    (`OpStats`' ``gathered``) stay within one layer's gathered bytes plus
+    the embedding's or the head's: the step gathers a layer's FSDP'd
+    leaves inside its checkpoint.  Printed beside it: the whole model's
+    gathered bytes, which a step that gathered every leaf before the
+    forward held for the whole step."""
+    r = job["gathered"][name]
+    per = r["per"]
+    layers = [v for k, v in per.items() if k.startswith("layers.")]
+    ends = [per.get(k, 0) for k in ("embed", "lm_head")]
+    bound = max(layers, default=0) + max(ends)
+    print(f"{name}: most gathered alive {r['most']} B, one layer plus the "
+          f"embedding or head {bound} B, whole model {sum(per.values())} B")
+    assert len(layers) >= 2, per
+    assert 0 < r["most"] <= bound, (r["most"], bound, per)
+    assert r["most"] < sum(per.values()), (r["most"], per)
+
+
 def test_jax_sharded_adafactor_departs_as_the_port_does(started, job):
     """F3 closed: the JAX package's own sharded Adafactor step departs from
     its unsharded step at fm-a-2x2's config by the same order as the
@@ -685,6 +773,9 @@ def test_a_sharded_group_is_gathered_a_leaf_at_a_time(job):
     r = job["fm-a-2x2"]
     assert r["gathered"] >= 2 * r["clients"], r
     assert r["live"] == 0, r
+    # each leaf's chunk of its unclipped update, held until the group is
+    # clipped, is its own: no view keeps the whole gathered update alive
+    assert r["held"] == 0, r
 
 
 def test_sharded_mode_a_step_holds_to_the_jax_step(started, job):
